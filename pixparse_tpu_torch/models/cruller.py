@@ -1,0 +1,134 @@
+"""Cruller: ViT image encoder + BART-style causal text decoder (counterpart
+of :mod:`pixparse_tpu.models.cruller`).
+
+Module names follow the reference checkpoint layout:
+``image_encoder.trunk.*`` (timm ViT) and ``text_decoder.trunk.*`` (HF
+``BartForCausalLM``), so ``state_dict()`` keys are the reference ``.pt``
+keys (see :mod:`pixparse_tpu_torch.models.interop`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from pixparse_tpu_torch.models.bart import (
+    BartCausalDecoder,
+    BartDecoderCfg,
+    KVCache,
+    resolve_bart_cfg,
+)
+from pixparse_tpu_torch.models.config import ModelCfg
+from pixparse_tpu_torch.models.vit import ViT, ViTCfg, resolve_vit_cfg
+
+
+def resolve_image_encoder_cfg(name: str, image_size, in_chans: int):
+    """Encoder name -> ``(cfg, stats)``. Only the ViT family is ported."""
+    base = name.split(".")[0]
+    if base.startswith(("swin", "donut_swin", "pix2struct")):
+        raise NotImplementedError(
+            f"image encoder {name!r}: the Swin and pix2struct encoders are not "
+            "ported yet (ROADMAP.md Queue 1)"
+        )
+    return resolve_vit_cfg(name, tuple(image_size), in_chans)
+
+
+def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
+    """ModelCfg (registry JSON) -> ``(ViTCfg, BartDecoderCfg, img stats)``."""
+    in_chans = 1 if cfg.image_encoder.image_fmt == "L" else 3
+    vit_cfg, stats = resolve_image_encoder_cfg(
+        cfg.image_encoder.name, tuple(cfg.image_encoder.image_size), in_chans
+    )
+    bart_cfg = resolve_bart_cfg(
+        cfg.text_decoder.name,
+        num_decoder_layers=cfg.text_decoder.num_decoder_layers,
+        max_length=cfg.text_decoder.max_length,
+        vocab_size=vocab_size,
+    )
+    return vit_cfg, bart_cfg, stats
+
+
+class Cruller(nn.Module):
+    """Parameters are created in fp32 on the CPU; move the model with
+    ``.to(device, dtype)`` (eval keeps the weights in the compute dtype).
+    ``attn_impl``: ``'flash'`` runs the encoder's attention through the
+    flash kernel, ``'xla'`` through the plain attention."""
+
+    def __init__(
+        self,
+        vit_cfg: ViTCfg,
+        bart_cfg: BartDecoderCfg,
+        attn_impl: str = "xla",
+        kv_cache_dtype: str = "bf16",
+        lm_head_dtype: str = "bf16",
+    ):
+        super().__init__()
+        if lm_head_dtype != "bf16":
+            raise NotImplementedError(
+                f"lm_head_dtype={lm_head_dtype!r}: the int8 tied head is not "
+                "ported yet (ROADMAP.md Queue 1, int8 decode mode)"
+            )
+        self.vit_cfg = vit_cfg
+        self.bart_cfg = bart_cfg
+        self.image_encoder = nn.ModuleDict({"trunk": ViT(vit_cfg, attn_impl)})
+        self.text_decoder = nn.ModuleDict(
+            {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype)}
+        )
+
+    @property
+    def encoder(self) -> ViT:
+        return self.image_encoder["trunk"]
+
+    @property
+    def decoder(self) -> BartCausalDecoder:
+        return self.text_decoder["trunk"]
+
+    @property
+    def attn_impl(self) -> str:
+        return self.encoder.attn_impl
+
+    @attn_impl.setter
+    def attn_impl(self, impl: str):
+        self.encoder.attn_impl = impl
+        self.decoder.attn_impl = impl
+
+    def init_weights(self, generator: torch.Generator) -> "Cruller":
+        self.encoder.init_weights(generator)
+        self.decoder.init_weights(generator)
+        return self
+
+    def forward(self, image_input, text_input, attention_mask=None) -> torch.Tensor:
+        """Teacher-forced logits ``(B, L, V)`` fp32."""
+        return self.decoder(text_input, self.encode(image_input), attention_mask=attention_mask)
+
+    def encode(self, image_input: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) normalized images -> (B, N, D) in the weights' dtype."""
+        return self.encoder(image_input)
+
+    def decode(
+        self,
+        input_ids: torch.Tensor,
+        encoder_output: torch.Tensor,
+        cache: Optional[KVCache] = None,
+        key_pad_mask: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        mode: str = "decode",
+        positions: Optional[torch.Tensor] = None,
+        encoder_pad_mask: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
+    ) -> torch.Tensor:
+        """Cached decode step / prefill; ``mode='train'`` is a cache-free
+        teacher-forced decoder pass. ``cache`` is updated in place."""
+        return self.decoder(
+            input_ids,
+            encoder_output,
+            attention_mask=attention_mask,
+            key_pad_mask=key_pad_mask,
+            mode=mode,
+            cache=cache,
+            return_hidden=return_hidden,
+            positions=positions,
+            encoder_pad_mask=encoder_pad_mask,
+        )

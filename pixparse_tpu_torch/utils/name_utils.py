@@ -1,0 +1,8 @@
+"""Naming helpers (the port's copy of :mod:`pixparse_tpu.utils.name_utils`)."""
+
+import re
+
+
+def natural_key(string_: str):
+    """Sort key splitting digit runs so 'cfg10' sorts after 'cfg2'."""
+    return [int(s) if s.isdigit() else s for s in re.split(r"(\d+)", string_.lower())]

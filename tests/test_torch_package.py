@@ -1,0 +1,113 @@
+"""Package-level contracts of the PyTorch/CUDA port (``pixparse_tpu_torch``).
+
+- importing every module of the port loads no JAX, flax, optax, orbax or
+  ``pixparse_tpu``, and no PIL, transformers or tokenizers either (those
+  are imported inside the functions that need them);
+- no source file of the port, nor ``chip_smoke.py``, imports them;
+- entry points default to the CUDA device and raise without it;
+- the kernel wrappers route CPU tensors to their plain versions (the CUDA
+  kernels themselves are held against those only on the card, by
+  chip_smoke.py and the ``cuda``-marked tests).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "pixparse_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
+LAZY = ("PIL", "transformers", "tokenizers")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pixparse_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'pixparse_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r})\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [
+        (str(f.relative_to(ROOT)), name)
+        for f in files
+        for name in _imports(f)
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert bad == []
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.config import TaskEvalCfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert TaskEvalCfg().device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceEnv.initialize()
+    assert DeviceEnv.initialize("cpu").device == torch.device("cpu")
+
+
+def test_kernel_wrappers_route_cpu_tensors_to_plain():
+    from pixparse_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from pixparse_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 10, 2, 32, generator=gen) for _ in range(3))
+    n_flash, n_dec = flash_attention_fwd.launches, decode_attention.launches
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    qd = torch.randn(2, 1, 64, generator=gen)
+    kd, vd = (torch.randn(2, 20, 64, generator=gen) for _ in range(2))
+    mask = torch.rand(2, 20, generator=gen) > 0.5
+    assert torch.equal(
+        decode_attention(qd, kd, vd, mask, num_heads=2),
+        decode_attention_plain(qd, kd, vd, mask, num_heads=2),
+    )
+    # the counters count kernel launches only
+    assert (flash_attention_fwd.launches, decode_attention.launches) == (n_flash, n_dec)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No CUDA (or no package beside the script): non-zero exit, no result."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, str(script)], capture_output=True, text=True, cwd=cwd, env=env,
+        timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
