@@ -18,7 +18,23 @@ stderr):
    inputs (a yardstick only; the port never calls it) and its bound.
    Tolerance, on every element, ``|kernel - plain| <= atol + rtol*|plain|``:
    1e-2/1e-2 in bf16 (outputs round to 8 mantissa bits and the kernels sum
-   in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4.
+   in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4. The flash forward
+   is held at all three sites of a train step too (encoder 1009, causal
+   decoder self 1023, decoder cross 1023x1009). The training kernels join at
+   the train step's shapes: the flash backward (dq, dk, dv) beside autograd
+   through ``scaled_dot_product_attention``, and the fused cross entropy
+   forward (lse and target logit, 1e-3/1e-4) and backward beside autograd
+   through ``F.linear`` + ``F.cross_entropy``. Gradients are held row by row,
+   whatever their scale: the L2 error of every row (one token's head for
+   dq/dk/dv, one token of dh, one vocabulary entry of dE) within 2e-2 of
+   that row's L2 norm in bf16 (p, ds and g round to bf16 before products
+   that sum up to 16k terms), 2e-4 in fp32. The CE gradients are tiny (the
+   loss is a mean over 16k tokens) and most rows of dE are hundreds of times
+   smaller than the target rows; rows whose reference is 0 must be 0. A
+   flash-gradient row whose true value is 0 (a causal query that sees one
+   key) carries fp32 cancellation noise in kernel and plain version alike,
+   so rows under 1% of the tensor's mean row norm are held to 2e-2 of that
+   1% instead.
 3. ``serve_model``: the port's ``Cruller`` at cruller_base width
    (vocab 50265, bf16, seeded random weights) encodes 16 synthetic pages
    and greedily decodes a fixed budget of tokens; asserts 12 flash launches
@@ -28,10 +44,31 @@ stderr):
 4. ``serve_task``: the serving entry point, ``TaskCrullerEvalOCR
    .generate_text``, at ``model_name=cruller_base`` with the pure-Python
    byte-level tokenizer, bf16, on 16 pages already at 576x448. This is the
-   main-path run: every kernel counter is zeroed just before it and read
-   just after, and each kernel must have launched.
+   serving main-path run: every kernel counter is zeroed just before it and
+   read just after, and each serving kernel must have launched.
+5. ``train_model``: the port's ``Cruller`` at cruller_base width and depth
+   (vocab 50265, fp32 master weights, bf16 forward, decoder dropout 0.1,
+   AdamW) takes train steps of ``make_train_step`` on one fixed seeded batch
+   of 16: the loss must be finite and fall; each step must launch 20 flash
+   forwards, 20 flash backwards, 1 fused-CE forward and 1 fused-CE backward
+   (counted in wrapper calls: a backward call launches two kernels). Before
+   that, at a batch of 2, the first step of the kernel path is held against
+   the plain path (plain attention, chunked plain CE) from the same weights
+   and dropout masks: loss within 2e-2 relative, gradient norm within 5e-2
+   (a bf16 forward and backward through 16 layers, the two paths rounding at
+   different places).
+6. ``train_task``: the training entry points, ``TaskFactory`` ->
+   ``TaskCrullerPretrain`` on the card -> ``train_setup`` ->
+   ``train_one_interval`` over an in-memory loader of seeded collated batches
+   (the card machine has no PIL, so no tar of PNGs), at cruller_base with the
+   byte-level tokenizer padded with filler tokens to bart-base's 50265
+   entries (saved to a directory, whose path is the task's tokenizer name:
+   the repository holds no bart tokenizer files), with gradient accumulation
+   1 and 2; one full-state checkpoint is saved and
+   restored. This is the training main-path run: counters zeroed before, read
+   after, and each training kernel must have launched.
 
-Then the ``kernels`` summary line (launch counts from the main-path run),
+Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero before
 that line. Without CUDA, or without the package beside this script, it
@@ -50,9 +87,11 @@ import sys
 import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
-PHASES = ("device", "kernels", "serve_model", "serve_task")
+PHASES = ("device", "kernels", "serve_model", "serve_task", "train_model", "train_task")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
+TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
+BART_VOCAB = 50265  # cruller_base's published vocabulary (facebook/bart-base)
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -126,12 +165,34 @@ def close(out, ref, atol, rtol):
     return float(err.max()) if err.numel() else 0.0, ok
 
 
+def rows_close(out, ref, rtol, floor=0.0):
+    """(max abs error, worst row's L2 error over its L2 norm, every row's L2
+    error within ``rtol`` of its norm). With ``floor`` 0, rows whose reference
+    is 0 must be 0; else a row's norm counts as at least ``floor`` times the
+    mean row norm."""
+    diff = out.float() - ref.float()
+    err = torch_norm(diff)
+    scale = torch_norm(ref.float())
+    if floor:
+        scale = scale.clamp_min(floor * float(scale.mean()))
+    rel = (err / scale.clamp_min(1e-30)).masked_fill(scale == 0, 0.0)
+    ok = bool((err <= rtol * scale).all())
+    return float(diff.abs().max()), float(rel.max()), ok
+
+
+def torch_norm(x):
+    return x.square().sum(dim=-1).sqrt()
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------
 
 TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-4)}
 LSE_TOL = (1e-3, 1e-4)
+BWD_ROW_RTOL = {"bfloat16": 2e-2, "float32": 2e-4}  # flash dq, dk, dv: per (token, head) row
+BWD_ROW_FLOOR = 1e-2  # of the mean row norm: rows whose true gradient is 0
+CE_ROW_RTOL = 2e-2
 
 
 def flash_cases(torch):
@@ -139,6 +200,8 @@ def flash_cases(torch):
     # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
     return [
         ("encode_b16_l1009", 16, 1009, 1009, 12, 64, bf, False, None),
+        ("decoder_self_causal_b16_l1023", 16, 1023, 1023, 12, 64, bf, True, None),
+        ("decoder_cross_b16_lq1023_lk1009", 16, 1023, 1009, 12, 64, bf, False, None),
         ("causal_256", 4, 256, 256, 12, 64, bf, True, None),
         ("causal_lq100_lk300_d128", 2, 100, 300, 4, 128, bf, True, None),
         ("kv_lens_with_empty_row", 4, 300, 300, 12, 64, bf, False, [300, 0, 17, 129]),
@@ -174,13 +237,174 @@ def ragged_mask(torch, B, Lk, gen):
     return mask
 
 
+def flash_bwd_cases(torch):
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
+    return [
+        ("encoder_b16_l1009", 16, 1009, 1009, 12, 64, bf, False, None),
+        ("decoder_self_causal_b16_l1023", 16, 1023, 1023, 12, 64, bf, True, None),
+        ("decoder_cross_b16_lq1023_lk1009", 16, 1023, 1009, 12, 64, bf, False, None),
+        ("multi_tile_b2_l2509", 2, 2509, 2509, 12, 64, bf, False, None),
+        ("kv_lens_with_empty_row", 4, 300, 300, 12, 64, bf, False, [300, 0, 17, 129]),
+        ("causal_lq100_lk300_d128", 2, 100, 300, 4, 128, bf, True, None),
+        ("test_width_d32", 3, 77, 77, 2, 32, bf, True, None),
+        ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, True, None),
+    ]
+
+
+def ce_cases(torch):
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, T, V, D, dtype, share of ignored tokens
+    return [
+        ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, bf, 0.3),
+        ("all_ignored_t512_v50265_d768", 512, BART_VOCAB, 768, bf, 1.0),
+        ("test_width_t300_v517_d64", 300, 517, 64, bf, 0.2),
+        ("fp32_t200_v1001_d256", 200, 1001, 256, f32, 0.2),
+    ]
+
+
+def visible_pairs(B, Lq, Lk, causal, lens):
+    """(query, key) pairs the masks leave, and valid keys per sample."""
+    kl = [min(n, Lk) for n in (lens or [Lk] * B)]
+    pairs = 0
+    for n in kl:
+        if causal:
+            pairs += sum(max(0, min(n, i + (Lk - Lq) + 1)) for i in range(Lq))
+        else:
+            pairs += Lq * n
+    return pairs, kl
+
+
+def check_flash_bwd(torch, F, fa, timer, peaks, gen, case):
+    name, B, Lq, Lk, H, D, dt, causal, lens = case
+    peak_bf16, peak_f32, bw = peaks
+    if Lk == Lq:
+        q, k, v = torch.randn(B, Lq, 3, H, D, generator=gen).to("cuda", dt).unbind(2)
+    else:
+        q = torch.randn(B, Lq, H, D, generator=gen).to("cuda", dt)
+        k, v = torch.randn(B, Lk, 2, H, D, generator=gen).to("cuda", dt).unbind(2)
+    do = torch.randn(B, Lq, H, D, generator=gen).to("cuda", dt)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv_lens)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    got = fa.flash_attention_bwd(*args, causal=causal, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, kv_lens=kv_lens)
+    rtol = BWD_ROW_RTOL[str(dt).split(".")[-1]]
+    errs, row_errs, ref_max, ok = {}, {}, {}, True
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[gname], row_errs[gname], this_ok = rows_close(a, b, rtol, BWD_ROW_FLOOR)
+        ref_max[gname] = float(b.float().abs().max())
+        ok = ok and this_ok
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        ok = ok and all(bool((g[row] == 0).all()) for g in got)
+    rec = dict(case=name, shape=[B, Lq, Lk, H, D], dtype=str(dt), causal=causal, kv_lens=lens,
+               max_abs_err=max(errs.values()), errs=errs, worst_row_rel_err=row_errs,
+               ref_abs_max=ref_max, tol=["row L2", rtol, "floor", BWD_ROW_FLOOR], ok=ok)
+    del want
+    pairs, kl = visible_pairs(B, Lq, Lk, causal, lens)
+    flops = 10.0 * H * D * pairs  # s, dp, dv, dq, dk: five products
+    elt = q.element_size()
+    nbytes = elt * H * D * (3 * B * Lq + 2 * sum(kl) + 2 * B * Lk) + 8 * B * H * Lq
+    t_ops = flops / (peak_bf16 if dt == torch.bfloat16 else peak_f32)
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(
+        lambda: fa.flash_attention_bwd(*args, causal=causal, kv_lens=kv_lens), n=15)
+    rec["plain_ms"] = timer.median_ms(
+        lambda: fa.flash_attention_bwd_plain(*args, causal=causal, kv_lens=kv_lens), n=5, warmup=1)
+    # yardstick: the backward of one scaled_dot_product_attention call
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    if kv_lens is not None:
+        am = (torch.arange(Lk, device="cuda")[None] < kv_lens[:, None])[:, None, None, :]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+    elif causal and Lq != Lk:
+        row = torch.arange(Lq, device="cuda")[:, None]
+        am = torch.arange(Lk, device="cuda")[None, :] <= row + (Lk - Lq)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+    else:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    dot = do.transpose(1, 2)
+    rec["library_ms"] = timer.median_ms(
+        lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True), n=15)
+    return rec
+
+
+def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
+    """One case -> (forward record, backward record)."""
+    name, T, V, D, dt, ignored = case
+    peak_bf16, peak_f32, bw = peaks
+    peak = peak_bf16 if dt == torch.bfloat16 else peak_f32
+    h = (torch.randn(T, D, generator=gen) * 0.5).to("cuda", dt)
+    e = (torch.randn(V, D, generator=gen) * 0.2).to("cuda", dt)
+    target = torch.randint(0, V, (T,), generator=gen)
+    target[torch.rand(T, generator=gen) < ignored] = -1
+    target = target.cuda()
+    n_valid = int((target >= 0).sum())
+    elt = h.element_size()
+    common = dict(case=name, shape=[T, V, D], dtype=str(dt), n_valid=n_valid)
+
+    lse, tgt = loss.fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    lse_ref, tgt_ref = loss.fused_ce_fwd_plain(h, e, target)
+    lse_err, lse_ok = close(lse, lse_ref, *LSE_TOL)
+    tgt_err, tgt_ok = close(tgt, tgt_ref, *LSE_TOL)
+    ok = lse_ok and tgt_ok and bool((tgt[target < 0] == 0).all())
+    fwd = dict(common, max_abs_err=max(lse_err, tgt_err), lse_max_abs_err=lse_err,
+               tgt_max_abs_err=tgt_err, tol=list(LSE_TOL), ok=ok)
+    t_ops = 2.0 * T * V * D / peak
+    t_mem = (elt * D * (T + V) + 12 * T) / bw
+    fwd.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    fwd["ms"] = timer.median_ms(lambda: loss.fused_ce_fwd(h, e, target), n=10)
+    fwd["plain_ms"] = timer.median_ms(
+        lambda: loss.fused_ce_fwd_plain(h, e, target), n=5, warmup=1)
+    lib_t = torch.where(target >= 0, target, -100)
+    fwd["library_ms"] = timer.median_ms(
+        lambda: F.cross_entropy(F.linear(h, e), lib_t, ignore_index=-100, reduction="sum"), n=10)
+
+    coef = torch.where(target >= 0, 1.0 / max(n_valid, 1), 0.0).float()
+    dh, de = loss.fused_ce_bwd(h, e, target, lse_ref, coef)
+    torch.cuda.synchronize()
+    dh_ref, de_ref = loss.fused_ce_bwd_plain(h, e, target, lse_ref, coef)
+    dh_err, dh_rel, dh_ok = rows_close(dh, dh_ref, CE_ROW_RTOL)
+    de_err, de_rel, de_ok = rows_close(de, de_ref, CE_ROW_RTOL)
+    ok = dh_ok and de_ok and bool((dh[target < 0] == 0).all())
+    if n_valid == 0:
+        ok = ok and bool((dh == 0).all()) and bool((de == 0).all())
+    bwd = dict(common, max_abs_err=max(dh_err, de_err), dh_max_abs_err=dh_err,
+               de_max_abs_err=de_err, dh_worst_row_rel_err=dh_rel, de_worst_row_rel_err=de_rel,
+               ref_abs_max=[float(dh_ref.float().abs().max()), float(de_ref.float().abs().max())],
+               tol=["row L2", CE_ROW_RTOL], ok=ok)
+    del dh_ref, de_ref
+    t_ops = 6.0 * T * V * D / peak  # the logits again, dh and dE: three products
+    t_mem = (2 * elt * D * (T + V) + 12 * T) / bw
+    bwd.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    bwd["ms"] = timer.median_ms(lambda: loss.fused_ce_bwd(h, e, target, lse_ref, coef), n=10)
+    bwd["plain_ms"] = timer.median_ms(
+        lambda: loss.fused_ce_bwd_plain(h, e, target, lse_ref, coef), n=5, warmup=1)
+    hl, el = h.detach().requires_grad_(), e.detach().requires_grad_()
+    lib_loss = F.cross_entropy(F.linear(hl, el), lib_t, ignore_index=-100, reduction="sum")
+    rec_lib = timer.median_ms(
+        lambda: torch.autograd.grad(lib_loss, (hl, el), retain_graph=True), n=10)
+    bwd["library_ms"] = rec_lib
+    return fwd, bwd
+
+
 def phase_kernels(torch, F, card_name, timer):
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import decode_attention as da
+    from pixparse_tpu_torch.ops import loss
 
-    peak_bf16, peak_f32, bw = peaks_for(card_name)
+    peaks = peaks_for(card_name)
+    peak_bf16, peak_f32, bw = peaks
     gen = torch.Generator().manual_seed(0)
-    results = {"flash_attention_fwd": [], "decode_attention": []}
+    results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
+               "fused_ce_fwd": [], "fused_ce_bwd": []}
     failed = []
 
     for name, B, Lq, Lk, H, D, dt, causal, lens in flash_cases(torch):
@@ -206,17 +430,10 @@ def phase_kernels(torch, F, card_name, timer):
                    kv_lens=lens, max_abs_err=err, lse_max_abs_err=lse_err,
                    tol=[atol, rtol], ok=ok and lse_ok)
         # work this run's inputs need: visible (query, key) pairs, valid keys
-        kl = lens or [Lk] * B
-        pairs = 0
-        for b in range(B):
-            n = min(kl[b], Lk)
-            if causal:
-                pairs += sum(max(0, min(n, i + (Lk - Lq) + 1)) for i in range(Lq))
-            else:
-                pairs += Lq * n
+        pairs, kl = visible_pairs(B, Lq, Lk, causal, lens)
         flops = 4.0 * H * D * pairs
         elt = q.element_size()
-        nbytes = elt * H * D * (2 * B * Lq + 2 * sum(min(n, Lk) for n in kl)) + 4 * B * H * Lq
+        nbytes = elt * H * D * (2 * B * Lq + 2 * sum(kl)) + 4 * B * H * Lq
         t_ops = flops / (peak_bf16 if dt == torch.bfloat16 else peak_f32)
         t_mem = nbytes / bw
         rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
@@ -227,6 +444,10 @@ def phase_kernels(torch, F, card_name, timer):
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if kv_lens is not None:
             am = (torch.arange(Lk, device="cuda")[None] < kv_lens[:, None])[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        elif causal and Lq != Lk:  # bottom-right aligned, as the kernel's
+            row = torch.arange(Lq, device="cuda")[:, None]
+            am = torch.arange(Lk, device="cuda")[None, :] <= row + (Lk - Lq)
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
         else:
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -278,6 +499,22 @@ def phase_kernels(torch, F, card_name, timer):
         if not rec["ok"]:
             failed.append(f"decode_attention/{name}")
         del q, k, v, o, o_ref
+
+    for case in flash_bwd_cases(torch):
+        rec = check_flash_bwd(torch, F, fa, timer, peaks, gen, case)
+        results["flash_attention_bwd"].append(rec)
+        note({"kernel": "flash_attention_bwd", **rec})
+        if not rec["ok"]:
+            failed.append(f"flash_attention_bwd/{case[0]}")
+        torch.cuda.empty_cache()
+    for case in ce_cases(torch):
+        fwd, bwd = check_fused_ce(torch, F, loss, timer, peaks, gen, case)
+        for kname, rec in (("fused_ce_fwd", fwd), ("fused_ce_bwd", bwd)):
+            results[kname].append(rec)
+            note({"kernel": kname, **rec})
+            if not rec["ok"]:
+                failed.append(f"{kname}/{case[0]}")
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": results})
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
@@ -292,14 +529,28 @@ KERNELS = [
     ("decode_attention", "cuda", "pixparse_tpu_torch/csrc/decode_attention.cu",
      "pixparse_tpu/ops/decode_attention.py:62 (_decode_attn_kernel)",
      "cross_b16_lk1024_valid1009"),
+    ("flash_attention_bwd", "cuda", "pixparse_tpu_torch/csrc/flash_attention_bwd.cu",
+     "pixparse_tpu/ops/flash_attention.py:343 (_bwd_kernel_single), :393 (_bwd_dq_kernel_single), "
+     ":435 (_bwd_dkv_kernel_single), :480 (_bwd_dq_kernel), :552 (_bwd_dkv_kernel)",
+     "encoder_b16_l1009"),
+    ("fused_ce_fwd", "cuda", "pixparse_tpu_torch/csrc/fused_ce.cu",
+     "pixparse_tpu/ops/loss.py:141 (_ce_fwd_kernel)", "train_t16368_v50265_d768"),
+    ("fused_ce_bwd", "cuda", "pixparse_tpu_torch/csrc/fused_ce.cu",
+     "pixparse_tpu/ops/loss.py:238 (_ce_bwd_kernel)", "train_t16368_v50265_d768"),
 ]
+# the kernels each main path must launch
+SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 
 
 def counters():
     from pixparse_tpu_torch.ops.decode_attention import decode_attention
-    from pixparse_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from pixparse_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
 
-    return {"flash_attention_fwd": flash_attention_fwd, "decode_attention": decode_attention}
+    return {"flash_attention_fwd": flash_attention_fwd, "decode_attention": decode_attention,
+            "flash_attention_bwd": flash_attention_bwd, "fused_ce_fwd": fused_ce_fwd,
+            "fused_ce_bwd": fused_ce_bwd}
 
 
 def reset_counts():
@@ -492,10 +743,291 @@ def phase_serve_task(torch, new_tokens=TASK_NEW_TOKENS, B=16, model_name="crulle
     emit(rec)
     if len(texts) != B or not all(isinstance(t, str) for t in texts):
         raise SystemExit(f"serve_task: expected {B} strings, got {texts!r}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise SystemExit(f"serve_task: main path never launched {missing}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def synthetic_tokens(torch, B, length, vocab, gen):
+    """Unshifted token rows as the OCR annotation pipeline makes them: the
+    task token, random text ids, </s>, then padding (masked in the target
+    along with the prompt)."""
+    text = torch.full((B, length), 1, dtype=torch.long)  # <pad>
+    target = torch.full((B, length), -100, dtype=torch.long)
+    for b in range(B):
+        n = int(torch.randint(length // 2, length - 1, (1,), generator=gen))
+        ids = torch.randint(4, vocab, (n,), generator=gen)
+        ids[0] = 260  # <s_pretrain>, the first id after the byte-level vocabulary
+        ids[-1] = 2  # </s>
+        text[b, :n] = ids
+        target[b, 1:n] = ids[1:]
+    return text, target
+
+
+def build_train_model(torch, model_name, device, lr=3e-4):
+    """(model, optimizer, vit_cfg, bart_cfg): cruller_base, fp32 master
+    weights on the card, bf16 forward, the decoder's dropout at its
+    configured 0.1."""
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.optimization import create_optimizer
+    from pixparse_tpu_torch.models.config import get_model_config
+    from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
+
+    vit_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=BART_VOCAB)
+    model = Cruller(vit_cfg, bart_cfg, attn_impl="flash", compute_dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(device=device, dtype=torch.float32).train()
+    model.decoder.dropout_generator = torch.Generator(device=device)
+    optimizer, _ = create_optimizer(
+        OptimizationCfg(learning_rate=lr), num_intervals=1, num_warmup_intervals=0,
+        updates_per_interval=1000, encoder_depth=vit_cfg.depth,
+        decoder_layers=bart_cfg.decoder_layers,
+    )
+    return model, optimizer, vit_cfg, bart_cfg
+
+
+def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base", device="cuda",
+                      profile=False):
+    from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
+    from pixparse_tpu_torch.ops import loss as loss_ops
+
+    model, optimizer, vit_cfg, bart_cfg = build_train_model(torch, model_name, device)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(0)
+    L = bart_cfg.max_position_embeddings
+    images = synthetic_pages(torch, B, *vit_cfg.img_size, gen).to(device)
+    text, target = synthetic_tokens(torch, B, L, BART_VOCAB, gen)
+    batch = {"image": images, "text": text[:, :-1].to(device), "target": target[:, 1:].to(device)}
+
+    def make_step(ce):
+        def loss_fn(b):
+            hidden = model.forward_hidden(b["image"], b["text"])
+            return ce(hidden, model.tied_embedding.to(hidden.dtype), b["target"])[0], {}
+
+        return make_train_step(
+            loss_fn, optimizer, reseed=model.decoder.dropout_generator.manual_seed)
+
+    def first_step(ce, attn_impl, n):
+        """Loss and gradient norm of step 1 from the initial weights."""
+        model.load_state_dict(init)
+        model.attn_impl = attn_impl
+        state = create_train_state(model, optimizer, seed=0)
+        _, m = make_step(ce)(state, {k: v[:n] for k, v in batch.items()})
+        return float(m["loss"]), float(m["grad_norm"])
+
+    # kernel path against plain path at a batch of 2 (plain attention keeps
+    # (B, 12, L, L) fp32 scores per layer for its backward)
+    reset_counts()
+    k_loss, k_gn = first_step(loss_ops.cross_entropy_from_hidden, "flash", 2)
+    small_launches = read_counts()
+    reset_counts()
+    p_loss, p_gn = first_step(loss_ops.chunked_cross_entropy_from_hidden, "xla", 2)
+    plain_launches = read_counts()
+    torch.cuda.empty_cache()
+
+    model.load_state_dict(init)
+    model.attn_impl = "flash"
+    state = create_train_state(model, optimizer, seed=0)
+    step = make_step(loss_ops.cross_entropy_from_hidden)
+    losses, grad_norms, times, per_step = [], [], [], []
+    on_card = torch.cuda.is_available()  # a CPU rehearsal at test size skips the card's meters
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        reset_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_counts())
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    ms_per_step = statistics.median(times[1:])
+    from pixparse_tpu_torch.framework.profiling import cruller_train_flops, mfu
+
+    flops = cruller_train_flops(vit_cfg, bart_cfg, B, L - 1)
+    rec = {
+        "phase": "train_model", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "master_dtype": "float32", "vocab": BART_VOCAB, "text_len": L - 1,
+        "encoder_tokens": vit_cfg.num_tokens, "steps": steps, "losses": losses,
+        "grad_norms": grad_norms, "step_ms": times, "ms_per_step": ms_per_step,
+        "samples_per_s": B / (ms_per_step / 1e3), "peak_memory_gib": peak_gb,
+        "model_flops_per_step": flops, "mfu": mfu(flops, ms_per_step / 1e3, device=device),
+        "launches_per_step": per_step[-1], "launch_unit": "wrapper calls",
+        "kernel_vs_plain_b2": {
+            "kernel": [k_loss, k_gn], "plain": [p_loss, p_gn], "tol_rel": [2e-2, 5e-2],
+            "kernel_launches": small_launches, "plain_launches": plain_launches,
+        },
+    }
+    if profile:
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _ = step(holder["state"], batch)
+
+        rec["profile"] = device_profile(torch, one_step, "train_step", ms_per_step)
+    emit(rec)
+    problems = []
+    layers = vit_cfg.depth + 2 * bart_cfg.decoder_layers
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers, "fused_ce_fwd": 1,
+            "fused_ce_bwd": 1, "decode_attention": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            problems.append(f"step {i} launched {got}, want {want}")
+            break
+    if any(plain_launches.values()):
+        problems.append(f"the plain path launched kernels: {plain_launches}")
+    if not all(x == x and abs(x) != float("inf") for x in losses + grad_norms):
+        problems.append(f"non-finite loss or gradient norm: {losses} {grad_norms}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall on the repeated batch: {losses}")
+    if abs(k_loss - p_loss) > 2e-2 * abs(p_loss):
+        problems.append(f"step-1 loss: kernel path {k_loss} vs plain path {p_loss}")
+    if abs(k_gn - p_gn) > 5e-2 * abs(p_gn):
+        problems.append(f"step-1 gradient norm: kernel path {k_gn} vs plain path {p_gn}")
+    if problems:
+        raise SystemExit("train_model failed: " + "; ".join(problems))
+    return rec
+
+
+class SeededLoader:
+    """In-memory stand-in for the webdataset loader bundle: ``num_batches``
+    collated batches ``(image, text, target)`` made from a seed, the same
+    ones every interval (``loader`` / ``num_batches`` / ``set_interval`` is
+    the surface the interval loop and the task use)."""
+
+    def __init__(self, torch, num_batches, B, img_size, length, seed):
+        gen = torch.Generator().manual_seed(seed)
+        self.batches = []
+        for _ in range(num_batches):
+            image = synthetic_pages(torch, B, *img_size, gen).numpy()
+            text, target = synthetic_tokens(torch, B, length, BART_VOCAB, gen)
+            self.batches.append((image, text.numpy(), target.numpy()))
+        self.num_batches = num_batches
+        self.num_samples = num_batches * B
+        self.loader = self
+        self.interval = 0
+
+    def set_interval(self, interval):
+        self.interval = interval
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def phase_train_task(torch, model_name="cruller_base", device="cuda"):
+    import shutil
+    import tempfile
+
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.checkpoint import restore_train_state, save_checkpoint
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.train import train_one_interval
+    from pixparse_tpu_torch.task.common import add_special_tokens
+    from pixparse_tpu_torch.task.task_cruller_pretrain import (
+        TaskCrullerPretrain,
+        TaskCrullerPretrainCfg,
+    )
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg
+
+    env = DeviceEnv.initialize(device)
+    runs = {}
+    total = {k: 0 for k in counters()}
+    ckpt = None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_task_")
+    try:
+        # a tokenizer of bart-base's height (the tied table's height is what
+        # the fused-CE kernels stream): the byte alphabet, the pretrain task's
+        # special tokens at the ids its replay gives them, then filler tokens
+        tokenizer = ByteLevelTokenizer()
+        add_special_tokens(tokenizer, TaskCrullerPretrain.base_special_tokens)
+        tokenizer.add_tokens([f"<filler_{i}>" for i in range(BART_VOCAB - len(tokenizer))])
+        tok_dir = os.path.join(tmp, "tokenizer")
+        tokenizer.save_pretrained(tok_dir)
+        for accum, B, n_batches in ((1, 16, 3), (2, 8, 4)):
+            cfg = TaskCrullerPretrainCfg(
+                model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir),
+                dtype="bfloat16", device=device, num_intervals=2, num_warmup_intervals=0,
+                opt=OptimizationCfg(learning_rate=3e-4, grad_accum_steps=accum),
+            )
+            task, _ = TaskFactory.create_task("cruller_pretrain", cfg, env, monitor=None)
+            if type(task) is not TaskCrullerPretrain or task.vocab_size != BART_VOCAB:
+                raise SystemExit(f"train_task: got {type(task).__name__}, vocab {task.vocab_size}")
+            loader = SeededLoader(torch, n_batches, B, task.vit_cfg.img_size,
+                                  task.max_position_embeddings, seed=accum)
+            task.train_setup(num_batches_per_interval=loader.num_batches, seed=0)
+            reset_counts()
+            losses = []
+            t0 = time.perf_counter()
+            for interval in range(2):  # the same batches again: the loss must fall
+                loader.set_interval(interval)
+                task.interval_idx = interval
+                train_one_interval(task, loader)
+                losses.append(float(task._last_loss_dev))
+            sync(torch)
+            dt = time.perf_counter() - t0
+            launches = read_counts()
+            for k, n in launches.items():
+                total[k] += n
+            updates = 2 * n_batches // accum
+            runs[f"accum{accum}"] = {
+                "batch": B, "batches_per_interval": n_batches, "updates": updates,
+                "state_step": task.state.step, "task_step_idx": task.step_idx,
+                "interval_end_losses": losses, "seconds": dt,
+                "samples_per_s": 2 * n_batches * B / dt, "launches": launches,
+            }
+            if accum == 1:
+                # one full-state checkpoint saved, the live state spoiled, restored
+                path = os.path.join(tmp, "checkpoint-1")
+                save_checkpoint(path, task.state, metadata={"interval": 1, "step": task.state.step})
+                size = os.path.getsize(os.path.join(path, "state.pt"))
+                name = "image_encoder.trunk.blocks.0.attn.qkv.weight"
+                kept = task.state.params[name].detach().clone()
+                mu_kept = task.state.opt_state["mu"][name].clone()
+                with torch.no_grad():
+                    task.state.params[name].zero_()
+                    task.state.opt_state["mu"][name].zero_()
+                state, meta = restore_train_state(path, task.state)
+                ckpt = {
+                    "bytes": size, "metadata": meta, "step": state.step,
+                    "restored_exactly": bool(
+                        torch.equal(state.params[name], kept)
+                        and torch.equal(state.opt_state["mu"][name], mu_kept)
+                        and state.params[name] is task.state.params[name]
+                    ),
+                }
+                shutil.rmtree(path, ignore_errors=True)
+            del task
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "train_task", "task": "cruller_pretrain", "model_name": model_name,
+           "tokenizer": "pixparse_bytelevel + filler tokens, from a saved directory",
+           "vocab": BART_VOCAB, "dtype": "bfloat16", "runs": runs, "checkpoint": ckpt, "launches": total, "launch_unit": "wrapper calls"}
+    emit(rec)
+    problems = []
+    for name, run in runs.items():
+        if run["state_step"] != run["updates"]:
+            problems.append(f"{name}: {run['state_step']} updates, want {run['updates']}")
+        a, b = run["interval_end_losses"]
+        if not (a == a and b == b and b < a):
+            problems.append(f"{name}: loss not finite and falling: {a} -> {b}")
+    if not ckpt or not ckpt["restored_exactly"] or ckpt["metadata"].get("interval") != 1:
+        problems.append(f"checkpoint round trip failed: {ckpt}")
+    missing = [k for k in TRAIN_KERNELS if total[k] <= 0]
+    if missing:
+        problems.append(f"main path never launched {missing}")
+    if problems:
+        raise SystemExit("train_task failed: " + "; ".join(problems))
+    return total
 
 
 def main(argv=None) -> int:
@@ -503,8 +1035,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="serve_model: also trace encode and generate with torch.profiler "
-                         "(device time by kernel, device idle share)")
+                    help="serve_model, train_model: also trace encode, generate and one train "
+                         "step with torch.profiler (device time by kernel, device idle share)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -546,9 +1078,13 @@ def main(argv=None) -> int:
         results = phase_kernels(torch, F, smi, timer)
     if "serve_model" in phases:
         phase_serve_model(torch, profile=args.profile)
-    launches = None
+    path_launches = {}
     if "serve_task" in phases:
-        launches = phase_serve_task(torch)
+        path_launches["serve_task"] = phase_serve_task(torch)
+    if "train_model" in phases:
+        phase_train_model(torch, profile=args.profile)
+    if "train_task" in phases:
+        path_launches["train_task"] = phase_train_task(torch)
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)
@@ -558,7 +1094,10 @@ def main(argv=None) -> int:
             rec = next(r for r in results[name] if r["case"] == main_case)
             line.append({
                 "name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": None if launches is None else launches[name],
+                # summed over the main paths that ran, each read on its own
+                "launches": sum(run[name] for run in path_launches.values())
+                if path_launches else None,
+                "launches_by_path": {p: run[name] for p, run in path_launches.items()},
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

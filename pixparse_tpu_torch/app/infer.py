@@ -29,6 +29,7 @@ from typing import List
 from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import random_seed, setup_logging
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
+from pixparse_tpu_torch.framework.task import TaskEval
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY
 
 _logger = logging.getLogger("infer")
@@ -148,8 +149,9 @@ def main(argv=None) -> int:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     task_name = peek_flag(argv, "infer.task_name") or "cruller_eval_ocr"
-    if task_name not in TASK_CLASS_REGISTRY:
-        raise SystemExit(f"--infer.task_name must be one of {sorted(TASK_CLASS_REGISTRY)}")
+    eval_tasks = sorted(n for n, (cls, _) in TASK_CLASS_REGISTRY.items() if issubclass(cls, TaskEval))
+    if task_name not in eval_tasks:
+        raise SystemExit(f"--infer.task_name must be one of {eval_tasks}")
     _, task_cfg_cls = TASK_CLASS_REGISTRY[task_name]
 
     parser = ConfigArgumentParser(description="pixparse_tpu_torch batch inference")

@@ -34,49 +34,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
+using namespace pixparse;
+
 constexpr float kDeadLse = -1e30f;  // lse of a fully masked row
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t u16(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + kRows) of a (nrows, D) bf16 matrix with row stride
-// `rstride` -> shared memory with padded row stride D + 8; rows >= nrows are
-// zero-filled. 16-byte vector loads.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* smem, const __nv_bfloat16* src,
-                                               long long rstride, int row0, int nrows) {
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kLds = D + 8;
-  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += blockDim.x) {
-    const int r = i / kVecPerRow, c = i % kVecPerRow;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * rstride + c * 8);
-    *reinterpret_cast<uint4*>(smem + r * kLds + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(

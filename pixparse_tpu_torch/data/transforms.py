@@ -1,9 +1,10 @@
 """Document image transforms (counterpart of
-:mod:`pixparse_tpu.data.transforms`). Only the eval branch of ``legacy``
-is ported: a bicubic resize to ``image_size`` and a normalize, giving
-float32 numpy ``(H, W, C)``. PIL is imported only when an image needs a
-resize; an array already at ``image_size`` passes through as it is (PIL's
-resize to the same size is a copy)."""
+:mod:`pixparse_tpu.data.transforms`). Only ``legacy`` is ported, whose train
+and eval branches are the same deterministic pipeline: a bicubic resize to
+``image_size`` and a normalize, giving float32 numpy ``(H, W, C)``. The
+augmenting pipelines ``better`` and ``nougat`` raise. PIL is imported only
+when an image needs a resize; an array already at ``image_size`` passes
+through as it is (PIL's resize to the same size is a copy)."""
 
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ def _as_float_normalized(img: np.ndarray, mean, std) -> np.ndarray:
     return (x - mean) / std
 
 
-class LegacyEvalTransform:
+class LegacyTransform:
     """PIL image or uint8 array -> normalized float32 (H, W, C)."""
 
     def __init__(self, image_size, image_mean, image_std):
@@ -53,10 +54,13 @@ def create_transforms(
     training: bool = False,
     image_mean: Union[float, Sequence[float]] = 0.5,
     image_std: Union[float, Sequence[float]] = 0.5,
-) -> LegacyEvalTransform:
-    if name != "legacy" or training:
+) -> LegacyTransform:
+    if name not in ("legacy", "better", "nougat"):
+        raise ValueError(f"unknown transform set {name!r}")
+    if name != "legacy":
         raise NotImplementedError(
-            f"transforms {name!r} (training={training}): only the legacy eval "
-            "transform is ported (ROADMAP.md Queue 1)"
+            f"transforms {name!r}: only the legacy transform is ported "
+            "(ROADMAP.md Queue 1)"
         )
-    return LegacyEvalTransform(image_size, image_mean, image_std)
+    # legacy has no train-time augmentation: `training` selects nothing
+    return LegacyTransform(image_size, image_mean, image_std)

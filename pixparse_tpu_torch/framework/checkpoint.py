@@ -1,0 +1,111 @@
+"""Checkpoint save/load of the full train state, one per interval
+(counterpart of :mod:`pixparse_tpu.framework.checkpoint`).
+
+Layout as in the JAX package: ``{output_dir}/checkpoint-{interval}/``, a
+directory, so ``--train.resume`` finds the newest one. Inside,
+``state.pt`` holds the train state (``torch.save``: step, parameters by
+name, optimizer state, dropout seed) and ``metadata.json`` the small
+metadata dict (interval and step counters), in place of the JAX package's
+orbax tree. Saves are synchronous; :func:`wait_for_saves` is kept so callers
+read the same as there.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+from typing import Optional, Tuple
+
+import torch
+
+from pixparse_tpu_torch.framework.train_state import TrainState
+
+_logger = logging.getLogger(__name__)
+
+_CKPT_RE = re.compile(r"checkpoint-(\d+)$")
+STATE_FILE = "state.pt"
+METADATA_FILE = "metadata.json"
+
+
+def checkpoint_path(output_dir: str, interval: int) -> str:
+    return os.path.join(output_dir, f"checkpoint-{interval}")
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    """Newest ``checkpoint-{i}`` dir under ``output_dir`` (None if none)."""
+    if not os.path.isdir(output_dir):
+        return None
+    best, best_i = None, -1
+    for name in os.listdir(output_dir):
+        m = _CKPT_RE.match(name)
+        path = os.path.join(output_dir, name)
+        if m and os.path.isdir(path) and int(m.group(1)) > best_i:
+            best_i = int(m.group(1))
+            best = path
+    return best
+
+
+def wait_for_saves():
+    """Saves are synchronous: nothing is ever in flight."""
+
+
+def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = None):
+    """Write the train state (and a small metadata dict) to the directory
+    ``path``. The state file is written under a temporary name and renamed,
+    so a directory never holds half a state."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "step": state.step,
+        "seed": state.seed,
+        "params": {k: v.detach() for k, v in state.params.items()},
+        "opt_state": state.opt_state,
+    }
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    with open(os.path.join(path, METADATA_FILE), "w") as fh:
+        json.dump(dict(metadata or {}), fh)
+    _logger.info("saved checkpoint %s", path)
+
+
+def _load_into(template, saved, what: str):
+    """Copy ``saved`` into the tensors of ``template`` (same nesting), so
+    the restored state lives where the template's does."""
+    if isinstance(template, dict):
+        if set(template) != set(saved):
+            raise ValueError(
+                f"checkpoint {what} keys differ: missing {sorted(set(template) - set(saved))}, "
+                f"unexpected {sorted(set(saved) - set(template))}"
+            )
+        return {k: _load_into(v, saved[k], f"{what}.{k}") for k, v in template.items()}
+    if template.shape != saved.shape:
+        raise ValueError(f"checkpoint {what}: shape {tuple(saved.shape)} != {tuple(template.shape)}")
+    with torch.no_grad():
+        template.copy_(saved)
+    return template
+
+
+def restore_train_state(path: str, state_template: TrainState) -> Tuple[TrainState, dict]:
+    """Restore onto an existing state: the template supplies device and dtype
+    for every tensor, and its parameter tensors (the model's own) are filled
+    in place. Returns ``(state, metadata)``."""
+    path = os.path.abspath(path)
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    params = _load_into(state_template.params, saved["params"], "params")
+    opt_state = _load_into(state_template.opt_state, saved["opt_state"], "opt_state")
+    metadata = {}
+    meta_path = os.path.join(path, METADATA_FILE)
+    if os.path.exists(meta_path):
+        with open(meta_path) as fh:
+            metadata = json.load(fh)
+    else:
+        _logger.warning(
+            "no metadata in %s: interval and step counters restart from 0", path
+        )
+    state = TrainState(
+        step=int(saved["step"]), params=params, opt_state=opt_state, seed=int(saved["seed"])
+    )
+    return state, metadata

@@ -1,10 +1,52 @@
-"""Eval config dataclass (counterpart of :mod:`pixparse_tpu.framework.config`;
-the training configs arrive with the training slice)."""
+"""Shared train/eval config dataclasses (counterpart of
+:mod:`pixparse_tpu.framework.config`). The mesh flags of the JAX package are
+left out: the port runs on one device, named by ``device``."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass
+class OptimizationCfg:
+    optimizer: str = "adamw"
+    scheduler: str = "cosine"
+    learning_rate: float = 5e-4
+    warmup_learning_rate: float = 0.0
+    weight_decay: float = 0.02
+    eps: float = 1e-6
+    clip_grad_value: Optional[float] = None
+    clip_grad_mode: Optional[str] = None  # 'norm' | 'value' | 'agc'
+    grad_accum_steps: int = 1
+    momentum: Optional[float] = None
+    betas: Optional[Tuple[float, float]] = None
+    layer_decay: Optional[float] = None
+    # 'bfloat16': store both Adam moments in bf16 (half the optimizer-state
+    # memory and update traffic); the update math still runs in fp32
+    optimizer_state_dtype: str = "float32"
+
+
+@dataclass
+class TaskTrainCfg:
+    num_intervals: int = 100
+    num_warmup_intervals: int = 5
+    eval_frequency: int = 1000
+    opt: OptimizationCfg = field(default_factory=OptimizationCfg)
+    dtype: Optional[str] = None  # compute dtype: 'bfloat16'/'bf16'/'float16'/None(fp32)
+    amp: bool = True  # kept for flag parity; the compute dtype comes from `dtype`
+    # None/'auto'/'none' = no rematerialisation; the remat modes of the JAX
+    # package ('full', 'dots', 'mlp', 'gelu') are not ported yet and raise
+    remat: Optional[str] = None
+    attn_impl: str = "auto"  # 'auto' (flash on CUDA) | 'xla' (plain) | 'flash'
+    model_name: str = ""
+    # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
+    # 'cuda' raises instead of falling back to the CPU
+    device: str = "cuda"
+    device_preprocess: bool = False  # not ported yet (raises when set)
+    # train-time augmentation pipeline; only 'legacy' (the task default) is
+    # ported, 'better' and 'nougat' raise
+    transforms: Optional[str] = None
 
 
 @dataclass

@@ -33,6 +33,7 @@ from torch import nn
 
 from pixparse_tpu_torch.ops.attention import NEG_MIN, dot_product_attention
 from pixparse_tpu_torch.ops.decode_attention import decode_attention
+from pixparse_tpu_torch.ops.dense import Linear, dropout
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
 
 
@@ -92,10 +93,10 @@ class _Projections(nn.Module):
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = Linear(d_model, d_model)
+        self.k_proj = Linear(d_model, d_model)
+        self.v_proj = Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
 
 
 class CachedSelfAttention(_Projections):
@@ -186,19 +187,30 @@ class BartDecoderLayer(nn.Module):
         self.self_attn_layer_norm = LayerNorm(D, cfg.ln_eps)
         self.encoder_attn = CachedCrossAttention(D, H)
         self.encoder_attn_layer_norm = LayerNorm(D, cfg.ln_eps)
-        self.fc1 = nn.Linear(D, cfg.decoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.decoder_ffn_dim, D)
+        self.fc1 = Linear(D, cfg.decoder_ffn_dim)
+        self.fc2 = Linear(cfg.decoder_ffn_dim, D)
         self.final_layer_norm = LayerNorm(D, cfg.ln_eps)
+        self.dropout = cfg.dropout
+        self.activation_dropout = cfg.activation_dropout
 
-    def forward(self, x, enc, mode, attn_impl, masks, cache=None, layer=0):
+    def forward(self, x, enc, mode, attn_impl, masks, cache=None, layer=0, generator=None):
+        """``generator`` feeds the dropout masks; dropout is live only when
+        the module is in training mode and ``mode == 'train'``."""
         self_bias, self_valid, cross_bias, cross_valid = masks
-        self_attn = lambda h: self.self_attn(
+        live = self.training and mode == "train"
+        drop = lambda h: dropout(h, self.dropout, live, generator)
+        self_attn = lambda h: drop(self.self_attn(
             h, mode, attn_impl, self_bias, self_valid, cache, layer
-        )
-        cross_attn = lambda h: self.encoder_attn(
+        ))
+        cross_attn = lambda h: drop(self.encoder_attn(
             h, enc, mode, attn_impl, cross_bias, cross_valid, cache, layer
-        )
-        ffn = lambda h: self.fc2(F.gelu(self.fc1(h)))  # exact erf GELU
+        ))
+
+        def ffn(h):
+            h = F.gelu(self.fc1(h))  # exact erf GELU
+            h = dropout(h, self.activation_dropout, live, generator)
+            return drop(self.fc2(h))
+
         if self.pre_norm:
             x = x + self_attn(self.self_attn_layer_norm(x))
             x = x + cross_attn(self.encoder_attn_layer_norm(x))
@@ -231,7 +243,8 @@ class BartCausalDecoder(nn.Module):
     """BART-style causal LM with cross-attention and a tied LM head
     (HF ``BartForCausalLM`` layout: ``model.decoder`` + ``lm_head``)."""
 
-    def __init__(self, cfg: BartDecoderCfg, attn_impl: str = "xla", kv_cache_dtype: str = "bf16"):
+    def __init__(self, cfg: BartDecoderCfg, attn_impl: str = "xla", kv_cache_dtype: str = "bf16",
+                 compute_dtype=None):
         super().__init__()
         if kv_cache_dtype != "bf16":
             raise NotImplementedError(
@@ -240,6 +253,11 @@ class BartCausalDecoder(nn.Module):
             )
         self.cfg = cfg
         self.attn_impl = attn_impl
+        # dtype of the forward pass; None = the parameters' dtype
+        self.compute_dtype = compute_dtype
+        # source of the dropout masks in training mode (None = torch's default
+        # generator); the train step reseeds it per (seed, step, micro-batch)
+        self.dropout_generator: Optional[torch.Generator] = None
         self.model = nn.ModuleDict({"decoder": BartDecoder(cfg)})
         self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.decoder.embed_tokens.weight  # tied
@@ -321,12 +339,15 @@ class BartCausalDecoder(nn.Module):
         if positions is None:
             positions = start + torch.arange(L, device=input_ids.device)[None, :]
 
-        x = dec.embed_tokens(input_ids)
+        dt = self.compute_dtype or dec.embed_tokens.weight.dtype
+        x = dec.embed_tokens(input_ids).to(dt)
         if cfg.scale_embedding:
             x = x * (cfg.d_model ** 0.5)
-        x = x + dec.embed_positions(positions + cfg.pos_offset)
+        x = x + dec.embed_positions(positions + cfg.pos_offset).to(dt)
         if cfg.layernorm_embedding:
             x = dec.layernorm_embedding(x)
+        gen = self.dropout_generator
+        x = dropout(x, cfg.dropout, self.training and mode == "train", gen)
 
         masks = self._masks(
             mode, B, L, start, cache, x.device, attention_mask, key_pad_mask,
@@ -334,7 +355,7 @@ class BartCausalDecoder(nn.Module):
         )
         enc = encoder_hidden_states.to(x.dtype)
         for i, layer in enumerate(dec.layers):
-            x = layer(x, enc, mode, self.attn_impl, masks, cache, i)
+            x = layer(x, enc, mode, self.attn_impl, masks, cache, i, gen)
         if mode != "train":
             cache.index += L
         if cfg.add_final_layer_norm:
@@ -342,7 +363,7 @@ class BartCausalDecoder(nn.Module):
         if return_hidden:
             return x
         # tied head in the compute dtype, logits surfaced in fp32
-        return self.lm_head(x).float()
+        return F.linear(x, self.lm_head.weight.to(x.dtype)).float()
 
 
 # HF-name -> architecture table (facebook/bart-base & -large layouts), so the

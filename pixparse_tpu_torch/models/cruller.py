@@ -53,8 +53,10 @@ def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
 class Cruller(nn.Module):
     """Parameters are created in fp32 on the CPU; move the model with
     ``.to(device, dtype)`` (eval keeps the weights in the compute dtype).
-    ``attn_impl``: ``'flash'`` runs the encoder's attention through the
-    flash kernel, ``'xla'`` through the plain attention."""
+    ``attn_impl``: ``'flash'`` runs attention through the flash kernels,
+    ``'xla'`` through the plain attention. ``compute_dtype``: dtype of the
+    forward pass when it differs from the parameters' (training: fp32
+    master weights, bf16 forward); ``None`` = the parameters' dtype."""
 
     def __init__(
         self,
@@ -63,6 +65,7 @@ class Cruller(nn.Module):
         attn_impl: str = "xla",
         kv_cache_dtype: str = "bf16",
         lm_head_dtype: str = "bf16",
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if lm_head_dtype != "bf16":
@@ -72,9 +75,9 @@ class Cruller(nn.Module):
             )
         self.vit_cfg = vit_cfg
         self.bart_cfg = bart_cfg
-        self.image_encoder = nn.ModuleDict({"trunk": ViT(vit_cfg, attn_impl)})
+        self.image_encoder = nn.ModuleDict({"trunk": ViT(vit_cfg, attn_impl, compute_dtype)})
         self.text_decoder = nn.ModuleDict(
-            {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype)}
+            {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype, compute_dtype)}
         )
 
     @property
@@ -104,8 +107,23 @@ class Cruller(nn.Module):
         return self.decoder(text_input, self.encode(image_input), attention_mask=attention_mask)
 
     def encode(self, image_input: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) normalized images -> (B, N, D) in the weights' dtype."""
+        """(B, H, W, C) normalized images -> (B, N, D) in the compute dtype."""
         return self.encoder(image_input)
+
+    def forward_hidden(self, image_input, text_input, attention_mask=None) -> torch.Tensor:
+        """Training fast path: the full forward returning the decoder's
+        pre-head hidden states ``(B, L, D)`` for the fused tied-head CE
+        (:mod:`pixparse_tpu_torch.ops.loss`). Dropout is live when the module
+        is in training mode."""
+        return self.decoder(
+            text_input, self.encode(image_input), attention_mask=attention_mask,
+            return_hidden=True,
+        )
+
+    @property
+    def tied_embedding(self) -> torch.Tensor:
+        """The ``(V, D)`` token table that doubles as the LM head."""
+        return self.decoder.decoder.embed_tokens.weight
 
     def decode(
         self,

@@ -117,12 +117,30 @@ def _bart_from_jax(sd, p, cfg, prefix: str):
         _norm(sd, b + "final_layer_norm", layer["final_layer_norm"])
 
 
-def cruller_state_dict_from_jax(params: Mapping[str, Any], vit_cfg, bart_cfg) -> Dict[str, torch.Tensor]:
+def cruller_state_dict_from_jax(
+    params: Mapping[str, Any], vit_cfg, bart_cfg, tied_head: bool = True
+) -> Dict[str, torch.Tensor]:
     """The JAX package's Cruller param tree (``{"image_encoder": ...,
     "text_decoder": ...}``, leaves as numpy arrays) -> the port's state dict
-    (fp32 CPU tensors), tied head included."""
+    (fp32 CPU tensors), tied head included. A gradient tree has the same
+    structure: with ``tied_head=False`` the result is keyed like the port's
+    ``named_parameters()`` (the tied table once, under ``embed_tokens``)."""
     sd: Dict[str, np.ndarray] = {}
     _vit_from_jax(sd, params["image_encoder"], vit_cfg, ENC_PREFIX)
     _bart_from_jax(sd, params["text_decoder"], bart_cfg, DEC_PREFIX)
-    sd[LM_HEAD_KEY] = sd[DEC_PREFIX + "embed_tokens.weight"]
+    if tied_head:
+        sd[LM_HEAD_KEY] = sd[DEC_PREFIX + "embed_tokens.weight"]
     return {k: _to_tensor(v) for k, v in sd.items()}
+
+
+def cruller_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The model's weights under the reference ``.pt`` names, as fp32 CPU
+    tensors: what the train app writes as ``checkpoint-{i}.pt`` and what the
+    JAX package's ``load_torch_checkpoint`` + ``cruller_params_from_torch``
+    read."""
+    return {k: v.detach().to("cpu", torch.float32).clone() for k, v in model.state_dict().items()}
+
+
+def save_torch_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a model-only ``.pt`` checkpoint (a flat name -> tensor dict)."""
+    torch.save({k: v.contiguous() for k, v in state_dict.items()}, path)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixparse_tpu_torch.ops.attention import dot_product_attention
+from pixparse_tpu_torch.ops.dense import Linear
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
 
 
@@ -68,7 +69,7 @@ class PatchEmbed(nn.Module):
         x = images.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B, gh * gw, p * p * C)
         w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.weight.shape[0], -1)
-        return F.linear(x.to(w.dtype), w, self.proj.bias)
+        return F.linear(x, w.to(x.dtype), self.proj.bias.to(x.dtype))
 
 
 class Attention(nn.Module):
@@ -76,18 +77,16 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim)
-        self.proj = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+        self.qkv = Linear(cfg.embed_dim, 3 * cfg.embed_dim)
+        self.proj = Linear(cfg.embed_dim, cfg.embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
         H = self.num_heads
         # q/k/v stay strided views of the fused projection: the flash kernel
         # reads them in place (no head-split copy)
-        qkv = self.qkv(x).view(B, L, 3, H, D // H)
-        out = dot_product_attention(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], impl=self.attn_impl, dtype=x.dtype
-        )
+        q, k, v = self.qkv(x).view(B, L, 3, H, D // H).unbind(2)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl, dtype=x.dtype)
         return self.proj(out.reshape(B, L, D))
 
 
@@ -95,8 +94,8 @@ class Mlp(nn.Module):
     def __init__(self, cfg: ViTCfg):
         super().__init__()
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = nn.Linear(cfg.embed_dim, hidden)
-        self.fc2 = nn.Linear(hidden, cfg.embed_dim)
+        self.fc1 = Linear(cfg.embed_dim, hidden)
+        self.fc2 = Linear(hidden, cfg.embed_dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU, as in JAX
@@ -117,11 +116,17 @@ class Block(nn.Module):
 
 class ViT(nn.Module):
     """Token-sequence ViT encoder. ``attn_impl``: ``'flash'`` (the CUDA
-    kernel on CUDA tensors) or ``'xla'`` (plain attention)."""
+    kernel on CUDA tensors) or ``'xla'`` (plain attention).
+    ``compute_dtype``: dtype of the forward pass; ``None`` = the parameters'
+    dtype (each parameter is cast at use, so fp32 master weights can run a
+    bf16 forward)."""
 
-    def __init__(self, cfg: ViTCfg, attn_impl: str = "xla"):
+    def __init__(self, cfg: ViTCfg, attn_impl: str = "xla", compute_dtype=None):
         super().__init__()
+        if cfg.drop_rate:
+            raise NotImplementedError("ViT dropout (drop_rate > 0) is not ported")
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg)
         if cfg.use_cls_token:
@@ -163,7 +168,7 @@ class ViT(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: (B, H, W, C) float, already normalized -> (B, N, D)."""
-        x = self.patch_embed(images)
+        x = self.patch_embed(images.to(self.compute_dtype or self.pos_embed.dtype))
         if self.cfg.use_cls_token:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, and
 loaded with :mod:`ctypes`. All sources build at once, one ``nvcc`` process
-each, started together. A library's file name carries a hash of its source
-and flags, so an edited source never loads a stale build. The build
+each, started together. A library's file name carries a hash of its source,
+of every shared header (``csrc/*.cuh``) and of the flags, so an edited source
+or header never loads a stale build. The build
 directory (``pixparse_tpu_torch/csrc/build``) is listed in ``.gitignore``.
 
 Pointers and the CUDA stream cross the boundary as ``ctypes.c_void_p``;
@@ -28,6 +29,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(CSRC),
 ]
 
 P = ctypes.c_void_p
@@ -46,6 +48,16 @@ SIGNATURES = {
         "pixparse_decode_attn_fwd": [
             I, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, LL, I, F, P,
         ],
+    },
+    "flash_attention_bwd": {
+        "pixparse_flash_attn_bwd": [
+            I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+            LL, LL, LL, LL, LL, LL, LL, LL, I, F, P,
+        ],
+    },
+    "fused_ce": {
+        "pixparse_fused_ce_fwd": [I, P, P, P, P, P, I, I, I, P],
+        "pixparse_fused_ce_bwd": [I, P, P, P, P, P, P, P, I, I, I, P],
     },
 }
 
@@ -67,8 +79,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 

@@ -1,0 +1,250 @@
+"""Loss functions (counterpart of :mod:`pixparse_tpu.ops.loss`).
+
+Mean cross entropy over the targets that are not ``IGNORE_ID``, computed in
+fp32 whatever the compute dtype. Three implementations of the tied-head CE
+from the decoder's hidden states:
+
+- :func:`cross_entropy_loss`: plain, over materialized logits.
+- :func:`chunked_cross_entropy_from_hidden`: a loop over 128-token chunks
+  under ``torch.utils.checkpoint``; the full ``(B, L, V)`` logits never
+  exist at once.
+- :func:`fused_cross_entropy_from_hidden`: a :class:`torch.autograd.Function`
+  over the CUDA kernels of ``csrc/fused_ce.cu``: the logits never reach
+  device memory at all. The forward kernel streams the vocabulary past each
+  token tile and keeps a running (max, sum-exp, target logit); the backward
+  kernels recompute each logit tile and feed ``dh = g E`` and
+  ``dE = g^T h`` from it, with ``g = (softmax - onehot) * coef`` rounded to
+  the hidden dtype.
+
+Beside the kernels stand :func:`fused_ce_fwd_plain` and
+:func:`fused_ce_bwd_plain`, plain PyTorch with the same rounding points; a
+CPU tensor takes them, a CUDA tensor launches the kernels or raises.
+:func:`cross_entropy_from_hidden` is what the train tasks call: the fused
+path on either device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from pixparse_tpu_torch.ops import _build
+
+IGNORE_ID = -100
+DEAD_LSE = -1e30
+CE_BF16_WIDTHS = (64, 768)  # depths the bf16 kernels are built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # (..., V)
+    targets: torch.Tensor,  # (...), int ids with IGNORE_ID masked out
+    ignore_id: int = IGNORE_ID,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over non-ignored targets. Returns ``(loss, num_valid)``."""
+    logits = logits.float()
+    valid = targets != ignore_id
+    safe = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - true_logit) * valid
+    n_valid = valid.sum()
+    return nll.sum() / n_valid.clamp_min(1), n_valid
+
+
+def _chunk_nll(h, embedding, t, ignore_id):
+    logits = torch.matmul(h, embedding.t()).float()  # lives only inside this chunk
+    valid = t != ignore_id
+    safe = torch.where(valid, t, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - true_logit) * valid).sum()
+
+
+def chunked_cross_entropy_from_hidden(
+    hidden: torch.Tensor,  # (B, L, D) decoder output (pre-head)
+    embedding: torch.Tensor,  # (V, D) tied LM-head table
+    targets: torch.Tensor,  # (B, L) int ids with IGNORE_ID masked out
+    ignore_id: int = IGNORE_ID,
+    chunk_size: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory-frugal tied-head CE: the logits of one sequence chunk at a time,
+    recomputed in the backward pass (``torch.utils.checkpoint``), so the
+    ``(B, L, V)`` logits never exist at once."""
+    L = hidden.shape[1]
+    nll_sum = hidden.new_zeros((), dtype=torch.float32)
+    for lo in range(0, L, chunk_size):
+        h = hidden[:, lo:lo + chunk_size]
+        t = targets[:, lo:lo + chunk_size]
+        if torch.is_grad_enabled() and (h.requires_grad or embedding.requires_grad):
+            nll_sum = nll_sum + checkpoint(
+                _chunk_nll, h, embedding, t, ignore_id, use_reentrant=False
+            )
+        else:
+            nll_sum = nll_sum + _chunk_nll(h, embedding, t, ignore_id)
+    n_valid = (targets != ignore_id).sum()
+    return nll_sum / n_valid.clamp_min(1), n_valid
+
+
+# ---------------------------------------------------------------------------
+# fused tied-head CE: kernels, plain versions, autograd
+# ---------------------------------------------------------------------------
+
+def fused_ce_fwd_plain(
+    h: torch.Tensor,  # (T, D)
+    e: torch.Tensor,  # (V, D)
+    target: torch.Tensor,  # (T,) int, -1 where ignored
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: ``(lse (T,), tgt (T,))`` fp32,
+    ``tgt`` the target's logit (0 where the target matches no column)."""
+    s = torch.matmul(h.float(), e.float().t())
+    lse = torch.logsumexp(s, dim=-1)
+    hit = target[:, None] == torch.arange(e.shape[0], device=h.device)[None, :]
+    tgt = torch.where(hit, s, 0.0).sum(-1)
+    return lse, tgt
+
+
+def fused_ce_bwd_plain(
+    h: torch.Tensor,
+    e: torch.Tensor,
+    target: torch.Tensor,  # (T,) int, -1 where ignored
+    lse: torch.Tensor,  # (T,) fp32
+    coef: torch.Tensor,  # (T,) fp32: d loss / d nll[t], 0 where ignored
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: ``(dh (T, D), dE (V, D))`` in
+    the dtypes of ``h`` and ``e``; ``g`` is rounded to ``h``'s dtype before
+    its two products, which accumulate in fp32."""
+    s = torch.matmul(h.float(), e.float().t())
+    p = torch.exp(s - lse.clamp_min(0.5 * DEAD_LSE)[:, None])
+    onehot = target[:, None] == torch.arange(e.shape[0], device=h.device)[None, :]
+    g = ((p - onehot.float()) * coef[:, None]).to(h.dtype).float()
+    dh = torch.matmul(g, e.float())
+    de = torch.matmul(g.t(), h.float())
+    return dh.to(h.dtype), de.to(e.dtype)
+
+
+def _check_ce_operands(name, h, e, target):
+    T, D = h.shape
+    if h.dtype not in _DTYPE_CODES or e.dtype != h.dtype:
+        raise ValueError(
+            f"{name}: CUDA kernels take bfloat16 or float32 hidden states and "
+            f"table of one dtype (got {h.dtype}, {e.dtype})"
+        )
+    if e.dim() != 2 or e.shape[1] != D or target.shape != (T,):
+        raise ValueError(
+            f"{name}: shapes h {tuple(h.shape)} e {tuple(e.shape)} target {tuple(target.shape)}"
+        )
+    if h.dtype == torch.bfloat16 and D not in CE_BF16_WIDTHS:
+        raise ValueError(f"{name}: bf16 kernels are built for widths {CE_BF16_WIDTHS}, got {D}")
+    if h.dtype == torch.float32 and (D > 1024 or D % 4):
+        raise ValueError(f"{name}: fp32 kernels take widths <= 1024 divisible by 4, got {D}")
+    if not (e.is_cuda and target.is_cuda):
+        raise ValueError(f"{name}: all operands must be on one CUDA device")
+
+
+def fused_ce_fwd(h: torch.Tensor, e: torch.Tensor, target: torch.Tensor):
+    """``(lse, tgt)`` per token: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. ``launches`` counts kernel launches."""
+    if not h.is_cuda:
+        return fused_ce_fwd_plain(h, e, target)
+    _check_ce_operands("fused_ce_fwd", h, e, target)
+    h, e = h.contiguous(), e.contiguous()
+    target = target.to(torch.int32).contiguous()
+    T, D = h.shape
+    lse = torch.empty((T,), dtype=torch.float32, device=h.device)
+    tgt = torch.empty((T,), dtype=torch.float32, device=h.device)
+    if T == 0:
+        return lse, tgt
+    lib = _build.library("fused_ce")
+    with torch.cuda.device(h.device):
+        err = lib.pixparse_fused_ce_fwd(
+            _DTYPE_CODES[h.dtype], _build.ptr(h), _build.ptr(e), _build.ptr(target),
+            _build.ptr(lse), _build.ptr(tgt), T, e.shape[0], D, _build.stream_ptr(h.device),
+        )
+    _build.check(err, "fused_ce_fwd")
+    fused_ce_fwd.launches += 1
+    return lse, tgt
+
+
+fused_ce_fwd.launches = 0
+
+
+def fused_ce_bwd(h, e, target, lse, coef):
+    """``(dh, dE)``: the CUDA kernels for CUDA tensors, the plain version for
+    CPU tensors. ``launches`` counts calls that launched (one call launches
+    the dh kernel and the dE kernel)."""
+    if not h.is_cuda:
+        return fused_ce_bwd_plain(h, e, target, lse, coef)
+    _check_ce_operands("fused_ce_bwd", h, e, target)
+    h, e = h.contiguous(), e.contiguous()
+    target = target.to(torch.int32).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    coef = coef.to(torch.float32).contiguous()
+    T, D = h.shape
+    dh = torch.empty_like(h)
+    de = torch.empty_like(e)
+    if T == 0:
+        return dh, de.zero_()
+    lib = _build.library("fused_ce")
+    with torch.cuda.device(h.device):
+        err = lib.pixparse_fused_ce_bwd(
+            _DTYPE_CODES[h.dtype], _build.ptr(h), _build.ptr(e), _build.ptr(target),
+            _build.ptr(lse), _build.ptr(coef), _build.ptr(dh), _build.ptr(de),
+            T, e.shape[0], D, _build.stream_ptr(h.device),
+        )
+    _build.check(err, "fused_ce_bwd")
+    fused_ce_bwd.launches += 1
+    return dh, de
+
+
+fused_ce_bwd.launches = 0
+
+
+class _FusedCETokens(torch.autograd.Function):
+    """Per-token nll ``(T,)`` fp32 from ``h (T, D)``, ``e (V, D)`` and safe
+    targets (-1 where ignored; those rows give nll 0)."""
+
+    @staticmethod
+    def forward(ctx, h, e, target):
+        lse, tgt = fused_ce_fwd(h, e, target)
+        ctx.save_for_backward(h, e, target, lse)
+        return (lse - tgt) * (target >= 0)
+
+    @staticmethod
+    def backward(ctx, g_nll):
+        h, e, target, lse = ctx.saved_tensors
+        coef = torch.where(target >= 0, g_nll.float(), 0.0)
+        dh, de = fused_ce_bwd(h, e, target, lse, coef)
+        return dh, de, None
+
+
+def fused_cross_entropy_from_hidden(
+    hidden: torch.Tensor,  # (B, L, D)
+    embedding: torch.Tensor,  # (V, D) tied LM-head table, in hidden's dtype
+    targets: torch.Tensor,  # (B, L) int ids with IGNORE_ID masked out
+    ignore_id: int = IGNORE_ID,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused tied-head CE. Returns ``(loss, num_valid)`` like
+    :func:`cross_entropy_loss`; on a CUDA device the logits never reach
+    device memory."""
+    D = hidden.shape[-1]
+    t = targets.reshape(-1)
+    valid = t != ignore_id
+    safe = torch.where(valid, t, -1)  # ignored rows match no vocab column
+    nll = _FusedCETokens.apply(hidden.reshape(-1, D), embedding, safe)
+    n_valid = valid.sum()
+    return nll.sum() / n_valid.clamp_min(1), n_valid
+
+
+def cross_entropy_from_hidden(
+    hidden: torch.Tensor,
+    embedding: torch.Tensor,
+    targets: torch.Tensor,
+    ignore_id: int = IGNORE_ID,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tied-head CE from hidden states, as the train tasks call it: the fused
+    kernels on a CUDA tensor (or an error), their plain versions on a CPU
+    tensor."""
+    return fused_cross_entropy_from_hidden(hidden, embedding, targets, ignore_id)

@@ -1,26 +1,35 @@
-"""Shared Cruller eval-task machinery (counterpart of
-:mod:`pixparse_tpu.task.cruller_base`; the train task arrives with the
-training slice).
+"""Shared Cruller task machinery (counterpart of
+:mod:`pixparse_tpu.task.cruller_base`).
 
-:class:`BaseCrullerEvalTask` builds the tokenizer with the special-token
-replay, the model on the task's device in the compute dtype, and the
-KV-cached greedy decode; concrete tasks supply tokens and metrics. There is
-one device and no mesh, so eval batches go to the device as they are.
+- :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay,
+  model construction (fp32 master weights, forward in the compute dtype),
+  the train state and the train step, in-step shift of the pretrain
+  sequences, the gradient-accumulation buffer, counters, logging with rate
+  and MFU, and a reference-``.pt``-compatible ``state_dict``.
+- :class:`BaseCrullerEvalTask`: the same vocabulary replay, the model on the
+  task's device in the compute dtype, and the KV-cached greedy decode.
+
+Concrete tasks supply tokens, collate and metrics. There is one device and no
+mesh, so batches go to the device as they are.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from pixparse_tpu_torch.data.transforms import create_transforms
-from pixparse_tpu_torch.framework.task import TaskEval
+from pixparse_tpu_torch.framework.optimization import create_optimizer
+from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
+from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
-from pixparse_tpu_torch.models.interop import load_cruller_state_dict
+from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
 from pixparse_tpu_torch.ops.generation import generate
+from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import TokenizerCfg, create_tokenizer
 
@@ -33,6 +42,23 @@ def _compute_dtype(dtype_flag: Optional[str]) -> torch.dtype:
             _logger.warning("dtype=%s is served as bfloat16", dtype_flag)
         return torch.bfloat16
     return torch.float32
+
+
+def resolve_remat(flag) -> bool:
+    """``--task.remat``: only "no rematerialisation" is ported. ``None``,
+    ``'auto'`` (base-size models run without remat) and ``'none'`` give
+    ``False``; the JAX package's modes raise."""
+    if flag is None or flag is False:
+        return False
+    s = str(flag).lower()
+    if s in ("auto", "none", "false", "0", "off"):
+        return False
+    if s in ("true", "full", "1", "on", "dots", "mlp", "gelu"):
+        raise NotImplementedError(
+            f"remat mode {flag!r}: rematerialisation is not ported yet "
+            "(ROADMAP.md Queue 1, cruller_large slice)"
+        )
+    raise ValueError(f"unknown remat mode {flag!r} (auto|none|full|dots|mlp|gelu)")
 
 
 class CrullerVocabMixin:
@@ -57,6 +83,291 @@ class CrullerVocabMixin:
         self.vocab_size = len(tokenizer)
         self.tokenizer = tokenizer
 
+
+# ==========================================================================
+# train
+# ==========================================================================
+
+class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
+    """One train step per batch (or per accumulation window); subclasses
+    define tokens and collate."""
+
+    task_start_token: str = ""
+    prompt_end_token: str = ""
+    base_special_tokens: List[str] = []
+    finetune_special_tokens: Optional[List[str]] = None
+    text_anno_fn: bool = False
+    shift_in_step: bool = True  # pretrain shifts in train_step; finetunes in collate
+    log_frequency: int = 100
+
+    def __init__(self, cfg, device_env, monitor=None):
+        super().__init__(cfg, device_env, monitor)
+        self.setup_tokenizer(cfg.tokenizer, self.base_special_tokens, self.finetune_special_tokens)
+        self.max_position_embeddings = cfg.model.text_decoder.max_length
+        self.device = device_env.device
+        self.compute_dtype = _compute_dtype(cfg.dtype)
+        self.num_image_chs = 1 if cfg.model.image_encoder.image_fmt == "L" else 3
+        self.vit_cfg, self.bart_cfg, stats = resolve_cruller_cfgs(
+            cfg.model, vocab_size=self.vocab_size
+        )
+        self.img_mean, self.img_std = fold_image_stats(
+            stats["mean"], stats["std"], cfg.model.image_encoder.image_fmt
+        )
+        if getattr(cfg, "device_preprocess", False):
+            raise NotImplementedError(
+                "device_preprocess is not ported yet (ROADMAP.md Queue 1)"
+            )
+        self.image_preprocess_train = create_transforms(
+            getattr(cfg, "transforms", None) or "legacy",
+            image_size=self.vit_cfg.img_size, training=True,
+            image_mean=self.img_mean, image_std=self.img_std,
+        )
+        self.resume_state_dict = None
+        self.model: Optional[Cruller] = None
+        self._time_last = None
+        self._samples_since_log = 0
+        self._last_loss_dev = None  # device scalar; read only when logged
+        self._flops_per_sample_step = None  # filled on the first logged batch
+        self.grad_accum_steps = max(1, cfg.opt.grad_accum_steps)
+        self._accum_buffer: List[Dict[str, np.ndarray]] = []
+
+    def prepare_image(self, img) -> np.ndarray:
+        """PIL image or uint8 array -> normalized float32 (H, W, C)."""
+        if hasattr(img, "convert"):  # PIL image: coerce the channel count
+            img = img.convert("L" if self.num_image_chs == 1 else "RGB")
+        return self.image_preprocess_train(img)
+
+    # ------------------------------------------------------------------
+    def train_setup(self, num_batches_per_interval: int, **kwargs):
+        cfg = self.cfg
+        accum = max(1, cfg.opt.grad_accum_steps)
+        self.num_steps_per_interval = num_batches_per_interval // accum
+        # gradient accumulation happens inside the train step (micro-batch
+        # loop, make_train_step): no accumulator in the optimizer state
+        self.grad_accum_steps = accum
+        self._accum_buffer = []
+        self.optimizer, self.scheduler = create_optimizer(
+            cfg.opt,
+            num_intervals=cfg.num_intervals,
+            num_warmup_intervals=cfg.num_warmup_intervals,
+            updates_per_interval=max(1, self.num_steps_per_interval),
+            encoder_depth=self.vit_cfg.depth,
+            decoder_layers=self.bart_cfg.decoder_layers,
+        )
+        attn_impl = getattr(cfg, "attn_impl", "auto")
+        if attn_impl == "auto":
+            attn_impl = "flash" if self.device.type == "cuda" else "xla"
+        resolve_remat(getattr(cfg, "remat", None))
+        seed = kwargs.get("seed", 0)
+        model = Cruller(
+            self.vit_cfg, self.bart_cfg, attn_impl=attn_impl, compute_dtype=self.compute_dtype
+        )
+        if self.resume_state_dict is not None:
+            load_cruller_state_dict(model, self.resume_state_dict)
+            self.resume_state_dict = None
+            _logger.info("imported torch checkpoint into train state")
+        else:
+            if cfg.model.image_encoder.pretrained or cfg.model.text_decoder.pretrained:
+                # asked-for pretrained weights are never silently replaced
+                raise NotImplementedError(
+                    "pretrained backbones are not ported yet (ROADMAP.md Queue 1); "
+                    "resume from a .pt checkpoint or train from seeded random weights"
+                )
+            model.init_weights(torch.Generator().manual_seed(seed))
+        # fp32 master weights on the device; the forward casts at use
+        self.model = model.to(device=self.device, dtype=torch.float32).train()
+        self.model.decoder.dropout_generator = torch.Generator(device=self.device)
+        self.state = create_train_state(self.model, self.optimizer, seed=seed)
+
+        def loss_fn(batch):
+            hidden = self.model.forward_hidden(batch["image"], batch["text"])
+            loss, _ = cross_entropy_from_hidden(
+                hidden, self.model.tied_embedding.to(hidden.dtype), batch["target"]
+            )
+            return loss, {}
+
+        self.train_step_fn = make_train_step(
+            loss_fn, self.optimizer,
+            reseed=self.model.decoder.dropout_generator.manual_seed,
+            grad_accum_steps=self.grad_accum_steps,
+        )
+        self.step_idx = 0
+        self.interval_batch_idx = 0
+        self._flops_per_sample_step = None
+
+    # ------------------------------------------------------------------
+    def train_interval_start(self):
+        if self.monitor:
+            self.monitor.log_phase("train", interval=self.interval_idx, name_prefix="start ")
+        self.interval_batch_idx = 0
+        self._time_last = time.perf_counter()
+        self._samples_since_log = 0
+
+    def train_interval_end(self):
+        if self.monitor:
+            self.monitor.log_phase("train", interval=self.interval_idx)
+            self.monitor.write_summary(
+                {
+                    "train": {
+                        "step": self.step_idx,
+                        "lr": self.get_current_lr(),
+                        "loss": float(self._last_loss_dev)
+                        if self._last_loss_dev is not None else None,
+                    }
+                },
+                index=self.interval_idx,
+            )
+        self.interval_idx += 1
+
+    # ------------------------------------------------------------------
+    def normalize_batch(self, sample) -> Dict[str, np.ndarray]:
+        """Task-specific batch -> ``{image, text, target}`` numpy arrays.
+        Pretrain batches carry unshifted sequences and are shifted here."""
+        if isinstance(sample, (tuple, list)):
+            image, text, target = sample[:3]
+            sample = {"image": image, "text": text, "target": target}
+        image = np.asarray(sample["image"]).astype(np.float32)
+        text = np.asarray(sample.get("text", sample.get("label")), np.int64)
+        target = np.asarray(sample.get("target", sample.get("text_target")), np.int64)
+        if text.ndim == 3:  # (B, 1, L) page dimension from the OCR anno preproc
+            text = text[:, 0]
+            target = target[:, 0]
+        if self.shift_in_step:
+            text, target = text[:, :-1], target[:, 1:]
+        return {
+            "image": image,
+            "text": text.astype(np.int32),
+            "target": target.astype(np.int32),
+        }
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if k != "image":
+                t = t.long()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def train_step(self, sample) -> Dict[str, Any]:
+        if self._stop_requested:
+            raise StopTraining
+        batch = self.normalize_batch(sample)
+        if self.grad_accum_steps > 1:
+            # buffer micro-batches; one stacked device step per window
+            self._accum_buffer.append(batch)
+            if len(self._accum_buffer) < self.grad_accum_steps:
+                self.step_idx += 1
+                self.batch_idx += 1
+                self.interval_batch_idx += 1
+                self._samples_since_log += batch["image"].shape[0]
+                return {"loss": self._last_loss_dev}
+            stacked = {k: np.stack([mb[k] for mb in self._accum_buffer]) for k in batch}
+            self._accum_buffer = []
+            device_batch = self._to_device(stacked)
+        else:
+            device_batch = self._to_device(batch)
+        self.state, metrics = self.train_step_fn(self.state, device_batch)
+        self._last_loss_dev = metrics["loss"]
+        self.step_idx += 1
+        self.batch_idx += 1
+        self.interval_batch_idx += 1
+
+        if self.eval_frequency and self.monitor and self.step_idx % self.eval_frequency == 0:
+            self._log_train_reconstruction(batch)
+        self._samples_since_log += batch["image"].shape[0]
+
+        if self.monitor and self.interval_batch_idx % self.log_frequency == 0:
+            loss = float(metrics["loss"])  # the one host read, at log time
+            now = time.perf_counter()
+            rate = self._samples_since_log / (now - self._time_last) if self._time_last else None
+            extra = {}
+            if rate:
+                from pixparse_tpu_torch.framework.profiling import cruller_train_flops, mfu
+
+                if self._flops_per_sample_step is None:
+                    self._flops_per_sample_step = cruller_train_flops(
+                        self.vit_cfg, self.bart_cfg, 1, batch["text"].shape[1]
+                    )
+                util = mfu(self._flops_per_sample_step * rate, 1.0, device=self.device)
+                if util is not None:
+                    extra["mfu"] = round(util, 4)
+            self._time_last = now
+            self._samples_since_log = 0
+            self.monitor.log_step(
+                "train",
+                step_idx=self.step_idx,
+                step_end_idx=self.num_intervals * (self.num_steps_per_interval or 0),
+                interval=self.interval_idx,
+                loss=loss,
+                rate=rate,
+                lr=self.get_current_lr(),
+                metrics=extra or None,
+            )
+        return {"loss": metrics["loss"]}
+
+    # ------------------------------------------------------------------
+    def _log_train_reconstruction(self, batch: Dict[str, np.ndarray]):
+        """Train-time OCR reconstruction monitoring: greedy-decode a few
+        pages of the current batch, log CER/WER and one image/text sample.
+        A failure of the text metrics or of the logging is only warned about
+        (monitoring must never kill training); the decode itself runs the
+        model's kernels, whose errors propagate."""
+        from pixparse_tpu_torch.utils.ocr_eval import (
+            max_target_length,
+            ocr_metrics_from_text,
+            restore_ignored,
+        )
+
+        n = min(4, batch["image"].shape[0])  # small slice: monitoring only
+        images = batch["image"][:n]
+        text = restore_ignored(batch["text"][:n], self.tokenizer.pad_token_id)
+        max_len = max_target_length(text, self.tokenizer.pad_token_id, 256)
+        prompt = np.asarray(
+            self.tokenizer.encode(self.task_start_token, add_special_tokens=False), np.int64
+        )
+        prompt = np.tile(prompt[None, :], (n, 1))
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                enc = self.model.encode(torch.from_numpy(images).to(self.device))
+                result = generate(
+                    self.model, enc, torch.from_numpy(prompt).to(self.device),
+                    max_length=max(max_len, prompt.shape[1] + 2),
+                    eos_token_id=self.tokenizer.eos_token_id,
+                    pad_token_id=self.tokenizer.pad_token_id,
+                )
+        finally:
+            self.model.train()
+        tokens = result.tokens.cpu().numpy().tolist()
+        try:
+            preds = self.tokenizer.batch_decode(tokens)
+            refs = self.tokenizer.batch_decode(text.astype(np.int64).tolist())
+            metrics, recon = ocr_metrics_from_text(preds, refs)
+            if metrics:
+                eval_data = None
+                if recon:
+                    eval_data = {
+                        "original_text": recon["original_text"],
+                        "reconstructed_text": recon["reconstructed_text"],
+                        "image": images[0],
+                    }
+                self.monitor.log_step(
+                    "train", step_idx=self.step_idx, interval=self.interval_idx,
+                    phase_suffix="ocr_reconstruction", metrics=metrics, eval_data=eval_data,
+                )
+        except Exception as e:  # text metrics and logging only
+            _logger.warning("train-time OCR reconstruction failed: %s", e)
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The model weights under the reference ``.pt`` names."""
+        return cruller_state_dict(self.model)
+
+
+# ==========================================================================
+# eval
+# ==========================================================================
 
 class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
     task_start_token: str = ""

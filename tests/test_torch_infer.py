@@ -133,6 +133,35 @@ def test_bytelevel_tokenizer_matches_hf():
     assert tok.batch_decode(batch) == ref.batch_decode(batch, skip_special_tokens=False)
 
 
+def test_bytelevel_added_tokens_match_hf_and_reload(tmp_path):
+    """Plain added tokens (a vocabulary padded to a published height) take the
+    ids HF gives them, are split out whole by encode, survive
+    decode(skip_special_tokens=True), and come back from a saved directory
+    whose path is the tokenizer's name."""
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg, create_tokenizer
+
+    ref, tok = _tokenizer_pair()
+    fillers = [f"<filler_{i}>" for i in range(300)]
+    assert tok.add_tokens(fillers) == ref.add_tokens(fillers) == 300
+    assert tok.add_tokens(fillers[:5] + ["<sep/>"]) == 0
+    assert len(tok) == len(ref) == VOCAB + 300
+    tok.save_pretrained(str(tmp_path))
+    again = create_tokenizer(TokenizerCfg(name=str(tmp_path)))
+    assert len(again) == len(tok) and again.all_special_tokens == tok.all_special_tokens
+    rng = random.Random(1)
+    pieces = ["a", "<", "é", "<filler_1>", "<filler_12>", "<filler_299>", "<filler_", "<sep/>",
+              "<s_pretrain>", ">", "1"]
+    for _ in range(300):
+        text = "".join(rng.choice(pieces) for _ in range(rng.randint(0, 10)))
+        want = ref.encode(text, add_special_tokens=False)
+        assert tok.encode(text) == want and again.encode(text) == want
+        ids = [rng.randrange(VOCAB + 300) for _ in range(rng.randint(0, 16))]
+        for skip in (False, True):
+            want = ref.decode(ids, skip_special_tokens=skip)
+            assert tok.decode(ids, skip_special_tokens=skip) == want
+            assert again.decode(ids, skip_special_tokens=skip) == want
+
+
 @pytest.mark.parametrize("shape", [(64, 48), (101, 77), (40, 90)])
 def test_legacy_eval_transform_matches_jax(shape):
     rng = np.random.RandomState(sum(shape))

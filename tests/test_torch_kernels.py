@@ -23,8 +23,18 @@ from pixparse_tpu_torch.ops.decode_attention import (
 )
 from pixparse_tpu_torch.ops.flash_attention import (
     DEAD_LSE,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+)
+from pixparse_tpu_torch.ops.loss import (
+    fused_ce_bwd,
+    fused_ce_bwd_plain,
+    fused_ce_fwd,
+    fused_ce_fwd_plain,
+    fused_cross_entropy_from_hidden,
 )
 
 # bf16: inputs and outputs round to 8 mantissa bits, and the kernel sums in
@@ -46,6 +56,24 @@ def test_build_cache_key_follows_source_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._lib_path("flash_attention") != path
     assert set(_build.SIGNATURES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+def test_build_cache_key_follows_headers(monkeypatch, tmp_path):
+    """A library that includes a shared header is rebuilt when the header
+    changes: every csrc/*.cuh is part of each library's file name."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share at least one header"
+    before = {stem: _build._lib_path(stem).name for stem in _build.SIGNATURES}
+    with open(headers[0], "a") as fh:
+        fh.write("// edited\n")
+    after = {stem: _build._lib_path(stem).name for stem in _build.SIGNATURES}
+    assert all(before[stem] != after[stem] for stem in before)
 
 
 @pytest.mark.parametrize(
@@ -93,6 +121,20 @@ def test_flash_kernel_ragged_and_multi_tile(cuda_device, Lq, Lk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,causal", [
+    (1009, 1009, False), (1023, 1023, True), (1023, 1009, False),
+])
+def test_flash_kernel_train_step_lengths(cuda_device, Lq, Lk, causal):
+    """The three sites of a cruller_base train step: encoder, causal decoder
+    self-attention, decoder cross-attention; every tail is ragged."""
+    q, k, v, _ = _bwd_inputs(2, Lq, Lk, 12, 64, torch.bfloat16, cuda_device, Lq + Lk)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 8, 2, 48, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
@@ -136,3 +178,133 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
         decode_attention(q, k, k, mask, num_heads=2)
     with pytest.raises(ValueError, match="mask shape"):
         decode_attention(q, k, k, mask[:, :8], num_heads=3)
+
+
+def _bwd_inputs(B, Lq, Lk, H, D, dtype, device, seed, fused=True):
+    gen = torch.Generator().manual_seed(seed)
+    if fused and Lq == Lk:
+        q, k, v = torch.randn(B, Lq, 3, H, D, generator=gen).to(device, dtype).unbind(2)
+    else:
+        q = torch.randn(B, Lq, H, D, generator=gen).to(device, dtype)
+        k, v = torch.randn(B, Lk, 2, H, D, generator=gen).to(device, dtype).unbind(2)
+    do = torch.randn(B, Lq, H, D, generator=gen).to(device, dtype)
+    return q, k, v, do
+
+
+def _check_flash_bwd(q, k, v, do, causal, lens, tol):
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_lens=lens)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, do, lse, delta, causal=causal, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal, kv_lens=lens)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=lambda m: f"{name}: {m}")
+        # and head by head: the L2 error of every (token, head) row within
+        # tol of its norm, rows under 1% of the mean norm held to that floor
+        err = (a.float() - b.float()).norm(dim=-1)
+        norm = b.float().norm(dim=-1)
+        assert (err <= tol * norm.clamp_min(1e-2 * norm.mean())).all(), name
+    return got
+
+
+# bf16 gradients sum up to a thousand rounded products per element in another
+# order than the plain version; fp32 differs by summation order only
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, D, causal):
+    q, k, v, do = _bwd_inputs(3, 133, 133, 4, D, dtype, cuda_device, D)
+    lens = torch.tensor([133, 0, 70], dtype=torch.int32, device=cuda_device)
+    dq, dk, dv = _check_flash_bwd(q, k, v, do, causal, lens, BWD_TOL[dtype])
+    # the sample with no valid key: p = 0 everywhere, so all three vanish
+    assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
+    assert (dk[2, 70:] == 0).all() and (dv[2, 70:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,causal", [
+    (1023, 1023, True), (1023, 1009, False), (1009, 1009, False),
+    (100, 300, True), (300, 100, True), (2509, 2509, False), (1, 77, False),
+])
+def test_flash_bwd_kernel_ragged_and_multi_tile(cuda_device, Lq, Lk, causal):
+    q, k, v, do = _bwd_inputs(2, Lq, Lk, 2, 64, torch.bfloat16, cuda_device, Lq)
+    _check_flash_bwd(q, k, v, do, causal, None, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda_device):
+    """Gradients of the autograd Function (both kernels) against autograd
+    through the plain forward."""
+    q, k, v, do = _bwd_inputs(2, 200, 200, 4, 64, torch.float32, cuda_device, 7)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=True).backward(do)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_plain(*refs, causal=True)[0].backward(do)
+    for a, b in zip(leaves, refs):
+        torch.testing.assert_close(a.grad, b.grad, atol=2e-4, rtol=2e-4)
+
+
+def _ce_inputs(T, V, D, dtype, device, seed, ignore_every=5):
+    gen = torch.Generator().manual_seed(seed)
+    h = (torch.randn(T, D, generator=gen) * 0.5).to(device, dtype)
+    e = (torch.randn(V, D, generator=gen) * 0.2).to(device, dtype)
+    target = torch.randint(0, V, (T,), generator=gen)
+    if ignore_every:
+        target[::ignore_every] = -1
+    return h, e, target.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,D,dtype", [
+    (300, 1000, 64, torch.bfloat16), (77, 517, 64, torch.bfloat16),
+    (1000, 5001, 768, torch.bfloat16), (130, 333, 768, torch.bfloat16),
+    (50, 301, 64, torch.float32), (33, 200, 768, torch.float32),
+])
+def test_fused_ce_kernels_match_plain(cuda_device, T, V, D, dtype):
+    h, e, target = _ce_inputs(T, V, D, dtype, cuda_device, T)
+    before = fused_ce_fwd.launches, fused_ce_bwd.launches
+    lse, tgt = fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    lse_ref, tgt_ref = fused_ce_fwd_plain(h, e, target)
+    # fp32 accumulation in another order; tgt is one bf16-input dot product
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(tgt, tgt_ref, atol=1e-3, rtol=1e-4)
+    assert (tgt[target < 0] == 0).all()
+    coef = torch.where(target >= 0, 1.0 / T, 0.0).to(cuda_device)
+    dh, de = fused_ce_bwd(h, e, target, lse_ref, coef)
+    torch.cuda.synchronize()
+    assert (fused_ce_fwd.launches, fused_ce_bwd.launches) == (before[0] + 1, before[1] + 1)
+    dh_ref, de_ref = fused_ce_bwd_plain(h, e, target, lse_ref, coef)
+    # outputs round to the input dtype; g rounds to bf16 before both products
+    tol = dict(atol=2e-5, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-7, rtol=1e-4)
+    torch.testing.assert_close(dh.float(), dh_ref.float(), **tol)
+    torch.testing.assert_close(de.float(), de_ref.float(), **tol)
+    assert (dh[target < 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_all_ignored_on_card(cuda_device):
+    h, e, _ = _ce_inputs(64, 300, 64, torch.bfloat16, cuda_device, 3)
+    h.requires_grad_()
+    e.requires_grad_()
+    targets = torch.full((2, 32), -100, device=cuda_device)
+    loss, n = fused_cross_entropy_from_hidden(h.view(2, 32, 64), e, targets)
+    loss.backward()
+    assert float(loss) == 0.0 and int(n) == 0
+    assert (h.grad == 0).all() and (e.grad == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_rejects_what_it_does_not_take(cuda_device):
+    h, e, target = _ce_inputs(8, 16, 48, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="widths"):
+        fused_ce_fwd(h, e, target)
+    with pytest.raises(ValueError, match="one dtype"):
+        fused_ce_fwd(h.float(), e, target)

@@ -1,0 +1,107 @@
+"""The port's loss functions against the JAX package's on the same numpy
+inputs, fp32, on the CPU.
+
+The JAX fused CE runs its Pallas kernels in interpret mode, as
+``tests/test_fused_ce.py`` does; the port takes the plain versions of its
+CUDA kernels (CPU tensors). Tolerances: loss 1e-5, dh/dE atol 1e-5, the
+bounds ``tests/test_fused_ce.py`` holds the JAX kernels to (fp32 sums in
+another order). The CUDA kernels are held against the same plain versions on
+the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pixparse_tpu.ops import loss as jl
+from pixparse_tpu_torch.ops import loss as tl
+
+
+def _data(B, L, D, V, seed=0, ignore=True):
+    rng = np.random.RandomState(seed)
+    hidden = (rng.randn(B, L, D) * 0.5).astype(np.float32)
+    emb = (rng.randn(V, D) * 0.2).astype(np.float32)
+    tgt = rng.randint(0, V, (B, L)).astype(np.int64)
+    if ignore:
+        tgt[0, :5] = -100
+        tgt[-1, -3:] = -100
+    return hidden, emb, tgt
+
+
+def _jax_loss_and_grads(fn, hidden, emb, tgt):
+    f = lambda h, e: fn(h, e, jnp.asarray(tgt, jnp.int32))
+    (loss, n), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(hidden), jnp.asarray(emb)
+    )
+    return float(loss), int(n), [np.asarray(g) for g in grads]
+
+
+def _torch_loss_and_grads(fn, hidden, emb, tgt):
+    h = torch.from_numpy(hidden).requires_grad_()
+    e = torch.from_numpy(emb).requires_grad_()
+    loss, n = fn(h, e, torch.from_numpy(tgt))
+    loss.backward()
+    return float(loss.detach()), int(n), [h.grad.numpy(), e.grad.numpy()]
+
+
+def test_cross_entropy_loss_matches_jax():
+    hidden, emb, tgt = _data(4, 19, 16, 101)
+    logits = hidden @ emb.T
+    want, n_want = jl.cross_entropy_loss(jnp.asarray(logits), jnp.asarray(tgt, jnp.int32))
+    got, n_got = tl.cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(tgt))
+    assert abs(float(got) - float(want)) < 1e-5 and int(n_got) == int(n_want)
+
+
+# ragged V (not a multiple of any tile) and T; an aligned case
+@pytest.mark.parametrize("B,L,D,V", [(8, 37, 48, 307), (2, 128, 64, 512), (3, 5, 16, 33)])
+@pytest.mark.parametrize("impl", ["fused", "chunked", "dispatch"])
+def test_ce_from_hidden_matches_jax(impl, B, L, D, V):
+    hidden, emb, tgt = _data(B, L, D, V, seed=V)
+    jax_fn = {"fused": jl.fused_cross_entropy_from_hidden,
+              "chunked": jl.chunked_cross_entropy_from_hidden,
+              "dispatch": jl.cross_entropy_from_hidden}[impl]
+    torch_fn = {"fused": tl.fused_cross_entropy_from_hidden,
+                "chunked": tl.chunked_cross_entropy_from_hidden,
+                "dispatch": tl.cross_entropy_from_hidden}[impl]
+    want, n_want, g_want = _jax_loss_and_grads(jax_fn, hidden, emb, tgt)
+    got, n_got, g_got = _torch_loss_and_grads(torch_fn, hidden, emb, tgt)
+    assert abs(got - want) < 1e-5
+    assert n_got == n_want == int((tgt != -100).sum())
+    for name, a, b in zip(("dh", "dE"), g_got, g_want):
+        np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("fn", [tl.fused_cross_entropy_from_hidden,
+                                tl.chunked_cross_entropy_from_hidden])
+def test_all_ignored_batch_gives_zero_loss_and_zero_grads(fn):
+    hidden, emb, tgt = _data(2, 4, 16, 33, ignore=False)
+    tgt[:] = -100
+    loss, n, (dh, de) = _torch_loss_and_grads(fn, hidden, emb, tgt)
+    assert loss == 0.0 and n == 0
+    assert np.all(dh == 0) and np.all(de == 0)
+    want, n_want, _ = _jax_loss_and_grads(jl.fused_cross_entropy_from_hidden, hidden, emb, tgt)
+    assert want == 0.0 and n_want == 0
+
+
+def test_plain_versions_have_the_kernels_semantics():
+    """Ignored rows (target -1) match no column; the plain backward rounds g
+    to the hidden dtype before its two products."""
+    hidden, emb, tgt = _data(2, 9, 16, 41)
+    h = torch.from_numpy(hidden.reshape(-1, 16))
+    e = torch.from_numpy(emb)
+    t = torch.from_numpy(tgt.reshape(-1))
+    safe = torch.where(t == -100, -1, t)
+    lse, tgt_logit = tl.fused_ce_fwd_plain(h, e, safe)
+    assert torch.all(tgt_logit[safe < 0] == 0)
+    torch.testing.assert_close(lse, torch.logsumexp(h @ e.t(), -1))
+    before = tl.fused_ce_fwd.launches, tl.fused_ce_bwd.launches
+    assert all(torch.equal(a, b) for a, b in zip(tl.fused_ce_fwd(h, e, safe), (lse, tgt_logit)))
+    coef = torch.where(safe >= 0, 1.0 / 13, 0.0)
+    dh, de = tl.fused_ce_bwd(h, e, safe, lse, coef)
+    assert (tl.fused_ce_fwd.launches, tl.fused_ce_bwd.launches) == before  # kernels only
+    assert torch.all(dh[safe < 0] == 0)
+    dhb, deb = tl.fused_ce_bwd_plain(h.bfloat16(), e.bfloat16(), safe, lse, coef)
+    assert dhb.dtype == deb.dtype == torch.bfloat16
+    torch.testing.assert_close(dhb.float(), dh, atol=2e-3, rtol=5e-2)

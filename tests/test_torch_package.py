@@ -1,9 +1,12 @@
 """Package-level contracts of the PyTorch/CUDA port (``pixparse_tpu_torch``).
 
-- importing every module of the port loads no JAX, flax, optax, orbax or
-  ``pixparse_tpu``, and no PIL, transformers or tokenizers either (those
-  are imported inside the functions that need them);
-- no source file of the port, nor ``chip_smoke.py``, imports them;
+- importing every module of the port (the list below names them, so a module
+  that goes missing is noticed) loads no JAX, flax,
+  optax, orbax or ``pixparse_tpu``, and no PIL, transformers, tokenizers,
+  wandb or tensorboard either (those are imported inside the functions that
+  need them);
+- no source file of the port, nor ``chip_smoke.py``, imports the former
+  anywhere or the latter at module level;
 - entry points default to the CUDA device and raise without it;
 - the kernel wrappers route CPU tensors to their plain versions (the CUDA
   kernels themselves are held against those only on the card, by
@@ -22,17 +25,34 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pixparse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
-LAZY = ("PIL", "transformers", "tokenizers")
+LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard")
+MODULES = (
+    # serving
+    "app.infer", "data.transforms", "device", "framework.cli", "framework.config",
+    "framework.logger", "framework.random", "framework.task", "models.bart", "models.config",
+    "models.cruller", "models.interop", "models.vit", "ops._build", "ops.attention",
+    "ops.decode_attention", "ops.flash_attention", "ops.generation", "ops.layer_norm",
+    "task.common", "task.cruller_base", "task.task_cruller_eval_ocr", "task.task_factory",
+    "tokenizers.bytelevel", "tokenizers.config", "utils.name_utils",
+    # training
+    "app.train", "data.config", "data.loader", "data.preprocess", "data.wds",
+    "framework.checkpoint", "framework.monitor", "framework.optimization",
+    "framework.profiling", "framework.train", "framework.train_state", "ops.dense", "ops.loss",
+    "task.task_cruller_pretrain", "utils.metrics", "utils.ocr_eval", "utils.text_metrics",
+)
 
 
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pixparse_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'pixparse_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r})\n"
-        "print(bad)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pixparse_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"missing = sorted(set('pixparse_tpu_torch.' + m for m in {MODULES!r}) - set(names))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r}\n"
+        "             or m.startswith('torch.utils.tensorboard'))\n"
+        "print(missing + bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -63,12 +83,44 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert bad == []
 
 
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: everything outside a
+    function body."""
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                yield child.module
+            yield from visit(child)
+
+    yield from visit(ast.parse(path.read_text(), str(path)))
+
+
+def test_optional_packages_are_imported_only_inside_functions():
+    """PIL, transformers, tokenizers, wandb and tensorboard: a module of the
+    port may use them, but only inside the function that needs them."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [
+        (str(f.relative_to(ROOT)), name)
+        for f in files
+        for name in _module_level_imports(f)
+        if name.split(".")[0] in LAZY or name.startswith("torch.utils.tensorboard")
+    ]
+    assert bad == []
+    # and they are used somewhere, inside functions: the check above is not vacuous
+    used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
+    assert {"PIL", "wandb"} <= used
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     from pixparse_tpu_torch.device import DeviceEnv
-    from pixparse_tpu_torch.framework.config import TaskEvalCfg
+    from pixparse_tpu_torch.framework.config import TaskEvalCfg, TaskTrainCfg
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert TaskEvalCfg().device == "cuda"
+    assert TaskEvalCfg().device == "cuda" and TaskTrainCfg().device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceEnv.initialize()
     assert DeviceEnv.initialize("cpu").device == torch.device("cpu")
@@ -93,6 +145,24 @@ def test_kernel_wrappers_route_cpu_tensors_to_plain():
     )
     # the counters count kernel launches only
     assert (flash_attention_fwd.launches, decode_attention.launches) == (n_flash, n_dec)
+
+
+def test_training_wrappers_route_cpu_tensors_to_plain_through_autograd():
+    from pixparse_tpu_torch.ops import flash_attention as fa
+    from pixparse_tpu_torch.ops import loss
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 10, 2, 32, generator=gen).requires_grad_() for _ in range(3))
+    h = torch.randn(2, 6, 16, generator=gen).requires_grad_()
+    e = torch.randn(40, 16, generator=gen).requires_grad_()
+    t = torch.randint(0, 40, (2, 6), generator=gen)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, loss.fused_ce_fwd,
+                loss.fused_ce_bwd)
+    before = [c.launches for c in counters]
+    fa.flash_attention(q, k, v, causal=True).sum().backward()
+    loss.cross_entropy_from_hidden(h, e, t)[0].backward()
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v, h, e))
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("alone", [False, True])
