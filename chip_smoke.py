@@ -16,6 +16,13 @@ stderr):
    of 25 launches, L2 flushed before each) beside its plain version, one
    ``torch.nn.functional.scaled_dot_product_attention`` call on the same
    inputs (a yardstick only; the port never calls it) and its bound.
+   Window attention is held at donut_base's four stage shapes at B=8
+   (2560x1920), with and without the shift mask, plus windows 7 and 4 and
+   an fp32 case (its yardstick: SDPA with ``attn_mask = bias + mask``); the
+   int8 decode kernel at the cruller_base and donut_base cross caches and a
+   ragged cache with a dead row (its yardsticks: SDPA and the bf16 decode
+   kernel on the dequantized caches; the kernel's integer sums are exact, so
+   it is held to its plain version within 1e-2/1e-2 in bf16).
    Tolerance, on every element, ``|kernel - plain| <= atol + rtol*|plain|``:
    1e-2/1e-2 in bf16 (outputs round to 8 mantissa bits and the kernels sum
    in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4. The flash forward
@@ -46,7 +53,25 @@ stderr):
    byte-level tokenizer, bf16, on 16 pages already at 576x448. This is the
    serving main-path run: every kernel counter is zeroed just before it and
    read just after, and each serving kernel must have launched.
-5. ``train_model``: the port's ``Cruller`` at cruller_base width and depth
+5. ``serve_donut``: the port's ``Cruller`` at donut_base as registered
+   (Swin-B window 10 on 2560x1920 RGB = 4800 encoder tokens, the 4-layer
+   pre-LN mBART decoder, d 1024, vocab 57525), bf16, seeded random weights,
+   B=8, 64 new tokens with EOS off; asserts 20 window-attention launches per
+   encode and 8 decode-attention launches per step, the window-kernel
+   encoder against the plain-window encoder at B=1 within 5e-2/5e-2, and
+   cached decode logits against a parallel pass.
+6. ``eval_task``: the eval main path, ``framework.eval.evaluate`` over the
+   registered ``cruller_eval_ocr`` with an in-memory loader of seeded
+   collated batches (no PIL on the card machine): once at donut_base (bf16)
+   and once at cruller_base in the int8 decode mode (``kv_cache_dtype`` and
+   ``lm_head_dtype`` int8). The tokenizer is the byte-level one padded with
+   filler tokens to the published vocabulary (57525, 50265) and saved to a
+   directory; all rows of the random tied table but the byte tokens' are
+   zeroed so greedy decoding reads out bytes and CER/WER exist. Counters are zeroed before
+   and read after each run; each run's kernels must have launched; CER/WER
+   must be finite. The int8-vs-bf16 greedy-token agreement on one batch is
+   recorded, not gated (random weights make argmax near-ties common).
+7. ``train_model``: the port's ``Cruller`` at cruller_base width and depth
    (vocab 50265, fp32 master weights, bf16 forward, decoder dropout 0.1,
    AdamW) takes train steps of ``make_train_step`` on one fixed seeded batch
    of 16: the loss must be finite and fall; each step must launch 20 flash
@@ -57,7 +82,7 @@ stderr):
    and dropout masks: loss within 2e-2 relative, gradient norm within 5e-2
    (a bf16 forward and backward through 16 layers, the two paths rounding at
    different places).
-6. ``train_task``: the training entry points, ``TaskFactory`` ->
+8. ``train_task``: the training entry points, ``TaskFactory`` ->
    ``TaskCrullerPretrain`` on the card -> ``train_setup`` ->
    ``train_one_interval`` over an in-memory loader of seeded collated batches
    (the card machine has no PIL, so no tar of PNGs), at cruller_base with the
@@ -87,11 +112,14 @@ import sys
 import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
-PHASES = ("device", "kernels", "serve_model", "serve_task", "train_model", "train_task")
+PHASES = ("device", "kernels", "serve_model", "serve_task", "serve_donut", "eval_task",
+          "train_model", "train_task")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
 BART_VOCAB = 50265  # cruller_base's published vocabulary (facebook/bart-base)
+DONUT_NEW_TOKENS = 64  # serve_donut: fixed decode budget (EOS disabled)
+BYTE_IDS = (4, 260)  # the byte-level tokenizer's 256 byte tokens
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -221,6 +249,38 @@ def decode_cases(torch):
         ("self_ragged_with_dead_row", 16, 1024, None, 12, 64, bf),
         ("test_width_d32", 3, 256, None, 2, 32, bf),
         ("fp32_b4_lk333", 4, 384, 333, 12, 64, f32),
+        ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
+    ]
+
+
+def window_cases(torch):
+    """donut_base's four stages at B=8, 2560x1920 (window 10, maps 640x480
+    down to 80x60), shifted (masked) and not; windows 7 and 4; fp32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, images, map (h, w), window, C, H, shifted, dtype
+    cases = []
+    for stage, (C, H) in enumerate(((128, 4), (256, 8), (512, 16), (1024, 32))):
+        hw = (640 >> stage, 480 >> stage)
+        for shifted in (True, False):
+            tag = "shifted" if shifted else "unshifted"
+            cases.append((f"stage{stage}_b8_n100_c{C}_h{H}_{tag}", 8, hw, 10, C, H, shifted, bf))
+    cases += [
+        ("window7_b8_n49_c128_h4_shifted", 8, (56, 56), 7, 128, 4, True, bf),
+        ("window4_b8_n16_c32_h2_shifted", 8, (16, 16), 4, 32, 2, True, bf),
+        ("fp32_b2_n100_c256_h8_shifted", 2, (80, 60), 10, 256, 8, True, f32),
+    ]
+    return cases
+
+
+def q8_cases(torch):
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, B, Lk (cache length), n_valid (None = ragged mask with a dead row), H, D, dtype
+    return [
+        ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64, bf),
+        ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
+        ("ragged_with_dead_row_b16_lk1024", 16, 1024, None, 12, 64, bf),
+        ("test_width_d32_b3_lk256", 3, 256, None, 2, 32, bf),
+        ("fp32_b4_lk384_valid333", 4, 384, 333, 12, 64, f32),
     ]
 
 
@@ -395,16 +455,114 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     return fwd, bwd
 
 
+def check_window(torch, F, wa, timer, peaks, gen, case):
+    from pixparse_tpu_torch.models.swin import _shift_attn_mask
+
+    name, n_img, (mh, mw), window, C, H, shifted, dt = case
+    peak_bf16, peak_f32, bw = peaks
+    N = window * window
+    nW = (mh // window) * (mw // window)
+    nB = n_img * nW
+    # q/k/v as column slices of one fused projection, as the Swin block reads them
+    qkv = torch.randn(nB, N, 3 * C, device="cuda", generator=gen).to(dt)
+    q, k, v = qkv.split(C, dim=-1)
+    bias = torch.randn(H, N, N, device="cuda", generator=gen) * 0.5
+    mask = None
+    if shifted:
+        mask = torch.from_numpy(_shift_attn_mask(mh, mw, window, window // 2)).cuda()
+    o = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    o_ref = wa.window_attention_plain(q, k, v, bias, mask)
+    atol, rtol = TOL[str(dt).split(".")[-1]]
+    err, ok = close(o, o_ref, atol, rtol)
+    rec = dict(case=name, shape=[nB, N, C, H], mask_period=nW if shifted else None,
+               dtype=str(dt), max_abs_err=err, tol=[atol, rtol], ok=ok)
+    del o, o_ref
+    elt = q.element_size()
+    flops = 4.0 * nB * N * N * C  # q k^T and p v
+    nbytes = 4 * elt * nB * N * C + 4 * H * N * N + (4 * nW * N * N if shifted else 0)
+    t_ops = flops / (peak_bf16 if dt == torch.bfloat16 else peak_f32)
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(lambda: wa.window_attention(q, k, v, bias, mask))
+    rec["plain_ms"] = timer.median_ms(
+        lambda: wa.window_attention_plain(q, k, v, bias, mask), n=5, warmup=1)
+    # yardstick: SDPA with attn_mask = bias + mask, materialised per window
+    split = lambda t: t.reshape(nB, N, H, C // H).transpose(1, 2)
+    am = bias[None]
+    if shifted:
+        am = (am + mask.repeat(n_img, 1, 1)[:, None])
+    am = am.to(dt)
+    rec["library_ms"] = timer.median_ms(
+        lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=am))
+    del qkv, q, k, v, am
+    return rec
+
+
+def check_q8(torch, F, da, timer, peaks, gen, case):
+    name, B, Lk, n_valid, H, D, dt = case
+    peak_bf16, peak_f32, bw = peaks
+    HD = H * D
+    q = torch.randn(B, 1, HD, generator=gen).to("cuda", dt)
+    if n_valid is None:
+        mask = ragged_mask(torch, B, Lk, gen)
+    else:
+        mask = (torch.arange(Lk) < n_valid)[None].expand(B, Lk).contiguous()
+    caches = []
+    for _ in range(2):
+        # keys past the encoder length are zero, as prefill pads the cache
+        x = torch.randn(B, Lk, HD, generator=gen).to("cuda", torch.bfloat16)
+        if n_valid is not None:
+            x[:, n_valid:] = 0
+        caches.append(da.quantize_kv_rows(x, H))
+    (k_i8, ks), (v_i8, vs) = caches
+    mask = mask.cuda()
+    args = (q, k_i8, v_i8, ks, vs, mask)
+    o = da.decode_attention_q8(*args, num_heads=H)
+    torch.cuda.synchronize()
+    o_ref = da.decode_attention_q8_plain(*args, num_heads=H)
+    err, ok = close(o, o_ref, 1e-2, 1e-2)
+    dead = ~mask.any(dim=1)
+    if bool(dead.any()):
+        ok = ok and bool((o[dead] == 0).all())
+    nvk = int(mask.sum())
+    rec = dict(case=name, shape=[B, Lk, H, D], dtype=str(dt), max_abs_err=err,
+               tol=[1e-2, 1e-2], ok=ok, valid_keys=nvk)
+    elt = q.element_size()
+    # int8 K and V rows and their two fp32 scales per valid key, q, o, mask
+    nbytes = 2 * nvk * HD + 8 * nvk * H + 2 * elt * B * HD + B * Lk
+    t_ops = 4.0 * D * H * nvk / (2 * peak_bf16)  # the int8 tensor rate is twice bf16's
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(lambda: da.decode_attention_q8(*args, num_heads=H))
+    rec["plain_ms"] = timer.median_ms(lambda: da.decode_attention_q8_plain(*args, num_heads=H))
+    # yardsticks on the dequantized caches: SDPA and the bf16 decode kernel
+    deq = [(c.float().view(B, Lk, H, D) * sc.transpose(1, 2)[..., None]).to(dt)
+           for c, sc in ((k_i8, ks), (v_i8, vs))]
+    qt = q.view(B, 1, H, D).transpose(1, 2)
+    kt, vt = (t.transpose(1, 2) for t in deq)
+    am = mask[:, None, None, :]
+    rec["library_ms"] = timer.median_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am))
+    kf, vf = (t.reshape(B, Lk, HD) for t in deq)
+    rec["bf16_kernel_ms"] = timer.median_ms(lambda: da.decode_attention(q, kf, vf, mask, num_heads=H))
+    return rec
+
+
 def phase_kernels(torch, F, card_name, timer):
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import decode_attention as da
     from pixparse_tpu_torch.ops import loss
+    from pixparse_tpu_torch.ops import window_attention as wa
 
     peaks = peaks_for(card_name)
     peak_bf16, peak_f32, bw = peaks
     gen = torch.Generator().manual_seed(0)
     results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
-               "fused_ce_fwd": [], "fused_ce_bwd": []}
+               "fused_ce_fwd": [], "fused_ce_bwd": [], "window_attention": [],
+               "decode_attention_q8": []}
     failed = []
 
     for name, B, Lq, Lk, H, D, dt, causal, lens in flash_cases(torch):
@@ -515,6 +673,20 @@ def phase_kernels(torch, F, card_name, timer):
             if not rec["ok"]:
                 failed.append(f"{kname}/{case[0]}")
         torch.cuda.empty_cache()
+    cuda_gen = torch.Generator(device="cuda").manual_seed(0)
+    for case in window_cases(torch):
+        rec = check_window(torch, F, wa, timer, peaks, cuda_gen, case)
+        results["window_attention"].append(rec)
+        note({"kernel": "window_attention", **rec})
+        if not rec["ok"]:
+            failed.append(f"window_attention/{case[0]}")
+        torch.cuda.empty_cache()
+    for case in q8_cases(torch):
+        rec = check_q8(torch, F, da, timer, peaks, gen, case)
+        results["decode_attention_q8"].append(rec)
+        note({"kernel": "decode_attention_q8", **rec})
+        if not rec["ok"]:
+            failed.append(f"decode_attention_q8/{case[0]}")
     emit({"phase": "kernels", "cases": results})
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
@@ -537,20 +709,31 @@ KERNELS = [
      "pixparse_tpu/ops/loss.py:141 (_ce_fwd_kernel)", "train_t16368_v50265_d768"),
     ("fused_ce_bwd", "cuda", "pixparse_tpu_torch/csrc/fused_ce.cu",
      "pixparse_tpu/ops/loss.py:238 (_ce_bwd_kernel)", "train_t16368_v50265_d768"),
+    ("window_attention", "cuda", "pixparse_tpu_torch/csrc/window_attention.cu",
+     "pixparse_tpu/ops/window_attention.py:95 (_fwd_kernel)", "stage0_b8_n100_c128_h4_shifted"),
+    ("decode_attention_q8", "cuda", "pixparse_tpu_torch/csrc/decode_attention_q8.cu",
+     "pixparse_tpu/ops/decode_attention.py:140 (_decode_attn_q8_kernel)",
+     "cross_b16_lk1024_valid1009"),
 ]
 # the kernels each main path must launch
 SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
+EVAL_KERNELS = {  # eval_task's two runs
+    "donut_base": ("window_attention", "decode_attention"),
+    "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
+}
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 
 
 def counters():
-    from pixparse_tpu_torch.ops.decode_attention import decode_attention
+    from pixparse_tpu_torch.ops.decode_attention import decode_attention, decode_attention_q8
     from pixparse_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
+    from pixparse_tpu_torch.ops.window_attention import window_attention
 
     return {"flash_attention_fwd": flash_attention_fwd, "decode_attention": decode_attention,
             "flash_attention_bwd": flash_attention_bwd, "fused_ce_fwd": fused_ce_fwd,
-            "fused_ce_bwd": fused_ce_bwd}
+            "fused_ce_bwd": fused_ce_bwd, "window_attention": window_attention,
+            "decode_attention_q8": decode_attention_q8}
 
 
 def reset_counts():
@@ -749,6 +932,205 @@ def phase_serve_task(torch, new_tokens=TASK_NEW_TOKENS, B=16, model_name="crulle
     return launches
 
 
+def phase_serve_donut(torch, new_tokens=DONUT_NEW_TOKENS, B=8, model_name="donut_base",
+                      device="cuda", profile=False):
+    from pixparse_tpu_torch.models.config import get_model_config
+    from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
+    from pixparse_tpu_torch.ops.generation import generate
+
+    enc_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name))
+    gen = torch.Generator().manual_seed(0)
+    model = Cruller(enc_cfg, bart_cfg, attn_impl="flash").init_weights(gen)
+    model = model.to(device, torch.bfloat16).eval()
+    images = synthetic_pages(torch, B, *enc_cfg.img_size, gen)
+    images = images.expand(-1, -1, -1, enc_cfg.in_chans).contiguous().to(device)
+    on_card = torch.cuda.is_available()
+
+    with torch.inference_mode():
+        enc = model.encode(images)  # warm-up (shift masks, cuBLAS handles)
+        sync(torch)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = model.encode(images)
+        sync(torch)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = read_counts()
+        enc1 = model.encode(images[:1])
+        model.attn_impl = "xla"
+        enc1_plain = model.encode(images[:1])
+        model.attn_impl = "flash"
+        enc_err, _ = close(enc1, enc1_plain, 5e-2, 5e-2)
+        enc_ref_max = float(enc1_plain.float().abs().max())
+        _, enc_row_err, enc_ok = rows_close(enc1[0], enc1_plain[0], 5e-2)
+        del enc1, enc1_plain
+
+        prompt = torch.zeros(B, 1, dtype=torch.long, device=device)  # <s>
+        kwargs = dict(max_length=1 + new_tokens, eos_token_id=-1, pad_token_id=1)
+        generate(model, enc, prompt, **dict(kwargs, max_length=9))  # warm-up
+        sync(torch)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = generate(model, enc, prompt, **kwargs)
+        sync(torch)
+        gen_s = time.perf_counter() - t0
+        dec_launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+        dec_err, dec_ok = cached_vs_parallel(torch, model, enc, res.tokens[:, :16])
+        if profile:
+            prof = {
+                "encode": device_profile(
+                    torch, lambda: model.encode(images), "donut_encode", encode_ms),
+                "generate": device_profile(
+                    torch, lambda: generate(model, enc, prompt, **kwargs), "donut_generate",
+                    gen_s * 1e3),
+            }
+    steps = res.steps
+    rec = {
+        "phase": "serve_donut", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "image_size": list(enc_cfg.img_size), "vocab": bart_cfg.vocab_size,
+        "encoder_tokens": enc_cfg.num_tokens, "new_tokens": new_tokens, "decode_steps": steps,
+        "encode_launches": enc_launches, "generate_launches": dec_launches,
+        "encode_kernel_vs_plain_b1_max_abs_err": enc_err, "encode_ref_abs_max": enc_ref_max,
+        "encode_kernel_vs_plain_b1_worst_token_rel_err": enc_row_err,
+        "encode_tol": ["token L2", 5e-2],
+        "decode_cached_vs_parallel_max_abs_err": dec_err, "decode_tol": [5e-2, 5e-2],
+        "encode_ms": encode_ms, "generate_ms": gen_s * 1e3,
+        "decode_ms_per_step": gen_s * 1e3 / max(steps, 1),
+        "pages_per_s": B / (encode_ms / 1e3 + gen_s), "tokens_per_s": B * new_tokens / gen_s,
+        "peak_memory_gib": peak_gb, "tokens_shape": list(res.tokens.shape),
+    }
+    if profile:
+        rec["profile"] = prof
+    emit(rec)
+    problems = []
+    if enc_launches["window_attention"] != enc_cfg.depth or enc_launches["flash_attention_fwd"]:
+        problems.append(f"encode launched {enc_launches}, want {enc_cfg.depth} window attention")
+    want = 2 * bart_cfg.decoder_layers * steps
+    if dec_launches["decode_attention"] != want or steps != new_tokens - 1:
+        problems.append(f"generate ran {dec_launches['decode_attention']} decode launches over {steps} steps, want {want}")
+    if dec_launches["window_attention"] or dec_launches["decode_attention_q8"]:
+        problems.append(f"generate launched {dec_launches}")
+    if not enc_ok:
+        problems.append(f"window-kernel encoder differs from the plain encoder by {enc_err}")
+    if not dec_ok:
+        problems.append(f"cached decode logits differ from the parallel pass by {dec_err}")
+    if tuple(res.tokens.shape) != (B, 1 + new_tokens) or not bool((res.lengths == 1 + new_tokens).all()):
+        problems.append(f"tokens {tuple(res.tokens.shape)} lengths {res.lengths.tolist()}")
+    if problems:
+        raise SystemExit("serve_donut failed: " + "; ".join(problems))
+    return rec
+
+
+def saved_tokenizer(path, vocab):
+    """The byte-level tokenizer, the OCR tasks' special tokens (those the
+    pretrain phase adds) at the ids their replay gives them, then filler
+    tokens up to ``vocab`` entries, saved to ``path`` (the task's tokenizer
+    name)."""
+    from pixparse_tpu_torch.task.common import SPECIAL_TOKENS_FROM_PRETRAIN, add_special_tokens
+    from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer
+
+    tokenizer = ByteLevelTokenizer()
+    add_special_tokens(tokenizer, SPECIAL_TOKENS_FROM_PRETRAIN)
+    tokenizer.add_tokens([f"<filler_{i}>" for i in range(vocab - len(tokenizer))])
+    tokenizer.save_pretrained(path)
+    return path
+
+
+def eval_task_setup(torch, model_name, mode, tok_dir, device):
+    """The registered ``cruller_eval_ocr`` task on ``device`` in bf16, set
+    up, with every row of its tied table but the byte tokens' zeroed: with
+    random weights the prompt token's own row would win every greedy step,
+    and the fillers and tags clean to empty text, leaving no CER/WER."""
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCRCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    cfg = TaskCrullerEvalOCRCfg(
+        model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+        device=device, kv_cache_dtype=mode, lm_head_dtype=mode,
+    )
+    task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, DeviceEnv.initialize(device))
+    task.setup()
+    with torch.no_grad():
+        table = task.model.tied_embedding
+        table[:BYTE_IDS[0]] = 0
+        table[BYTE_IDS[1]:] = 0
+    return task
+
+
+def phase_eval_task(torch, runs=None, device="cuda"):
+    """``runs``: (tag, model name, decode mode, vocabulary, batch, batches,
+    reference length) for each eval run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pixparse_tpu_torch.framework.eval import evaluate
+
+    runs = runs or (
+        ("donut_base", "donut_base", "bf16", 57525, 8, 2, 48),
+        ("cruller_base_int8", "cruller_base", "int8", BART_VOCAB, 16, 2, 48),
+    )
+    rec = {"phase": "eval_task", "task": "cruller_eval_ocr", "dtype": "bfloat16", "runs": {}}
+    path_launches = {}
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_task_")
+    try:
+        for tag, model_name, mode, vocab, B, n_batches, length in runs:
+            tok_dir = saved_tokenizer(os.path.join(tmp, f"tok{vocab}"), vocab)
+            task = eval_task_setup(torch, model_name, mode, tok_dir, device)
+            if task.vocab_size != vocab:
+                raise SystemExit(f"eval_task: {tag} has vocab {task.vocab_size}, want {vocab}")
+            enc_cfg = task.vit_cfg
+            # reference texts of byte tokens
+            batches = lambda n, B, seed: SeededLoader(
+                torch, n, B, enc_cfg.img_size, length, seed, enc_cfg.in_chans, BYTE_IDS[1])
+            loader = batches(n_batches, B, vocab)
+            evaluate(task, {"eval": batches(1, 2, 1)})  # warm-up
+            sync(torch)
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = evaluate(task, {"eval": loader, "train": loader})
+            sync(torch)
+            dt = time.perf_counter() - t0
+            launches = read_counts()
+            path_launches[f"eval_task_{tag}"] = launches
+            run = {"model_name": model_name, "decode_mode": mode, "vocab": vocab, "batch": B,
+                   "batches": n_batches, "seconds": dt, "pages_per_s": B * n_batches / dt,
+                   "metrics": metrics, "launches": launches}
+            if mode == "int8":
+                # int8 vs bf16 greedy tokens on one batch, the same weights
+                image, text, _ = loader.batches[0]
+                prompt = task.prompt_ids(task.task_start_token, B)
+                ids_i8 = task.generate_ids(image, prompt, max_length=64)
+                del task
+                task = eval_task_setup(torch, model_name, "bf16", tok_dir, device)
+                ids_bf = task.generate_ids(image, prompt, max_length=64)
+                run["int8_vs_bf16_token_agreement"] = float(
+                    np.mean(ids_i8[:, 1:] == ids_bf[:, 1:]))
+            rec["runs"][tag] = run
+            avg = metrics.get("eval", {}).get("average", {})
+            if set(metrics) != {"eval"} or not all(
+                    k in avg and np.isfinite(avg[k]) for k in ("cer", "wer")):
+                problems.append(f"{tag}: CER/WER missing or not finite: {metrics}")
+            missing = [k for k in EVAL_KERNELS[tag] if launches[k] <= 0]
+            if missing:
+                problems.append(f"{tag}: main path never launched {missing}")
+            del task
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(rec)
+    if problems:
+        raise SystemExit("eval_task failed: " + "; ".join(problems))
+    return path_launches
+
+
 # --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
@@ -876,8 +1258,8 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
     emit(rec)
     problems = []
     layers = vit_cfg.depth + 2 * bart_cfg.decoder_layers
-    want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers, "fused_ce_fwd": 1,
-            "fused_ce_bwd": 1, "decode_attention": 0}
+    want = dict({k: 0 for k in counters()}, flash_attention_fwd=layers,
+                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1)
     for i, got in enumerate(per_step):
         if got != want:
             problems.append(f"step {i} launched {got}, want {want}")
@@ -901,15 +1283,17 @@ class SeededLoader:
     """In-memory stand-in for the webdataset loader bundle: ``num_batches``
     collated batches ``(image, text, target)`` made from a seed, the same
     ones every interval (``loader`` / ``num_batches`` / ``set_interval`` is
-    the surface the interval loop and the task use)."""
+    the surface the interval loop, ``evaluate`` and the tasks use). Token
+    ids are drawn below ``vocab``."""
 
-    def __init__(self, torch, num_batches, B, img_size, length, seed):
+    def __init__(self, torch, num_batches, B, img_size, length, seed, in_chans=1,
+                 vocab=BART_VOCAB):
         gen = torch.Generator().manual_seed(seed)
         self.batches = []
         for _ in range(num_batches):
-            image = synthetic_pages(torch, B, *img_size, gen).numpy()
-            text, target = synthetic_tokens(torch, B, length, BART_VOCAB, gen)
-            self.batches.append((image, text.numpy(), target.numpy()))
+            image = synthetic_pages(torch, B, *img_size, gen).expand(-1, -1, -1, in_chans)
+            text, target = synthetic_tokens(torch, B, length, vocab, gen)
+            self.batches.append((image.contiguous().numpy(), text.numpy(), target.numpy()))
         self.num_batches = num_batches
         self.num_samples = num_batches * B
         self.loader = self
@@ -930,13 +1314,12 @@ def phase_train_task(torch, model_name="cruller_base", device="cuda"):
     from pixparse_tpu_torch.framework.checkpoint import restore_train_state, save_checkpoint
     from pixparse_tpu_torch.framework.config import OptimizationCfg
     from pixparse_tpu_torch.framework.train import train_one_interval
-    from pixparse_tpu_torch.task.common import add_special_tokens
     from pixparse_tpu_torch.task.task_cruller_pretrain import (
         TaskCrullerPretrain,
         TaskCrullerPretrainCfg,
     )
     from pixparse_tpu_torch.task.task_factory import TaskFactory
-    from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
 
     env = DeviceEnv.initialize(device)
     runs = {}
@@ -945,13 +1328,8 @@ def phase_train_task(torch, model_name="cruller_base", device="cuda"):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_task_")
     try:
         # a tokenizer of bart-base's height (the tied table's height is what
-        # the fused-CE kernels stream): the byte alphabet, the pretrain task's
-        # special tokens at the ids its replay gives them, then filler tokens
-        tokenizer = ByteLevelTokenizer()
-        add_special_tokens(tokenizer, TaskCrullerPretrain.base_special_tokens)
-        tokenizer.add_tokens([f"<filler_{i}>" for i in range(BART_VOCAB - len(tokenizer))])
-        tok_dir = os.path.join(tmp, "tokenizer")
-        tokenizer.save_pretrained(tok_dir)
+        # the fused-CE kernels stream)
+        tok_dir = saved_tokenizer(os.path.join(tmp, "tokenizer"), BART_VOCAB)
         for accum, B, n_batches in ((1, 16, 3), (2, 8, 4)):
             cfg = TaskCrullerPretrainCfg(
                 model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir),
@@ -1035,8 +1413,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="serve_model, train_model: also trace encode, generate and one train "
-                         "step with torch.profiler (device time by kernel, device idle share)")
+                    help="serve_model, serve_donut, train_model: also trace encode, generate and "
+                         "one train step with torch.profiler (device time by kernel, device "
+                         "idle share)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1081,6 +1460,10 @@ def main(argv=None) -> int:
     path_launches = {}
     if "serve_task" in phases:
         path_launches["serve_task"] = phase_serve_task(torch)
+    if "serve_donut" in phases:
+        phase_serve_donut(torch, profile=args.profile)
+    if "eval_task" in phases:
+        path_launches.update(phase_eval_task(torch))
     if "train_model" in phases:
         phase_train_model(torch, profile=args.profile)
     if "train_task" in phases:

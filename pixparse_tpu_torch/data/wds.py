@@ -201,9 +201,22 @@ def iter_tar_samples(url: str) -> Iterator[Dict[str, Any]]:
 DEFAULT_IMAGE_KEY = "pdf;tif;tiff;png;jpg;jpeg"
 
 
-def decode_image_bytes(data: bytes, ext: str, image_fmt: str = "L", page_index: int = 0):
-    """Bytes -> PIL image in ``image_fmt``. Multi-page TIFF seeks
-    ``page_index``; PDF rendering needs pypdfium2."""
+def _jpeg_scale(full_h: int, full_w: int, target_h: int, target_w: int) -> int:
+    """Largest JPEG DCT scale denominator in {1, 2, 4, 8} keeping the
+    decoded image at least the target size."""
+    for d in (8, 4, 2):
+        if full_h // d >= target_h and full_w // d >= target_w:
+            return d
+    return 1
+
+
+def decode_image_bytes(
+    data: bytes, ext: str, image_fmt: str = "L", page_index: int = 0, target_size=None
+):
+    """Bytes -> PIL image in ``image_fmt``. With ``target_size`` (h, w) a
+    JPEG decodes DCT-scaled (1/2..1/8, never below the target; PIL's
+    ``draft``). Multi-page TIFF seeks ``page_index``; PDF rendering needs
+    pypdfium2."""
     from PIL import Image
 
     if ext == "pdf":
@@ -219,6 +232,11 @@ def decode_image_bytes(data: bytes, ext: str, image_fmt: str = "L", page_index: 
         pil = page.render(scale=2.0).to_pil()
         return pil.convert(image_fmt)
     img = Image.open(io.BytesIO(data))
+    if target_size is not None and img.format == "JPEG":
+        w, h = img.size
+        d = _jpeg_scale(h, w, *target_size)
+        if d > 1:
+            img.draft(image_fmt, (w // d, h // d))
     n_frames = getattr(img, "n_frames", 1)
     if n_frames > 1:
         img.seek(min(page_index, n_frames - 1))
@@ -238,6 +256,7 @@ def create_doc_anno_pipe(
     The annotation is preprocessed first so its sampled page index selects the
     image page (multi-page formats)."""
     image_exts = [e.strip() for e in image_key.split(";") if e.strip()]
+    target_size = _decode_target_size(image_preprocess)
 
     def decode(sample: Dict[str, Any]):
         ext = next((e for e in image_exts if e in sample), None)
@@ -251,7 +270,9 @@ def create_doc_anno_pipe(
                 page_index = int(info["page_indices"][0])
             else:
                 token_dict, page_index = out, 0
-            img = decode_image_bytes(sample[ext], ext, image_fmt, page_index)
+            img = decode_image_bytes(
+                sample[ext], ext, image_fmt, page_index, target_size=target_size
+            )
             image = image_preprocess(img)
             if isinstance(image, dict):  # variable-resolution patch dicts
                 image = {k: np.asarray(v) for k, v in image.items()}
@@ -267,6 +288,26 @@ def create_doc_anno_pipe(
             return None
 
     return decode
+
+
+def create_image_text_pipe(
+    image_preprocess: Callable,
+    anno_preprocess: Callable,
+    image_key: str = DEFAULT_IMAGE_KEY,
+    image_fmt: str = "L",
+):
+    """Eval decoder (what ``app.eval`` reads with): the train pipe's
+    ``(image, text, target)`` tuples; the eval task's annotation
+    preprocessing decides what ``text`` holds."""
+    return create_doc_anno_pipe(
+        image_preprocess, anno_preprocess, image_key=image_key, image_fmt=image_fmt
+    )
+
+
+def _decode_target_size(image_preprocess):
+    """Decode-time DCT-scale target: the transform's canvas size."""
+    size = getattr(image_preprocess, "image_size", None)
+    return tuple(size) if size else None
 
 
 def default_collate(samples: List):

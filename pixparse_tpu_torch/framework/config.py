@@ -58,5 +58,7 @@ class TaskEvalCfg:
     # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
     # 'cuda' raises instead of falling back to the CPU
     device: str = "cuda"
-    kv_cache_dtype: str = "bf16"  # 'int8' is not ported yet (raises)
-    lm_head_dtype: str = "bf16"  # 'int8' is not ported yet (raises)
+    # 'int8': quantized cross-attention decode caches (int8 decode kernel)
+    kv_cache_dtype: str = "bf16"
+    # 'int8': generate() applies the tied head as an exact int8 product
+    lm_head_dtype: str = "bf16"

@@ -2,8 +2,8 @@
 
 The lifecycle surface the apps drive: ``train_setup`` /
 ``train_interval_start`` / ``train_step`` / ``train_interval_end`` /
-``state_dict`` for training, ``setup`` / ``end`` for eval (``collate_fn`` and
-``step`` arrive with the eval CLI)."""
+``state_dict`` for training, ``setup`` / ``prepare_for_evaluation`` /
+``step`` / ``end`` for eval."""
 
 from __future__ import annotations
 
@@ -24,7 +24,16 @@ class Task:
 
 
 class TaskEval(Task):
+    def collate_fn(self, batch):
+        pass
+
     def setup(self, *args, **kwargs):
+        pass
+
+    def prepare_for_evaluation(self, loaders) -> Dict[str, Any]:
+        pass
+
+    def step(self, sample) -> Dict[str, Any]:
         pass
 
     def end(self):

@@ -18,7 +18,14 @@ Three modes, as in JAX:
 
 The cache is an explicit :class:`KVCache` passed in and updated in place.
 Caches are stored flat, ``(B, len_pad, H*D)`` with ``len_pad`` rounded up to
-a multiple of 128, the layout the decode kernel streams.
+a multiple of 128, the layout the decode kernels stream.
+
+``kv_cache_dtype='int8'`` (the JAX package's int8 decode mode): prefill
+quantizes the cross-attention K/V per (sample, position, head) into int8
+caches plus fp32 scales and itself attends over the exact projections;
+single-token decode steps run
+:func:`~pixparse_tpu_torch.ops.decode_attention.decode_attention_q8`. The
+self-attention caches stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -32,7 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixparse_tpu_torch.ops.attention import NEG_MIN, dot_product_attention
-from pixparse_tpu_torch.ops.decode_attention import decode_attention
+from pixparse_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_q8,
+    quantize_kv_rows,
+)
 from pixparse_tpu_torch.ops.dense import Linear, dropout
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
 
@@ -60,6 +71,9 @@ class BartDecoderCfg:
     pre_norm: bool = False  # mBART/Donut decoder: pre-LN layers + final LN
 
 
+DECODE_DTYPES = ("bf16", "int8")  # kv_cache_dtype / lm_head_dtype
+
+
 def _pad128(n: int) -> int:
     return -(-n // 128) * 128
 
@@ -72,10 +86,12 @@ class KVCache:
 
     Per layer: ``self_k``/``self_v`` ``(B, len_pad, H*D)`` with ``len_pad``
     = ``max_len`` rounded up to 128; ``cross_k``/``cross_v``
-    ``(B, Lk_pad, H*D)`` zero-padded from the encoder length; ``qkv`` the
-    self-attention q/k/v projections fused into one weight and bias, built
-    once at prefill (the decode step runs one GEMM instead of three).
-    ``cross_mask`` ``(B, Lk_pad)`` marks the real encoder keys."""
+    ``(B, Lk_pad, H*D)`` zero-padded from the encoder length (int8 in the
+    int8 mode, with ``cross_k_scale``/``cross_v_scale`` ``(B, H, Lk_pad)``
+    fp32, padded with 1); ``qkv`` the self-attention q/k/v projections fused
+    into one weight and bias, built once at prefill (the decode step runs one
+    GEMM instead of three). ``cross_mask`` ``(B, Lk_pad)`` marks the real
+    encoder keys."""
 
     max_len: int
     index: int = 0
@@ -83,6 +99,8 @@ class KVCache:
     self_v: List[torch.Tensor] = field(default_factory=list)
     cross_k: List[torch.Tensor] = field(default_factory=list)
     cross_v: List[torch.Tensor] = field(default_factory=list)
+    cross_k_scale: List[torch.Tensor] = field(default_factory=list)
+    cross_v_scale: List[torch.Tensor] = field(default_factory=list)
     qkv: List[Tuple[torch.Tensor, torch.Tensor]] = field(default_factory=list)
     cross_mask: Optional[torch.Tensor] = None
 
@@ -147,28 +165,63 @@ class CachedSelfAttention(_Projections):
 
 class CachedCrossAttention(_Projections):
     """Cross-attention over encoder tokens; in ``prefill`` the K/V are
-    computed once and cached, ``decode`` reuses them through the decode
-    kernel."""
+    computed once and cached (quantized in the int8 mode), ``decode`` reuses
+    them through the decode kernel."""
+
+    def __init__(self, d_model: int, num_heads: int, kv_cache_dtype: str = "bf16"):
+        super().__init__(d_model, num_heads)
+        self.kv_cache_dtype = kv_cache_dtype
+
+    def _dequantized(self, cache, layer, Lk, dtype):
+        """The int8 caches' first Lk positions, dequantized (multi-token
+        decode steps only)."""
+        out = []
+        for c, sc in ((cache.cross_k, cache.cross_k_scale), (cache.cross_v, cache.cross_v_scale)):
+            B, _, D = c[layer].shape
+            H = self.num_heads
+            x = c[layer][:, :Lk].float().reshape(B, Lk, H, D // H)
+            scale = sc[layer][:, :H, :Lk].transpose(1, 2)[..., None]
+            out.append((x * scale).to(dtype).reshape(B, Lk, D))
+        return out
 
     def forward(self, x, enc, mode, attn_impl, bias=None, valid=None, cache=None, layer=0):
         B, L, D = x.shape
         H = self.num_heads
         Lk = enc.shape[1]
+        q8 = self.kv_cache_dtype == "int8"
         qf = self.q_proj(x)
         if mode == "decode" and L == 1:
-            out = decode_attention(
-                qf, cache.cross_k[layer], cache.cross_v[layer], valid, num_heads=H
-            )
+            if q8:
+                out = decode_attention_q8(
+                    qf, cache.cross_k[layer], cache.cross_v[layer], cache.cross_k_scale[layer],
+                    cache.cross_v_scale[layer], valid, num_heads=H,
+                )
+            else:
+                out = decode_attention(
+                    qf, cache.cross_k[layer], cache.cross_v[layer], valid, num_heads=H
+                )
             return self.out_proj(out)
         if mode == "decode":  # multi-token step: plain attention over the cache
-            k = cache.cross_k[layer][:, :Lk]
-            v = cache.cross_v[layer][:, :Lk]
+            if q8:
+                k, v = self._dequantized(cache, layer, Lk, x.dtype)
+            else:
+                k = cache.cross_k[layer][:, :Lk]
+                v = cache.cross_v[layer][:, :Lk]
         else:
+            # prefill attends over these exact projections, never the
+            # quantized cache
             k, v = self.k_proj(enc), self.v_proj(enc)
             if mode == "prefill":
                 pad = (0, 0, 0, _pad128(Lk) - Lk)
-                cache.cross_k.append(F.pad(k, pad))
-                cache.cross_v.append(F.pad(v, pad))
+                if q8:
+                    for t, store, scales in ((k, cache.cross_k, cache.cross_k_scale),
+                                             (v, cache.cross_v, cache.cross_v_scale)):
+                        t_i8, t_scale = quantize_kv_rows(t, H)
+                        store.append(F.pad(t_i8, pad))
+                        scales.append(F.pad(t_scale, (0, _pad128(Lk) - Lk), value=1.0))
+                else:
+                    cache.cross_k.append(F.pad(k, pad))
+                    cache.cross_v.append(F.pad(v, pad))
         out = dot_product_attention(
             qf.view(B, L, H, D // H), k.reshape(B, Lk, H, D // H), v.reshape(B, Lk, H, D // H),
             bias=bias, dtype=x.dtype, impl=attn_impl if mode == "train" else "xla",
@@ -179,13 +232,13 @@ class CachedCrossAttention(_Projections):
 class BartDecoderLayer(nn.Module):
     """Post-LN (BART) or pre-LN (mBART) decoder layer."""
 
-    def __init__(self, cfg: BartDecoderCfg):
+    def __init__(self, cfg: BartDecoderCfg, kv_cache_dtype: str = "bf16"):
         super().__init__()
         D, H = cfg.d_model, cfg.decoder_attention_heads
         self.pre_norm = cfg.pre_norm
         self.self_attn = CachedSelfAttention(D, H)
         self.self_attn_layer_norm = LayerNorm(D, cfg.ln_eps)
-        self.encoder_attn = CachedCrossAttention(D, H)
+        self.encoder_attn = CachedCrossAttention(D, H, kv_cache_dtype)
         self.encoder_attn_layer_norm = LayerNorm(D, cfg.ln_eps)
         self.fc1 = Linear(D, cfg.decoder_ffn_dim)
         self.fc2 = Linear(cfg.decoder_ffn_dim, D)
@@ -223,14 +276,16 @@ class BartDecoderLayer(nn.Module):
 class BartDecoder(nn.Module):
     """The decoder stack (HF ``model.decoder``)."""
 
-    def __init__(self, cfg: BartDecoderCfg):
+    def __init__(self, cfg: BartDecoderCfg, kv_cache_dtype: str = "bf16"):
         super().__init__()
         D = cfg.d_model
         self.embed_tokens = nn.Embedding(cfg.vocab_size, D)
         self.embed_positions = nn.Embedding(cfg.max_position_embeddings + cfg.pos_offset, D)
         if cfg.layernorm_embedding:
             self.layernorm_embedding = LayerNorm(D, cfg.ln_eps)
-        self.layers = nn.ModuleList(BartDecoderLayer(cfg) for _ in range(cfg.decoder_layers))
+        self.layers = nn.ModuleList(
+            BartDecoderLayer(cfg, kv_cache_dtype) for _ in range(cfg.decoder_layers)
+        )
         if cfg.add_final_layer_norm:
             self.layer_norm = LayerNorm(D, cfg.ln_eps)
 
@@ -246,11 +301,8 @@ class BartCausalDecoder(nn.Module):
     def __init__(self, cfg: BartDecoderCfg, attn_impl: str = "xla", kv_cache_dtype: str = "bf16",
                  compute_dtype=None):
         super().__init__()
-        if kv_cache_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_cache_dtype={kv_cache_dtype!r}: the int8 decode cache is not "
-                "ported yet (ROADMAP.md Queue 1, int8 decode mode)"
-            )
+        if kv_cache_dtype not in DECODE_DTYPES:
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r} (one of {DECODE_DTYPES})")
         self.cfg = cfg
         self.attn_impl = attn_impl
         # dtype of the forward pass; None = the parameters' dtype
@@ -258,7 +310,7 @@ class BartCausalDecoder(nn.Module):
         # source of the dropout masks in training mode (None = torch's default
         # generator); the train step reseeds it per (seed, step, micro-batch)
         self.dropout_generator: Optional[torch.Generator] = None
-        self.model = nn.ModuleDict({"decoder": BartDecoder(cfg)})
+        self.model = nn.ModuleDict({"decoder": BartDecoder(cfg, kv_cache_dtype)})
         self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.decoder.embed_tokens.weight  # tied
 

@@ -1,42 +1,48 @@
-"""Cruller: ViT image encoder + BART-style causal text decoder (counterpart
-of :mod:`pixparse_tpu.models.cruller`).
+"""Cruller: ViT or Swin image encoder + BART-style causal text decoder
+(counterpart of :mod:`pixparse_tpu.models.cruller`).
 
 Module names follow the reference checkpoint layout:
-``image_encoder.trunk.*`` (timm ViT) and ``text_decoder.trunk.*`` (HF
+``image_encoder.trunk.*`` (timm ViT / Swin) and ``text_decoder.trunk.*`` (HF
 ``BartForCausalLM``), so ``state_dict()`` keys are the reference ``.pt``
 keys (see :mod:`pixparse_tpu_torch.models.interop`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from pixparse_tpu_torch.models.bart import (
+    DECODE_DTYPES,
     BartCausalDecoder,
     BartDecoderCfg,
     KVCache,
     resolve_bart_cfg,
 )
 from pixparse_tpu_torch.models.config import ModelCfg
+from pixparse_tpu_torch.models.swin import Swin, SwinCfg, resolve_swin_cfg
 from pixparse_tpu_torch.models.vit import ViT, ViTCfg, resolve_vit_cfg
 
 
 def resolve_image_encoder_cfg(name: str, image_size, in_chans: int):
-    """Encoder name -> ``(cfg, stats)``. Only the ViT family is ported."""
+    """Encoder name -> ``(cfg, stats)``: the ViT or the Swin family. The
+    pix2struct encoder is not ported."""
     base = name.split(".")[0]
-    if base.startswith(("swin", "donut_swin", "pix2struct")):
+    if base.startswith(("swin", "donut_swin")):
+        return resolve_swin_cfg(name, tuple(image_size), in_chans)
+    if base.startswith("pix2struct"):
         raise NotImplementedError(
-            f"image encoder {name!r}: the Swin and pix2struct encoders are not "
-            "ported yet (ROADMAP.md Queue 1)"
+            f"image encoder {name!r}: the pix2struct encoder is not ported yet "
+            "(ROADMAP.md Queue 1)"
         )
     return resolve_vit_cfg(name, tuple(image_size), in_chans)
 
 
 def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
-    """ModelCfg (registry JSON) -> ``(ViTCfg, BartDecoderCfg, img stats)``."""
+    """ModelCfg (registry JSON) -> ``(ViTCfg | SwinCfg, BartDecoderCfg, img
+    stats)``."""
     in_chans = 1 if cfg.image_encoder.image_fmt == "L" else 3
     vit_cfg, stats = resolve_image_encoder_cfg(
         cfg.image_encoder.name, tuple(cfg.image_encoder.image_size), in_chans
@@ -53,14 +59,18 @@ def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
 class Cruller(nn.Module):
     """Parameters are created in fp32 on the CPU; move the model with
     ``.to(device, dtype)`` (eval keeps the weights in the compute dtype).
-    ``attn_impl``: ``'flash'`` runs attention through the flash kernels,
-    ``'xla'`` through the plain attention. ``compute_dtype``: dtype of the
-    forward pass when it differs from the parameters' (training: fp32
-    master weights, bf16 forward); ``None`` = the parameters' dtype."""
+    The encoder is a :class:`Swin` for a ``SwinCfg``, else a :class:`ViT`.
+    ``attn_impl``: ``'flash'`` runs attention through the kernels
+    (flash attention, window attention), ``'xla'`` through the plain
+    attention. ``compute_dtype``: dtype of the forward pass when it differs
+    from the parameters' (training: fp32 master weights, bf16 forward);
+    ``None`` = the parameters' dtype. ``kv_cache_dtype='int8'`` quantizes
+    the cross-attention caches, ``lm_head_dtype='int8'`` makes ``generate``
+    apply the tied head in int8 (the JAX package's int8 decode mode)."""
 
     def __init__(
         self,
-        vit_cfg: ViTCfg,
+        vit_cfg: Union[ViTCfg, SwinCfg],
         bart_cfg: BartDecoderCfg,
         attn_impl: str = "xla",
         kv_cache_dtype: str = "bf16",
@@ -68,20 +78,21 @@ class Cruller(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if lm_head_dtype != "bf16":
-            raise NotImplementedError(
-                f"lm_head_dtype={lm_head_dtype!r}: the int8 tied head is not "
-                "ported yet (ROADMAP.md Queue 1, int8 decode mode)"
-            )
+        if lm_head_dtype not in DECODE_DTYPES:
+            raise ValueError(f"lm_head_dtype={lm_head_dtype!r} (one of {DECODE_DTYPES})")
         self.vit_cfg = vit_cfg
         self.bart_cfg = bart_cfg
-        self.image_encoder = nn.ModuleDict({"trunk": ViT(vit_cfg, attn_impl, compute_dtype)})
+        self.lm_head_dtype = lm_head_dtype
+        encoder_cls = Swin if isinstance(vit_cfg, SwinCfg) else ViT
+        self.image_encoder = nn.ModuleDict(
+            {"trunk": encoder_cls(vit_cfg, attn_impl, compute_dtype)}
+        )
         self.text_decoder = nn.ModuleDict(
             {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype, compute_dtype)}
         )
 
     @property
-    def encoder(self) -> ViT:
+    def encoder(self) -> Union[ViT, Swin]:
         return self.image_encoder["trunk"]
 
     @property

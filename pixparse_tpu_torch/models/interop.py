@@ -2,14 +2,16 @@
 :mod:`pixparse_tpu.models.torch_interop`).
 
 The port's parameter names are the reference ``.pt`` names
-(``image_encoder.trunk.*`` timm ViT, ``text_decoder.trunk.model.decoder.*``
+(``image_encoder.trunk.*`` timm ViT or Swin, ``text_decoder.trunk.model.decoder.*``
 HF BART, tied ``text_decoder.trunk.lm_head.weight``), so a reference
 checkpoint loads with ``load_state_dict(strict=True)``.
 :func:`cruller_state_dict_from_jax` maps the JAX package's flax parameter
 tree (as numpy arrays) to that layout: dense kernels ``(in, out)`` are
 transposed to ``nn.Linear``'s ``(out, in)``, the patch kernel
 ``(p*p*C, D)`` (pixel order ``(p_h, p_w, C)``) becomes the conv weight
-``(D, C, p, p)``, and LayerNorm ``scale`` becomes ``weight``.
+``(D, C, p, p)``, and LayerNorm ``scale`` becomes ``weight``. Swin
+encoders map as the JAX package's ``swin_params_to_torch`` does (timm names;
+the relative-position index is a fixed buffer, not a parameter).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from pixparse_tpu_torch.models.swin import SwinCfg
 
 ENC_PREFIX = "image_encoder.trunk."
 DEC_PREFIX = "text_decoder.trunk.model.decoder."
@@ -76,13 +80,17 @@ def _norm(sd, name: str, p: Mapping[str, Any]):
     sd[name + ".bias"] = np.asarray(p["bias"])
 
 
-def _vit_from_jax(sd, p, cfg, prefix: str):
-    k = np.asarray(p["patch_embed"]["kernel"])
+def _patch_embed(sd, p, cfg, prefix: str):
+    k = np.asarray(p["kernel"])
     ps = cfg.patch_size
     sd[prefix + "patch_embed.proj.weight"] = (
         k.reshape(ps, ps, cfg.in_chans, k.shape[1]).transpose(3, 2, 0, 1)
     )
-    sd[prefix + "patch_embed.proj.bias"] = np.asarray(p["patch_embed"]["bias"])
+    sd[prefix + "patch_embed.proj.bias"] = np.asarray(p["bias"])
+
+
+def _vit_from_jax(sd, p, cfg, prefix: str):
+    _patch_embed(sd, p["patch_embed"], cfg, prefix)
     if cfg.use_cls_token:
         sd[prefix + "cls_token"] = np.asarray(p["cls_token"])
     sd[prefix + "pos_embed"] = np.asarray(p["pos_embed"])
@@ -97,6 +105,29 @@ def _vit_from_jax(sd, p, cfg, prefix: str):
         _linear(sd, b + "mlp.fc1", blk["mlp"]["fc1"])
         _linear(sd, b + "mlp.fc2", blk["mlp"]["fc2"])
     _norm(sd, prefix + "norm", p["norm"])
+
+
+def _swin_from_jax(sd, p, cfg, prefix: str):
+    _patch_embed(sd, p["patch_embed"], cfg, prefix)
+    _norm(sd, prefix + "patch_embed.norm", p["patch_norm"])
+    for s in range(cfg.num_stages):
+        for b in range(cfg.depths[s]):
+            blk, base = p[f"layers_{s}_blocks_{b}"], f"{prefix}layers.{s}.blocks.{b}."
+            _norm(sd, base + "norm1", blk["norm1"])
+            _linear(sd, base + "attn.qkv", blk["attn"]["qkv"])
+            _linear(sd, base + "attn.proj", blk["attn"]["proj"])
+            sd[base + "attn.relative_position_bias_table"] = np.asarray(
+                blk["attn"]["relative_position_bias_table"]
+            )
+            _norm(sd, base + "norm2", blk["norm2"])
+            _linear(sd, base + "mlp.fc1", blk["mlp_fc1"])
+            _linear(sd, base + "mlp.fc2", blk["mlp_fc2"])
+        if s < cfg.num_stages - 1:
+            down, base = p[f"layers_{s}_downsample"], f"{prefix}layers.{s}.downsample."
+            _norm(sd, base + "norm", down["norm"])
+            sd[base + "reduction.weight"] = np.asarray(down["reduction"]["kernel"]).T
+    if cfg.final_norm:
+        _norm(sd, prefix + "norm", p["norm"])
 
 
 def _bart_from_jax(sd, p, cfg, prefix: str):
@@ -126,7 +157,8 @@ def cruller_state_dict_from_jax(
     structure: with ``tied_head=False`` the result is keyed like the port's
     ``named_parameters()`` (the tied table once, under ``embed_tokens``)."""
     sd: Dict[str, np.ndarray] = {}
-    _vit_from_jax(sd, params["image_encoder"], vit_cfg, ENC_PREFIX)
+    encoder_from_jax = _swin_from_jax if isinstance(vit_cfg, SwinCfg) else _vit_from_jax
+    encoder_from_jax(sd, params["image_encoder"], vit_cfg, ENC_PREFIX)
     _bart_from_jax(sd, params["text_decoder"], bart_cfg, DEC_PREFIX)
     if tied_head:
         sd[LM_HEAD_KEY] = sd[DEC_PREFIX + "embed_tokens.weight"]

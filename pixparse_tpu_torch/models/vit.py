@@ -91,11 +91,10 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: ViTCfg):
+    def __init__(self, dim: int, hidden: int):
         super().__init__()
-        hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = Linear(cfg.embed_dim, hidden)
-        self.fc2 = Linear(hidden, cfg.embed_dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU, as in JAX
@@ -107,7 +106,7 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(cfg.embed_dim, cfg.ln_eps)
         self.attn = Attention(cfg, attn_impl)
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio))
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))

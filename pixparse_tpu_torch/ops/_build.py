@@ -59,6 +59,16 @@ SIGNATURES = {
         "pixparse_fused_ce_fwd": [I, P, P, P, P, P, I, I, I, P],
         "pixparse_fused_ce_bwd": [I, P, P, P, P, P, P, P, I, I, I, P],
     },
+    "window_attention": {
+        "pixparse_window_attn_fwd": [
+            I, P, P, P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, LL, LL, F, P,
+        ],
+    },
+    "decode_attention_q8": {
+        "pixparse_decode_attn_q8_fwd": [
+            I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, F, P,
+        ],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,22 @@
-"""Single-token decode attention over flat KV caches: a CUDA kernel for
-Hopper and its plain version.
+"""Single-token decode attention over flat KV caches: CUDA kernels for
+Hopper and their plain versions.
 
-Counterpart of :func:`pixparse_tpu.ops.decode_attention.decode_attention`
-(the bf16 path; the int8 caches and ``quantize_*`` arrive with their own
-slice). q ``(B, 1, H*D)``, k/v ``(B, Lk, H*D)`` caches stored flat, mask
-``(B, Lk)`` (> 0 / True = attend). Fully masked rows give zeros.
+Counterpart of :mod:`pixparse_tpu.ops.decode_attention`. q ``(B, 1, H*D)``,
+k/v ``(B, Lk, H*D)`` caches stored flat, mask ``(B, Lk)`` (> 0 / True =
+attend). Fully masked rows give zeros.
+
+- :func:`decode_attention`: caches in the compute dtype
+  (``csrc/decode_attention.cu``).
+- :func:`decode_attention_q8`: int8 caches with per-(sample, head,
+  position) fp32 scales from :func:`quantize_kv_rows`
+  (``csrc/decode_attention_q8.cu``). The query and the rows
+  ``p * v_scale`` are quantized per head inside, and both products are
+  exact int32 sums. The scales are kept ``(B, H, Lk)``: the JAX package
+  pads the head axis to a multiple of 8 for the TPU's sublanes, a layout
+  the card does not need.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel (``csrc/decode_attention.cu``) or raises.
+kernel or raises. Each wrapper's ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,7 +29,19 @@ from pixparse_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+Q8_MAX_KEYS = 32768  # the q8 kernel keeps a head's whole score row in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _masked_softmax_rows(s, mask):
+    """(B, H, Lk) fp32 scores + (B, Lk) validity -> probabilities; fully
+    masked rows give zeros (the rule both TPU decode kernels share)."""
+    s = torch.where((mask > 0)[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    dead = m <= NEG_INF * 0.5
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.where(dead, 0.0, p / torch.where(l == 0.0, 1.0, l))
 
 
 def decode_attention_plain(q, k, v, mask, num_heads: int) -> torch.Tensor:
@@ -33,13 +54,7 @@ def decode_attention_plain(q, k, v, mask, num_heads: int) -> torch.Tensor:
     s = torch.einsum(
         "bhd,bkhd->bhk", q.reshape(B, H, D).float(), k.reshape(B, Lk, H, D).float()
     ) * D ** -0.5
-    valid = (mask > 0)[:, None, :]
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    dead = m <= NEG_INF * 0.5
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    p = torch.where(dead, 0.0, p / torch.where(l == 0.0, 1.0, l))
+    p = _masked_softmax_rows(s, mask)
     o = torch.einsum("bhk,bkhd->bhd", p.to(v.dtype).float(), v.reshape(B, Lk, H, D).float())
     return o.to(q.dtype).reshape(B, 1, HD)
 
@@ -127,3 +142,126 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# int8 caches
+# --------------------------------------------------------------------------
+
+
+def quantize_int8_rows(x: torch.Tensor, dim: int):
+    """Symmetric absmax int8 quantization along ``dim`` -> ``(x_i8, scales)``
+    (scales keep ``dim`` with size 1). An all-zero row gets scale 1.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    am = x.abs().amax(dim=dim, keepdim=True)
+    # a tensor divisor: on the card, dividing by a Python number multiplies
+    # by its reciprocal, which is not always the correctly rounded quotient
+    scales = torch.where(am > 0, am, 127.0) / x.new_tensor(127.0)
+    return torch.clamp(torch.round(x / scales), -127, 127).to(torch.int8), scales
+
+
+def quantize_kv_rows(x: torch.Tensor, num_heads: int):
+    """Per-(sample, position, head) int8 quantization of a flat
+    ``(B, L, H*D)`` cache tensor -> ``(x_i8 (B, L, H*D) int8, scales
+    (B, H, L) fp32)``."""
+    B, L, HD = x.shape
+    x_i8, scales = quantize_int8_rows(x.float().reshape(B, L, num_heads, HD // num_heads), -1)
+    return x_i8.reshape(B, L, HD), scales[..., 0].transpose(1, 2).contiguous()
+
+
+def decode_attention_q8_plain(q, k_i8, v_i8, k_scale, v_scale, mask, num_heads: int):
+    """Plain PyTorch version of the int8 kernel (the TPU kernel's math): q
+    quantized per head; ``q_i8 . k_i8`` summed exactly, then scaled by
+    ``qscale * (k_scale * Dh^-0.5)``; the masked softmax; ``p * v_scale``
+    quantized per head over the whole row; ``pv_i8 . v_i8`` summed exactly,
+    then scaled. The integer sums run in float64, exact for them (the card
+    has no integer einsum), like the kernel's int32."""
+    B, _, HD = q.shape
+    Lk = k_i8.shape[1]
+    H = num_heads
+    D = HD // H
+    q_i8, qscale = quantize_int8_rows(q.float().reshape(B, H, D), -1)  # (B, H, D), (B, H, 1)
+    raw = torch.einsum("bhd,bkhd->bhk", q_i8.double(), k_i8.reshape(B, Lk, H, D).double())
+    s = (raw.float() * qscale) * (k_scale[:, :H].float() * D ** -0.5)
+    pv = _masked_softmax_rows(s, mask) * v_scale[:, :H].float()
+    pv_i8, pscale = quantize_int8_rows(pv, -1)  # (B, H, Lk), (B, H, 1)
+    raw = torch.einsum("bhk,bkhd->bhd", pv_i8.double(), v_i8.reshape(B, Lk, H, D).double())
+    return (raw.float() * pscale).to(q.dtype).reshape(B, 1, HD)
+
+
+def _decode_q8_cuda(q, k_i8, v_i8, k_scale, v_scale, mask, num_heads):
+    B, _, HD = q.shape
+    Lk = k_i8.shape[1]
+    H = num_heads
+    if HD % H:
+        raise ValueError(f"decode_attention_q8: width {HD} not divisible by {H} heads")
+    D = HD // H
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"decode_attention_q8: q must be bfloat16 or float32 (got {q.dtype})")
+    if k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+        raise ValueError(
+            f"decode_attention_q8: caches must be int8 (got {k_i8.dtype}, {v_i8.dtype})"
+        )
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention_q8: head dim {D} not in {HEAD_DIMS}")
+    if not 0 < Lk <= Q8_MAX_KEYS:
+        raise ValueError(f"decode_attention_q8: {Lk} keys (1..{Q8_MAX_KEYS})")
+    if q.shape != (B, 1, HD) or k_i8.shape != (B, Lk, HD) or v_i8.shape != (B, Lk, HD):
+        raise ValueError(
+            f"decode_attention_q8: shapes {tuple(q.shape)} {tuple(k_i8.shape)} {tuple(v_i8.shape)}"
+        )
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dim() != 3 or t.shape[0] != B or t.shape[1] < H or t.shape[2] != Lk:
+            raise ValueError(f"decode_attention_q8: {name} shape {tuple(t.shape)} != ({B}, {H}, {Lk})")
+    if mask.shape != (B, Lk):
+        raise ValueError(f"decode_attention_q8: mask shape {tuple(mask.shape)} != ({B}, {Lk})")
+    tensors = (k_i8, v_i8, k_scale, v_scale, mask)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("decode_attention_q8: all operands must be on one CUDA device")
+    for name, t in (("k", k_i8), ("v", v_i8)):
+        if t.stride(2) != 1 or t.stride(0) % 16 or t.stride(1) % 16 or t.data_ptr() % 16:
+            raise ValueError(
+                f"decode_attention_q8: {name} must have contiguous, 16-byte aligned rows "
+                f"(got strides {tuple(t.stride())})"
+            )
+    if q.stride(2) != 1:
+        raise ValueError("decode_attention_q8: q rows must be contiguous")
+    k_scale = k_scale[:, :H].to(torch.float32).contiguous()
+    v_scale = v_scale[:, :H].to(torch.float32).contiguous()
+    if mask.dtype != torch.bool:
+        mask = mask > 0
+    mask = mask.contiguous()
+    o = torch.empty((B, 1, HD), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return o
+    lib = _build.library("decode_attention_q8")
+    with torch.cuda.device(q.device):
+        err = lib.pixparse_decode_attn_q8_fwd(
+            _DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k_i8), _build.ptr(v_i8),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(mask), _build.ptr(o),
+            B, H, Lk, D, q.stride(0), k_i8.stride(0), k_i8.stride(1), v_i8.stride(0),
+            v_i8.stride(1), float(D ** -0.5), _build.stream_ptr(q.device),
+        )
+    _build.check(err, "decode_attention_q8")
+    decode_attention_q8.launches += 1
+    return o
+
+
+def decode_attention_q8(
+    q: torch.Tensor,        # (B, 1, H*D) single-position queries, heads flat
+    k_i8: torch.Tensor,     # (B, Lk, H*D) int8 key cache
+    v_i8: torch.Tensor,     # (B, Lk, H*D) int8 value cache
+    k_scale: torch.Tensor,  # (B, H, Lk) fp32 key scales (extra head rows ignored)
+    v_scale: torch.Tensor,  # (B, H, Lk) fp32 value scales
+    mask: torch.Tensor,     # (B, Lk) True/nonzero = attend
+    num_heads: int,
+) -> torch.Tensor:
+    """Single-token decode attention over int8 caches -> ``(B, 1, H*D)`` in
+    q's dtype: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.is_cuda:
+        return _decode_q8_cuda(q, k_i8, v_i8, k_scale, v_scale, mask, num_heads)
+    return decode_attention_q8_plain(q, k_i8, v_i8, k_scale, v_scale, mask, num_heads)
+
+
+decode_attention_q8.launches = 0

@@ -7,15 +7,23 @@ per generated token. The output is a ``(B, max_length)`` token buffer in
 which finished rows are padded. The loop ends when every row has produced
 EOS (or used its ``max_new_tokens`` budget) or the buffer is full; the
 last token's decode step, whose logits nobody reads, is not run.
+
+With ``model.lm_head_dtype == 'int8'`` the decode steps apply the tied head
+in int8, as the JAX package does: the ``(V, D)`` table is quantized per
+vocabulary row once, before the loop; each step quantizes the hidden row
+and takes an exact int32 product (``torch._int_mm``) scaled by both scales.
+The prefill's logits use the table as it is.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from pixparse_tpu_torch.models.bart import KVCache
+from pixparse_tpu_torch.ops.decode_attention import quantize_int8_rows
 
 
 def _left_align_prompts(prompt_ids: torch.Tensor, pad_token_id: int):
@@ -34,6 +42,27 @@ def _left_align_prompts(prompt_ids: torch.Tensor, pad_token_id: int):
         pad_token_id,
     )
     return aligned, src_idx.clamp_min(0), prompt_valid
+
+
+def quantize_head(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(V, D)`` tied table -> ``(table_i8 (V8, D), row scales (V,) fp32)``,
+    V padded with zero rows to a multiple of 8 (``torch._int_mm``'s rule on
+    the card)."""
+    table_i8, scales = quantize_int8_rows(table.float(), 1)
+    return F.pad(table_i8, (0, 0, 0, -table.shape[0] % 8)), scales[:, 0]
+
+
+def q8_logits(hidden: torch.Tensor, table_i8: torch.Tensor, row_scales: torch.Tensor):
+    """``(B, L, D)`` hidden states -> ``(B, L, V)`` fp32 logits of the int8
+    head: ``int32(x_i8 . table_i8) * x_scale * row_scale``. The rows are
+    padded to a multiple of 8 above 16 for ``torch._int_mm`` on the card
+    (D must be a multiple of 8)."""
+    B, L, D = hidden.shape
+    x_i8, x_scale = quantize_int8_rows(hidden.float(), -1)
+    M = B * L
+    x_i8 = F.pad(x_i8.reshape(M, D), (0, 0, 0, max(24, -(-M // 8) * 8) - M))
+    raw = torch._int_mm(x_i8, table_i8.t())[:M, : row_scales.shape[0]]
+    return (raw.float().reshape(B, L, -1) * x_scale) * row_scales
 
 
 class GenerateResult(NamedTuple):
@@ -65,6 +94,10 @@ def generate(
     if max_new_tokens is not None:
         max_new_tokens = torch.as_tensor(max_new_tokens, device=device)
 
+    head_i8 = None
+    if getattr(model, "lm_head_dtype", "bf16") == "int8":
+        head_i8 = quantize_head(model.tied_embedding)
+
     buffer = torch.full((B, max_length), pad_token_id, dtype=torch.long, device=device)
     buffer[:, :Lp] = aligned
     cache = KVCache(max_len=max_length)
@@ -86,12 +119,13 @@ def generate(
         finished = newly_finished
         if cur + 1 >= max_length or bool(finished.all()):
             break
-        logits = model.decode(
+        out = model.decode(
             write_tok[:, None], encoder_output, cache,
             key_pad_mask=buffer != pad_token_id, mode="decode",
             positions=(prompt_valid + (cur - Lp))[:, None],
-            encoder_pad_mask=encoder_pad_mask,
-        )[:, -1]
+            encoder_pad_mask=encoder_pad_mask, return_hidden=head_i8 is not None,
+        )
+        logits = (out if head_i8 is None else q8_logits(out, *head_i8))[:, -1]
         steps += 1
     lengths = (buffer != pad_token_id).sum(dim=1)
     return GenerateResult(tokens=buffer, lengths=lengths, steps=steps)

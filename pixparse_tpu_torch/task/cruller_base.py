@@ -6,8 +6,9 @@
   the train state and the train step, in-step shift of the pretrain
   sequences, the gradient-accumulation buffer, counters, logging with rate
   and MFU, and a reference-``.pt``-compatible ``state_dict``.
-- :class:`BaseCrullerEvalTask`: the same vocabulary replay, the model on the
-  task's device in the compute dtype, and the KV-cached greedy decode.
+- :class:`BaseCrullerEvalTask`: the same vocabulary replay, the model (ViT
+  or Swin encoder, bf16 or int8 decode mode) on the task's device in the
+  compute dtype, and the KV-cached greedy decode.
 
 Concrete tasks supply tokens, collate and metrics. There is one device and no
 mesh, so batches go to the device as they are.
@@ -28,6 +29,7 @@ from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
+from pixparse_tpu_torch.models.swin import SwinCfg
 from pixparse_tpu_torch.ops.generation import generate
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
@@ -140,6 +142,12 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
     # ------------------------------------------------------------------
     def train_setup(self, num_batches_per_interval: int, **kwargs):
         cfg = self.cfg
+        if isinstance(self.vit_cfg, SwinCfg):
+            raise NotImplementedError(
+                "training a Swin encoder (donut) is not ported yet: its window-attention "
+                "backward, TPU kernel #15, comes with the donut training slice "
+                "(ROADMAP.md Queue 1)"
+            )
         accum = max(1, cfg.opt.grad_accum_steps)
         self.num_steps_per_interval = num_batches_per_interval // accum
         # gradient accumulation happens inside the train step (micro-batch

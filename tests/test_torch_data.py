@@ -178,3 +178,27 @@ def test_create_loader_formats(tmp_path):
     with pytest.raises(ValueError, match="unknown dataset format"):
         create_loader(DatasetCfg(source="x", num_samples=1, batch_size=1, split="train",
                                  format="parquet"), is_train=True)
+
+
+def test_jpeg_decodes_dct_scaled_to_the_transform_size():
+    """With a target size a JPEG decodes at the largest 1/2..1/8 scale that
+    stays at least that size (the JAX package's native decoder's rule, by
+    PIL's ``draft``); other formats and no target decode at full size."""
+    from pixparse_tpu.native import choose_jpeg_scale
+
+    for full in ((400, 300), (401, 299), (64, 48), (2560, 1920)):
+        for target in ((90, 70), (120, 70), (50, 40), (320, 240), (17, 900)):
+            assert twds._jpeg_scale(*full, *target) == choose_jpeg_scale(*full, *target)
+    rng = np.random.RandomState(0)
+    pixels = rng.randint(0, 255, (400, 300, 3), np.uint8)
+    jpeg, png = io.BytesIO(), io.BytesIO()
+    Image.fromarray(pixels).save(jpeg, format="JPEG")
+    Image.fromarray(pixels).save(png, format="PNG")
+    decode = twds.decode_image_bytes
+    assert decode(jpeg.getvalue(), "jpg", "L", target_size=(90, 70)).size == (75, 100)
+    assert decode(jpeg.getvalue(), "jpg", "RGB", target_size=(120, 70)).size == (150, 200)
+    assert decode(jpeg.getvalue(), "jpg", "L").size == (300, 400)
+    assert decode(png.getvalue(), "png", "L", target_size=(90, 70)).size == (300, 400)
+    transform = create_transforms("legacy", image_size=(90, 70))
+    assert twds._decode_target_size(transform) == (90, 70)
+    assert twds._decode_target_size(None) is None

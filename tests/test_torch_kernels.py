@@ -19,7 +19,10 @@ from pixparse_tpu_torch.ops import _build
 from pixparse_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    decode_attention_q8,
+    decode_attention_q8_plain,
     num_splits,
+    quantize_kv_rows,
 )
 from pixparse_tpu_torch.ops.flash_attention import (
     DEAD_LSE,
@@ -29,6 +32,8 @@ from pixparse_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from pixparse_tpu_torch.ops.generation import q8_logits, quantize_head
+from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_plain
 from pixparse_tpu_torch.ops.loss import (
     fused_ce_bwd,
     fused_ce_bwd_plain,
@@ -308,3 +313,104 @@ def test_fused_ce_rejects_what_it_does_not_take(cuda_device):
         fused_ce_fwd(h, e, target)
     with pytest.raises(ValueError, match="one dtype"):
         fused_ce_fwd(h.float(), e, target)
+
+
+def _window_inputs(nB, N, H, D, dtype, device, seed, n_period=None):
+    """q/k/v as column slices of one fused (nB, N, 3C) projection, as the
+    Swin block passes them; bias (H, N, N) and a 0 / -1e9 shift-style mask."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(nB, N, 3 * H * D, generator=gen).to(device, dtype)
+    q, k, v = qkv.split(H * D, dim=-1)
+    bias = (torch.randn(H, N, N, generator=gen) * 0.5).to(device)
+    mask = None
+    if n_period:
+        region = torch.randint(0, 3, (n_period, N), generator=gen)
+        mask = torch.where(region[:, :, None] == region[:, None, :], 0.0, -1e9).to(device)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nB,N,H,D,n_period", [
+    (48, 100, 4, 32, 6),    # donut_base stage 0 widths, shifted
+    (10, 100, 8, 32, None),  # unshifted
+    (12, 49, 3, 16, 4),     # window 7
+    (9, 16, 2, 64, 3),      # window 4 (swin_test)
+    (20, 144, 2, 32, 20),   # window 12, one window per image
+])
+def test_window_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_period):
+    q, k, v, bias, mask = _window_inputs(nB, N, H, D, dtype, cuda_device, N + D, n_period)
+    before = window_attention.launches
+    o = window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    ref = window_attention_plain(q, k, v, bias, mask)
+    torch.testing.assert_close(o.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_window_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, bias, mask = _window_inputs(8, 100, 4, 32, torch.bfloat16, cuda_device, 0, 4)
+    with pytest.raises(NotImplementedError, match="#15"):
+        window_attention(q.detach().requires_grad_(), k, v, bias, mask)
+    with pytest.raises(ValueError, match="mask period"):
+        window_attention(q, k, v, bias, mask[:3])
+    with pytest.raises(ValueError, match="head dim"):
+        window_attention(q, k, v, bias[:1], mask)  # one head of 128
+    big = _window_inputs(2, 169, 4, 32, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="tokens per window"):
+        window_attention(*big)
+
+
+def _q8_inputs(B, Lk, H, D, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, 1, H * D, generator=gen).to(device, dtype)
+    k_i8, k_scale = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    v_i8, v_scale = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    mask[1] = False  # a dead row
+    mask[2, Lk // 2:] = False  # a short prefix
+    return [t.to(device) for t in (q, k_i8, v_i8, k_scale, v_scale, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_q8_decode_kernel_matches_plain(cuda_device, dtype, D):
+    """The integer sums are exact; the two versions differ only where an
+    ulp of exp moves p * v_scale across a rounding boundary of its int8
+    grid, which moves one term by one step (at most max(p * v_scale))."""
+    H = 768 // D
+    args = _q8_inputs(4, 384, H, D, dtype, cuda_device, D)
+    before = decode_attention_q8.launches
+    o = decode_attention_q8(*args, num_heads=H)
+    torch.cuda.synchronize()
+    assert decode_attention_q8.launches == before + 1
+    ref = decode_attention_q8_plain(*args, num_heads=H)
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert (o[1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_q8_decode_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k_i8, v_i8, ks, vs, mask = _q8_inputs(4, 128, 2, 64, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="int8"):
+        decode_attention_q8(q, k_i8.float(), v_i8, ks, vs, mask, num_heads=2)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_q8(q, k_i8, v_i8, ks, vs, mask, num_heads=8)
+    with pytest.raises(ValueError, match="mask shape"):
+        decode_attention_q8(q, k_i8, v_i8, ks, vs, mask[:, :64], num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V,D", [(8, 57525, 1024), (16, 50265, 768), (3, 517, 64)])
+def test_int8_head_is_exact_on_card(cuda_device, B, V, D):
+    """The int8 tied head's product (``torch._int_mm`` on the card) equals
+    the same integer product taken on the CPU."""
+    gen = torch.Generator().manual_seed(V)
+    table = torch.randn(V, D, generator=gen) * 0.05
+    hidden = torch.randn(B, 1, D, generator=gen)
+    got = q8_logits(hidden.to(cuda_device), *quantize_head(table.to(cuda_device)))
+    want = q8_logits(hidden, *quantize_head(table))
+    assert got.shape == (B, 1, V)
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)

@@ -146,7 +146,7 @@ def test_vocab_mismatch_and_unported_modes_raise(pair):
     v, b, _ = resolve_cruller_cfgs(get_model_config("cruller_test"), vocab_size=VOCAB + 2)
     with pytest.raises(ValueError, match="vocab"):
         load_cruller_state_dict(Cruller(v, b), tm.state_dict())
-    with pytest.raises(NotImplementedError, match="int8"):
-        Cruller(v, b, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        Cruller(v, b, lm_head_dtype="int8")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        Cruller(v, b, kv_cache_dtype="fp8")
+    with pytest.raises(ValueError, match="lm_head_dtype"):
+        Cruller(v, b, lm_head_dtype="fp8")

@@ -39,6 +39,8 @@ MODULES = (
     "framework.checkpoint", "framework.monitor", "framework.optimization",
     "framework.profiling", "framework.train", "framework.train_state", "ops.dense", "ops.loss",
     "task.task_cruller_pretrain", "utils.metrics", "utils.ocr_eval", "utils.text_metrics",
+    # donut_base serving, the eval CLI and the int8 decode mode
+    "app.eval", "framework.eval", "models.swin", "ops.window_attention",
 )
 
 
@@ -127,6 +129,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_kernel_wrappers_route_cpu_tensors_to_plain():
+    from pixparse_tpu_torch.ops import decode_attention as da
+    from pixparse_tpu_torch.ops import window_attention as wa
     from pixparse_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
     from pixparse_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
 
@@ -138,13 +142,27 @@ def test_kernel_wrappers_route_cpu_tensors_to_plain():
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
     qd = torch.randn(2, 1, 64, generator=gen)
     kd, vd = (torch.randn(2, 20, 64, generator=gen) for _ in range(2))
-    mask = torch.rand(2, 20, generator=gen) > 0.5
+    mask_dec = torch.rand(2, 20, generator=gen) > 0.5
     assert torch.equal(
-        decode_attention(qd, kd, vd, mask, num_heads=2),
-        decode_attention_plain(qd, kd, vd, mask, num_heads=2),
+        decode_attention(qd, kd, vd, mask_dec, num_heads=2),
+        decode_attention_plain(qd, kd, vd, mask_dec, num_heads=2),
     )
     # the counters count kernel launches only
     assert (flash_attention_fwd.launches, decode_attention.launches) == (n_flash, n_dec)
+
+    n_win, n_q8 = wa.window_attention.launches, da.decode_attention_q8.launches
+    qw, kw, vw = (torch.randn(4, 16, 32, generator=gen) for _ in range(3))
+    bias, mask = torch.randn(2, 16, 16, generator=gen), torch.zeros(2, 16, 16)
+    assert torch.equal(
+        wa.window_attention(qw, kw, vw, bias, mask), wa.window_attention_plain(qw, kw, vw, bias, mask)
+    )
+    k_i8, ks = da.quantize_kv_rows(kd, 2)
+    v_i8, vs = da.quantize_kv_rows(vd, 2)
+    assert torch.equal(
+        da.decode_attention_q8(qd, k_i8, v_i8, ks, vs, mask_dec, num_heads=2),
+        da.decode_attention_q8_plain(qd, k_i8, v_i8, ks, vs, mask_dec, num_heads=2),
+    )
+    assert (wa.window_attention.launches, da.decode_attention_q8.launches) == (n_win, n_q8)
 
 
 def test_training_wrappers_route_cpu_tensors_to_plain_through_autograd():
