@@ -113,12 +113,14 @@ import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "serve_model", "serve_task", "serve_donut", "eval_task",
-          "train_model", "train_task")
+          "train_model", "train_donut", "train_task")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
 BART_VOCAB = 50265  # cruller_base's published vocabulary (facebook/bart-base)
+DONUT_VOCAB = 57525  # donut_base's (its mBART decoder's table)
 DONUT_NEW_TOKENS = 64  # serve_donut: fixed decode budget (EOS disabled)
+DONUT_TRAIN_STEPS = 3  # train_donut: steps under each remat mode (the first one warms up)
 BYTE_IDS = (4, 260)  # the byte-level tokenizer's 256 byte tokens
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
@@ -272,6 +274,39 @@ def window_cases(torch):
     return cases
 
 
+def window_bwd_cases(torch):
+    """donut_base's four stages at B=2, 2560x1920 (the train step's shapes),
+    shifted and not; windows 7 and 4; fp32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for stage, (C, H) in enumerate(((128, 4), (256, 8), (512, 16), (1024, 32))):
+        hw = (640 >> stage, 480 >> stage)
+        for shifted in (True, False):
+            tag = "shifted" if shifted else "unshifted"
+            cases.append((f"stage{stage}_b2_n100_c{C}_h{H}_{tag}", 2, hw, 10, C, H, shifted, bf))
+    cases += [
+        ("window7_b2_n49_c128_h4_shifted", 2, (56, 56), 7, 128, 4, True, bf),
+        ("window4_b2_n16_c32_h2_shifted", 2, (16, 16), 4, 32, 2, True, bf),
+        ("fp32_b2_n100_c256_h8_shifted", 2, (80, 60), 10, 256, 8, True, f32),
+    ]
+    return cases
+
+
+def ln_cases(torch):
+    """Swin stage 0, stage 2 and the last patch merging at B=2 (2560x1920),
+    and the donut decoder's rows (B=2, 1535 tokens, d 1024)."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).split(".")[-1]
+        cases += [
+            (f"swin_stage0_r614400_d128_{tag}", 614400, 128, dt),
+            (f"swin_stage2_r38400_d512_{tag}", 38400, 512, dt),
+            (f"swin_merge3_r9600_d2048_{tag}", 9600, 2048, dt),
+            (f"decoder_r3070_d1024_{tag}", 3070, 1024, dt),
+        ]
+    return cases
+
+
 def q8_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
     # name, B, Lk (cache length), n_valid (None = ragged mask with a dead row), H, D, dtype
@@ -318,6 +353,7 @@ def ce_cases(torch):
     return [
         ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, bf, 0.3),
         ("all_ignored_t512_v50265_d768", 512, BART_VOCAB, 768, bf, 1.0),
+        ("donut_t3070_v57525_d1024", 2 * 1535, DONUT_VOCAB, 1024, bf, 0.3),
         ("test_width_t300_v517_d64", 300, 517, 64, bf, 0.2),
         ("fp32_t200_v1001_d256", 200, 1001, 256, f32, 0.2),
     ]
@@ -500,6 +536,119 @@ def check_window(torch, F, wa, timer, peaks, gen, case):
     return rec
 
 
+def check_window_bwd(torch, F, wa, timer, peaks, gen, case):
+    from pixparse_tpu_torch.models.swin import _shift_attn_mask
+
+    name, n_img, (mh, mw), window, C, H, shifted, dt = case
+    peak_bf16, peak_f32, bw = peaks
+    N = window * window
+    nW = (mh // window) * (mw // window)
+    nB = n_img * nW
+    qkv = torch.randn(nB, N, 3 * C, device="cuda", generator=gen).to(dt)
+    q, k, v = qkv.split(C, dim=-1)
+    do = torch.randn(nB, N, C, device="cuda", generator=gen).to(dt)
+    bias = torch.randn(H, N, N, device="cuda", generator=gen) * 0.5
+    mask = None
+    if shifted:
+        mask = torch.from_numpy(_shift_attn_mask(mh, mw, window, window // 2)).cuda()
+    args = (q, k, v, do, bias, mask)
+    got = wa.window_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = wa.window_attention_bwd_plain(*args)
+    rtol = BWD_ROW_RTOL[str(dt).split(".")[-1]]
+    errs, row_errs, ok = {}, {}, True
+    heads = lambda t: t.reshape(nB, N, H, C // H)
+    for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if gname != "dbias":
+            a, b = heads(a), heads(b)
+        errs[gname], row_errs[gname], this_ok = rows_close(a, b, rtol, BWD_ROW_FLOOR)
+        ok = ok and this_ok
+    rec = dict(case=name, shape=[nB, N, C, H], mask_period=nW if shifted else None,
+               dtype=str(dt), max_abs_err=max(errs.values()), errs=errs,
+               worst_row_rel_err=row_errs, tol=["row L2", rtol, "floor", BWD_ROW_FLOOR], ok=ok)
+    del got, want
+    elt = q.element_size()
+    flops = 10.0 * nB * N * N * C  # s, dp, dv, dq, dk
+    nbytes = 7 * elt * nB * N * C + 8 * H * N * N + (4 * nW * N * N if shifted else 0)
+    t_ops = flops / (peak_bf16 if dt == torch.bfloat16 else peak_f32)
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(lambda: wa.window_attention_bwd(*args))
+    rec["plain_ms"] = timer.median_ms(lambda: wa.window_attention_bwd_plain(*args), n=5, warmup=1)
+    # yardstick: autograd through SDPA with attn_mask = bias + mask per window
+    # (its gradient included) where the backend gives one, else through the
+    # plain forward
+    split = lambda t: t.reshape(nB, N, H, C // H).transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    am = bias[None] if mask is None else bias[None] + mask.repeat(n_img, 1, 1)[:, None]
+    am = am.expand(nB, H, N, N).to(dt).contiguous().requires_grad_()
+    try:
+        out = F.scaled_dot_product_attention(*(split(t) for t in leaves), attn_mask=am)
+        grads_of = (*leaves, am)
+        rec["library"] = "sdpa (attn_mask grad)"
+        torch.autograd.grad(out, grads_of, split(do), retain_graph=True)
+        dout = split(do)
+    except RuntimeError:
+        bias_leaf = bias.detach().requires_grad_()
+        out = wa.window_attention_plain(*leaves, bias_leaf, mask)
+        grads_of = (*leaves, bias_leaf)
+        rec["library"] = "autograd through window_attention_plain"
+        dout = do
+    rec["library_ms"] = timer.median_ms(
+        lambda: torch.autograd.grad(out, grads_of, dout, retain_graph=True), n=10)
+    del qkv, q, k, v, do, am, out, leaves
+    return rec
+
+
+def check_ln(torch, F, lnm, timer, peaks, gen, case):
+    """One case -> (forward record, backward record)."""
+    name, R, D, dt = case
+    _, _, bw = peaks
+    x = (torch.randn(R, D, device="cuda", generator=gen) * 2 + 0.5).to(dt)
+    w = 1 + 0.3 * torch.randn(D, device="cuda", generator=gen)
+    b = 0.2 * torch.randn(D, device="cuda", generator=gen)
+    dy = torch.randn(R, D, device="cuda", generator=gen).to(dt)
+    eps = 1e-5
+    elt = x.element_size()
+    tag = str(dt).split(".")[-1]
+    atol, rtol = TOL[tag]
+    common = dict(case=name, shape=[R, D], dtype=str(dt))
+
+    y = lnm.layer_norm_fwd(x, w, b, eps)
+    torch.cuda.synchronize()
+    y_ref = lnm.layer_norm_fwd_plain(x, w, b, eps)
+    err, ok = close(y, y_ref, atol, rtol)
+    fwd = dict(common, max_abs_err=err, tol=[atol, rtol], ok=ok)
+    del y, y_ref
+    fwd.update(bound_ms=(2 * elt * R * D + 8 * D) / bw * 1e3, bound_by="bytes")
+    fwd["ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd(x, w, b, eps))
+    fwd["plain_ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd_plain(x, w, b, eps), n=5, warmup=1)
+    wl, bl = w.to(dt), b.to(dt)
+    fwd["library_ms"] = timer.median_ms(lambda: F.layer_norm(x, (D,), wl, bl, eps))
+
+    dx, dw, db = lnm.layer_norm_bwd(x, w, dy, eps)
+    torch.cuda.synchronize()
+    dx_ref, dw_ref, db_ref = lnm.layer_norm_bwd_plain(x, w, dy, eps)
+    dx_err, dx_ok = close(dx, dx_ref, atol, rtol)
+    # dweight / dbias: sums over R rows, each held as one row (L2 error
+    # within rtol of its norm)
+    dw_err, dw_rel, dw_ok = rows_close(dw[None], dw_ref[None], rtol)
+    db_err, db_rel, db_ok = rows_close(db[None], db_ref[None], rtol)
+    bwd = dict(common, max_abs_err=max(dx_err, dw_err, db_err), dx_max_abs_err=dx_err,
+               dw_rel_err=dw_rel, db_rel_err=db_rel, tol=[atol, rtol, "dw/db row L2", rtol],
+               ok=dx_ok and dw_ok and db_ok)
+    del dx, dw, db, dx_ref, dw_ref, db_ref
+    bwd.update(bound_ms=(3 * elt * R * D + 12 * D) / bw * 1e3, bound_by="bytes")
+    bwd["ms"] = timer.median_ms(lambda: lnm.layer_norm_bwd(x, w, dy, eps))
+    bwd["plain_ms"] = timer.median_ms(lambda: lnm.layer_norm_bwd_plain(x, w, dy, eps), n=5, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (x, wl, bl)]
+    out = F.layer_norm(leaves[0], (D,), leaves[1], leaves[2], eps)
+    bwd["library_ms"] = timer.median_ms(
+        lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    return fwd, bwd
+
+
 def check_q8(torch, F, da, timer, peaks, gen, case):
     name, B, Lk, n_valid, H, D, dt = case
     peak_bf16, peak_f32, bw = peaks
@@ -554,6 +703,7 @@ def check_q8(torch, F, da, timer, peaks, gen, case):
 def phase_kernels(torch, F, card_name, timer):
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import decode_attention as da
+    from pixparse_tpu_torch.ops import layer_norm as lnm
     from pixparse_tpu_torch.ops import loss
     from pixparse_tpu_torch.ops import window_attention as wa
 
@@ -562,7 +712,8 @@ def phase_kernels(torch, F, card_name, timer):
     gen = torch.Generator().manual_seed(0)
     results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
                "fused_ce_fwd": [], "fused_ce_bwd": [], "window_attention": [],
-               "decode_attention_q8": []}
+               "decode_attention_q8": [], "window_attention_bwd": [], "layer_norm_fwd": [],
+               "layer_norm_bwd": []}
     failed = []
 
     for name, B, Lq, Lk, H, D, dt, causal, lens in flash_cases(torch):
@@ -681,6 +832,21 @@ def phase_kernels(torch, F, card_name, timer):
         if not rec["ok"]:
             failed.append(f"window_attention/{case[0]}")
         torch.cuda.empty_cache()
+    for case in window_bwd_cases(torch):
+        rec = check_window_bwd(torch, F, wa, timer, peaks, cuda_gen, case)
+        results["window_attention_bwd"].append(rec)
+        note({"kernel": "window_attention_bwd", **rec})
+        if not rec["ok"]:
+            failed.append(f"window_attention_bwd/{case[0]}")
+        torch.cuda.empty_cache()
+    for case in ln_cases(torch):
+        fwd, bwd = check_ln(torch, F, lnm, timer, peaks, cuda_gen, case)
+        for kname, rec in (("layer_norm_fwd", fwd), ("layer_norm_bwd", bwd)):
+            results[kname].append(rec)
+            note({"kernel": kname, **rec})
+            if not rec["ok"]:
+                failed.append(f"{kname}/{case[0]}")
+        torch.cuda.empty_cache()
     for case in q8_cases(torch):
         rec = check_q8(torch, F, da, timer, peaks, gen, case)
         results["decode_attention_q8"].append(rec)
@@ -714,6 +880,12 @@ KERNELS = [
     ("decode_attention_q8", "cuda", "pixparse_tpu_torch/csrc/decode_attention_q8.cu",
      "pixparse_tpu/ops/decode_attention.py:140 (_decode_attn_q8_kernel)",
      "cross_b16_lk1024_valid1009"),
+    ("window_attention_bwd", "cuda", "pixparse_tpu_torch/csrc/window_attention_bwd.cu",
+     "pixparse_tpu/ops/window_attention.py:126 (_bwd_kernel)", "stage0_b2_n100_c128_h4_shifted"),
+    ("layer_norm_fwd", "cuda", "pixparse_tpu_torch/csrc/layer_norm.cu",
+     "pixparse_tpu/ops/layer_norm.py:76 (_fwd_kernel)", "swin_stage0_r614400_d128_bfloat16"),
+    ("layer_norm_bwd", "cuda", "pixparse_tpu_torch/csrc/layer_norm.cu",
+     "pixparse_tpu/ops/layer_norm.py:86 (_bwd_kernel)", "swin_stage0_r614400_d128_bfloat16"),
 ]
 # the kernels each main path must launch
 SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
@@ -721,19 +893,26 @@ EVAL_KERNELS = {  # eval_task's two runs
     "donut_base": ("window_attention", "decode_attention"),
     "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
 }
-TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
+TRAIN_KERNELS = {  # train_task's runs
+    "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
+    "donut_base": ("window_attention", "window_attention_bwd", "flash_attention_fwd",
+                   "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
+}
 
 
 def counters():
     from pixparse_tpu_torch.ops.decode_attention import decode_attention, decode_attention_q8
     from pixparse_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from pixparse_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
-    from pixparse_tpu_torch.ops.window_attention import window_attention
+    from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
 
     return {"flash_attention_fwd": flash_attention_fwd, "decode_attention": decode_attention,
             "flash_attention_bwd": flash_attention_bwd, "fused_ce_fwd": fused_ce_fwd,
             "fused_ce_bwd": fused_ce_bwd, "window_attention": window_attention,
-            "decode_attention_q8": decode_attention_q8}
+            "decode_attention_q8": decode_attention_q8,
+            "window_attention_bwd": window_attention_bwd, "layer_norm_fwd": layer_norm_fwd,
+            "layer_norm_bwd": layer_norm_bwd}
 
 
 def reset_counts():
@@ -1151,16 +1330,16 @@ def synthetic_tokens(torch, B, length, vocab, gen):
     return text, target
 
 
-def build_train_model(torch, model_name, device, lr=3e-4):
-    """(model, optimizer, vit_cfg, bart_cfg): cruller_base, fp32 master
-    weights on the card, bf16 forward, the decoder's dropout at its
-    configured 0.1."""
+def build_train_model(torch, model_name, device, lr=3e-4, vocab=BART_VOCAB):
+    """(model, optimizer, vit_cfg, bart_cfg): the registered model at
+    ``vocab`` entries, fp32 master weights on the card, bf16 forward, the
+    decoder's dropout at its configured 0.1."""
     from pixparse_tpu_torch.framework.config import OptimizationCfg
     from pixparse_tpu_torch.framework.optimization import create_optimizer
     from pixparse_tpu_torch.models.config import get_model_config
     from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 
-    vit_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=BART_VOCAB)
+    vit_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=vocab)
     model = Cruller(vit_cfg, bart_cfg, attn_impl="flash", compute_dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=torch.float32).train()
@@ -1279,6 +1458,145 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
     return rec
 
 
+REMAT_MODES = (False, "gelu", "mlp", "dots", True)  # none, gelu, mlp (auto for donut), dots, full
+
+
+def phase_train_donut(torch, steps=DONUT_TRAIN_STEPS, B=2, model_name="donut_base",
+                      device="cuda", profile=False):
+    """donut_base as registered (Swin-B window 10 on 2560x1920 RGB, the
+    4-layer pre-LN mBART decoder, d 1024, vocab 57525, dropout 0.1), text
+    1535, fp32 master weights, bf16 forward, AdamW, one fixed seeded batch:
+    ``steps`` train steps under each remat mode from the same weights and
+    dropout seed; the kernel path against the plain path at B=1; the
+    LayerNorm kernels opt-in (PIXPARSE_LN_IMPL=pallas) under 'mlp'."""
+    from pixparse_tpu_torch.framework.profiling import cruller_train_flops, mfu
+    from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
+    from pixparse_tpu_torch.ops import loss as loss_ops
+    from pixparse_tpu_torch.ops.layer_norm import LayerNorm
+
+    model, optimizer, enc_cfg, bart_cfg = build_train_model(
+        torch, model_name, device, vocab=DONUT_VOCAB)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(0)
+    L = bart_cfg.max_position_embeddings
+    images = synthetic_pages(torch, B, *enc_cfg.img_size, gen).expand(-1, -1, -1, enc_cfg.in_chans)
+    images = images.contiguous().to(device)
+    text, target = synthetic_tokens(torch, B, L, DONUT_VOCAB, gen)
+    batch = {"image": images, "text": text[:, :-1].to(device), "target": target[:, 1:].to(device)}
+    on_card = torch.cuda.is_available()
+    flops = cruller_train_flops(enc_cfg, bart_cfg, B, L - 1)
+    n_ln = sum(isinstance(m, LayerNorm) for m in model.modules())
+
+    def make_step(ce=loss_ops.cross_entropy_from_hidden):
+        def loss_fn(b):
+            hidden = model.forward_hidden(b["image"], b["text"])
+            return ce(hidden, model.tied_embedding.to(hidden.dtype), b["target"])[0], {}
+
+        return make_train_step(loss_fn, optimizer, reseed=model.decoder.dropout_generator.manual_seed)
+
+    def run(remat, n_steps, data=batch, attn_impl="flash", ce=loss_ops.cross_entropy_from_hidden):
+        """Steps from the initial weights: per-step losses, gradient norms,
+        times and launch counts, and the peak memory."""
+        model.load_state_dict(init)
+        model.attn_impl = attn_impl
+        model.remat = remat
+        state = create_train_state(model, optimizer, seed=0)
+        step = make_step(ce)
+        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": []}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(n_steps):
+            reset_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, data)
+            sync(torch)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(read_counts())
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+        ms = statistics.median(out["step_ms"][1:] or out["step_ms"])
+        out.update(ms_per_step=ms, samples_per_s=B / (ms / 1e3),
+                   mfu=mfu(flops, ms / 1e3, device=device))
+        if profile and remat == "mlp":
+            holder = {"state": state}
+
+            def one_step():
+                holder["state"], _ = step(holder["state"], data)
+
+            ln = "_ln_opt_in" if os.environ.get("PIXPARSE_LN_IMPL") == "pallas" else ""
+            out["profile"] = device_profile(torch, one_step, f"donut_train_step_{tag(remat)}{ln}", ms)
+        return out
+
+    tag = lambda mode: {False: "none", True: "full"}.get(mode, mode)
+    modes = {}
+    for remat in REMAT_MODES:
+        modes[tag(remat)] = run(remat, steps)
+        torch.cuda.empty_cache()
+    # the LayerNorm kernels opt-in, under the auto mode
+    os.environ["PIXPARSE_LN_IMPL"] = "pallas"
+    try:
+        ln_run = run("mlp", steps)
+    finally:
+        del os.environ["PIXPARSE_LN_IMPL"]
+    torch.cuda.empty_cache()
+    # kernel path against plain path at B=1 (plain window and decoder attention, plain CE)
+    one = {k: v[:1] for k, v in batch.items()}
+    k1 = run(False, 1, one)
+    p1 = run(False, 1, one, attn_impl="xla", ce=loss_ops.chunked_cross_entropy_from_hidden)
+    model.attn_impl = "flash"
+    rec = {
+        "phase": "train_donut", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "master_dtype": "float32", "vocab": DONUT_VOCAB, "text_len": L - 1,
+        "image_size": list(enc_cfg.img_size), "encoder_tokens": enc_cfg.num_tokens,
+        "model_flops_per_step": flops, "launch_unit": "wrapper calls", "modes": modes,
+        "ln_opt_in_mlp": ln_run, "layer_norms": n_ln,
+        "kernel_vs_plain_b1": {"kernel": [k1["losses"][0], k1["grad_norms"][0]],
+                               "plain": [p1["losses"][0], p1["grad_norms"][0]],
+                               "tol_rel": [2e-2, 5e-2], "plain_launches": p1["launches"][0]},
+    }
+    emit(rec)
+    problems = []
+    ref = modes["none"]
+    blocks, dec_sites = enc_cfg.depth, 2 * bart_cfg.decoder_layers
+    for name, r in modes.items():
+        recompute = name in ("full", "dots")
+        want = dict({k: 0 for k in counters()},
+                    window_attention=blocks * (2 if recompute else 1), window_attention_bwd=blocks,
+                    flash_attention_fwd=dec_sites * (2 if recompute else 1),
+                    flash_attention_bwd=dec_sites, fused_ce_fwd=1, fused_ce_bwd=1)
+        bad = [i for i, got in enumerate(r["launches"]) if got != want]
+        if bad:
+            problems.append(f"{name}: step {bad[0]} launched {r['launches'][bad[0]]}, want {want}")
+        if not all(x == x and abs(x) != float("inf") for x in r["losses"] + r["grad_norms"]):
+            problems.append(f"{name}: non-finite loss or gradient norm")
+        if abs(r["losses"][0] - ref["losses"][0]) > 1e-6 * abs(ref["losses"][0]):
+            problems.append(f"{name}: step-1 loss {r['losses'][0]} vs {ref['losses'][0]} (none)")
+        if abs(r["grad_norms"][0] - ref["grad_norms"][0]) > 1e-3 * abs(ref["grad_norms"][0]):
+            problems.append(
+                f"{name}: step-1 gradient norm {r['grad_norms'][0]} vs {ref['grad_norms'][0]} (none)")
+    want_ln = dict(modes["mlp"]["launches"][0], layer_norm_fwd=n_ln, layer_norm_bwd=n_ln)
+    bad = [i for i, got in enumerate(ln_run["launches"]) if got != want_ln]
+    if bad:
+        problems.append(f"LayerNorm opt-in step {bad[0]} launched {ln_run['launches'][bad[0]]}, "
+                        f"want {want_ln}")
+    auto = modes["mlp"]
+    if abs(ln_run["losses"][0] - auto["losses"][0]) > 2e-2 * abs(auto["losses"][0]):
+        problems.append(f"LayerNorm opt-in loss {ln_run['losses'][0]} vs {auto['losses'][0]}")
+    if abs(ln_run["grad_norms"][0] - auto["grad_norms"][0]) > 5e-2 * abs(auto["grad_norms"][0]):
+        problems.append(
+            f"LayerNorm opt-in gradient norm {ln_run['grad_norms'][0]} vs {auto['grad_norms'][0]}")
+    if any(p1["launches"][0].values()):
+        problems.append(f"the plain path launched kernels: {p1['launches'][0]}")
+    (kl, kg), (pl, pg) = rec["kernel_vs_plain_b1"]["kernel"], rec["kernel_vs_plain_b1"]["plain"]
+    if abs(kl - pl) > 2e-2 * abs(pl) or abs(kg - pg) > 5e-2 * abs(pg):
+        problems.append(f"B=1 step 1: kernel path {kl, kg} vs plain path {pl, pg}")
+    if problems:
+        raise SystemExit("train_donut failed: " + "; ".join(problems))
+    return {"train_donut_ln_opt_in": ln_run["launches"][-1]}
+
+
 class SeededLoader:
     """In-memory stand-in for the webdataset loader bundle: ``num_batches``
     collated batches ``(image, text, target)`` made from a seed, the same
@@ -1306,7 +1624,18 @@ class SeededLoader:
         return iter(self.batches)
 
 
-def phase_train_task(torch, model_name="cruller_base", device="cuda"):
+TRAIN_TASK_RUNS = (  # model, vocabulary, gradient accumulation, batch, batches per interval
+    ("cruller_base", BART_VOCAB, 1, 16, 3),
+    ("cruller_base", BART_VOCAB, 2, 8, 4),
+    ("donut_base", DONUT_VOCAB, 1, 2, 2),
+)
+
+
+def phase_train_task(torch, runs=TRAIN_TASK_RUNS, device="cuda"):
+    """``cruller_pretrain`` through ``train_one_interval`` for each run (two
+    intervals over the same seeded batches, auto remat); returns the launch
+    counts of each model's runs, read after its runs with the counters zeroed
+    before."""
     import shutil
     import tempfile
 
@@ -1322,25 +1651,29 @@ def phase_train_task(torch, model_name="cruller_base", device="cuda"):
     from pixparse_tpu_torch.tokenizers import TokenizerCfg
 
     env = DeviceEnv.initialize(device)
-    runs = {}
-    total = {k: 0 for k in counters()}
+    recs = {}
+    totals = {}
     ckpt = None
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_task_")
     try:
-        # a tokenizer of bart-base's height (the tied table's height is what
-        # the fused-CE kernels stream)
-        tok_dir = saved_tokenizer(os.path.join(tmp, "tokenizer"), BART_VOCAB)
-        for accum, B, n_batches in ((1, 16, 3), (2, 8, 4)):
+        for model_name, vocab, accum, B, n_batches in runs:
+            # a tokenizer of the model's published height (the tied table's
+            # height is what the fused-CE kernels stream)
+            tok_dir = os.path.join(tmp, f"tokenizer{vocab}")
+            if not os.path.isdir(tok_dir):
+                saved_tokenizer(tok_dir, vocab)
             cfg = TaskCrullerPretrainCfg(
                 model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir),
                 dtype="bfloat16", device=device, num_intervals=2, num_warmup_intervals=0,
                 opt=OptimizationCfg(learning_rate=3e-4, grad_accum_steps=accum),
             )
             task, _ = TaskFactory.create_task("cruller_pretrain", cfg, env, monitor=None)
-            if type(task) is not TaskCrullerPretrain or task.vocab_size != BART_VOCAB:
+            if type(task) is not TaskCrullerPretrain or task.vocab_size != vocab:
                 raise SystemExit(f"train_task: got {type(task).__name__}, vocab {task.vocab_size}")
-            loader = SeededLoader(torch, n_batches, B, task.vit_cfg.img_size,
-                                  task.max_position_embeddings, seed=accum)
+            enc_cfg = task.vit_cfg
+            loader = SeededLoader(torch, n_batches, B, enc_cfg.img_size,
+                                  task.max_position_embeddings, seed=accum, in_chans=enc_cfg.in_chans,
+                                  vocab=vocab)
             task.train_setup(num_batches_per_interval=loader.num_batches, seed=0)
             reset_counts()
             losses = []
@@ -1353,16 +1686,17 @@ def phase_train_task(torch, model_name="cruller_base", device="cuda"):
             sync(torch)
             dt = time.perf_counter() - t0
             launches = read_counts()
+            total = totals.setdefault(model_name, {k: 0 for k in counters()})
             for k, n in launches.items():
                 total[k] += n
             updates = 2 * n_batches // accum
-            runs[f"accum{accum}"] = {
-                "batch": B, "batches_per_interval": n_batches, "updates": updates,
-                "state_step": task.state.step, "task_step_idx": task.step_idx,
-                "interval_end_losses": losses, "seconds": dt,
+            recs.setdefault(model_name, {})[f"accum{accum}"] = {
+                "vocab": vocab, "batch": B, "batches_per_interval": n_batches, "updates": updates,
+                "remat": task.model.remat, "state_step": task.state.step,
+                "task_step_idx": task.step_idx, "interval_end_losses": losses, "seconds": dt,
                 "samples_per_s": 2 * n_batches * B / dt, "launches": launches,
             }
-            if accum == 1:
+            if model_name == "cruller_base" and accum == 1:
                 # one full-state checkpoint saved, the live state spoiled, restored
                 path = os.path.join(tmp, "checkpoint-1")
                 save_checkpoint(path, task.state, metadata={"interval": 1, "step": task.state.step})
@@ -1387,25 +1721,28 @@ def phase_train_task(torch, model_name="cruller_base", device="cuda"):
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rec = {"phase": "train_task", "task": "cruller_pretrain", "model_name": model_name,
+    rec = {"phase": "train_task", "task": "cruller_pretrain",
            "tokenizer": "pixparse_bytelevel + filler tokens, from a saved directory",
-           "vocab": BART_VOCAB, "dtype": "bfloat16", "runs": runs, "checkpoint": ckpt, "launches": total, "launch_unit": "wrapper calls"}
+           "dtype": "bfloat16", "runs": recs, "checkpoint": ckpt, "launches": totals,
+           "launch_unit": "wrapper calls"}
     emit(rec)
     problems = []
-    for name, run in runs.items():
-        if run["state_step"] != run["updates"]:
-            problems.append(f"{name}: {run['state_step']} updates, want {run['updates']}")
-        a, b = run["interval_end_losses"]
-        if not (a == a and b == b and b < a):
-            problems.append(f"{name}: loss not finite and falling: {a} -> {b}")
-    if not ckpt or not ckpt["restored_exactly"] or ckpt["metadata"].get("interval") != 1:
+    for model_name, model_runs in recs.items():
+        for name, run in model_runs.items():
+            if run["state_step"] != run["updates"]:
+                problems.append(f"{model_name}/{name}: {run['state_step']} updates, want {run['updates']}")
+            a, b = run["interval_end_losses"]
+            if not (a == a and b == b and b < a):
+                problems.append(f"{model_name}/{name}: loss not finite and falling: {a} -> {b}")
+        missing = [k for k in TRAIN_KERNELS.get(model_name, ()) if totals[model_name][k] <= 0]
+        if missing:
+            problems.append(f"{model_name}: main path never launched {missing}")
+    if "cruller_base" in recs and (
+            not ckpt or not ckpt["restored_exactly"] or ckpt["metadata"].get("interval") != 1):
         problems.append(f"checkpoint round trip failed: {ckpt}")
-    missing = [k for k in TRAIN_KERNELS if total[k] <= 0]
-    if missing:
-        problems.append(f"main path never launched {missing}")
     if problems:
         raise SystemExit("train_task failed: " + "; ".join(problems))
-    return total
+    return {f"train_task_{m}": t for m, t in totals.items()}
 
 
 def main(argv=None) -> int:
@@ -1413,9 +1750,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="serve_model, serve_donut, train_model: also trace encode, generate and "
-                         "one train step with torch.profiler (device time by kernel, device "
-                         "idle share)")
+                    help="serve_model, serve_donut, train_model, train_donut: also trace encode, "
+                         "generate and one train step with torch.profiler (device time by "
+                         "kernel, device idle share)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1466,8 +1803,10 @@ def main(argv=None) -> int:
         path_launches.update(phase_eval_task(torch))
     if "train_model" in phases:
         phase_train_model(torch, profile=args.profile)
+    if "train_donut" in phases:
+        path_launches.update(phase_train_donut(torch, profile=args.profile))
     if "train_task" in phases:
-        path_launches["train_task"] = phase_train_task(torch)
+        path_launches.update(phase_train_task(torch))
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -35,7 +35,16 @@
 //   slices of the output width and accumulates dh (64 x D) in fp32
 //   registers, written once;
 // - backward dE: the same kernel with the roles swapped (X = 64 vocabulary
-//   rows, Y = token tiles), s^T and g^T directly, dE (64 x D) in registers.
+//   rows, Y = token tiles), s^T and g^T directly, dE (64 x D) in registers;
+// - at D = 1024 the (64 x D) fp32 accumulator would need 128 registers a
+//   thread of the 512-thread block before any operand, so the output is split
+//   into two 512-column halves (blockIdx.y): each block still builds s over the
+//   whole depth (phase 1 is done twice in all) and accumulates only its half
+//   in phase 2. Chosen over a 32-row resident tile, which re-reads the
+//   streamed operand twice as often (measured 1.55x slower at D = 768 on an
+//   H100), and over a wider block (the 64-row tile's 16 warps already fill
+//   the block): the split costs 1.5x the tensor-core work of one pass but
+//   only 1.5x, not 2x, the streamed bytes.
 // This is the simple first version: the resident tile is as tall as the
 // (rows x D) fp32 accumulator allows in registers, and the streamed operand is
 // re-read from L2 once per resident tile (T/64 or V/64 times), which is what
@@ -65,7 +74,7 @@ constexpr int kStages = 3;
 constexpr int kFwdWarps = 8;
 // Backward: 4 warps share each 16-row m-tile of a 64-row resident tile, whose
 // (64 x D) fp32 accumulator fits the 128 registers a thread of a 512-thread
-// block may hold up to D = 768.
+// block may hold up to D = 768; wider outputs are split into column parts.
 constexpr int kBwdWarps = 16;
 constexpr int kBwdRows = 4 * kBwdWarps;
 
@@ -249,6 +258,13 @@ __global__ void __launch_bounds__(kFwdWarps * 32) ce_fwd_bf16_kernel(
 // out = dE.
 // ---------------------------------------------------------------------------
 
+// Output column parts a block of the backward accumulates (blockIdx.y picks
+// one): the whole width up to D = 768, halves above.
+template <int D>
+__host__ __device__ constexpr int bwd_parts() {
+  return D > 768 ? 2 : 1;
+}
+
 template <int D, bool kTokensAreRows>
 __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ Y,
@@ -260,6 +276,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
   constexpr int kThreads = kWarps * 32;
   constexpr int kLdx = D + 8;
   constexpr int kNC = D / kChunk;
+  constexpr int kOutNC = kNC / bwd_parts<D>();  // output chunks of this block
+  constexpr int kStepsPerTile = kNC + kOutNC;   // streamed chunks per Y tile
   constexpr int kNT = WarpMap<BM, kWarps>::kNT;                // 2
   constexpr int kWarpsPerM = WarpMap<BM, kWarps>::kWarpsPerM;  // 4
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -274,6 +292,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
   const int g = lane / 4, t = lane % 4;
   const int mt = warp / kWarpsPerM, ng = warp % kWarpsPerM;
   const int x0 = blockIdx.x * BM;
+  const int out_c0 = blockIdx.y * kOutNC;  // first output chunk of this block
 
   load_tile_bf16<D, BM>(sX, X, D, x0, nx);
 
@@ -292,18 +311,23 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
     }
   }
 
-  float acc[kNC][kNT][4];
+  float acc[kOutNC][kNT][4];
 #pragma unroll
-  for (int c = 0; c < kNC; ++c)
+  for (int c = 0; c < kOutNC; ++c)
 #pragma unroll
     for (int n = 0; n < kNT; ++n) acc[c][n][0] = acc[c][n][1] = acc[c][n][2] = acc[c][n][3] = 0.f;
 
   const int n_yt = (ny + kChunk - 1) / kChunk;
-  const int total = n_yt * 2 * kNC;  // every chunk is streamed twice per tile
+  // per tile: the kNC chunks of the depth (phase 1), then this block's
+  // kOutNC output chunks again (phase 2)
+  const int total = n_yt * kStepsPerTile;
   auto fetch = [&](int j) {
-    if (j < total)
-      fetch_chunk<kThreads>(sY + (j % kStages) * kChunk * kLdc, Y, D, (j / (2 * kNC)) * kChunk,
-                            ny, (j % kNC) * kChunk);
+    if (j < total) {
+      const int r = j % kStepsPerTile;
+      const int c = r < kNC ? r : out_c0 + (r - kNC);
+      fetch_chunk<kThreads>(sY + (j % kStages) * kChunk * kLdc, Y, D,
+                            (j / kStepsPerTile) * kChunk, ny, c * kChunk);
+    }
     cp_async_commit();
   };
   fetch(0);
@@ -361,10 +385,10 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
       *reinterpret_cast<uint32_t*>(sG + lr * kLdc + lc) = pack_bf16(gv[0], gv[1]);
       *reinterpret_cast<uint32_t*>(sG + (lr + 8) * kLdc + lc) = pack_bf16(gv[2], gv[3]);
     }
-    // phase 2: out[:, chunk c] += G * Y[:, chunk c] (contraction over Y's rows);
-    // the barrier of the first step publishes G
+    // phase 2: out[:, chunk out_c0 + c] += G * Y[:, that chunk] (contraction
+    // over Y's rows); the barrier of the first step publishes G
 #pragma unroll
-    for (int c = 0; c < kNC; ++c, ++j) {
+    for (int c = 0; c < kOutNC; ++c, ++j) {
       cp_async_wait<1>();
       __syncthreads();
       fetch(j + 2);
@@ -386,10 +410,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
     const int row = x0 + mt * 16 + g + 8 * i;
     if (row >= nx) continue;
 #pragma unroll
-    for (int c = 0; c < kNC; ++c)
+    for (int c = 0; c < kOutNC; ++c)
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * D + c * kChunk + ng * 16 +
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * D + (out_c0 + c) * kChunk +
+                                           ng * 16 +
                                            n * 8 + 2 * t) =
             __floats2bfloat162_rn(acc[c][n][2 * i], acc[c][n][2 * i + 1]);
   }
@@ -527,9 +552,11 @@ int launch_bwd_bf16(const void* h, const void* e, const int* target, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   const __nv_bfloat16* hp = static_cast<const __nv_bfloat16*>(h);
   const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(e);
-  ce_bwd_bf16_kernel<D, true><<<(T + BM - 1) / BM, kWarps * 32, kSmem, stream>>>(
+  ce_bwd_bf16_kernel<D, true><<<dim3((T + BM - 1) / BM, bwd_parts<D>()), kWarps * 32, kSmem,
+                                  stream>>>(
       hp, ep, target, lse, coef, static_cast<__nv_bfloat16*>(dh), T, V, T, V);
-  ce_bwd_bf16_kernel<D, false><<<(V + BM - 1) / BM, kWarps * 32, kSmem, stream>>>(
+  ce_bwd_bf16_kernel<D, false><<<dim3((V + BM - 1) / BM, bwd_parts<D>()), kWarps * 32, kSmem,
+                                   stream>>>(
       ep, hp, target, lse, coef, static_cast<__nv_bfloat16*>(de), V, T, T, V);
   return static_cast<int>(cudaGetLastError());
 }
@@ -539,7 +566,7 @@ int launch_bwd_bf16(const void* h, const void* e, const int* target, const float
 // dtype: 0 = float32, 1 = bfloat16 (h and e share it). h is a contiguous
 // (T, D) matrix, e a contiguous (V, D) table, target (T,) int32 with -1 for
 // ignored tokens; lse and tgt are (T,) fp32 outputs. bf16 takes D in
-// {64, 768}; fp32 any D <= 1024 that is a multiple of 4. Returns
+// {64, 768, 1024}; fp32 any D <= 1024 that is a multiple of 4. Returns
 // the CUDA error code (0 = success).
 extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, const void* target,
                                      void* lse, void* tgt, int T, int V, int D, void* stream) {
@@ -553,6 +580,7 @@ extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, co
     switch (D) {
       case 64: return launch_fwd_bf16<64>(h, e, tp, lp, gp, T, V, s);
       case 768: return launch_fwd_bf16<768>(h, e, tp, lp, gp, T, V, s);
+      case 1024: return launch_fwd_bf16<1024>(h, e, tp, lp, gp, T, V, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -579,6 +607,7 @@ extern "C" int pixparse_fused_ce_bwd(int dtype, const void* h, const void* e, co
     switch (D) {
       case 64: return launch_bwd_bf16<64>(h, e, tp, lp, cp, dh, de, T, V, s);
       case 768: return launch_bwd_bf16<768>(h, e, tp, lp, cp, dh, de, T, V, s);
+      case 1024: return launch_bwd_bf16<1024>(h, e, tp, lp, cp, dh, de, T, V, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1,5 +1,6 @@
 // Tensor-core and shared-memory tile helpers shared by the port's Hopper
-// kernels (flash attention forward and backward, fused cross entropy).
+// kernels (flash attention forward and backward, fused cross entropy, window
+// attention forward and backward).
 //
 // All products go through mma.sync m16n8k16 (bf16 in, fp32 accumulate).
 // Fragment layout, with g = lane / 4 and t = lane % 4:
@@ -76,6 +77,17 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const __nv_bfloat1
   ldmatrix_x4(a, tile + r * lds + c);
 }
 
+// A fragment of the 16 x 16 block at (m0, k0) of the TRANSPOSE of a
+// row-major bf16 tile with row stride `lds`: A[m][k] = tile[k0 + k][m0 + m]
+// (the product contracts over the tile's rows).
+__device__ __forceinline__ void load_a_frag_trans(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                                  int lds, int m0, int k0, int lane) {
+  const int mi = lane >> 3;  // matrix i of a0..a3: (m, k) blocks (0,0) (8,0) (0,8) (8,8)
+  const int k = k0 + (lane & 7) + (mi >> 1) * 8;
+  const int m = m0 + (mi & 1) * 8;
+  ldmatrix_x4_trans(a, tile + k * lds + m);
+}
+
 // B fragments of two neighbouring n-tiles from a tile stored [n][k] (the
 // product contracts over the tile's columns): b[0], b[1] belong to rows
 // n0..n0+7 and b[2], b[3] to rows n0+8..n0+15, both over columns k0..k0+15.
@@ -126,6 +138,21 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [0, n) of a (n, D) bf16 matrix with row stride `rstride` -> shared
+// memory with padded row stride D + 8, by cp.async (no register round trip;
+// the caller commits and waits); rows [n, n_pad) are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* smem, const __nv_bfloat16* src,
+                                                long long rstride, int n, int n_pad) {
+  constexpr int kVecPerRow = D / 8;
+  constexpr int kLds = D + 8;
+  for (int i = threadIdx.x; i < n_pad * kVecPerRow; i += blockDim.x) {
+    const int r = i / kVecPerRow, c = i % kVecPerRow;
+    const bool in = r < n;
+    cp_async_16(smem + r * kLds + c * 8, src + (in ? (long long)r * rstride : 0) + c * 8, in);
+  }
 }
 
 }  // namespace pixparse

@@ -56,21 +56,6 @@ constexpr int kMaxTokens = 144;           // window 12
 constexpr int kWarps = 4;  // fp32 kernel
 constexpr int kImagesPerBlock = 8;        // windows per block, one per image
 
-// Rows [0, n) of a (n, D) bf16 matrix with row stride `rstride` -> shared
-// memory with padded row stride D + 8, by cp.async (no register round trip;
-// the caller commits and waits); rows [n, n_pad) are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* smem, const __nv_bfloat16* src,
-                                                long long rstride, int n, int n_pad) {
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kLds = D + 8;
-  for (int i = threadIdx.x; i < n_pad * kVecPerRow; i += blockDim.x) {
-    const int r = i / kVecPerRow, c = i % kVecPerRow;
-    const bool in = r < n;
-    cp_async_16(smem + r * kLds + c * 8, src + (in ? (long long)r * rstride : 0) + c * 8, in);
-  }
-}
-
 // bias[h] + mask[w] -> shared memory (N * N fp32), once per block.
 __device__ __forceinline__ void load_bias_mask(float* dst, const float* bias_h,
                                                const float* mask_w, int n2) {

@@ -35,8 +35,9 @@ class TaskTrainCfg:
     opt: OptimizationCfg = field(default_factory=OptimizationCfg)
     dtype: Optional[str] = None  # compute dtype: 'bfloat16'/'bf16'/'float16'/None(fp32)
     amp: bool = True  # kept for flag parity; the compute dtype comes from `dtype`
-    # None/'auto'/'none' = no rematerialisation; the remat modes of the JAX
-    # package ('full', 'dots', 'mlp', 'gelu') are not ported yet and raise
+    # None/'auto' = the task's automatic mode ('mlp' when encoder tokens x
+    # depth > 20000: donut_base, cruller_large; else none), 'none', 'full',
+    # 'dots', 'mlp', 'gelu' (models/remat.py)
     remat: Optional[str] = None
     attn_impl: str = "auto"  # 'auto' (flash on CUDA) | 'xla' (plain) | 'flash'
     model_name: str = ""

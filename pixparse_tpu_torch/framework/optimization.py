@@ -106,7 +106,10 @@ def flax_path_names(name: str) -> Tuple[str, ...]:
     """``image_encoder.trunk.blocks.3.attn.qkv.weight`` ->
     ``('image_encoder', 'blocks_3', 'attn', 'qkv', 'kernel')``: the path the
     same parameter has in the JAX package's tree. The decay mask and the
-    layer depths read only these names."""
+    layer depths read only these names. Swin names fold as the JAX Swin
+    names its modules: ``layers.2.blocks.13`` -> ``layers_2_blocks_13`` (its
+    MLP ``mlp.fc1`` -> ``mlp_fc1``), ``layers.2.downsample`` ->
+    ``layers_2_downsample``, ``patch_embed.norm`` -> ``patch_norm``."""
     parts = name.split(".")
     tower = parts[0]
     rest = [p for p in parts[1:] if p != "trunk"]
@@ -116,14 +119,30 @@ def flax_path_names(name: str) -> Tuple[str, ...]:
     i = 0
     while i < len(rest):
         p = rest[i]
-        if p in ("blocks", "layers") and i + 1 < len(rest) and rest[i + 1].isdigit():
-            out.append(f"{p}_{rest[i + 1]}")
+        nxt = rest[i + 1:i + 4]
+        if (tower == "image_encoder" and p == "layers" and len(nxt) == 3
+                and nxt[0].isdigit() and nxt[1] == "blocks" and nxt[2].isdigit()):
+            out.append(f"layers_{nxt[0]}_blocks_{nxt[2]}")
+            i += 4
+            if rest[i:i + 2] in (["mlp", "fc1"], ["mlp", "fc2"]):
+                out.append(f"mlp_{rest[i + 1]}")
+                i += 2
+            continue
+        if (tower == "image_encoder" and p == "layers" and len(nxt) >= 2
+                and nxt[0].isdigit() and nxt[1] == "downsample"):
+            out.append(f"layers_{nxt[0]}_downsample")
+            i += 3
+            continue
+        if p in ("blocks", "layers") and nxt[:1] and nxt[0].isdigit():
+            out.append(f"{p}_{nxt[0]}")
             i += 2
             continue
         out.append(p)
         i += 1
     if len(out) >= 3 and out[-3:-1] == ["patch_embed", "proj"]:
         out = out[:-2] + [out[-1]]  # flax: patch_embed/{kernel,bias}
+    if len(out) >= 3 and out[-3:-1] == ["patch_embed", "norm"]:
+        out = out[:-3] + ["patch_norm", out[-1]]  # the Swin's patch LayerNorm
     leaf, owner = out[-1], out[-2] if len(out) > 1 else ""
     if leaf == "weight":
         if owner.startswith("embed_") or owner == "lm_head":
@@ -145,6 +164,11 @@ def cruller_layer_depth(names: Tuple[str, ...], encoder_depth: int, decoder_laye
         for n in names:
             if n.startswith("blocks_"):
                 return int(n.split("_")[1]) + 1
+            if n.startswith("layers_") and "_blocks_" in n:
+                # Swin: layers_{stage}_blocks_{b} -> a coarse per-stage depth
+                # spread over the encoder range, as the JAX package assigns it
+                stage = int(n.split("_")[1])
+                return min(1 + stage * max(1, encoder_depth // 4), encoder_depth)
         if any(n in ("patch_embed", "patch_norm", "cls_token", "pos_embed", "norm_pre")
                for n in names):
             return 0

@@ -4,7 +4,8 @@
 - :func:`trace`: a ``torch.profiler`` capture context (CPU and CUDA
   activities) that writes a chrome trace into a directory;
 - analytic matmul-FLOP accounting for the Cruller train step
-  (:func:`cruller_train_flops`) and :func:`mfu` against the dense bf16
+  (:func:`cruller_train_flops`, ViT or Swin encoder: :func:`swin_encoder_flops`)
+  and :func:`mfu` against the dense bf16
   tensor-core peak of the card the step runs on.
 """
 
@@ -76,13 +77,38 @@ def transformer_layer_flops(L: int, D: int, F: int, cross_Lk: int = 0) -> float:
     return float(self_attn + ffn + cross)
 
 
+def swin_encoder_flops(cfg) -> float:
+    """Forward matmul FLOPs of a Swin encoder: per-stage resolutions and
+    widths, WINDOWED attention (the score and value products are N * w^2, not
+    N^2), patch merging between stages."""
+    gh = cfg.img_size[0] // cfg.patch_size
+    gw = cfg.img_size[1] // cfg.patch_size
+    w2 = cfg.window_size ** 2
+    total = 2 * gh * gw * (cfg.patch_size ** 2 * cfg.in_chans) * cfg.embed_dim
+    for stage, depth in enumerate(cfg.depths):
+        N = (gh // (2 ** stage)) * (gw // (2 ** stage))
+        D = cfg.embed_dim * (2 ** stage)
+        per_block = (
+            8 * N * D * D  # qkv + out projections
+            + 4 * N * w2 * D  # windowed score + value products
+            + 4 * N * D * int(D * cfg.mlp_ratio)  # FFN
+        )
+        total += depth * per_block
+        if stage < len(cfg.depths) - 1:
+            total += 2 * (N // 4) * (4 * D) * (2 * D)  # patch merging
+    return float(total)
+
+
 def cruller_train_flops(vit_cfg, bart_cfg, batch_size: int, text_len: int) -> float:
     """Matmul FLOPs for one forward+backward Cruller train step (backward =
-    2x forward), ViT encoder."""
+    2x forward), ViT (full attention) or Swin (windowed) encoder."""
     N = vit_cfg.num_tokens
-    D = vit_cfg.embed_dim
-    enc = 2 * N * (vit_cfg.patch_size ** 2 * vit_cfg.in_chans) * D
-    enc += vit_cfg.depth * transformer_layer_flops(N, D, int(D * vit_cfg.mlp_ratio))
+    if hasattr(vit_cfg, "depths"):  # SwinCfg
+        enc = swin_encoder_flops(vit_cfg)
+    else:
+        D = vit_cfg.embed_dim
+        enc = 2 * N * (vit_cfg.patch_size ** 2 * vit_cfg.in_chans) * D
+        enc += vit_cfg.depth * transformer_layer_flops(N, D, int(D * vit_cfg.mlp_ratio))
     Dd = bart_cfg.d_model
     dec = bart_cfg.decoder_layers * transformer_layer_flops(
         text_len, Dd, bart_cfg.decoder_ffn_dim, cross_Lk=N

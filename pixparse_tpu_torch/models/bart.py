@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixparse_tpu_torch.models.remat import block_mode, checkpoint_region, mlp_mode
 from pixparse_tpu_torch.ops.attention import NEG_MIN, dot_product_attention
 from pixparse_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -230,7 +231,13 @@ class CachedCrossAttention(_Projections):
 
 
 class BartDecoderLayer(nn.Module):
-    """Post-LN (BART) or pre-LN (mBART) decoder layer."""
+    """Post-LN (BART) or pre-LN (mBART) decoder layer. In ``mode='train'``
+    with gradients on it follows the remat mode (``models/remat.py``): the
+    FFN checkpointed under ``'mlp'`` (fc1, GELU, activation dropout, fc2) or
+    ``'gelu'`` (all but fc1), the whole layer under ``'full'``/``'dots'``; the
+    dropout generator is replayed in the recompute."""
+
+    remat_mode = False
 
     def __init__(self, cfg: BartDecoderCfg, kv_cache_dtype: str = "bf16"):
         super().__init__()
@@ -246,9 +253,29 @@ class BartDecoderLayer(nn.Module):
         self.dropout = cfg.dropout
         self.activation_dropout = cfg.activation_dropout
 
+    def _ffn_tail(self, h, live, generator):
+        h = F.gelu(h)  # exact erf GELU
+        h = dropout(h, self.activation_dropout, live, generator)
+        return self.fc2(h)
+
+    def _ffn(self, h, live, generator):
+        return self._ffn_tail(self.fc1(h), live, generator)
+
     def forward(self, x, enc, mode, attn_impl, masks, cache=None, layer=0, generator=None):
         """``generator`` feeds the dropout masks; dropout is live only when
         the module is in training mode and ``mode == 'train'``."""
+        live = self.training and mode == "train"
+        remat = self.remat_mode if mode == "train" else False
+        replay = generator if live else None  # dropout draws inside a checkpointed region
+        cut = block_mode(remat)
+        if cut:
+            return checkpoint_region(
+                self._layer, x, enc, mode, attn_impl, masks, cache, layer, generator, remat,
+                dots=cut == "dots", generator=replay,
+            )
+        return self._layer(x, enc, mode, attn_impl, masks, cache, layer, generator, remat)
+
+    def _layer(self, x, enc, mode, attn_impl, masks, cache, layer, generator, remat):
         self_bias, self_valid, cross_bias, cross_valid = masks
         live = self.training and mode == "train"
         drop = lambda h: dropout(h, self.dropout, live, generator)
@@ -260,9 +287,14 @@ class BartDecoderLayer(nn.Module):
         ))
 
         def ffn(h):
-            h = F.gelu(self.fc1(h))  # exact erf GELU
-            h = dropout(h, self.activation_dropout, live, generator)
-            return drop(self.fc2(h))
+            cut = mlp_mode(remat)
+            replay = generator if live and self.activation_dropout else None
+            if cut == "gelu":
+                return drop(checkpoint_region(
+                    self._ffn_tail, self.fc1(h), live, generator, generator=replay))
+            if cut == "mlp":
+                return drop(checkpoint_region(self._ffn, h, live, generator, generator=replay))
+            return drop(self._ffn(h, live, generator))
 
         if self.pre_norm:
             x = x + self_attn(self.self_attn_layer_norm(x))

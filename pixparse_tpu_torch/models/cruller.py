@@ -22,6 +22,7 @@ from pixparse_tpu_torch.models.bart import (
     resolve_bart_cfg,
 )
 from pixparse_tpu_torch.models.config import ModelCfg
+from pixparse_tpu_torch.models.remat import set_remat
 from pixparse_tpu_torch.models.swin import Swin, SwinCfg, resolve_swin_cfg
 from pixparse_tpu_torch.models.vit import ViT, ViTCfg, resolve_vit_cfg
 
@@ -66,7 +67,10 @@ class Cruller(nn.Module):
     from the parameters' (training: fp32 master weights, bf16 forward);
     ``None`` = the parameters' dtype. ``kv_cache_dtype='int8'`` quantizes
     the cross-attention caches, ``lm_head_dtype='int8'`` makes ``generate``
-    apply the tied head in int8 (the JAX package's int8 decode mode)."""
+    apply the tied head in int8 (the JAX package's int8 decode mode).
+    ``remat``: the train forward's rematerialisation mode (``False``,
+    ``True``/``'full'``, ``'dots'``, ``'mlp'``, ``'gelu'``;
+    ``models/remat.py``), for the encoder and the decoder alike; settable."""
 
     def __init__(
         self,
@@ -76,6 +80,7 @@ class Cruller(nn.Module):
         kv_cache_dtype: str = "bf16",
         lm_head_dtype: str = "bf16",
         compute_dtype: Optional[torch.dtype] = None,
+        remat=False,
     ):
         super().__init__()
         if lm_head_dtype not in DECODE_DTYPES:
@@ -90,6 +95,16 @@ class Cruller(nn.Module):
         self.text_decoder = nn.ModuleDict(
             {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype, compute_dtype)}
         )
+        self.remat = remat
+
+    @property
+    def remat(self):
+        return self._remat
+
+    @remat.setter
+    def remat(self, mode):
+        set_remat(self, mode)
+        self._remat = mode
 
     @property
     def encoder(self) -> Union[ViT, Swin]:

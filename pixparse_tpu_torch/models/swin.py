@@ -13,8 +13,11 @@ flattened to ``(B, N, out_dim)``. Images are NHWC as in the JAX package.
 - The shift masks are fixed per (padded map, window, shift) and are built
   once per device and kept by the :class:`Swin` module.
 - ``attn_impl='flash'`` runs :func:`~pixparse_tpu_torch.ops.window_attention
-  .window_attention` (the CUDA kernel on CUDA tensors); ``'xla'`` its plain
-  version.
+  .window_attention` (the CUDA kernels, forward and backward, on CUDA
+  tensors); ``'xla'`` its plain version.
+- Training: fp32 master weights cast at use to the compute dtype; each block
+  follows the remat mode (``models/remat.py``): its MLP checkpointed under
+  ``'mlp'``/``'gelu'``, the whole block under ``'full'``/``'dots'``.
 
 Parameter names follow timm's ``SwinTransformer``
 (``patch_embed.proj``/``.norm``, ``layers.S.blocks.B.attn.qkv`` ...,
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixparse_tpu_torch.models.remat import block_mode, checkpoint_region
 from pixparse_tpu_torch.models.vit import Mlp, PatchEmbed
 from pixparse_tpu_torch.ops.dense import Linear
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
@@ -143,6 +147,12 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
+    """Window attention + MLP on a (B, H, W, C) map; checkpointed whole under
+    remat ``'full'``/``'dots'`` (the shift mask, a constant, is looked up
+    outside the checkpointed part)."""
+
+    remat_mode = False
+
     def __init__(self, cfg: SwinCfg, dim: int, num_heads: int, resolution: Tuple[int, int],
                  shift: int, attn_impl: str, shift_masks: Dict):
         super().__init__()
@@ -161,24 +171,36 @@ class SwinBlock(nn.Module):
             self.shift_masks[key] = torch.from_numpy(mask).to(device)
         return self.shift_masks[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C)."""
-        B, H, W, _ = x.shape
+    def _geometry(self, H: int, W: int):
+        """(shift, pad_h, pad_w) of this block on an H x W map."""
         window = self.window
         if window != min(window, H, W):
             raise ValueError(f"feature map {H}x{W} is smaller than this block's window {window}")
         # timm: no shifting when one window covers the feature map
         shift = self.shift if window < min(H, W) else 0
-        h = self.norm1(x)
         # pad the map to window multiples (timm pads per block, slices after)
-        pad_h = (window - H % window) % window
-        pad_w = (window - W % window) % window
+        return shift, (window - H % window) % window, (window - W % window) % window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, C)."""
+        _, H, W, _ = x.shape
+        shift, pad_h, pad_w = self._geometry(H, W)
+        mask = self._mask(H + pad_h, W + pad_w, shift, x.device) if shift else None
+        cut = block_mode(self.remat_mode)
+        if cut:
+            return checkpoint_region(self._block, x, mask, shift, pad_h, pad_w,
+                                     dots=cut == "dots")
+        return self._block(x, mask, shift, pad_h, pad_w)
+
+    def _block(self, x: torch.Tensor, mask, shift: int, pad_h: int, pad_w: int) -> torch.Tensor:
+        B, H, W, _ = x.shape
+        window = self.window
         Hp, Wp = H + pad_h, W + pad_w
+        h = self.norm1(x)
         if pad_h or pad_w:
             h = F.pad(h, (0, 0, 0, pad_w, 0, pad_h))
         if shift:
             h = torch.roll(h, (-shift, -shift), dims=(1, 2))
-        mask = self._mask(Hp, Wp, shift, x.device) if shift else None
         h = _window_reverse(self.attn(_window_partition(h, window), mask), window, B, Hp, Wp)
         if shift:
             h = torch.roll(h, (shift, shift), dims=(1, 2))
@@ -231,7 +253,7 @@ class Swin(nn.Module):
 
     def __init__(self, cfg: SwinCfg, attn_impl: str = "xla", compute_dtype=None):
         super().__init__()
-        if cfg.drop_rate:
+        if cfg.drop_rate:  # 0 in every Swin config of the repo
             raise NotImplementedError("Swin dropout (drop_rate > 0) is not ported")
         self.cfg = cfg
         self.compute_dtype = compute_dtype

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixparse_tpu_torch.models.remat import block_mode, checkpoint_region, mlp_mode
 from pixparse_tpu_torch.ops.attention import dot_product_attention
 from pixparse_tpu_torch.ops.dense import Linear
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
@@ -91,16 +92,36 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2; under remat ``'mlp'`` the whole MLP is
+    checkpointed, under ``'gelu'`` GELU + fc2 (``models/remat.py``)."""
+
+    remat_mode = False
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
 
+    def _tail(self, h):
+        return self.fc2(F.gelu(h))  # exact erf GELU, as in JAX
+
+    def _mlp(self, x):
+        return self._tail(self.fc1(x))
+
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU, as in JAX
+        cut = mlp_mode(self.remat_mode)
+        if cut == "gelu":
+            return checkpoint_region(self._tail, self.fc1(x))
+        if cut == "mlp":
+            return checkpoint_region(self._mlp, x)
+        return self._mlp(x)
 
 
 class Block(nn.Module):
+    """Pre-LN block; checkpointed whole under remat ``'full'``/``'dots'``."""
+
+    remat_mode = False
+
     def __init__(self, cfg: ViTCfg, attn_impl: str = "xla"):
         super().__init__()
         self.norm1 = LayerNorm(cfg.embed_dim, cfg.ln_eps)
@@ -108,9 +129,15 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_eps)
         self.mlp = Mlp(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio))
 
-    def forward(self, x):
+    def _block(self, x):
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
+
+    def forward(self, x):
+        cut = block_mode(self.remat_mode)
+        if cut:
+            return checkpoint_region(self._block, x, dots=cut == "dots")
+        return self._block(x)
 
 
 class ViT(nn.Module):

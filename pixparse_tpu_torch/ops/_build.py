@@ -64,6 +64,17 @@ SIGNATURES = {
             I, P, P, P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, LL, LL, F, P,
         ],
     },
+    "window_attention_bwd": {
+        "pixparse_window_attn_bwd": [
+            I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+            LL, LL, LL, LL, LL, LL, LL, LL, F, P,
+        ],
+    },
+    "layer_norm": {
+        "pixparse_layer_norm_fwd": [I, P, P, P, P, I, I, F, P],
+        "pixparse_layer_norm_bwd": [I, P, P, P, P, P, P, P, I, I, I, F, P],
+        "pixparse_layer_norm_bwd_blocks": [I],
+    },
     "decode_attention_q8": {
         "pixparse_decode_attn_q8_fwd": [
             I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, F, P,

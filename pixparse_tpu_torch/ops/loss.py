@@ -34,7 +34,7 @@ from pixparse_tpu_torch.ops import _build
 
 IGNORE_ID = -100
 DEAD_LSE = -1e30
-CE_BF16_WIDTHS = (64, 768)  # depths the bf16 kernels are built for
+CE_BF16_WIDTHS = (64, 768, 1024)  # depths the bf16 kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,7 +1,8 @@
-"""Swin window attention: a CUDA kernel for Hopper and its plain version.
+"""Swin window attention, forward and backward: CUDA kernels for Hopper and
+their plain versions.
 
-Counterpart of :func:`pixparse_tpu.ops.window_attention.window_attention`
-(forward only). Per window and head::
+Counterpart of :func:`pixparse_tpu.ops.window_attention.window_attention`.
+Per window and head::
 
     softmax(q k^T * Dh^-0.5 + bias[h] + mask[w % nW]) v
 
@@ -12,11 +13,20 @@ repeats with period ``nW``. The scale multiplies the fp32 product before
 the bias is added, the softmax runs in fp32 and p is rounded to the input
 dtype before ``p v``.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel (``csrc/window_attention.cu``) or raises. ``window_attention.launches``
-counts kernel launches. The backward (TPU kernel #15,
-``ops/window_attention.py::_bwd_kernel``) is not ported: a CUDA input that
-requires grad raises.
+Backward (both versions), from q, k, v, do and the forward's bias and mask
+(no lse is saved, as in JAX): s and the softmax are recomputed in fp32,
+``dv = p^T do`` with p rounded to the input dtype, ``ds = p * (dp - sum_j p
+dp)`` in fp32 from the unrounded p, ``dq = ds k`` and ``dk = ds^T q`` with
+``ds * Dh^-0.5`` rounded to the input dtype, and ``dbias[h]`` the fp32 sum of
+ds over every window. The mask gets no gradient; the bias table's gradient
+flows through the gather outside, as in JAX.
+
+:func:`window_attention` is a :class:`torch.autograd.Function` over the two.
+Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
+kernels (``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``) or
+raises. ``window_attention.launches`` and ``window_attention_bwd.launches``
+count wrapper calls that launched (the backward's call launches the
+backward kernel and the dbias reduction).
 """
 
 from __future__ import annotations
@@ -78,12 +88,6 @@ def _window_cuda(q, k, v, bias, mask):
     nB, N, C = q.shape
     H = bias.shape[0]
     Dh = C // H
-    if any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "window_attention: the backward (TPU kernel #15, "
-            "pixparse_tpu/ops/window_attention.py::_bwd_kernel) is not ported; "
-            "run the CUDA forward under torch.no_grad() or torch.inference_mode()"
-        )
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"window_attention: CUDA kernel takes bfloat16 or float32 q/k/v of one "
@@ -131,19 +135,140 @@ def _window_cuda(q, k, v, bias, mask):
     return o
 
 
+def window_attention_bwd_plain(q, k, v, do, bias, mask=None):
+    """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` in q's
+    dtype, ``(nB, ww, C)``, and ``dbias (H, ww, ww)`` fp32, with the kernel's
+    rounding points."""
+    _check_args(q, bias, mask)
+    nB, N, C = q.shape
+    H = bias.shape[0]
+    Dh = C // H
+    scale = Dh ** -0.5
+    heads = lambda t: t.reshape(nB, N, H, Dh).float()
+    qf, kf, vf, dof = heads(q), heads(k), heads(v), heads(do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(nB // nW, nW, H, N, N) + mask.float()[None, :, None]).reshape(nB, H, N, N)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    dsb = (ds * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf)
+    out = lambda t: t.reshape(nB, N, C).to(q.dtype)
+    return out(dq), out(dk), out(dv), dbias
+
+
+def _bwd_layout(nB: int, period: int, H: int, device) -> tuple:
+    """(period, w_per_block, images_per_block, n_parts) of the backward's
+    grid: a block takes a run of window positions of up to 8 images and one
+    head, about four blocks per SM in all (each block writes one dbias
+    partial). Without a mask every window is its own position."""
+    n_images = nB // period
+    ipb = min(n_images, 8)
+    n_chunks = -(-n_images // ipb)
+    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    wpb = max(1, period * n_chunks * H // target)
+    return period, wpb, ipb, -(-period // wpb) * n_chunks
+
+
+def _window_bwd_cuda(q, k, v, do, bias, mask):
+    nB, N, C = q.shape
+    H = bias.shape[0]
+    Dh = C // H
+    if q.dtype not in _DTYPE_CODES or not (k.dtype == v.dtype == do.dtype == q.dtype):
+        raise ValueError(
+            f"window_attention_bwd: CUDA kernel takes bfloat16 or float32 q/k/v/do of one "
+            f"dtype (got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype})"
+        )
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"window_attention_bwd: head dim {Dh} not in {HEAD_DIMS}")
+    if not 0 < N <= MAX_WINDOW_TOKENS:
+        raise ValueError(f"window_attention_bwd: {N} tokens per window (1..{MAX_WINDOW_TOKENS})")
+    if any(t.shape != q.shape for t in (k, v, do)) or bias.shape != (H, N, N):
+        raise ValueError(
+            f"window_attention_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} do {tuple(do.shape)} bias {tuple(bias.shape)}"
+        )
+    if mask is not None and mask.shape[1:] != (N, N):
+        raise ValueError(f"window_attention_bwd: mask shape {tuple(mask.shape)}")
+    tensors = (q, k, v, do, bias) + (() if mask is None else (mask,))
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("window_attention_bwd: all operands must be on one CUDA device")
+    if not _rows_ok(do):  # autograd may hand the cotangent over in another layout
+        do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _rows_ok(t):
+            raise ValueError(
+                f"window_attention_bwd: {name} must have contiguous, 16-byte aligned "
+                f"rows (got strides {tuple(t.stride())})"
+            )
+    bias = bias.to(torch.float32).contiguous()
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty((nB, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
+    dbias = torch.empty((H, N, N), dtype=torch.float32, device=q.device)
+    if nB == 0:
+        return dq, dk, dv, dbias.zero_()
+    period, wpb, ipb, n_parts = _bwd_layout(nB, nB if mask is None else mask.shape[0], H, q.device)
+    partial = torch.empty((H, n_parts, N, N), dtype=torch.float32, device=q.device)
+    lib = _build.library("window_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.pixparse_window_attn_bwd(
+            _DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+            _build.ptr(bias), None if mask is None else _build.ptr(mask),
+            _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), _build.ptr(partial), _build.ptr(dbias),
+            nB, period, N, H, Dh, wpb, ipb,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            do.stride(0), do.stride(1), float(Dh ** -0.5), _build.stream_ptr(q.device),
+        )
+    _build.check(err, "window_attention_bwd")
+    window_attention_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+def window_attention_bwd(q, k, v, do, bias, mask=None):
+    """``(dq, dk, dv, dbias)``: the CUDA kernels for CUDA tensors, the plain
+    version for CPU tensors. ``launches`` counts calls that launched."""
+    _check_args(q, bias, mask)
+    if q.is_cuda:
+        return _window_bwd_cuda(q, k, v, do, bias, mask)
+    return window_attention_bwd_plain(q, k, v, do, bias, mask)
+
+
+window_attention_bwd.launches = 0
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        if q.is_cuda:
+            return _window_cuda(q, k, v, bias, mask)
+        return window_attention_plain(q, k, v, bias, mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, mask = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_bwd(q, k, v, do.to(q.dtype), bias, mask)
+        return dq, dk, dv, dbias.to(bias.dtype), None
+
+
 def window_attention(
     q: torch.Tensor,  # (nB, ww, C), nB = batch * windows per image, C = H * Dh
     k: torch.Tensor,
     v: torch.Tensor,
-    bias: torch.Tensor,  # (H, ww, ww) relative-position bias
-    mask: Optional[torch.Tensor] = None,  # (nW, ww, ww) shift mask
+    bias: torch.Tensor,  # (H, ww, ww) relative-position bias (differentiable)
+    mask: Optional[torch.Tensor] = None,  # (nW, ww, ww) shift mask (constant)
 ) -> torch.Tensor:
-    """Fused per-window attention -> ``(nB, ww, C)``: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """Fused per-window attention -> ``(nB, ww, C)``: the CUDA kernels for
+    CUDA tensors, the plain versions for CPU tensors. Differentiable in q, k,
+    v and bias."""
     _check_args(q, bias, mask)
-    if q.is_cuda:
-        return _window_cuda(q, k, v, bias, mask)
-    return window_attention_plain(q, k, v, bias, mask)
+    return _WindowAttention.apply(q, k, v, bias, mask)
 
 
 window_attention.launches = 0

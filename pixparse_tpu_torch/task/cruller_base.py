@@ -2,7 +2,8 @@
 :mod:`pixparse_tpu.task.cruller_base`).
 
 - :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay,
-  model construction (fp32 master weights, forward in the compute dtype),
+  model construction (ViT or Swin encoder, fp32 master weights, forward in
+  the compute dtype, the remat mode: ``resolve_remat``, ``auto_remat``),
   the train state and the train step, in-step shift of the pretrain
   sequences, the gradient-accumulation buffer, counters, logging with rate
   and MFU, and a reference-``.pt``-compatible ``state_dict``.
@@ -29,7 +30,6 @@ from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
-from pixparse_tpu_torch.models.swin import SwinCfg
 from pixparse_tpu_torch.ops.generation import generate
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
@@ -46,21 +46,33 @@ def _compute_dtype(dtype_flag: Optional[str]) -> torch.dtype:
     return torch.float32
 
 
-def resolve_remat(flag) -> bool:
-    """``--task.remat``: only "no rematerialisation" is ported. ``None``,
-    ``'auto'`` (base-size models run without remat) and ``'none'`` give
-    ``False``; the JAX package's modes raise."""
-    if flag is None or flag is False:
-        return False
-    s = str(flag).lower()
-    if s in ("auto", "none", "false", "0", "off"):
-        return False
-    if s in ("true", "full", "1", "on", "dots", "mlp", "gelu"):
-        raise NotImplementedError(
-            f"remat mode {flag!r}: rematerialisation is not ported yet "
-            "(ROADMAP.md Queue 1, cruller_large slice)"
+def resolve_remat(flag, auto):
+    """Map the ``--task.remat`` flag (a string from the CLI, bool/str from
+    code) to a model remat mode: False | True (full) | 'dots' | 'mlp' |
+    'gelu' (``models/remat.py``); ``None`` and ``'auto'`` give ``auto``."""
+    if flag is None:
+        return auto
+    if isinstance(flag, str):
+        s = flag.lower()
+        if s == "auto":
+            return auto
+        if s in ("none", "false", "0", "off"):
+            return False
+        if s in ("true", "full", "1", "on"):
+            return True
+        if s in ("dots", "mlp", "gelu"):
+            return s
+        raise ValueError(
+            f"unknown remat mode {flag!r} "
+            "(auto|none|full|dots|mlp|gelu)"
         )
-    raise ValueError(f"unknown remat mode {flag!r} (auto|none|full|dots|mlp|gelu)")
+    return bool(flag)
+
+
+def auto_remat(vit_cfg):
+    """The task's automatic remat mode: ``'mlp'`` when encoder tokens times
+    encoder depth exceed 20000 (cruller_large, donut_base), else none."""
+    return "mlp" if vit_cfg.num_tokens * vit_cfg.depth > 20000 else False
 
 
 class CrullerVocabMixin:
@@ -142,12 +154,6 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
     # ------------------------------------------------------------------
     def train_setup(self, num_batches_per_interval: int, **kwargs):
         cfg = self.cfg
-        if isinstance(self.vit_cfg, SwinCfg):
-            raise NotImplementedError(
-                "training a Swin encoder (donut) is not ported yet: its window-attention "
-                "backward, TPU kernel #15, comes with the donut training slice "
-                "(ROADMAP.md Queue 1)"
-            )
         accum = max(1, cfg.opt.grad_accum_steps)
         self.num_steps_per_interval = num_batches_per_interval // accum
         # gradient accumulation happens inside the train step (micro-batch
@@ -165,10 +171,11 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         attn_impl = getattr(cfg, "attn_impl", "auto")
         if attn_impl == "auto":
             attn_impl = "flash" if self.device.type == "cuda" else "xla"
-        resolve_remat(getattr(cfg, "remat", None))
+        remat = resolve_remat(getattr(cfg, "remat", None), auto_remat(self.vit_cfg))
         seed = kwargs.get("seed", 0)
         model = Cruller(
-            self.vit_cfg, self.bart_cfg, attn_impl=attn_impl, compute_dtype=self.compute_dtype
+            self.vit_cfg, self.bart_cfg, attn_impl=attn_impl, compute_dtype=self.compute_dtype,
+            remat=remat,
         )
         if self.resume_state_dict is not None:
             load_cruller_state_dict(model, self.resume_state_dict)

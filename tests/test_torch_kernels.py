@@ -33,7 +33,19 @@ from pixparse_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from pixparse_tpu_torch.ops.generation import q8_logits, quantize_head
-from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+from pixparse_tpu_torch.ops.layer_norm import (
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_plain,
+    layer_norm_fwd,
+    layer_norm_fwd_plain,
+)
+from pixparse_tpu_torch.ops.window_attention import (
+    window_attention,
+    window_attention_bwd,
+    window_attention_bwd_plain,
+    window_attention_plain,
+)
 from pixparse_tpu_torch.ops.loss import (
     fused_ce_bwd,
     fused_ce_bwd_plain,
@@ -270,6 +282,7 @@ def _ce_inputs(T, V, D, dtype, device, seed, ignore_every=5):
 @pytest.mark.parametrize("T,V,D,dtype", [
     (300, 1000, 64, torch.bfloat16), (77, 517, 64, torch.bfloat16),
     (1000, 5001, 768, torch.bfloat16), (130, 333, 768, torch.bfloat16),
+    (700, 3001, 1024, torch.bfloat16), (65, 129, 1024, torch.bfloat16),
     (50, 301, 64, torch.float32), (33, 200, 768, torch.float32),
 ])
 def test_fused_ce_kernels_match_plain(cuda_device, T, V, D, dtype):
@@ -351,8 +364,8 @@ def test_window_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_period):
 @pytest.mark.cuda
 def test_window_kernel_rejects_what_it_does_not_take(cuda_device):
     q, k, v, bias, mask = _window_inputs(8, 100, 4, 32, torch.bfloat16, cuda_device, 0, 4)
-    with pytest.raises(NotImplementedError, match="#15"):
-        window_attention(q.detach().requires_grad_(), k, v, bias, mask)
+    with pytest.raises(ValueError, match="one dtype"):
+        window_attention_bwd(q, k, v, q.float(), bias, mask)
     with pytest.raises(ValueError, match="mask period"):
         window_attention(q, k, v, bias, mask[:3])
     with pytest.raises(ValueError, match="head dim"):
@@ -360,6 +373,112 @@ def test_window_kernel_rejects_what_it_does_not_take(cuda_device):
     big = _window_inputs(2, 169, 4, 32, torch.bfloat16, cuda_device, 0)
     with pytest.raises(ValueError, match="tokens per window"):
         window_attention(*big)
+
+
+def _rows_close(got, want, rtol, name):
+    """Every row's L2 error within ``rtol`` of that row's L2 norm."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    err = (got - want).norm(dim=-1)
+    norm = want.norm(dim=-1)  # rows under 1% of the mean norm: held to that floor
+    assert (err <= rtol * norm.clamp_min(1e-2 * norm.mean())).all(), f"{name}: {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nB,N,H,D,n_period", [
+    (48, 100, 4, 32, 6),    # donut_base stage 0 widths, shifted
+    (10, 100, 8, 32, None),  # unshifted
+    (12, 49, 3, 16, 4),     # window 7
+    (9, 16, 2, 64, 3),      # window 4 (swin_test)
+    (20, 144, 2, 32, 20),   # window 12, one window per image
+    (64, 100, 2, 64, 16),   # several window positions a block
+])
+def test_window_bwd_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_period):
+    q, k, v, bias, mask = _window_inputs(nB, N, H, D, dtype, cuda_device, N + D + 1, n_period)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(N)).to(cuda_device, dtype)
+    before = window_attention_bwd.launches
+    got = window_attention_bwd(q, k, v, do, bias, mask)
+    torch.cuda.synchronize()
+    assert window_attention_bwd.launches == before + 1
+    want = window_attention_bwd_plain(q, k, v, do, bias, mask)
+    # p and ds round to bf16 before products of up to 144 terms
+    rtol = BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous(), name
+        _rows_close(a.view(nB, N, H, D), b.view(nB, N, H, D), rtol, name)
+    assert got[3].shape == (H, N, N) and got[3].dtype == torch.float32
+    _rows_close(got[3], want[3], rtol, "dbias")
+
+
+@pytest.mark.cuda
+def test_window_attention_autograd_on_card(cuda_device):
+    """Gradients of the autograd Function (both kernels) against autograd
+    through the plain forward, fp32, the bias table's through the gather."""
+    q, k, v, bias, mask = _window_inputs(24, 49, 3, 32, torch.float32, cuda_device, 5, 6)
+    table = torch.randn(169, 3, device=cuda_device)
+    index = torch.randint(0, 169, (49 * 49,), device=cuda_device)
+    grads = []
+    for fn in (window_attention, window_attention_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+        b = leaves[3].t()[:, index].reshape(3, 49, 49)
+        fn(*leaves[:3], b, mask).square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,D", [
+    (300, 128), (77, 136), (1000, 512), (300, 768), (301, 1024), (100, 2048),
+    (33, 4096), (10, 8192), (3, 8),
+])
+def test_layer_norm_kernels_match_plain(cuda_device, dtype, R, D):
+    gen = torch.Generator().manual_seed(R + D)
+    x = (torch.randn(R, D, generator=gen) * 2 + 0.5).to(cuda_device, dtype)
+    w = (1 + 0.3 * torch.randn(D, generator=gen)).to(cuda_device)
+    b = (0.2 * torch.randn(D, generator=gen)).to(cuda_device)
+    dy = torch.randn(R, D, generator=gen).to(cuda_device, dtype)
+    before = layer_norm_fwd.launches, layer_norm_bwd.launches
+    y = layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw, db = layer_norm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), layer_norm_fwd_plain(x, w, b, 1e-5).float(),
+                               atol=tol, rtol=tol)
+    dx_ref, dw_ref, db_ref = layer_norm_bwd_plain(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), dx_ref.float(), atol=tol, rtol=tol)
+    # sums over R rows in another order
+    torch.testing.assert_close(dw, dw_ref, atol=tol * R ** 0.5, rtol=tol)
+    torch.testing.assert_close(db, db_ref, atol=tol * R ** 0.5, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_layer_norm_opt_in_autograd_on_card(cuda_device):
+    x = torch.randn(4, 50, 256, device=cuda_device, requires_grad=True)
+    w = torch.ones(256, device=cuda_device, requires_grad=True)
+    b = torch.zeros(256, device=cuda_device, requires_grad=True)
+    before = layer_norm_fwd.launches, layer_norm_bwd.launches
+    layer_norm(x, w, b, 1e-6, impl="pallas").square().sum().backward()
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    got = [t.grad.clone() for t in (x, w, b)]
+    for t in (x, w, b):
+        t.grad = None
+    layer_norm(x, w, b, 1e-6, impl="xla").square().sum().backward()
+    for a, t in zip(got, (x, w, b)):
+        torch.testing.assert_close(a, t.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 100, device=cuda_device)
+    w = torch.ones(100, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm_fwd(x, w, w, 1e-6)
+    x = torch.zeros(4, 128, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        layer_norm_fwd(x, w[:1].expand(128), w[:1].expand(128), 1e-6)
 
 
 def _q8_inputs(B, Lk, H, D, dtype, device, seed):

@@ -73,6 +73,18 @@ def test_ce_from_hidden_matches_jax(impl, B, L, D, V):
         np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
 
 
+def test_fused_ce_at_donut_width_matches_jax():
+    """donut's decoder width, 1024 (T 32, V 300): the CUDA kernels take it
+    in bf16 too."""
+    assert 1024 in tl.CE_BF16_WIDTHS
+    hidden, emb, tgt = _data(2, 16, 1024, 300, seed=1024)
+    want, n_want, g_want = _jax_loss_and_grads(jl.fused_cross_entropy_from_hidden, hidden, emb, tgt)
+    got, n_got, g_got = _torch_loss_and_grads(tl.fused_cross_entropy_from_hidden, hidden, emb, tgt)
+    assert abs(got - want) < 1e-5 and n_got == n_want
+    for name, a, b in zip(("dh", "dE"), g_got, g_want):
+        np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("fn", [tl.fused_cross_entropy_from_hidden,
                                 tl.chunked_cross_entropy_from_hidden])
 def test_all_ignored_batch_gives_zero_loss_and_zero_grads(fn):

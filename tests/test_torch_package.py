@@ -41,6 +41,8 @@ MODULES = (
     "task.task_cruller_pretrain", "utils.metrics", "utils.ocr_eval", "utils.text_metrics",
     # donut_base serving, the eval CLI and the int8 decode mode
     "app.eval", "framework.eval", "models.swin", "ops.window_attention",
+    # donut_base training, the remat modes and the opt-in LayerNorm kernels
+    "models.remat",
 )
 
 
@@ -180,6 +182,23 @@ def test_training_wrappers_route_cpu_tensors_to_plain_through_autograd():
     fa.flash_attention(q, k, v, causal=True).sum().backward()
     loss.cross_entropy_from_hidden(h, e, t)[0].backward()
     assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v, h, e))
+    assert [c.launches for c in counters] == before
+
+
+def test_window_backward_and_layer_norm_route_cpu_tensors_to_plain_through_autograd():
+    from pixparse_tpu_torch.ops import layer_norm as ln
+    from pixparse_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(4, 16, 32, generator=gen).requires_grad_() for _ in range(3))
+    bias = torch.randn(2, 16, 16, generator=gen).requires_grad_()
+    x = torch.randn(3, 5, 64, generator=gen).requires_grad_()
+    w, b = torch.ones(64, requires_grad=True), torch.zeros(64, requires_grad=True)
+    counters = (wa.window_attention, wa.window_attention_bwd, ln.layer_norm_fwd, ln.layer_norm_bwd)
+    before = [c.launches for c in counters]
+    wa.window_attention(q, k, v, bias, torch.zeros(2, 16, 16)).sum().backward()
+    ln.layer_norm(x, w, b, impl="pallas").square().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v, bias, x, w, b))
     assert [c.launches for c in counters] == before
 
 

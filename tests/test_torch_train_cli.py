@@ -176,8 +176,8 @@ def test_train_cli_without_a_card_raises_unless_cpu_is_asked_for(shard, tmp_path
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(_train_args(shard, str(tmp_path / "o"), device=None))
-    with pytest.raises(NotImplementedError, match="remat"):
-        train_main(_train_args(shard, str(tmp_path / "o2"), extra=["--task.remat", "mlp"]))
+    with pytest.raises(ValueError, match="unknown remat mode"):
+        train_main(_train_args(shard, str(tmp_path / "o2"), extra=["--task.remat", "sometimes"]))
     with pytest.raises(SystemExit):
         train_main(["--train.task_name", "cruller_eval_ocr"])
 
