@@ -41,26 +41,41 @@ stderr):
    flash-gradient row whose true value is 0 (a causal query that sees one
    key) carries fp32 cancellation noise in kernel and plain version alike,
    so rows under 1% of the tensor's mean row norm are held to 2e-2 of that
-   1% instead.
-3. ``serve_model``: the port's ``Cruller`` at cruller_base width
+   1% instead. The probe tools' kernels join at the tools' full sizes: the
+   MXU probe's three variants (M 512, N 256, R 64, G 256; fp32 sums held to
+   1e-4 relative, every repeat's slab equal bit for bit; yardstick one
+   ``torch.matmul`` on the K-concatenated operands batched over the
+   repeats) and the banded window kernel at the probe's smoke, stage 0 and
+   stage 2 maps (bf16 1e-2/1e-2; yardstick partition + SDPA with
+   ``attn_mask = bias`` + reverse, three calls).
+3. ``probes``: the probe tools' main paths on the card
+   (``pixparse_tpu_torch.tools.mxu_probe`` and ``.window_band_probe all``):
+   useful TFLOP/s of the three MXU-probe variants and of ``torch.matmul``;
+   per geometry the current window path (partition, kernel #14, reverse)
+   against the banded one (kernel #17 on the NHWC map), their max|diff|
+   (at most 1e-3) and the two kernels alone. Counters zeroed before, read
+   after; each probe kernel must have launched. In the kernels line this
+   run's launches are summed for #16 and #17 only (for #14 they stay in
+   ``launches_by_path``).
+4. ``serve_model``: the port's ``Cruller`` at cruller_base width
    (vocab 50265, bf16, seeded random weights) encodes 16 synthetic pages
    and greedily decodes a fixed budget of tokens; asserts 12 flash launches
    per encode and 8 decode-attention launches per decode step, and that the
    flash encoder matches the plain-attention encoder within 5e-2/5e-2
    (12 bf16 layers, each rounding its activations).
-4. ``serve_task``: the serving entry point, ``TaskCrullerEvalOCR
+5. ``serve_task``: the serving entry point, ``TaskCrullerEvalOCR
    .generate_text``, at ``model_name=cruller_base`` with the pure-Python
    byte-level tokenizer, bf16, on 16 pages already at 576x448. This is the
    serving main-path run: every kernel counter is zeroed just before it and
    read just after, and each serving kernel must have launched.
-5. ``serve_donut``: the port's ``Cruller`` at donut_base as registered
+6. ``serve_donut``: the port's ``Cruller`` at donut_base as registered
    (Swin-B window 10 on 2560x1920 RGB = 4800 encoder tokens, the 4-layer
    pre-LN mBART decoder, d 1024, vocab 57525), bf16, seeded random weights,
    B=8, 64 new tokens with EOS off; asserts 20 window-attention launches per
    encode and 8 decode-attention launches per step, the window-kernel
    encoder against the plain-window encoder at B=1 within 5e-2/5e-2, and
    cached decode logits against a parallel pass.
-6. ``eval_task``: the eval main path, ``framework.eval.evaluate`` over the
+7. ``eval_task``: the eval main path, ``framework.eval.evaluate`` over the
    registered ``cruller_eval_ocr`` with an in-memory loader of seeded
    collated batches (no PIL on the card machine): once at donut_base (bf16)
    and once at cruller_base in the int8 decode mode (``kv_cache_dtype`` and
@@ -71,7 +86,7 @@ stderr):
    and read after each run; each run's kernels must have launched; CER/WER
    must be finite. The int8-vs-bf16 greedy-token agreement on one batch is
    recorded, not gated (random weights make argmax near-ties common).
-7. ``train_model``: the port's ``Cruller`` at cruller_base width and depth
+8. ``train_model``: the port's ``Cruller`` at cruller_base width and depth
    (vocab 50265, fp32 master weights, bf16 forward, decoder dropout 0.1,
    AdamW) takes train steps of ``make_train_step`` on one fixed seeded batch
    of 16: the loss must be finite and fall; each step must launch 20 flash
@@ -82,7 +97,7 @@ stderr):
    and dropout masks: loss within 2e-2 relative, gradient norm within 5e-2
    (a bf16 forward and backward through 16 layers, the two paths rounding at
    different places).
-8. ``train_task``: the training entry points, ``TaskFactory`` ->
+9. ``train_task``: the training entry points, ``TaskFactory`` ->
    ``TaskCrullerPretrain`` on the card -> ``train_setup`` ->
    ``train_one_interval`` over an in-memory loader of seeded collated batches
    (the card machine has no PIL, so no tar of PNGs), at cruller_base with the
@@ -112,8 +127,8 @@ import sys
 import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
-PHASES = ("device", "kernels", "serve_model", "serve_task", "serve_donut", "eval_task",
-          "train_model", "train_donut", "train_task")
+PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
+          "eval_task", "train_model", "train_donut", "train_task")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -700,12 +715,105 @@ def check_q8(torch, F, da, timer, peaks, gen, case):
     return rec
 
 
+MXU_RTOL = 1e-4  # fp32 sums of 8192 positive products, in another order
+
+
+def mxu_cases():
+    """The MXU probe's three variants at its full size (M 512, N 256, R 64,
+    G 256)."""
+    from pixparse_tpu_torch.tools import mxu_probe as mp
+
+    return [(f"{v}_m{mp.M}_n{mp.N}_r{mp.R}_g{mp.G}", v) for v in mp.VARIANTS]
+
+
+def check_mxu(torch, mp, timer, peaks, case):
+    name, variant = case
+    peak_bf16, _, bw = peaks
+    a, b = mp.operands(variant, "cuda")
+    out = mp.mxu_dots(a, b, variant)
+    torch.cuda.synchronize()
+    ref = mp.mxu_dots_plain(a, b, variant)
+    err, ok = close(out[0], ref, 0.0, MXU_RTOL)
+    same = bool((out == out[0]).all())  # every repeat's slab, bit for bit
+    rec = dict(case=name, shape=[mp.SLABS, mp.M, mp.N, mp.R, mp.G], dtype="bfloat16",
+               max_abs_err=err, max_rel_err=float(((out[0] - ref).abs() / ref.abs()).max()),
+               tol=[0.0, MXU_RTOL], repeats_identical=same, ok=ok and same)
+    del out
+    # the slices the dots read (each once), and the G slabs written once each
+    K = mp.VARIANTS[variant][1]
+    nbytes = 2 * mp.SLABS * K * (mp.M + mp.N) + 4 * mp.G * mp.M * mp.N
+    t_ops = mp.useful_flop() / peak_bf16
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(lambda: mp.mxu_dots(a, b, variant))
+    rec["plain_ms"] = timer.median_ms(lambda: mp.mxu_dots_plain(a, b, variant), n=5, warmup=1)
+    # yardstick: one torch.matmul on the K-concatenated operands, batched over the repeats
+    a_rep, b_rep = mp.library_operands(a, b, variant)
+    rec["library_ms"] = timer.median_ms(lambda: torch.matmul(a_rep, b_rep))
+    return rec
+
+
+def band_cases():
+    """The banded probe's geometries (a 1280x960 page's stage grids, B=4,
+    and its 20x20 smoke map)."""
+    from pixparse_tpu_torch.tools import window_band_probe as wb
+
+    return [(f"{w}_b{B}_{Hp}x{Wp}_c{C}_h{H}", B, Hp, Wp, C, H, win, tbw)
+            for w, (_, B, Hp, Wp, C, H, win, tbw, _) in wb.GEOMETRIES.items()]
+
+
+def check_band(torch, F, wb, timer, peaks, gen, case):
+    name, B, Hp, Wp, C, H, win, tbw = case
+    peak_bf16, _, bw = peaks
+    ww, Dh = win * win, C // H
+    nwh, nww = Hp // win, Wp // win
+    nB = B * nwh * nww
+    qkv = torch.randn(B, Hp, Wp, 3 * C, device="cuda", generator=gen).to(torch.bfloat16)
+    bias = torch.randn(H, ww, ww, device="cuda", generator=gen) * 0.5
+    o = wb.banded_attention(qkv, bias, win, tbw)
+    torch.cuda.synchronize()
+    o_ref = wb.banded_attention_plain(qkv, bias, win, tbw)
+    atol, rtol = TOL["bfloat16"]
+    err, ok = close(o, o_ref, atol, rtol)
+    rec = dict(case=name, shape=[B, Hp, Wp, C, H, win, tbw], windows=nB, dtype="torch.bfloat16",
+               max_abs_err=err, tol=[atol, rtol], ok=ok)
+    del o, o_ref
+    nbytes = 2 * qkv.numel() + 2 * B * Hp * Wp * C + 4 * bias.numel()  # qkv, o, bias once
+    t_ops = 4.0 * nB * ww * ww * C / peak_bf16
+    t_mem = nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(lambda: wb.banded_attention(qkv, bias, win, tbw))
+    rec["plain_ms"] = timer.median_ms(
+        lambda: wb.banded_attention_plain(qkv, bias, win, tbw), n=5, warmup=1)
+    # yardstick, three PyTorch calls: partition into (3, windows, heads, ww, Dh),
+    # SDPA with attn_mask = bias, reverse to NHWC
+    am = bias[None].to(torch.bfloat16)
+
+    def library():
+        qkv_w = qkv.reshape(B, nwh, win, nww, win, 3, H, Dh).permute(5, 0, 1, 3, 6, 2, 4, 7)
+        q, k, v = qkv_w.reshape(3, nB, H, ww, Dh).unbind(0)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        return o.reshape(B, nwh, nww, H, win, win, Dh).permute(0, 1, 4, 2, 5, 3, 6).reshape(
+            B, Hp, Wp, C)
+
+    # recorded, not gated: the yardstick computes the same function (bias rounded to bf16)
+    rec["library_max_abs_err"] = close(library(), wb.banded_attention_plain(qkv, bias, win, tbw),
+                                       atol, rtol)[0]
+    rec["library_ms"] = timer.median_ms(library)
+    del qkv
+    return rec
+
+
 def phase_kernels(torch, F, card_name, timer):
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import decode_attention as da
     from pixparse_tpu_torch.ops import layer_norm as lnm
     from pixparse_tpu_torch.ops import loss
     from pixparse_tpu_torch.ops import window_attention as wa
+    from pixparse_tpu_torch.tools import mxu_probe as mp
+    from pixparse_tpu_torch.tools import window_band_probe as wb
 
     peaks = peaks_for(card_name)
     peak_bf16, peak_f32, bw = peaks
@@ -713,7 +821,7 @@ def phase_kernels(torch, F, card_name, timer):
     results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
                "fused_ce_fwd": [], "fused_ce_bwd": [], "window_attention": [],
                "decode_attention_q8": [], "window_attention_bwd": [], "layer_norm_fwd": [],
-               "layer_norm_bwd": []}
+               "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": []}
     failed = []
 
     for name, B, Lq, Lk, H, D, dt, causal, lens in flash_cases(torch):
@@ -853,6 +961,20 @@ def phase_kernels(torch, F, card_name, timer):
         note({"kernel": "decode_attention_q8", **rec})
         if not rec["ok"]:
             failed.append(f"decode_attention_q8/{case[0]}")
+    for case in mxu_cases():
+        rec = check_mxu(torch, mp, timer, peaks, case)
+        results["mxu_dots"].append(rec)
+        note({"kernel": "mxu_dots", **rec})
+        if not rec["ok"]:
+            failed.append(f"mxu_dots/{case[0]}")
+        torch.cuda.empty_cache()
+    for case in band_cases():
+        rec = check_band(torch, F, wb, timer, peaks, cuda_gen, case)
+        results["banded_attention"].append(rec)
+        note({"kernel": "banded_attention", **rec})
+        if not rec["ok"]:
+            failed.append(f"banded_attention/{case[0]}")
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": results})
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
@@ -886,6 +1008,12 @@ KERNELS = [
      "pixparse_tpu/ops/layer_norm.py:76 (_fwd_kernel)", "swin_stage0_r614400_d128_bfloat16"),
     ("layer_norm_bwd", "cuda", "pixparse_tpu_torch/csrc/layer_norm.cu",
      "pixparse_tpu/ops/layer_norm.py:86 (_bwd_kernel)", "swin_stage0_r614400_d128_bfloat16"),
+    # the probe tools' kernels; the line's case for #16 is k64 (the others: kernel_cases.json)
+    ("mxu_dots", "cuda", "pixparse_tpu_torch/csrc/mxu_probe.cu",
+     "tools/mxu_probe.py:30 (kern_k64), :39 (kern_k128), :48 (kern_k64x2)",
+     "k64_m512_n256_r64_g256"),
+    ("banded_attention", "cuda", "pixparse_tpu_torch/csrc/window_band.cu",
+     "tools/window_band_probe.py:39 (band_fwd_kernel)", "stage0_b4_320x240_c128_h4"),
 ]
 # the kernels each main path must launch
 SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
@@ -893,6 +1021,8 @@ EVAL_KERNELS = {  # eval_task's two runs
     "donut_base": ("window_attention", "decode_attention"),
     "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
 }
+PROBE_OWN_KERNELS = ("mxu_dots", "banded_attention")  # #16, #17: only the probes run them
+PROBE_KERNELS = PROBE_OWN_KERNELS + ("window_attention",)  # probes' run
 TRAIN_KERNELS = {  # train_task's runs
     "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
     "donut_base": ("window_attention", "window_attention_bwd", "flash_attention_fwd",
@@ -906,13 +1036,16 @@ def counters():
     from pixparse_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
     from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+    from pixparse_tpu_torch.tools.mxu_probe import mxu_dots
+    from pixparse_tpu_torch.tools.window_band_probe import banded_attention
 
     return {"flash_attention_fwd": flash_attention_fwd, "decode_attention": decode_attention,
             "flash_attention_bwd": flash_attention_bwd, "fused_ce_fwd": fused_ce_fwd,
             "fused_ce_bwd": fused_ce_bwd, "window_attention": window_attention,
             "decode_attention_q8": decode_attention_q8,
             "window_attention_bwd": window_attention_bwd, "layer_norm_fwd": layer_norm_fwd,
-            "layer_norm_bwd": layer_norm_bwd}
+            "layer_norm_bwd": layer_norm_bwd, "mxu_dots": mxu_dots,
+            "banded_attention": banded_attention}
 
 
 def reset_counts():
@@ -922,6 +1055,46 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+# --------------------------------------------------------------------------
+# probes
+# --------------------------------------------------------------------------
+
+# Both variants round q/k/v, p and o to bf16 at the same points, so they
+# should agree to a bf16 ulp of o (|o| ~ 0.05 here: 2.4e-4); a dropped bias
+# moves o by ~2e-3.
+BAND_PARITY_ATOL = 1e-3
+
+
+def phase_probes(torch):
+    """The probe tools' main paths, ``python -m pixparse_tpu_torch.tools.
+    mxu_probe`` and ``... .window_band_probe all``, on the card (their
+    printout to stderr). Counters zeroed just before, read just after; each
+    probe kernel must have launched; the answers must be finite and the two
+    window variants agree."""
+    import contextlib
+    import math
+
+    from pixparse_tpu_torch.tools import mxu_probe, window_band_probe
+
+    reset_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        mxu = mxu_probe.main([])
+        band = window_band_probe.main(["all"])
+    sync(torch)
+    counts = read_counts()
+    emit({"phase": "probes", "mxu": mxu, "window_band": band, "launches": counts})
+    missing = [k for k in PROBE_KERNELS if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"probes: kernels never launched: {missing}")
+    bad = [r["variant"] for r in mxu if not (math.isfinite(r["tflops"]) and r["tflops"] > 0)]
+    bad += [r["name"] for r in band
+            if not (r["max_abs_diff"] <= BAND_PARITY_ATOL
+                    and all(math.isfinite(v) and v > 0 for k, v in r.items() if k.endswith("_ms")))]
+    if bad:
+        raise SystemExit(f"probes: bad answers for {bad}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1792,9 +1965,11 @@ def main(argv=None) -> int:
     results = {}
     if "kernels" in phases:
         results = phase_kernels(torch, F, smi, timer)
+    path_launches = {}
+    if "probes" in phases:
+        path_launches["probes"] = phase_probes(torch)
     if "serve_model" in phases:
         phase_serve_model(torch, profile=args.profile)
-    path_launches = {}
     if "serve_task" in phases:
         path_launches["serve_task"] = phase_serve_task(torch)
     if "serve_donut" in phases:
@@ -1816,8 +1991,10 @@ def main(argv=None) -> int:
             rec = next(r for r in results[name] if r["case"] == main_case)
             line.append({
                 "name": name, "route": route, "source": source, "replaces": replaces,
-                # summed over the main paths that ran, each read on its own
-                "launches": sum(run[name] for run in path_launches.values())
+                # summed over the main paths that ran, each read on its own;
+                # the probes' run counts only for the probes' own kernels
+                "launches": sum(run[name] for p, run in path_launches.items()
+                                if p != "probes" or name in PROBE_OWN_KERNELS)
                 if path_launches else None,
                 "launches_by_path": {p: run[name] for p, run in path_launches.items()},
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

@@ -35,7 +35,9 @@
 //   loop over keys is unrolled), scale, bias and mask added in registers, padded
 //   keys set to -inf, row max and sum reduced across the quad, p rounded to
 //   bf16 straight from the accumulators into A fragments of p v; only the ww
-//   real rows are stored. Scores never leave the SM.
+//   real rows are stored. Scores never leave the SM. That per-window
+//   arithmetic is window_tile.cuh's window_tile_attend, which the banded
+//   probe (window_band.cu) shares; this file does the loads and the layout.
 // This is the simple first version: mma.sync, no wgmma or TMA.
 //
 // fp32 inputs take a SIMT kernel (fp32 FMA, no tensor cores) with the same
@@ -47,6 +49,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "window_tile.cuh"
 
 namespace {
 
@@ -92,10 +95,7 @@ __global__ void __launch_bounds__(kRowTiles * 32) window_attn_bf16_kernel(
     int N, int H, long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
     long long v_rs, float scale) {
   constexpr int kLds = D + 8;  // padded row: spreads the fragment loads over banks
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
   constexpr int kNPad = kRowTiles * 16;
-  constexpr int kKeyTiles = kNPad / 8;
   constexpr int kTile = kNPad * kLds;  // one q, k or v tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -107,12 +107,6 @@ __global__ void __launch_bounds__(kRowTiles * 32) window_attn_bf16_kernel(
   const int C = H * D;
   load_bias_mask(sBM, bias + (long long)bw.h * N * N,
                  mask ? mask + (long long)bw.w * N * N : nullptr, N * N);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = warp * 16;
-  const int r_lo = row0 + g, r_hi = r_lo + 8;
-  const float scale_log2 = scale * kLog2e;
-
   for (int b = bw.b0; b < bw.b1; ++b) {
     const long long win = (long long)b * period + bw.w;
     load_rows_async<D>(sQ, q + win * q_bs + bw.h * D, q_rs, N, kNPad);
@@ -121,96 +115,9 @@ __global__ void __launch_bounds__(kRowTiles * 32) window_attn_bf16_kernel(
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-
-    uint32_t qa[kKSteps][4];
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) load_a_frag(qa[kk], sQ, kLds, row0, kk * 16, lane);
-
-    // s = q k^T over the whole (padded) key row
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; j += 2) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t bk[4];
-        load_b_frag_nk(bk, sK, kLds, j * 8, kk * 16, lane);
-        mma_bf16_16816(s[j], qa[kk], bk[0], bk[1]);
-        mma_bf16_16816(s[j + 1], qa[kk], bk[2], bk[3]);
-      }
-    }
-
-    // scale, then bias + mask; padded keys -inf; row max over the quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const int row = (e < 2) ? r_lo : r_hi;
-        float x = -INFINITY;
-        if (col < N) {
-          x = s[j][e] * scale;
-          if (row < N) x += sBM[row * N + col];  // rows past the window are never stored
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mx[i] *= kLog2e;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -mx[e >> 1]));  // exp(x - max)
-        l[e >> 1] += s[j][e];
-      }
-    }
-    float inv[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      inv[i] = 1.f / l[i];
-    }
-
-    // o = p v, p normalised and rounded to bf16 in the A fragments
-    float acc[kDTiles][4];
-#pragma unroll
-    for (int n = 0; n < kDTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
-          pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
-          pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
-          pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t bv[4];
-        load_b_frag_kn(bv, sV, kLds, kk * 16, n2 * 16, lane);
-        mma_bf16_16816(acc[2 * n2], a, bv[0], bv[1]);
-        mma_bf16_16816(acc[2 * n2 + 1], a, bv[2], bv[3]);
-      }
-    }
-
-    __nv_bfloat16* ob = o + win * (long long)N * C + bw.h * D + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = i ? r_hi : r_lo;
-      if (row >= N) continue;
-#pragma unroll
-      for (int n = 0; n < kDTiles; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * C + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
-    }
+    window_tile_attend<D, kRowTiles>(sQ, sK, sV, sBM, N, scale, [&](int row) {
+      return o + win * (long long)N * C + (long long)row * C + bw.h * D;
+    });
     __syncthreads();  // the tiles are refilled for the next window
   }
 }

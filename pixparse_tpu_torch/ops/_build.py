@@ -80,6 +80,12 @@ SIGNATURES = {
             I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, F, P,
         ],
     },
+    # the probe tools' kernels (pixparse_tpu_torch/tools)
+    "mxu_probe": {
+        "pixparse_mxu_probe": [I, P, P, P, I, I, I, I, I, P],
+        "pixparse_mxu_probe_blocks_per_sm": [I],
+    },
+    "window_band": {"pixparse_window_band_fwd": [P, P, P, I, I, I, I, I, I, F, P]},
 }
 
 _lock = threading.Lock()

@@ -53,6 +53,8 @@ from pixparse_tpu_torch.ops.loss import (
     fused_ce_fwd_plain,
     fused_cross_entropy_from_hidden,
 )
+from pixparse_tpu_torch.tools.mxu_probe import mxu_dots, mxu_dots_plain, operands
+from pixparse_tpu_torch.tools.window_band_probe import banded_attention, banded_attention_plain
 
 # bf16: inputs and outputs round to 8 mantissa bits, and the kernel sums in
 # another order than the plain version; fp32: summation order only
@@ -533,3 +535,70 @@ def test_int8_head_is_exact_on_card(cuda_device, B, V, D):
     want = q8_logits(hidden, *quantize_head(table))
     assert got.shape == (B, 1, V)
     torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["k64", "k128", "k64x2"])
+@pytest.mark.parametrize("m,n,dots,repeats", [(128, 128, 3, 3), (256, 384, 8, 2)])
+def test_mxu_probe_kernel_matches_plain(cuda_device, variant, m, n, dots, repeats):
+    """fp32 sums of positive products in another order: 1e-4 relative; every
+    repeat's slab is the same sum in the same order, bit for bit."""
+    a, b = operands(variant, cuda_device, m=m, n=n, seed=dots)
+    before = mxu_dots.launches
+    out = mxu_dots(a, b, variant, dots=dots, repeats=repeats)
+    torch.cuda.synchronize()
+    assert mxu_dots.launches == before + 1
+    assert out.shape == (repeats, m, n) and out.dtype == torch.float32
+    torch.testing.assert_close(out[0], mxu_dots_plain(a, b, variant, dots=dots), rtol=1e-4, atol=0)
+    assert bool((out == out[0]).all())
+
+
+@pytest.mark.cuda
+def test_mxu_probe_kernel_rejects_what_it_does_not_take(cuda_device):
+    a, b = operands("k128", cuda_device, m=128, n=128)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mxu_dots(a.float(), b.float(), "k128", dots=1, repeats=1)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        mxu_dots(a[:, :64].contiguous(), b, "k128", dots=1, repeats=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mxu_dots(a.transpose(1, 2), b, "k128", dots=1, repeats=1)
+    with pytest.raises(ValueError, match="repeats"):
+        mxu_dots(a, b, "k128", dots=1, repeats=65536)
+
+
+def _band_inputs(B, Hp, Wp, C, heads, win, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, Hp, Wp, 3 * C, generator=gen).to(device, torch.bfloat16)
+    bias = (torch.randn(heads, win * win, win * win, generator=gen) * 0.5).to(device)
+    return qkv, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hp,Wp,C,heads,win,tbw", [
+    (1, 20, 20, 128, 4, 10, 2),  # the probe's smoke map
+    (2, 20, 30, 64, 2, 10, 3),
+    (1, 80, 60, 512, 16, 10, 6),  # the probe's stage-2 map at B = 1
+])
+def test_window_band_kernel_matches_plain(cuda_device, B, Hp, Wp, C, heads, win, tbw):
+    qkv, bias = _band_inputs(B, Hp, Wp, C, heads, win, cuda_device, Wp + C)
+    before = banded_attention.launches
+    o = banded_attention(qkv, bias, win, tbw)
+    torch.cuda.synchronize()
+    assert banded_attention.launches == before + 1
+    assert o.shape == (B, Hp, Wp, C) and o.dtype == torch.bfloat16
+    ref = banded_attention_plain(qkv, bias, win, tbw)
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_window_band_kernel_rejects_what_it_does_not_take(cuda_device):
+    qkv, bias = _band_inputs(1, 20, 20, 128, 4, 10, cuda_device, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        banded_attention(qkv.float(), bias, 10, 2)
+    with pytest.raises(ValueError, match="head dim 32"):
+        banded_attention(qkv, bias[:1], 10, 2)  # one head of 128
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_attention(qkv.transpose(1, 2), bias, 10, 2)
+    small, small_bias = _band_inputs(1, 14, 14, 64, 2, 7, cuda_device, 0)
+    with pytest.raises(ValueError, match="window 10"):
+        banded_attention(small, small_bias, 7, 1)

@@ -10,7 +10,9 @@
 - entry points default to the CUDA device and raise without it;
 - the kernel wrappers route CPU tensors to their plain versions (the CUDA
   kernels themselves are held against those only on the card, by
-  chip_smoke.py and the ``cuda``-marked tests).
+  chip_smoke.py and the ``cuda``-marked tests);
+- the probe tools' ``main`` runs on the card and raises without it, and
+  importing them runs nothing (the JAX package's mxu probe runs at import).
 """
 
 import ast
@@ -43,6 +45,8 @@ MODULES = (
     "app.eval", "framework.eval", "models.swin", "ops.window_attention",
     # donut_base training, the remat modes and the opt-in LayerNorm kernels
     "models.remat",
+    # the probe tools and their kernels
+    "tools", "tools.mxu_probe", "tools.window_band_probe",
 )
 
 
@@ -200,6 +204,54 @@ def test_window_backward_and_layer_norm_route_cpu_tensors_to_plain_through_autog
     ln.layer_norm(x, w, b, impl="pallas").square().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v, bias, x, w, b))
     assert [c.launches for c in counters] == before
+
+
+def test_probe_wrappers_route_cpu_tensors_to_plain():
+    from pixparse_tpu_torch.tools import mxu_probe as mp
+    from pixparse_tpu_torch.tools import window_band_probe as wb
+
+    before = (mp.mxu_dots.launches, wb.banded_attention.launches)
+    a, b = mp.operands("k64x2", "cpu", m=32, n=16)
+    out = mp.mxu_dots(a, b, "k64x2", dots=2, repeats=2)
+    assert torch.equal(out[1], mp.mxu_dots_plain(a, b, "k64x2", dots=2))
+    gen = torch.Generator().manual_seed(2)
+    qkv = torch.randn(1, 10, 20, 3 * 32, generator=gen)
+    bias = torch.randn(2, 100, 100, generator=gen)
+    assert torch.equal(
+        wb.banded_attention(qkv, bias, 10, 2), wb.banded_attention_plain(qkv, bias, 10, 2)
+    )
+    assert (mp.mxu_dots.launches, wb.banded_attention.launches) == before
+
+
+@pytest.mark.parametrize("tool", ["mxu_probe", "window_band_probe"])
+def test_probe_tools_run_on_cuda_and_raise_without_it(monkeypatch, capsys, tool):
+    import importlib
+
+    module = importlib.import_module(f"pixparse_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main([])
+    assert capsys.readouterr().out == ""
+
+
+def test_importing_the_probe_tools_runs_nothing():
+    """Unlike the JAX tools, whose mxu probe runs at import: importing the
+    port's prints nothing, launches nothing and touches no device."""
+    code = (
+        "import torch\n"
+        "calls = []\n"
+        "torch.cuda.synchronize = lambda *a: calls.append('synchronize')\n"
+        "from pixparse_tpu_torch.tools import mxu_probe, window_band_probe\n"
+        "print(calls, mxu_probe.mxu_dots.launches, window_band_probe.banded_attention.launches,\n"
+        "      torch.cuda.is_initialized())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0 0 False"
 
 
 @pytest.mark.parametrize("alone", [False, True])
