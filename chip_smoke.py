@@ -27,7 +27,15 @@ stderr):
    1e-2/1e-2 in bf16 (outputs round to 8 mantissa bits and the kernels sum
    in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4. The flash forward
    is held at all three sites of a train step too (encoder 1009, causal
-   decoder self 1023, decoder cross 1023x1009). The training kernels join at
+   decoder self 1023, decoder cross 1023x1009), at the donut_base decoder's
+   two (B=2, H=16: causal self 1535, cross 1535x4800 over the Swin tokens)
+   and at the edges of the wgmma kernels' tiles (lengths 1, 63, 65, 127,
+   129; causal with Lq < Lk across a 128-key boundary; kv_lens on a tile
+   boundary and one past it); the flash backward at the same cases. Each
+   flash record carries ``ratio_to_library`` (kernel over SDPA) and
+   ``bound_share`` (bound over kernel). The ``device`` line carries the
+   registers, spills and shared memory of the wgmma flash kernels
+   (``flash_ptxas``, from the build's ``-Xptxas -v`` log). The training kernels join at
    the train step's shapes: the flash backward (dq, dk, dv) beside autograd
    through ``scaled_dot_product_attention``, and the fused cross entropy
    forward (lse and target logit, 1e-3/1e-4) and backward beside autograd
@@ -112,7 +120,8 @@ Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero before
 that line. Without CUDA, or without the package beside this script, it
-exits non-zero and prints no result. Longer records go to
+exits non-zero and prints no result. Every phase line is kept in
+``chiprun_out/chip_smoke/phases.jsonl`` too. Longer records go to
 ``chiprun_out/chip_smoke/``.
 """
 
@@ -149,7 +158,13 @@ PEAKS = {
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One result line on stdout, kept also in ``phases.jsonl`` (the end of a
+    long run's stdout may be all that a caller gets back)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "phases.jsonl"), "a") as fh:
+        fh.write(line + "\n")
 
 
 def note(obj):
@@ -253,6 +268,32 @@ def flash_cases(torch):
         ("multi_tile_lk2509", 2, 2509, 2509, 12, 64, bf, False, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, False, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, False, None),
+    ] + flash_new_cases(torch)
+
+
+def flash_new_cases(torch, backward=False):
+    """The donut_base decoder's two sites, and the edges of the wgmma
+    kernels' tiles (forward: 128 query rows over 128-key tiles; backward:
+    128 own rows over streamed tiles of 64): lengths on and either side of
+    64 and 128, causal with Lq < Lk across a 128-key boundary, kv_lens ending
+    on a tile boundary and one past it. With a single key p = 1 and the true
+    dq, dk are 0 (only cancellation noise is left to compare), so the
+    backward takes its one-query edge against 65 keys."""
+    bf = torch.bfloat16
+    # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
+    return [
+        ("donut_self_causal_b2_l1535_h16", 2, 1535, 1535, 16, 64, bf, True, None),
+        ("donut_cross_b2_lq1535_lk4800_h16", 2, 1535, 4800, 16, 64, bf, False, None),
+        ("edge_lq1_lk65", 2, 1, 65, 4, 64, bf, False, None) if backward
+        else ("edge_l1", 2, 1, 1, 4, 64, bf, False, None),
+        ("edge_l63_causal", 2, 63, 63, 4, 64, bf, True, None),
+        ("edge_l65", 2, 65, 65, 4, 64, bf, False, None),
+        ("edge_lq127_lk129", 2, 127, 129, 4, 64, bf, False, None),
+        ("edge_lq129_lk127_d32", 2, 129, 127, 4, 32, bf, False, None),
+        ("edge_l129_causal_d128", 2, 129, 129, 4, 128, bf, True, None),
+        ("edge_lq1_lk129_causal", 2, 1, 129, 4, 64, bf, True, None),
+        ("causal_lq100_lk200", 2, 100, 200, 4, 64, bf, True, None),
+        ("kv_lens_on_tile_boundary", 3, 300, 300, 4, 64, bf, False, [128, 129, 256]),
     ]
 
 
@@ -359,7 +400,7 @@ def flash_bwd_cases(torch):
         ("causal_lq100_lk300_d128", 2, 100, 300, 4, 128, bf, True, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, True, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, True, None),
-    ]
+    ] + flash_new_cases(torch, backward=True)
 
 
 def ce_cases(torch):
@@ -441,7 +482,15 @@ def check_flash_bwd(torch, F, fa, timer, peaks, gen, case):
     dot = do.transpose(1, 2)
     rec["library_ms"] = timer.median_ms(
         lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True), n=15)
+    rec.update(speed_shares(rec))
     return rec
+
+
+def speed_shares(rec):
+    """Kernel time over the library call's, and the bound's share of the
+    kernel time (1.0 = at the bound)."""
+    return {"ratio_to_library": rec["ms"] / rec["library_ms"],
+            "bound_share": rec["bound_ms"] / rec["ms"]}
 
 
 def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
@@ -869,6 +918,7 @@ def phase_kernels(torch, F, card_name, timer):
         else:
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         rec["library_ms"] = timer.median_ms(lib)
+        rec.update(speed_shares(rec))
         results["flash_attention_fwd"].append(rec)
         note({"kernel": "flash_attention_fwd", **rec})
         if not rec["ok"]:
@@ -1918,6 +1968,50 @@ def phase_train_task(torch, runs=TRAIN_TASK_RUNS, device="cuda"):
     return {f"train_task_{m}": t for m, t in totals.items()}
 
 
+# the wgmma flash kernels, by (mangled) name fragment; their dynamic shared
+# memory per head dim, as FwdCfg / BwdCfg in the sources lay it out
+WGMMA_FLASH = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+
+
+def flash_dynamic_smem(kernel, D):
+    stages = 2 if D == 128 else 3
+    if kernel == "flash_fwd_wgmma_kernel":  # two Q buffers, then stages of K and V, 128 rows each
+        return 2 * 128 * D * 2 + stages * 2 * 128 * D * 2 + (2 * stages + 4) * 8 + 1024
+    # two own 128-row tiles, stages of two 64-row tiles + 1024 bytes of stats
+    return 2 * 128 * D * 2 + stages * (2 * 64 * D * 2 + 1024) + (2 * stages + 1) * 8 + 1024
+
+
+def ptxas_summary(log):
+    """Registers, spills and shared memory of the wgmma flash kernels, from
+    what ``nvcc -Xptxas -v`` printed when the library was built."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((k for k in WGMMA_FLASH if k in m.group(1)), None)
+            d = re.search(r"ILi(\d+)E", m.group(1))
+            cur = None
+            if name:
+                D = int(d.group(1)) if d else None
+                cur = {"kernel": name, "D": D, "dynamic_smem_bytes": flash_dynamic_smem(name, D)
+                       if D else None}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1948,6 +2042,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "phases.jsonl"), "w").close()  # this run's lines only
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1957,9 +2052,11 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as fh:
         for stem in _build.SIGNATURES:
             fh.write(f"== {stem}\n{_build.ptxas_log(stem)}\n")
+    flash_ptxas = (ptxas_summary(_build.ptxas_log("flash_attention"))
+                   + ptxas_summary(_build.ptxas_log("flash_attention_bwd")))
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s})
+          "cuda": torch.version.cuda, "build_s": build_s, "flash_ptxas": flash_ptxas})
 
     timer = Timer(torch)
     results = {}

@@ -24,39 +24,51 @@
 // ridge, so it is bound by tensor-core throughput and neither scores nor p
 // may reach device memory.
 //
-// What the design does about it: blocks run in parallel and share nothing,
-// so a gradient that sums over queries (dk, dv) and one that sums over keys
-// (dq) get a kernel each, and both are deterministic (no atomics):
-// - dK/dV kernel: one block of 4 warps per (tile of 64 keys, head, sample),
-//   16 keys per warp. It loops over the query tiles that can see its keys,
-//   recomputes s^T = k q^T and dp^T = v do^T on the tensor cores
-//   (mma.sync m16n8k16), forms p^T and ds^T in registers, and feeds them as
-//   A fragments straight into dv += p^T do and dk += ds^T q, accumulated in
-//   fp32 registers and written once.
-// - dQ kernel: one block per (tile of 64 queries, head, sample); loops over
-//   key tiles up to the causal / key-length limit, dq += ds k.
+// What the design does about it: every product is a wgmma fed by TMA, in
+// blocks of a producer warpgroup (one thread issues the TMA loads through
+// an mbarrier ring; setmaxnreg gives its registers up) and two consumer
+// warpgroups of 64 rows each. Blocks run in parallel and share nothing, so
+// a gradient that sums over queries (dk, dv) and one that sums over keys
+// (dq) get a kernel each, both deterministic (no atomics):
+// - dK/dV kernel, per 128 keys: K and V are loaded once; Q, dO tiles of 64
+//   queries stream through the ring, with lse (clamped, in log2 units) and
+//   delta * scale staged beside them by the producer warp. s^T = K q^T and
+//   dp^T = V do^T by wgmma from shared memory (q and do stored [query][d]
+//   are K-major), in two groups: p^T is formed while dp^T is still on the
+//   tensor cores, dv += p^T do is issued before ds^T is formed, then
+//   dk += ds^T q; p^T and ds^T are the register A operands, do and q read
+//   through the transposed (MN-major) descriptor.
+// - dQ kernel, per 128 queries: Q and dO loaded once; K, V tiles of 64 keys
+//   stream; s = Q k^T and dp = dO v^T (p formed while dp runs), then
+//   dq += ds k (k transposed). Causal grids start with the longest tiles.
+// The elementwise work between the products is what limits these kernels
+// as much as the tensor cores (PERF.md): masks only on tiles that straddle
+// an edge, exp2 by the special-function unit, p rounded once by the packed
+// conversion that also forms the A operand.
 // That is 7 products instead of the one-pass TPU kernel's 5 (s and dp are
-// computed twice); the price of having no sequential grid. q/k/v/do are read
-// in place through their strides ((H, D) contiguous), gradients are written
-// head-merged (B, L, H, D). This is the simple first version: synchronous
-// tile loads, no wgmma/TMA, no pipelining.
+// computed twice); the price of determinism without a sequential grid.
+// q/k/v/do are read in place through 4-D tensor maps over their strides
+// ((H, D) contiguous); gradients are written head-merged (B, L, H, D).
+// Masks are applied only on tiles that straddle an edge.
 //
 // fp32 inputs take SIMT kernels (fp32 FMA) with the same semantics; they
 // exist for the fp32 parity path, not for speed.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
 using namespace pixparse;
+using namespace pixparse::hopper;
 
 constexpr float kLseFloor = -0.5e30f;
-constexpr int kTile = 64;
 
 struct BwdArgs {
   const void* q;
@@ -75,274 +87,370 @@ struct BwdArgs {
   float scale;
 };
 
+// Block shapes of both kernels: kOwn rows of the block's own side (2
+// consumer warpgroups x 64), tiles of kStream rows of the other side.
 template <int D>
-constexpr int bwd_smem_bytes() {
-  return 4 * kTile * (D + 8) * (int)sizeof(__nv_bfloat16) + 2 * kTile * (int)sizeof(float);
+struct BwdCfg {
+  static constexpr int kOwn = 128;
+  static constexpr int kStream = 64;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kOwnBytes = kOwn * D * 2;        // one own-side tile
+  static constexpr int kStreamBytes = kStream * D * 2;  // one streamed tile
+  // + lse2 and delta (512 bytes), padded so that every tile stays 1024-aligned
+  static constexpr int kStageBytes = 2 * kStreamBytes + 1024;
+  static constexpr int kBarOffset = 2 * kOwnBytes + kStages * kStageBytes;
+  static constexpr int kSmem = kBarOffset + (2 * kStages + 1) * 8 + 1024;
+};
+
+// ds of one element from p (already rounded to bf16), dp, and delta * scale:
+// p * (dp - delta) * scale.
+__device__ __forceinline__ float ds_of(float p, float dp, float scale, float delta_scaled) {
+  return p * fmaf(dp, scale, -delta_scaled);
 }
 
-// p and ds of one accumulator element, from the recomputed score `s` and
-// `dp`; `lse2` is lse * log2(e), already clamped.
-__device__ __forceinline__ void p_and_ds(bool ok, float s, float dp, float lse2, float delta,
-                                         float scale, float scale_log2, float& p, float& ds) {
-  const float pf = ok ? exp2f(s * scale_log2 - lse2) : 0.f;
-  p = __bfloat162float(__float2bfloat16_rn(pf));  // rounded like the dv operand
-  ds = p * (dp - delta) * scale;
-}
-
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(BwdArgs a) {
-  constexpr int kLds = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile * kLds;
-  __nv_bfloat16* sQ = sV + kTile * kLds;
-  __nv_bfloat16* sdO = sQ + kTile * kLds;
-  float* sLse = reinterpret_cast<float*>(sdO + kTile * kLds);
-  float* sDelta = sLse + kTile;
+__global__ void __launch_bounds__(384, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    BwdArgs a) {
+  using C = BwdCfg<D>;
+  constexpr int kS = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + C::kOwnBytes;
+  const uint32_t bars = base + C::kBarOffset;  // full[kS], empty[kS], kv
+  auto sQ = [&](int s) { return base + 2 * C::kOwnBytes + s * C::kStageBytes; };
+  auto sdO = [&](int s) { return sQ(s) + C::kStreamBytes; };
+  auto sStat = [&](int s) {  // lse2[64], delta[64]
+    return reinterpret_cast<float*>(smem_raw + (sQ(s) + 2 * C::kStreamBytes - smem_addr(smem_raw)));
+  };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kS + s); };
+  const uint32_t kvbar = bars + 16 * kS;
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key0 = kt * kTile;
   const int Lq = a.Lq, Lk = a.Lk, H = a.H;
-
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * D;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * D;
-  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + b * a.do_bs + h * D;
-  const float* lse_row = a.lse + ((long long)b * H + h) * Lq;
-  const float* delta_row = a.delta + ((long long)b * H + h) * Lq;
-
+  const int key0 = kt * C::kOwn;
   const int kv_len = a.kv_lens ? min(max(a.kv_lens[b], 0), Lk) : Lk;
   const int off = Lk - Lq;
-  const float scale_log2 = a.scale * kLog2e;
-
-  load_tile_bf16<D, kTile>(sK, kb, a.k_rs, key0, Lk);
-  load_tile_bf16<D, kTile>(sV, vb, a.v_rs, key0, Lk);
-
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  // first query that can see key0 under the causal mask: i >= key0 - off
+  // first query tile that can see key0 under the causal mask: i >= key0 - off
   int q_begin = a.causal ? max(0, key0 - off) : 0;
-  q_begin = (q_begin / kTile) * kTile;
-  if (key0 >= kv_len) q_begin = Lq;  // no key of this tile is valid: zeros
+  q_begin = (q_begin / C::kStream) * C::kStream;
+  if (key0 >= kv_len) q_begin = Lq;  // no key of this block is valid: zeros
+  const int n_tiles = q_begin < Lq ? (Lq - q_begin + C::kStream - 1) / C::kStream : 0;
 
-  for (int q0 = q_begin; q0 < Lq; q0 += kTile) {
-    __syncthreads();  // previous tile consumed
-    load_tile_bf16<D, kTile>(sQ, qb, a.q_rs, q0, Lq);
-    load_tile_bf16<D, kTile>(sdO, dob, a.do_rs, q0, Lq);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      sLse[threadIdx.x] = r < Lq ? fmaxf(lse_row[r], kLseFloor) * kLog2e : 0.f;
-      sDelta[threadIdx.x] = r < Lq ? delta_row[r] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 33);    // the TMA arrival + the producer warp's 32 stat stores
+      mbar_init(empty(s), 256);  // every consumer thread
     }
-    __syncthreads();
-
-    // s^T = k q^T and dp^T = v do^T for this warp's 16 keys x 64 queries
-    float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, sK, kLds, warp * 16, kk * 16, lane);
-      load_a_frag(va, sV, kLds, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int jp = 0; jp < kNTiles / 2; ++jp) {
-        uint32_t bq[4], bd[4];
-        load_b_frag_nk(bq, sQ, kLds, jp * 16, kk * 16, lane);
-        load_b_frag_nk(bd, sdO, kLds, jp * 16, kk * 16, lane);
-        mma_bf16_16816(s[2 * jp], ka, bq[0], bq[1]);
-        mma_bf16_16816(s[2 * jp + 1], ka, bq[2], bq[3]);
-        mma_bf16_16816(dp[2 * jp], va, bd[0], bd[1]);
-        mma_bf16_16816(dp[2 * jp + 1], va, bd[2], bd[3]);
-      }
-    }
-
-    // p^T and ds^T, rounded to bf16, as A fragments
-    uint32_t pa[kNTiles][2], dsa[kNTiles][2];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + warp * 16 + g + ((e >> 1) ? 8 : 0);
-        const int lc = j * 8 + 2 * t + (e & 1);
-        const int query = q0 + lc;
-        const bool ok = key < kv_len && query < Lq && (!a.causal || key <= query + off);
-        p_and_ds(ok, s[j][e], dp[j][e], sLse[lc], sDelta[lc], a.scale, scale_log2, p[e], ds[e]);
-      }
-      pa[j][0] = pack_bf16(p[0], p[1]);
-      pa[j][1] = pack_bf16(p[2], p[3]);
-      dsa[j][0] = pack_bf16(ds[0], ds[1]);
-      dsa[j][1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dv += p^T do, dk += ds^T q (contraction over the 64 queries)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t ap[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-      const uint32_t ads[4] = {dsa[2 * kk][0], dsa[2 * kk][1], dsa[2 * kk + 1][0],
-                               dsa[2 * kk + 1][1]};
-#pragma unroll
-      for (int np = 0; np < kDTiles / 2; ++np) {
-        uint32_t bd[4], bq[4];
-        load_b_frag_kn(bd, sdO, kLds, kk * 16, np * 16, lane);
-        load_b_frag_kn(bq, sQ, kLds, kk * 16, np * 16, lane);
-        mma_bf16_16816(dv[2 * np], ap, bd[0], bd[1]);
-        mma_bf16_16816(dv[2 * np + 1], ap, bd[2], bd[3]);
-        mma_bf16_16816(dk[2 * np], ads, bq[0], bq[1]);
-        mma_bf16_16816(dk[2 * np + 1], ads, bq[2], bq[3]);
-      }
-    }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const long long o_rs = (long long)H * D;
-  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(a.dk) + (long long)b * Lk * o_rs + h * D;
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(a.dv) + (long long)b * Lk * o_rs + h * D;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: warp 0 ----
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (threadIdx.x < 32 && n_tiles > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * C::kOwnBytes);
+        tma_load_rows<D, C::kOwn>(sK, &tm_k, kvbar, h, key0, b);
+        tma_load_rows<D, C::kOwn>(sV, &tm_v, kvbar, h, key0, b);
+      }
+      const float* lse_row = a.lse + ((long long)b * H + h) * Lq;
+      const float* delta_row = a.delta + ((long long)b * H + h) * Lq;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        const int q0 = q_begin + it * C::kStream;
+        mbar_wait(empty(s), ((it / kS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * C::kStreamBytes);
+          tma_load_rows<D, C::kStream>(sQ(s), &tm_q, full(s), h, q0, b);
+          tma_load_rows<D, C::kStream>(sdO(s), &tm_do, full(s), h, q0, b);
+        }
+        float* st = sStat(s);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + warp * 16 + g + 8 * i;
-    if (key >= Lk) continue;
+        for (int r = lane; r < C::kStream; r += 32) {
+          const int q = q0 + r;
+          st[r] = q < Lq ? fmaxf(lse_row[q], kLseFloor) * kLog2e : INFINITY;  // p = 0 past Lq
+          st[C::kStream + r] = q < Lq ? delta_row[q] * a.scale : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int k0 = key0 + cw * 64;  // this warpgroup's first key
+    const int my_key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      const long long at = key * o_rs + n * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-          __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    if (n_tiles > 0) mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kS;
+      const int q0 = q_begin + it * C::kStream;
+      mbar_wait(full(s), (it / kS) & 1);
+      // some (query, key) pair of this tile is visible
+      if (k0 < kv_len && (!a.causal || k0 <= q0 + C::kStream - 1 + off)) {
+        float st[32], dpt[32];  // s^T, dp^T: 64 keys x 64 queries
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        // two groups: p^T is formed while dp^T is still on the tensor cores
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(st, desc_kmajor<D, C::kOwn>(sK, cw * 64, kk),
+                       desc_kmajor<D, C::kStream>(sQ(s), 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dpt, desc_kmajor<D, C::kOwn>(sV, cw * 64, kk),
+                       desc_kmajor<D, C::kStream>(sdO(s), 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+
+        // masks only where the tile straddles an edge: s = -inf gives p = 0
+        if (k0 + 64 > kv_len || (a.causal && k0 + 63 > q0 + off)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = my_key[(i >> 1) & 1];
+            const int query = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+            if (key >= kv_len || (a.causal && key > query + off)) st[i] = -INFINITY;
+          }
+        }
+        const float* stat = sStat(s);  // lse2[64], delta * scale[64]
+        // p^T first: dv += p^T do starts on the tensor cores while ds^T is formed
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 4 * j + 2 * hr;
+            pa[j / 2][2 * (j & 1) + hr] =
+                pack_bf16(fast_exp2(fmaf(st[i], scale_log2, -l2.x)),
+                          fast_exp2(fmaf(st[i + 1], scale_log2, -l2.y)));
+          }
+        }
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_rows<D, C::kStream>(dv, pa[kk], sdO(s), kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // dp^T is ready; dv's product may still run
+        fence_regs(dpt);
+        // ds^T = p^T (dp^T - delta) * scale, then dk += ds^T q: both
+        // contractions run over the tile's 64 queries
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(stat + C::kStream + 8 * j + 2 * t);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 4 * j + 2 * hr;
+            const uint32_t p = pa[j / 2][2 * (j & 1) + hr];
+            dsa[j / 2][2 * (j & 1) + hr] = pack_bf16(ds_of(bf16_lo(p), dpt[i], scale, dl.x),
+                                                     ds_of(bf16_hi(p), dpt[i + 1], scale, dl.y));
+          }
+        }
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_rows<D, C::kStream>(dk, dsa[kk], sQ(s), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    const long long o_rs = (long long)H * D;
+    __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(a.dk) + (long long)b * Lk * o_rs + h * D;
+    __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(a.dv) + (long long)b * Lk * o_rs + h * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = my_key[hr];
+      if (key >= Lk) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const long long at = key * o_rs + 8 * j + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * hr], dk[4 * j + 2 * hr + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+      }
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(BwdArgs a) {
-  constexpr int kLds = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile * kLds;
-  __nv_bfloat16* sQ = sV + kTile * kLds;
-  __nv_bfloat16* sdO = sQ + kTile * kLds;
+__global__ void __launch_bounds__(384, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    BwdArgs a) {
+  using C = BwdCfg<D>;
+  constexpr int kS = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + C::kOwnBytes;
+  const uint32_t bars = base + C::kBarOffset;  // full[kS], empty[kS], q
+  auto sK = [&](int s) { return base + 2 * C::kOwnBytes + s * C::kStageBytes; };
+  auto sV = [&](int s) { return sK(s) + C::kStreamBytes; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kS + s); };
+  const uint32_t qbar = bars + 16 * kS;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = qt * kTile;
+  int qt, h, b;
+  if (a.causal) {  // the longest query tiles first
+    h = blockIdx.x;
+    b = blockIdx.y;
+    qt = gridDim.z - 1 - blockIdx.z;
+  } else {
+    qt = blockIdx.x;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int Lq = a.Lq, Lk = a.Lk, H = a.H;
-
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * D;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * D;
-  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + b * a.do_bs + h * D;
-  const float* lse_row = a.lse + ((long long)b * H + h) * Lq;
-  const float* delta_row = a.delta + ((long long)b * H + h) * Lq;
-
+  const int row0 = qt * C::kOwn;
   const int kv_len = a.kv_lens ? min(max(a.kv_lens[b], 0), Lk) : Lk;
   const int off = Lk - Lq;
-  const float scale_log2 = a.scale * kLog2e;
-  const int n_end = a.causal ? min(kv_len, min(row0 + kTile, Lq) + off) : kv_len;
+  const int n_end = a.causal ? min(kv_len, min(row0 + C::kOwn, Lq) + off) : kv_len;
+  const int n_tiles = n_end > 0 ? (n_end + C::kStream - 1) / C::kStream : 0;
 
-  load_tile_bf16<D, kTile>(sQ, qb, a.q_rs, row0, Lq);
-  load_tile_bf16<D, kTile>(sdO, dob, a.do_rs, row0, Lq);
-
-  // this thread's two query rows
-  int rows[2];
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    rows[i] = row0 + warp * 16 + g + 8 * i;
-    const bool in = rows[i] < Lq;
-    lse2[i] = in ? fmaxf(lse_row[rows[i]], kLseFloor) * kLog2e : 0.f;
-    delta[i] = in ? delta_row[rows[i]] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  for (int n0 = 0; n0 < n_end; n0 += kTile) {
-    __syncthreads();  // previous tile consumed (and the Q/dO loads done)
-    load_tile_bf16<D, kTile>(sK, kb, a.k_rs, n0, Lk);
-    load_tile_bf16<D, kTile>(sV, vb, a.v_rs, n0, Lk);
-    __syncthreads();
-
-    float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a_frag(qa, sQ, kLds, warp * 16, kk * 16, lane);
-      load_a_frag(da, sdO, kLds, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int jp = 0; jp < kNTiles / 2; ++jp) {
-        uint32_t bk[4], bv[4];
-        load_b_frag_nk(bk, sK, kLds, jp * 16, kk * 16, lane);
-        load_b_frag_nk(bv, sV, kLds, jp * 16, kk * 16, lane);
-        mma_bf16_16816(s[2 * jp], qa, bk[0], bk[1]);
-        mma_bf16_16816(s[2 * jp + 1], qa, bk[2], bk[3]);
-        mma_bf16_16816(dp[2 * jp], da, bv[0], bv[1]);
-        mma_bf16_16816(dp[2 * jp + 1], da, bv[2], bv[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(qbar, 2 * C::kOwnBytes);
+      tma_load_rows<D, C::kOwn>(sQ, &tm_q, qbar, h, row0, b);
+      tma_load_rows<D, C::kOwn>(sdO, &tm_do, qbar, h, row0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        mbar_wait(empty(s), ((it / kS) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * C::kStreamBytes);
+        tma_load_rows<D, C::kStream>(sK(s), &tm_k, full(s), h, it * C::kStream, b);
+        tma_load_rows<D, C::kStream>(sV(s), &tm_v, full(s), h, it * C::kStream, b);
       }
     }
-
-    uint32_t dsa[kNTiles][2];
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = row0 + cw * 64;
+    const int my_row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+    const int wg_end =
+        r0 >= Lq ? 0 : (a.causal ? min(kv_len, min(r0 + 64, Lq) + off) : kv_len);
+    const float* lse_row = a.lse + ((long long)b * H + h) * Lq;
+    const float* delta_row = a.delta + ((long long)b * H + h) * Lq;
+    float lse2[2], delta[2];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < kv_len && rows[i] < Lq && (!a.causal || col <= rows[i] + off);
-        float p;
-        p_and_ds(ok, s[j][e], dp[j][e], lse2[i], delta[i], a.scale, scale_log2, p, ds[e]);
-      }
-      dsa[j][0] = pack_bf16(ds[0], ds[1]);
-      dsa[j][1] = pack_bf16(ds[2], ds[3]);
+    for (int hr = 0; hr < 2; ++hr) {
+      const bool in = my_row[hr] < Lq;
+      lse2[hr] = in ? fmaxf(lse_row[my_row[hr]], kLseFloor) * kLog2e : INFINITY;
+      delta[hr] = in ? delta_row[my_row[hr]] * scale : 0.f;  // delta * scale
     }
 
-    // dq += ds k (contraction over the 64 keys)
+    float dq[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t ads[4] = {dsa[2 * kk][0], dsa[2 * kk][1], dsa[2 * kk + 1][0],
-                               dsa[2 * kk + 1][1]};
-#pragma unroll
-      for (int np = 0; np < kDTiles / 2; ++np) {
-        uint32_t bk[4];
-        load_b_frag_kn(bk, sK, kLds, kk * 16, np * 16, lane);
-        mma_bf16_16816(dq[2 * np], ads, bk[0], bk[1]);
-        mma_bf16_16816(dq[2 * np + 1], ads, bk[2], bk[3]);
-      }
-    }
-  }
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  const long long o_rs = (long long)H * D;
-  __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(a.dq) + (long long)b * Lq * o_rs + h * D;
+    if (n_tiles > 0) mbar_wait(qbar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kS;
+      const int n0 = it * C::kStream;
+      mbar_wait(full(s), (it / kS) & 1);
+      if (n0 < wg_end) {
+        float sc[32], dp[32];  // 64 queries x 64 keys
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        // two groups: p is formed while dp is still on the tensor cores
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= Lq) continue;
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, desc_kmajor<D, C::kOwn>(sQ, cw * 64, kk),
+                       desc_kmajor<D, C::kStream>(sK(s), 0, kk), kk > 0);
+        wgmma_commit();
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + rows[i] * o_rs + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, desc_kmajor<D, C::kOwn>(sdO, cw * 64, kk),
+                       desc_kmajor<D, C::kStream>(sV(s), 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+
+        if (n0 + C::kStream > kv_len || (a.causal && n0 + C::kStream - 1 > r0 + off)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = n0 + 8 * (i / 4) + 2 * t + (i & 1);
+            if (col >= kv_len || (a.causal && col > my_row[(i >> 1) & 1] + off)) sc[i] = -INFINITY;
+          }
+        }
+        uint32_t pp[16];  // p, rounded to bf16 and packed in A-operand order
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int hr = (i >> 1) & 1;
+          pp[i / 2] = pack_bf16(fast_exp2(fmaf(sc[i], scale_log2, -lse2[hr])),
+                                fast_exp2(fmaf(sc[i + 1], scale_log2, -lse2[hr])));
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int hr = (i >> 1) & 1;
+          dsa[i / 8][(i / 2) % 4] = pack_bf16(ds_of(bf16_lo(pp[i / 2]), dp[i], scale, delta[hr]),
+                                              ds_of(bf16_hi(pp[i / 2]), dp[i + 1], scale, delta[hr]));
+        }
+        // dq += ds k: contraction over the tile's 64 keys
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_rows<D, C::kStream>(dq, dsa[kk], sK(s), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    const long long o_rs = (long long)H * D;
+    __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(a.dq) + (long long)b * Lq * o_rs + h * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (my_row[hr] >= Lq) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + my_row[hr] * o_rs + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * hr], dq[4 * j + 2 * hr + 1]);
+    }
   }
 }
 
@@ -534,20 +642,38 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32_kernel(BwdArgs a) {
 
 template <int D>
 int launch_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = bwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  using C = BwdCfg<D>;
+  const int H = a.H, Lq = a.Lq, Lk = a.Lk;
+  // an empty side is never loaded; its maps only need a valid base
+  const void* q = Lq > 0 ? a.q : a.k;
+  const void* dout = Lq > 0 ? a.dout : a.k;
+  const void* k = Lk > 0 ? a.k : a.q;
+  const void* v = Lk > 0 ? a.v : a.q;
+  // the dK/dV kernel streams q/do and owns k/v; the dQ kernel the reverse
+  CUtensorMap q_s, do_s, k_o, v_o, q_o, do_o, k_s, v_s;
+  if (!make_tensor_map<D, C::kStream>(&q_s, q, H, Lq, B, a.q_rs, a.q_bs) ||
+      !make_tensor_map<D, C::kStream>(&do_s, dout, H, Lq, B, a.do_rs, a.do_bs) ||
+      !make_tensor_map<D, C::kOwn>(&k_o, k, H, Lk, B, a.k_rs, a.k_bs) ||
+      !make_tensor_map<D, C::kOwn>(&v_o, v, H, Lk, B, a.v_rs, a.v_bs) ||
+      !make_tensor_map<D, C::kOwn>(&q_o, q, H, Lq, B, a.q_rs, a.q_bs) ||
+      !make_tensor_map<D, C::kOwn>(&do_o, dout, H, Lq, B, a.do_rs, a.do_bs) ||
+      !make_tensor_map<D, C::kStream>(&k_s, k, H, Lk, B, a.k_rs, a.k_bs) ||
+      !make_tensor_map<D, C::kStream>(&v_s, v, H, Lk, B, a.v_rs, a.v_bs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.Lk > 0) {
-    const dim3 grid((a.Lk + kTile - 1) / kTile, a.H, B);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, 128, kSmem, stream>>>(a);
+  if (Lk > 0) {
+    const dim3 grid((Lk + C::kOwn - 1) / C::kOwn, H, B);
+    flash_bwd_dkv_wgmma_kernel<D><<<grid, 384, C::kSmem, stream>>>(q_s, k_o, v_o, do_s, a);
   }
-  if (a.Lq > 0) {
-    const dim3 grid((a.Lq + kTile - 1) / kTile, a.H, B);
-    flash_bwd_dq_bf16_kernel<D><<<grid, 128, kSmem, stream>>>(a);
+  if (Lq > 0) {
+    const int n_qt = (Lq + C::kOwn - 1) / C::kOwn;
+    const dim3 grid = a.causal ? dim3(H, B, n_qt) : dim3(n_qt, H, B);
+    flash_bwd_dq_wgmma_kernel<D><<<grid, 384, C::kSmem, stream>>>(q_o, k_s, v_s, do_o, a);
   }
   return static_cast<int>(cudaGetLastError());
 }

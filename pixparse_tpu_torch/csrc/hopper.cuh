@@ -1,0 +1,317 @@
+// Hopper (sm_90a) building blocks for the port's warp-specialised kernels
+// (flash attention forward and backward): TMA tile loads into swizzled
+// shared memory, mbarrier pipelines, wgmma and its shared-memory
+// descriptors, register reallocation. Raw PTX, in the style of
+// mma_tiles.cuh, so that no CuTe/CUTLASS header is compiled.
+//
+// Shared-memory tile format. A bf16 tile of R rows x D columns is stored as
+// D / kPanelCols column panels, each R rows of kRowBytes bytes, written by
+// TMA with the swizzle whose span is kRowBytes (128 B for D >= 64, 64 B for
+// D = 32). The same swizzle is named in every wgmma descriptor that reads
+// the tile. Each panel starts on a 1024-byte boundary.
+//
+// wgmma fragments, per warp w of the warpgroup and lane (g = lane / 4,
+// t = lane % 4): accumulator register 4j + 2h + e holds row 16w + g + 8h,
+// column 8j + 2t + e; the register A operand of a k16 step holds
+// {(g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)}, so the
+// accumulators of two neighbouring 8-column chunks, rounded to bf16 and
+// packed in pairs, are one A operand (as with mma.sync): for k16 step kk,
+// register x of the operand packs accumulators 8kk + 2x and 8kk + 2x + 1.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tiles.cuh"
+
+namespace pixparse {
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// tile format and descriptors
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TileFmt {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static constexpr int kPanelCols = D >= 64 ? 64 : D;
+  static constexpr int kRowBytes = kPanelCols * 2;  // the swizzle span
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// Operand read along its columns (K-major: the product contracts over D):
+// rows [row0, row0 + 64 or N) of an R-row tile at `tile`, k16 step kk.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int kk) {
+  using F = TileFmt<D>;
+  const int col = kk * 16;
+  const uint32_t addr = tile + (col / F::kPanelCols) * R * F::kRowBytes + row0 * F::kRowBytes +
+                        (col % F::kPanelCols) * 2;
+  return make_desc(addr, 16, 8 * F::kRowBytes, F::kLayout);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A pipeline that
+// has polled for seconds is broken: trap (the launch fails with an error)
+// rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) -> shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Rows [row0, row0 + R) of head h of sample b, all D columns (one box per
+// panel), into an R-row tile.
+template <int D, int R>
+__device__ __forceinline__ void tma_load_rows(uint32_t tile, const CUtensorMap* map,
+                                              uint32_t bar, int h, int row0, int b) {
+  using F = TileFmt<D>;
+#pragma unroll
+  for (int p = 0; p < F::kPanels; ++p)
+    tma_load_4d(tile + p * R * F::kRowBytes, map, bar, p * F::kPanelCols, h, row0, b);
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads) over `count` threads:
+// sync waits for the barrier to complete, arrive counts without waiting.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma region.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B^T, B (64 x 16) stored K-major
+// in smem. scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, smem) * B^T, B (128 x 16) stored K-major
+// in smem. scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B, B
+// (16 x 32) stored MN-major in smem (the transposed descriptor).
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B, B
+// (16 x 64) stored MN-major in smem (the transposed descriptor).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x D, fp32) += A (64 x 16, registers) * rows 16kk..16kk+15 of an
+// R-row tile, all D columns: the tile is read along its rows (MN-major, the
+// transposed descriptor), one wgmma per column panel, so each reads a
+// single swizzle atom across N and the descriptor's leading offset is never
+// stepped (it is set equal to the stride between 8-row groups).
+template <int D, int R>
+__device__ __forceinline__ void wgmma_rs_rows(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint32_t tile, int kk) {
+  using F = TileFmt<D>;
+  constexpr int kRegs = F::kPanelCols / 2;
+#pragma unroll
+  for (int p = 0; p < F::kPanels; ++p) {
+    const uint64_t desc = make_desc(tile + p * R * F::kRowBytes + kk * 16 * F::kRowBytes,
+                                    8 * F::kRowBytes, 8 * F::kRowBytes, F::kLayout);
+    float(&dp)[kRegs] = *reinterpret_cast<float(*)[kRegs]>(&d[p * kRegs]);
+    if constexpr (kRegs == 16)
+      wgmma_rs_n32_tb(dp, a, desc);
+    else
+      wgmma_rs_n64_tb(dp, a, desc);
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: ~2 ulp, -inf -> +0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The two bf16 halves of a packed pair (low = first) as floats.
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+static inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, H, L, B) over a bf16 tensor whose (H, D) are contiguous,
+// with row and batch strides in elements; boxes of one head's R rows and
+// kPanelCols columns, swizzled for wgmma. Rows past L read as zeros, so a
+// tile never reaches the next sample. Returns false if the driver refuses.
+template <int D, int R>
+static inline bool make_tensor_map(CUtensorMap* map, const void* base, int H, int L, int B,
+                                   long long row_stride, long long batch_stride) {
+  using F = TileFmt<D>;
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  // a size-1 dimension's stride is never stepped; give it a legal one
+  if (L <= 1) row_stride = static_cast<long long>(H) * D;
+  if (B <= 1) batch_stride = row_stride * (L > 0 ? L : 1);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L > 0 ? L : 1),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(F::kPanelCols), 1,
+                             static_cast<cuuint32_t>(R), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, F::kSwizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace pixparse

@@ -286,7 +286,9 @@ class Optimizer:
     object with ``init`` and a pure ``update``.
 
     State: ``{"count": 0-dim int32 tensor, "mu": {...}, "nu": {...}}`` for
-    Adam-family optimizers (moments in ``optimizer_state_dtype``),
+    Adam-family optimizers (moments in ``optimizer_state_dtype`` for
+    ``adam``/``adamw``; always fp32 for ``lamb``, whose JAX chain takes
+    ``optax.scale_by_adam`` whatever that option says),
     ``{"count", "trace"}`` for SGD with momentum, ``{"count"}`` for plain
     SGD. ``count`` is the number of updates applied; the learning rate is
     ``schedule(count)``."""
@@ -306,6 +308,8 @@ class Optimizer:
         self.clip_mode = mode if cfg.clip_grad_value is not None else None
         self.betas = tuple(cfg.betas) if cfg.betas else (0.9, 0.999)
         self.state_dtype = _resolve_state_dtype(cfg.optimizer_state_dtype)
+        if self.name == "lamb":
+            self.state_dtype = torch.float32
         momentum = cfg.momentum if cfg.momentum is not None else 0.9
         self.momentum = momentum if self.name in ("sgd", "momentum") else 0.0
 

@@ -3,10 +3,14 @@ plain versions.
 
 Counterpart of :mod:`pixparse_tpu.ops.flash_attention`. Layout
 ``(B, L, H, D)`` at the public functions, as in JAX. The kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) read q/k/v in
-place through their strides: any tensor whose last two dims ``(H, D)`` are
-contiguous works, e.g. the q/k/v views of a fused qkv projection, so no
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``; in bf16
+warp-specialised ``wgmma`` kernels fed by TMA, ``sm_90a`` only) read q/k/v
+in place through their strides: any tensor whose last two dims ``(H, D)``
+are contiguous works, e.g. the q/k/v views of a fused qkv projection, so no
 head-split copy is made; gradients come back head-merged ``(B, L, H, D)``.
+TMA takes a base address aligned to 16 bytes and row and batch strides that
+are positive multiples of 16 bytes; the wrapper refuses other layouts with
+``ValueError``.
 :func:`flash_attention` is a :class:`torch.autograd.Function` over the two.
 
 Semantics (both versions): fp32 scores and softmax, bottom-right causal
@@ -78,14 +82,14 @@ def flash_attention_plain(
 
 
 def _operand_ok(t: torch.Tensor) -> bool:
-    """(H, D) contiguous and 16-byte aligned rows: what the kernels read in
-    place."""
+    """(H, D) contiguous, a 16-byte aligned base, and row and batch strides
+    that are positive multiples of 16 bytes (a stride of a dimension of size
+    1 is never stepped): what the kernels' tensor maps read in place."""
     vec = 16 // t.element_size()
     return (
         t.stride(3) == 1
         and t.stride(2) == t.shape[3]
-        and t.stride(1) % vec == 0
-        and t.stride(0) % vec == 0
+        and all(t.shape[i] <= 1 or (t.stride(i) > 0 and t.stride(i) % vec == 0) for i in (0, 1))
         and t.data_ptr() % 16 == 0
     )
 
@@ -93,8 +97,10 @@ def _operand_ok(t: torch.Tensor) -> bool:
 def _check_operand(name: str, t: torch.Tensor):
     if not _operand_ok(t):
         raise ValueError(
-            f"flash_attention: {name} must be contiguous over (H, D) with "
-            f"16-byte aligned rows (got strides {tuple(t.stride())})"
+            f"flash_attention: {name} must be contiguous over (H, D) with a "
+            f"16-byte aligned base and positive row/batch strides that are "
+            f"multiples of 16 bytes (got strides {tuple(t.stride())}, "
+            f"base {t.data_ptr() % 16} bytes past 16-byte alignment)"
         )
 
 

@@ -8,8 +8,8 @@ machine without the JAX package:
 Without a card the ``cuda``-marked tests skip: a CUDA kernel has no CPU
 mode. chip_smoke.py holds the same kernels against the same plain versions
 at the serving path's shapes. The unmarked tests check the host-side pieces
-around the kernels (the build cache key, the split heuristic), which run
-anywhere.
+around the kernels (the build cache key, the split heuristic, the flash
+wrapper's layout check), which run anywhere.
 """
 
 import pytest
@@ -32,6 +32,7 @@ from pixparse_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from pixparse_tpu_torch.ops import flash_attention as flash_ops
 from pixparse_tpu_torch.ops.generation import q8_logits, quantize_head
 from pixparse_tpu_torch.ops.layer_norm import (
     layer_norm,
@@ -268,6 +269,118 @@ def test_flash_attention_autograd_on_card(cuda_device):
     flash_attention_plain(*refs, causal=True)[0].backward(do)
     for a, b in zip(leaves, refs):
         torch.testing.assert_close(a.grad, b.grad, atol=2e-4, rtol=2e-4)
+
+
+# Tile edges of the wgmma kernels: forward blocks of 128 query rows (two
+# warpgroups of 64) over key tiles of 128; backward blocks of 128 rows over
+# streamed tiles of 64. Lengths on and either side of 64 and 128.
+EDGE_LENGTHS = [(1, 1), (63, 63), (65, 65), (127, 127), (129, 129), (1, 129), (129, 1),
+                (63, 129), (65, 127), (127, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("Lq,Lk", EDGE_LENGTHS)
+def test_flash_kernels_at_tile_edges(cuda_device, D, Lq, Lk):
+    """Forward and backward, bf16, both masks off and causal; q/k/v as
+    strided views of one fused projection (row stride 3*H*D) where Lq == Lk."""
+    q, k, v, do = _bwd_inputs(2, Lq, Lk, 3, D, torch.bfloat16, cuda_device, 97 * Lq + Lk)
+    for causal in (False, True):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+        if Lk > 1:
+            _check_flash_bwd(q, k, v, do, causal, None, BWD_TOL[torch.bfloat16])
+            continue
+        # one key: p = 1 wherever it is visible, dv = do there, and the true
+        # dq, dk are 0 (both versions leave only cancellation noise)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+        _, _, dv_ref = flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+        torch.testing.assert_close(dv.float(), dv_ref.float(), atol=1e-2, rtol=1e-2)
+        scale = float(do.float().abs().max() * v.float().abs().max())
+        assert float(dq.float().abs().max()) <= 1e-3 * scale
+        assert float(dk.float().abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernels_strided_qkv_ragged_1009(cuda_device, D):
+    """The ViT's operands: views of a fused (B, L, 3, H, D) projection, L =
+    1009 ragged against every tile, plus kv_lens ending exactly on a 128-key
+    tile boundary, one past it, and 0 (o = 0, lse = -1e30, zero gradients)."""
+    q, k, v, do = _bwd_inputs(4, 1009, 1009, 2, D, torch.bfloat16, cuda_device, D + 1)
+    assert q.stride(1) == 3 * 2 * D
+    for lens in (None, [128, 129, 0, 1009]):
+        kl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        o, lse = flash_attention_fwd(q, k, v, kv_lens=kl)
+        o_ref, lse_ref = flash_attention_plain(q, k, v, kv_lens=kl)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+        dq, dk, dv = _check_flash_bwd(q, k, v, do, False, kl, BWD_TOL[torch.bfloat16])
+        if lens is not None:
+            assert (o[2] == 0).all() and (lse[2] == DEAD_LSE).all()
+            assert (dq[2] == 0).all() and (dk[2] == 0).all() and (dv[2] == 0).all()
+            assert (dk[0, 128:] == 0).all() and (dv[1, 129:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk", [(100, 200), (64, 300), (129, 257)])
+def test_flash_kernels_causal_lq_below_lk(cuda_device, Lq, Lk):
+    """Bottom-right causal with Lq < Lk: each row's last visible key crosses
+    a 128-key tile boundary."""
+    q, k, v, do = _bwd_inputs(2, Lq, Lk, 2, 64, torch.bfloat16, cuda_device, Lq * Lk)
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+    _check_flash_bwd(q, k, v, do, True, None, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_strides_tma_cannot_take(cuda_device):
+    q = torch.zeros(2, 16, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    padded = torch.zeros(2, 16, 2 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+    k = padded[..., : 2 * 64].unflatten(-1, (2, 64))  # row stride 132 elements
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(q, k, q)
+    lse = torch.zeros(2, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bwd(q, k, q, q, lse, lse)
+    flat = torch.zeros(2 * 16 * 2 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+    shifted = flat[4:].view(2, 16, 2, 64)  # base 8 bytes past alignment
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(shifted, q, q)
+
+
+def _layout_cases():
+    base = torch.zeros(2 * 16 * 3 * 2 * 64 + 64, dtype=torch.bfloat16)
+    qkv = base[: 2 * 16 * 3 * 2 * 64].view(2, 16, 3, 2, 64)
+    padded = base[: 2 * 16 * 132].view(2, 16, 132)[..., :128].unflatten(-1, (2, 64))
+    return {
+        "contiguous": (torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16), True),
+        "qkv_view_row_stride_3HD": (qkv[:, :, 1], True),
+        "row_stride_8_bytes_off": (padded, False),
+        "base_8_bytes_off": (base[4 : 4 + 2 * 16 * 128].view(2, 16, 2, 64), False),
+        "batch_stride_zero": (torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16).expand(2, -1, -1, -1), False),
+        "row_stride_zero": (torch.zeros(2, 1, 2, 64, dtype=torch.bfloat16).expand(-1, 16, -1, -1), False),
+        "single_row_any_stride": (padded[:, :1], True),
+        "heads_not_contiguous": (torch.zeros(2, 16, 64, 2, dtype=torch.bfloat16).transpose(2, 3), False),
+        "fp32_row_stride_4_bytes_off": (torch.zeros(2, 16, 129, dtype=torch.float32)[..., :128].unflatten(-1, (2, 64)), False),
+    }
+
+
+@pytest.mark.parametrize("case", list(_layout_cases()))
+def test_flash_layout_check_matches_what_tma_takes(case):
+    """The wrapper's layout check (host side, runs anywhere): TMA needs a
+    16-byte aligned base and row/batch strides that are positive multiples
+    of 16 bytes; (H, D) must be contiguous."""
+    t, ok = _layout_cases()[case]
+    assert flash_ops._operand_ok(t) == ok
+    if not ok:
+        with pytest.raises(ValueError, match="16-byte aligned base"):
+            flash_ops._check_operand("q", t)
 
 
 def _ce_inputs(T, V, D, dtype, device, seed, ignore_every=5):

@@ -135,11 +135,37 @@ def test_paths_decay_mask_and_layer_scales_match_jax(trees):
     dict(optimizer="sgd", learning_rate=1e-2, momentum=0.0, weight_decay=0.0),
     dict(optimizer="momentum", learning_rate=1e-2),
     dict(optimizer="lamb", learning_rate=1e-3),
+    # LAMB keeps fp32 moments whatever optimizer_state_dtype says, as optax's
+    # lamb chain (scale_by_adam) does
+    dict(optimizer="lamb", learning_rate=1e-3, optimizer_state_dtype="bfloat16"),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()) or "defaults")
 def test_three_updates_match_optax(trees, kwargs):
     got, want, state = _run_both(trees, **kwargs)
     _assert_close(got, want)
     assert int(state["count"]) == 3
+    for moments in (state.get("mu", {}), state.get("nu", {})):
+        assert all(m.dtype == torch.float32 for m in moments.values())
+
+
+def test_lamb_bf16_moment_checkpoint_is_upcast(trees, tmp_path):
+    """A LAMB state saved with bf16 moments (the port's earlier behaviour)
+    loads into the fp32 moments of the current state instead of being
+    refused."""
+    from pixparse_tpu_torch.framework.checkpoint import _load_into
+
+    jv, jb, params, _ = trees
+    opt, _ = create_optimizer(
+        OptimizationCfg(optimizer="lamb", optimizer_state_dtype="bfloat16"), **SCHED)
+    template = opt.init(_to_port(params, jv, jb))
+    old = {k: ({n: (t + 0.25).to(torch.bfloat16) for n, t in v.items()}
+               if k in ("mu", "nu") else v.clone()) for k, v in template.items()}
+    torch.save(old, tmp_path / "state.pt")
+    saved = torch.load(tmp_path / "state.pt", weights_only=True)
+    restored = _load_into(template, saved, "opt_state")
+    for k in ("mu", "nu"):
+        for n, t in restored[k].items():
+            assert t.dtype == torch.float32
+            assert torch.equal(t, saved[k][n].float()), n
 
 
 def test_bf16_moments_match_jax(trees):
