@@ -32,10 +32,11 @@ stderr):
    and at the edges of the wgmma kernels' tiles (lengths 1, 63, 65, 127,
    129; causal with Lq < Lk across a 128-key boundary; kv_lens on a tile
    boundary and one past it); the flash backward at the same cases. Each
-   flash record carries ``ratio_to_library`` (kernel over SDPA) and
-   ``bound_share`` (bound over kernel). The ``device`` line carries the
-   registers, spills and shared memory of the wgmma flash kernels
-   (``flash_ptxas``, from the build's ``-Xptxas -v`` log). The training kernels join at
+   flash and CE record carries ``ratio_to_library`` (kernel over the library
+   call) and ``bound_share`` (bound over kernel). The ``device`` line carries
+   the registers, spills and shared memory of the wgmma flash kernels
+   (``flash_ptxas``) and of the CE backward's three products (``ce_ptxas``),
+   from the build's ``-Xptxas -v`` log. The training kernels join at
    the train step's shapes: the flash backward (dq, dk, dv) beside autograd
    through ``scaled_dot_product_attention``, and the fused cross entropy
    forward (lse and target logit, 1e-3/1e-4) and backward beside autograd
@@ -45,7 +46,11 @@ stderr):
    that row's L2 norm in bf16 (p, ds and g round to bf16 before products
    that sum up to 16k terms), 2e-4 in fp32. The CE gradients are tiny (the
    loss is a mean over 16k tokens) and most rows of dE are hundreds of times
-   smaller than the target rows; rows whose reference is 0 must be 0. A
+   smaller than the target rows; rows whose reference is 0 must be 0. The
+   CE backward also runs at one full vocabulary chunk and one row (T 16368,
+   V 8193, D 768); every backward case must give the same bits on a second
+   launch, and its record carries the call's workspace and fp32 dh
+   accumulator bytes and its peak memory over its inputs. A
    flash-gradient row whose true value is 0 (a causal query that sees one
    key) carries fp32 cancellation noise in kernel and plain version alike,
    so rows under 1% of the tensor's mean row norm are held to 2e-2 of that
@@ -99,7 +104,8 @@ stderr):
    AdamW) takes train steps of ``make_train_step`` on one fixed seeded batch
    of 16: the loss must be finite and fall; each step must launch 20 flash
    forwards, 20 flash backwards, 1 fused-CE forward and 1 fused-CE backward
-   (counted in wrapper calls: a backward call launches two kernels). Before
+   (counted in wrapper calls: a CE backward call launches three products per
+   vocabulary chunk). Before
    that, at a batch of 2, the first step of the kernel path is held against
    the plain path (plain attention, chunked plain CE) from the same weights
    and dropout masks: loss within 2e-2 relative, gradient norm within 5e-2
@@ -408,6 +414,9 @@ def ce_cases(torch):
     # name, T, V, D, dtype, share of ignored tokens
     return [
         ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, bf, 0.3),
+        # the backward's vocabulary chunks at T 16368 are 8192 rows: one full
+        # chunk and one row
+        ("chunk_edge_t16368_v8193_d768", 16 * 1023, 8193, 768, bf, 0.3),
         ("all_ignored_t512_v50265_d768", 512, BART_VOCAB, 768, bf, 1.0),
         ("donut_t3070_v57525_d1024", 2 * 1535, DONUT_VOCAB, 1024, bf, 0.3),
         ("test_width_t300_v517_d64", 300, 517, 64, bf, 0.2),
@@ -525,20 +534,35 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     lib_t = torch.where(target >= 0, target, -100)
     fwd["library_ms"] = timer.median_ms(
         lambda: F.cross_entropy(F.linear(h, e), lib_t, ignore_index=-100, reduction="sum"), n=10)
+    fwd.update(speed_shares(fwd))
 
     coef = torch.where(target >= 0, 1.0 / max(n_valid, 1), 0.0).float()
     dh, de = loss.fused_ce_bwd(h, e, target, lse_ref, coef)
     torch.cuda.synchronize()
+    # a second launch must give the same bits (no atomics); its peak memory
+    # over what was allocated before is the call's scratch and outputs
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    dh2, de2 = loss.fused_ce_bwd(h, e, target, lse_ref, coef)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated() - allocated
+    repeatable = bool(torch.equal(dh, dh2) and torch.equal(de, de2))
+    del dh2, de2
     dh_ref, de_ref = loss.fused_ce_bwd_plain(h, e, target, lse_ref, coef)
     dh_err, dh_rel, dh_ok = rows_close(dh, dh_ref, CE_ROW_RTOL)
     de_err, de_rel, de_ok = rows_close(de, de_ref, CE_ROW_RTOL)
-    ok = dh_ok and de_ok and bool((dh[target < 0] == 0).all())
+    ok = dh_ok and de_ok and repeatable and bool((dh[target < 0] == 0).all())
     if n_valid == 0:
         ok = ok and bool((dh == 0).all()) and bool((de == 0).all())
     bwd = dict(common, max_abs_err=max(dh_err, de_err), dh_max_abs_err=dh_err,
                de_max_abs_err=de_err, dh_worst_row_rel_err=dh_rel, de_worst_row_rel_err=de_rel,
                ref_abs_max=[float(dh_ref.float().abs().max()), float(de_ref.float().abs().max())],
-               tol=["row L2", CE_ROW_RTOL], ok=ok)
+               tol=["row L2", CE_ROW_RTOL], repeatable=repeatable, ok=ok)
+    if dt == torch.bfloat16:  # the (T, Vc) g workspace, and the fp32 dh accumulator
+        Vc, chunks, ws_bytes = loss._ce_bwd_plan(T, V, D)
+        bwd.update(vocab_chunk=Vc, chunks=len(chunks), workspace_bytes=ws_bytes,
+                   dh_acc_bytes=4 * T * D if len(chunks) > 1 else 0)
+    bwd["peak_bytes_over_inputs"] = peak_bytes  # scratch + dh + dE
     del dh_ref, de_ref
     t_ops = 6.0 * T * V * D / peak  # the logits again, dh and dE: three products
     t_mem = (2 * elt * D * (T + V) + 12 * T) / bw
@@ -552,6 +576,7 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     rec_lib = timer.median_ms(
         lambda: torch.autograd.grad(lib_loss, (hl, el), retain_graph=True), n=10)
     bwd["library_ms"] = rec_lib
+    bwd.update(speed_shares(bwd))
     return fwd, bwd
 
 
@@ -1968,9 +1993,12 @@ def phase_train_task(torch, runs=TRAIN_TASK_RUNS, device="cuda"):
     return {f"train_task_{m}": t for m, t in totals.items()}
 
 
-# the wgmma flash kernels, by (mangled) name fragment; their dynamic shared
-# memory per head dim, as FwdCfg / BwdCfg in the sources lay it out
+# the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
+# per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
+# (the CE backward's products, by output tile width BN) lay it out
 WGMMA_FLASH = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+WGMMA_CE = ("ce_bwd_gemm_kernel",)
+CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh")
 
 
 def flash_dynamic_smem(kernel, D):
@@ -1981,19 +2009,30 @@ def flash_dynamic_smem(kernel, D):
     return 2 * 128 * D * 2 + stages * (2 * 64 * D * 2 + 1024) + (2 * stages + 1) * 8 + 1024
 
 
-def ptxas_summary(log):
-    """Registers, spills and shared memory of the wgmma flash kernels, from
-    what ``nvcc -Xptxas -v`` printed when the library was built."""
+def ce_dynamic_smem(BN):
+    # 4 stages of a 128 x 64 A tile and a BN x 64 B tile, 8 barriers, alignment
+    return 4 * (128 * 64 * 2 + BN * 64 * 2) + 2 * 4 * 8 + 1024
+
+
+def ptxas_summary(log, kernels=WGMMA_FLASH):
+    """Registers, spills and shared memory of the wgmma flash kernels (or,
+    with ``kernels=WGMMA_CE``, the CE backward's), from what ``nvcc -Xptxas
+    -v`` printed when the library was built."""
     import re
 
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next((k for k in WGMMA_FLASH if k in m.group(1)), None)
-            d = re.search(r"ILi(\d+)E", m.group(1))
+            name = next((k for k in kernels if k in m.group(1)), None)
             cur = None
-            if name:
+            if name in WGMMA_CE:
+                prod, bn = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", m.group(1)).groups())
+                cur = {"kernel": name, "product": CE_PRODUCTS[prod], "BN": bn,
+                       "dynamic_smem_bytes": ce_dynamic_smem(bn)}
+                out.append(cur)
+            elif name:
+                d = re.search(r"ILi(\d+)E", m.group(1))
                 D = int(d.group(1)) if d else None
                 cur = {"kernel": name, "D": D, "dynamic_smem_bytes": flash_dynamic_smem(name, D)
                        if D else None}
@@ -2056,7 +2095,8 @@ def main(argv=None) -> int:
                    + ptxas_summary(_build.ptxas_log("flash_attention_bwd")))
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "flash_ptxas": flash_ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "flash_ptxas": flash_ptxas,
+          "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE)})
 
     timer = Timer(torch)
     results = {}

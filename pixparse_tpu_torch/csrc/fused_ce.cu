@@ -4,53 +4,55 @@
 // Replaces the Pallas TPU kernels
 //   pixparse_tpu/ops/loss.py::_ce_fwd_kernel   (per-token lse and target logit)
 //   pixparse_tpu/ops/loss.py::_ce_bwd_kernel   (dh and dE)
-// The logits s = h E^T of T tokens against a vocabulary of V rows are
-// computed tile by tile on the tensor cores and never reach device memory:
+// For T tokens h (T, D) against a vocabulary table E of V rows, s = h E^T:
 //   forward:  lse[t] = logsumexp_v s[t, v],  tgt[t] = s[t, target[t]]
-//   backward: g = (exp(s - lse) - onehot(target)) * coef   rounded to h's dtype
-//             dh = g E,  dE = g^T h                         fp32 accumulation
-// Ignored tokens carry target -1 (matches no column) and coef 0. Vocabulary
-// rows >= V (V = 50265 is odd, the last tile is ragged) are masked in the
-// kernel; the table is never padded in device memory.
+//   backward: g = (exp(s - max(lse, -0.5e30)) - onehot(target)) * coef,
+//             rounded to bf16;  dh = g E,  dE = g^T h,  fp32 accumulation,
+//             each rounded once to bf16
+// Ignored tokens carry target -1 (matches no column) and coef 0, so their
+// rows of dh are exactly 0. The table is never padded in device memory.
 //
-// What bounds it on an H100: at T = 16368, V = 50265, D = 768 each product is
-// 2*T*V*D = 1.26e12 FLOP against ~100 MB of operands, far above the card's
-// ~295 FLOP/byte ridge: tensor-core throughput bounds it, as long as the
-// (T, V) logits stay on the SM.
+// Forward (bf16). The logits never reach device memory: a block keeps 64
+// tokens resident and streams the vocabulary past them in 64 x 64 chunks
+// through a cp.async ring, mma.sync m16n8k16, with an online (max, sum-exp,
+// target logit) per thread merged once at the end.
 //
-// What the design does about it. The TPU kernel walks a sequential grid and
-// carries accumulators from step to step; here blocks are independent, so
-// every reduction is a loop inside one block, and the backward is two
-// deterministic passes that each recompute s (no atomics):
-// - all kernels keep one operand tile `X` resident in shared memory over the
-//   whole depth D and stream the other operand `Y` past it in chunks of
-//   64 rows x 64 columns through a 3-stage cp.async ring; the products are
-//   mma.sync m16n8k16 with ldmatrix operand loads;
-// - forward: X = 64 tokens; a block walks the whole vocabulary, each thread
-//   keeps an online (max, sum-exp, target logit) over the columns it owns,
-//   and the partials are merged once at the end;
-// - backward dh: X = 64 tokens (16 warps), Y = vocabulary tiles of 64 rows. Per tile: phase 1 streams Y's 64-column
-//   chunks as slices of the depth to build s (64 x 64), g goes to shared
-//   memory in bf16, phase 2 streams the same chunks again (an L2 hit) as
-//   slices of the output width and accumulates dh (64 x D) in fp32
-//   registers, written once;
-// - backward dE: the same kernel with the roles swapped (X = 64 vocabulary
-//   rows, Y = token tiles), s^T and g^T directly, dE (64 x D) in registers;
-// - at D = 1024 the (64 x D) fp32 accumulator would need 128 registers a
-//   thread of the 512-thread block before any operand, so the output is split
-//   into two 512-column halves (blockIdx.y): each block still builds s over the
-//   whole depth (phase 1 is done twice in all) and accumulates only its half
-//   in phase 2. Chosen over a 32-row resident tile, which re-reads the
-//   streamed operand twice as often (measured 1.55x slower at D = 768 on an
-//   H100), and over a wider block (the 64-row tile's 16 warps already fill
-//   the block): the split costs 1.5x the tensor-core work of one pass but
-//   only 1.5x, not 2x, the streamed bytes.
-// This is the simple first version: the resident tile is as tall as the
-// (rows x D) fp32 accumulator allows in registers, and the streamed operand is
-// re-read from L2 once per resident tile (T/64 or V/64 times), which is what
-// limits it: at 32 rows the two passes measured ~3.5 TB/s of L2 traffic.
-// wgmma/TMA, clusters that share the streamed tiles and taller resident tiles
-// are later work.
+// Backward (bf16): three wgmma + TMA products per vocabulary chunk.
+// What bounds it on an H100: the three products, 6*T*V*D FLOP (3.8e12 at
+// cruller_base, T = 16368, V = 50265, D = 768: 3.8 ms at 989 TFLOP/s),
+// against the logits' gradient g, which has to pass through device memory
+// once it is no longer recomputed: ~3 x 2*T*V bytes (written once, read
+// twice; 4.9 GB, 1.5 ms at 3.35 TB/s). The tensor cores bound it, and
+// their full rate is reached only through wgmma fed by TMA.
+// What the design does about it. The vocabulary is cut into chunks of Vc
+// rows (a multiple of 256, chosen by the caller so that a (T, Vc) bf16
+// workspace stays within ~256 MiB; ops/loss.py::_ce_bwd_plan), and for each
+// chunk [v0, v1), in order, on the caller's stream:
+//   K1  G = epilogue(h E[v0:v1]^T)     M = T,  N = Vc, K = D
+//       both operands K-major; the epilogue reads lse, coef and target per
+//       row and writes g in bf16 to the workspace (columns >= V write 0;
+//       rows >= T are not stored);
+//   K2  dE[v0:v1] = G^T h              M = Vc, N = D,  K = T
+//       complete within the chunk, rounded once to bf16. A = G^T is read
+//       from the (token, vocab) workspace through the wgmma transpose bit
+//       for A (MN-major, one 64-column panel per consumer warpgroup), so no
+//       transposed copy of g is written (that would cost 2*T*Vc more bytes
+//       a chunk); B = h is MN-major too;
+//   K3  dh_acc (+)= G E[v0:v1]         M = T,  N = D,  K = Vc
+//       B = E is MN-major. dh_acc is fp32 (T, D): the first chunk writes
+//       it, later ones add to it in chunk order, the last rounds it to bf16
+//       into dh (one chunk: straight to dh). No atomics: every output
+//       element has one owner, so the result is bit-for-bit repeatable.
+// Each product is one launch of the same warp-specialised mainloop: one
+// producer thread keeps a 4-stage mbarrier ring of 64-deep K tiles in
+// flight by TMA (2-D tensor maps, 128B swizzle; rows and columns past the
+// matrix's edge read as zeros), two consumer warpgroups own 64 rows each of
+// a 128 x BN output tile and issue wgmma m64nBNk16 from shared memory
+// (BN = 256 for K1 and at D = 1024, 192 at D = 768, 64 at D = 64);
+// setmaxnreg moves registers from the producer to the consumers. No (rows x
+// D) accumulator has to fit the registers: each block owns one 128 x BN
+// output tile. Compared with the mma.sync kernel this replaces (12*T*V*D of
+// work at D = 1024, the logits built twice), the logits are built once.
 //
 // fp32 inputs take SIMT kernels (one block per row, fp32 FMA) with the same
 // semantics, for the fp32 parity path, not for speed.
@@ -60,11 +62,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
 using namespace pixparse;
+using namespace pixparse::hopper;
 
 constexpr float kDeadLse = -1e30f;
 constexpr float kLseFloor = -0.5e30f;
@@ -72,11 +76,6 @@ constexpr int kChunk = 64;       // rows and columns of a streamed chunk
 constexpr int kLdc = kChunk + 8; // padded chunk row stride
 constexpr int kStages = 3;
 constexpr int kFwdWarps = 8;
-// Backward: 4 warps share each 16-row m-tile of a 64-row resident tile, whose
-// (64 x D) fp32 accumulator fits the 128 registers a thread of a 512-thread
-// block may hold up to D = 768; wider outputs are split into column parts.
-constexpr int kBwdWarps = 16;
-constexpr int kBwdRows = 4 * kBwdWarps;
 
 // 64 x 64 chunk of Y (rows y0.., columns c0..) -> shared memory, rows >= ny
 // zero-filled. 512 16-byte pieces over the block's threads.
@@ -126,13 +125,6 @@ template <int D>
 constexpr int fwd_smem_bytes() {
   return (64 * (D + 8) + kStages * kChunk * kLdc) * (int)sizeof(__nv_bfloat16) +
          2 * 64 * 3 * (int)sizeof(float);
-}
-
-template <int D>
-constexpr int bwd_smem_bytes() {
-  constexpr int BM = kBwdRows;
-  return (BM * (D + 8) + kStages * kChunk * kLdc + BM * kLdc) * (int)sizeof(__nv_bfloat16) +
-         kChunk * 3 * (int)sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -253,170 +245,196 @@ __global__ void __launch_bounds__(kFwdWarps * 32) ce_fwd_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// backward: out (nx, D) = G Y with G (nx, ny) built tile by tile from
-// s = X Y^T. kTokensAreRows: X = h, Y = E, out = dh; else X = E, Y = h,
-// out = dE.
+// backward (bf16): the three products of a vocabulary chunk, one TMA +
+// wgmma mainloop
 // ---------------------------------------------------------------------------
 
-// Output column parts a block of the backward accumulates (blockIdx.y picks
-// one): the whole width up to D = 768, halves above.
-template <int D>
-__host__ __device__ constexpr int bwd_parts() {
-  return D > 768 ? 2 : 1;
-}
+constexpr int kGemmM = 128;  // output rows of a block: two consumer warpgroups x 64
+constexpr int kGemmK = 64;   // depth of a K tile: one 128-byte swizzled panel
+constexpr int kGemmStages = 4;
+constexpr int kPanelBytes = 64 * 128;  // a 64 x 64 bf16 panel
+constexpr int kVocabTile = 256;        // K1's N tile; chunk starts are multiples of it
 
-template <int D, bool kTokensAreRows>
-__global__ void __launch_bounds__(kBwdWarps * 32, 1) ce_bwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ Y,
-    const int* __restrict__ target, const float* __restrict__ lse,
-    const float* __restrict__ coef, __nv_bfloat16* __restrict__ out, int nx, int ny, int T,
-    int V) {
-  constexpr int kWarps = kBwdWarps;
-  constexpr int BM = kBwdRows;
-  constexpr int kThreads = kWarps * 32;
-  constexpr int kLdx = D + 8;
-  constexpr int kNC = D / kChunk;
-  constexpr int kOutNC = kNC / bwd_parts<D>();  // output chunks of this block
-  constexpr int kStepsPerTile = kNC + kOutNC;   // streamed chunks per Y tile
-  constexpr int kNT = WarpMap<BM, kWarps>::kNT;                // 2
-  constexpr int kWarpsPerM = WarpMap<BM, kWarps>::kWarpsPerM;  // 4
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sY = sX + BM * kLdx;
-  __nv_bfloat16* sG = sY + kStages * kChunk * kLdc;
-  float* sLse = reinterpret_cast<float*>(sG + BM * kLdc);  // per streamed token
-  float* sCoef = sLse + kChunk;
-  int* sTgt = reinterpret_cast<int*>(sCoef + kChunk);
+enum CeProduct { kProductG = 0, kProductDE = 1, kProductDH = 2 };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mt = warp / kWarpsPerM, ng = warp % kWarpsPerM;
-  const int x0 = blockIdx.x * BM;
-  const int out_c0 = blockIdx.y * kOutNC;  // first output chunk of this block
+// Output columns of a K2/K3 block: the whole width at D = 64, a quarter at
+// D = 768 and 1024.
+__host__ __device__ constexpr int ce_bwd_bn(int D) { return D == 64 ? 64 : D == 768 ? 192 : 256; }
 
-  load_tile_bf16<D, BM>(sX, X, D, x0, nx);
+template <int kProduct, int BN>
+struct GemmCfg {
+  // Operands stored MN-major (the wgmma transpose bit): K2's A (G read as
+  // G^T) and B (h), K3's B (E). The others are K-major.
+  static constexpr int kTA = kProduct == kProductDE;
+  static constexpr int kTB = kProduct != kProductG;
+  static constexpr int kABytes = kGemmM * kGemmK * 2;
+  static constexpr int kBBytes = BN * kGemmK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kBarOffset = kGemmStages * kStageBytes;
+  // + up to 1023 bytes to align the dynamic shared memory to 1024
+  static constexpr int kSmem = kBarOffset + 2 * kGemmStages * 8 + 1024;
+};
 
-  // per-row token stats when tokens are rows
-  float row_lse2[2] = {0.f, 0.f}, row_coef[2] = {0.f, 0.f};
-  int row_tgt[2] = {-1, -1};
-  if (kTokensAreRows) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = x0 + mt * 16 + g + 8 * i;
-      if (row < T) {
-        row_lse2[i] = fmaxf(lse[row], kLseFloor) * kLog2e;
-        row_coef[i] = coef[row];
-        row_tgt[i] = target[row];
-      }
+struct CeBwdArgs {
+  const int* target;
+  const float* lse;
+  const float* coef;
+  __nv_bfloat16* g;    // K1: the (T, ldg) workspace
+  __nv_bfloat16* out;  // K2: dE (V, D); K3: dh (T, D)
+  float* acc;          // K3: dh_acc (T, D) fp32
+  int T, D, v0, nv;    // nv = v1 - v0, this chunk's vocabulary rows
+  int ldg, k_tiles;
+  int first, last;     // K3: this chunk is the first / the last
+  int m_tiles, n_tiles;  // output tiles: 128 rows, BN columns
+};
+
+// One 128 x BN output tile of product kProduct (a 1-D grid of m_tiles x
+// n_tiles blocks). tm_a / tm_b: 2-D maps whose boxes are one 64-column panel and
+// 128 rows (K-major A), 256 rows (K1's B) or 64 rows (MN-major operands).
+template <int kProduct, int BN>
+__global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+    const CeBwdArgs args) {
+  using C = GemmCfg<kProduct, BN>;
+  constexpr int kS = kGemmStages;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
+  const uint32_t bars = base + C::kBarOffset;
+  auto sA = [&](int s) { return base + s * C::kStageBytes; };
+  auto sB = [&](int s) { return sA(s) + C::kABytes; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kS + s); };
+  // Blocks walk the output tiles in groups of kGroup tile rows, rows
+  // fastest. K1: groups of 8 token tiles, so a wave of blocks shares its h
+  // rows and its E rows in L2 (rows of E fastest re-read the whole chunk of
+  // E for every token tile: 0.73 against 1.01 ms at donut_base, H100).
+  // K2, K3: the D / BN blocks of one output row tile run side by side and
+  // share its A operand.
+  constexpr int kGroup = kProduct == kProductG ? 8 : 1;
+  const int per_group = kGroup * args.n_tiles;
+  const int first = blockIdx.x / per_group * kGroup, r = blockIdx.x % per_group;
+  const int rows = min(args.m_tiles - first, kGroup);
+  const int n0 = (r / rows) * BN, m0 = (first + r % rows) * kGemmM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);  // every consumer thread
     }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[kOutNC][kNT][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < args.k_tiles; ++kt) {
+        const int s = kt % kS;
+        const int k0 = kt * kGemmK;
+        mbar_wait(empty(s), ((kt / kS) & 1) ^ 1);
+        mbar_expect_tx(full(s), C::kStageBytes);
+        if constexpr (kProduct == kProductG) {
+          tma_load_2d(sA(s), &tm_a, full(s), k0, m0);            // h rows
+          tma_load_2d(sB(s), &tm_b, full(s), k0, args.v0 + n0);  // E rows of the chunk
+        } else if constexpr (kProduct == kProductDE) {
 #pragma unroll
-  for (int c = 0; c < kOutNC; ++c)
+          for (int p = 0; p < 2; ++p)  // G[t, v]: tokens are K, vocabulary rows M
+            tma_load_2d(sA(s) + p * kPanelBytes, &tm_a, full(s), m0 + 64 * p, k0);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) acc[c][n][0] = acc[c][n][1] = acc[c][n][2] = acc[c][n][3] = 0.f;
-
-  const int n_yt = (ny + kChunk - 1) / kChunk;
-  // per tile: the kNC chunks of the depth (phase 1), then this block's
-  // kOutNC output chunks again (phase 2)
-  const int total = n_yt * kStepsPerTile;
-  auto fetch = [&](int j) {
-    if (j < total) {
-      const int r = j % kStepsPerTile;
-      const int c = r < kNC ? r : out_c0 + (r - kNC);
-      fetch_chunk<kThreads>(sY + (j % kStages) * kChunk * kLdc, Y, D,
-                            (j / kStepsPerTile) * kChunk, ny, c * kChunk);
-    }
-    cp_async_commit();
-  };
-  fetch(0);
-  fetch(1);
-  int j = 0;
-  for (int yt = 0; yt < n_yt; ++yt) {
-    const int y0 = yt * kChunk;
-    if (!kTokensAreRows && threadIdx.x < kChunk) {
-      // stats of this tile's tokens: the previous tile's readers are at least
-      // one barrier behind, this tile's at least one barrier ahead
-      const int tok = y0 + threadIdx.x;
-      const bool in = tok < T;
-      sLse[threadIdx.x] = in ? fmaxf(lse[tok], kLseFloor) * kLog2e : 0.f;
-      sCoef[threadIdx.x] = in ? coef[tok] : 0.f;
-      sTgt[threadIdx.x] = in ? target[tok] : -1;
-    }
-    // phase 1: s = X Y^T over the depth
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kNC; ++c, ++j) {
-      cp_async_wait<1>();
-      __syncthreads();
-      fetch(j + 2);
-      score_chunk<kNT>(s, sX, kLdx, sY + (j % kStages) * kChunk * kLdc, c * kChunk, mt, ng, lane);
-    }
-    // g = (p - onehot) * coef, rounded to bf16, into shared memory
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      float gv[4];
-#pragma unroll
-      for (int el = 0; el < 4; ++el) {
-        const int i = el >> 1;
-        const int lr = mt * 16 + g + 8 * i;
-        const int lc = (ng * kNT + n) * 8 + 2 * t + (el & 1);
-        int vocab, tgt_id;
-        float lse2, cf;
-        if (kTokensAreRows) {
-          vocab = y0 + lc;
-          tgt_id = row_tgt[i];
-          lse2 = row_lse2[i];
-          cf = row_coef[i];
+          for (int p = 0; p < BN / 64; ++p)  // h[t, d]
+            tma_load_2d(sB(s) + p * kPanelBytes, &tm_b, full(s), n0 + 64 * p, k0);
         } else {
-          vocab = x0 + lr;
-          tgt_id = sTgt[lc];
-          lse2 = sLse[lc];
-          cf = sCoef[lc];
+          tma_load_2d(sA(s), &tm_a, full(s), k0, m0);  // G rows
+#pragma unroll
+          for (int p = 0; p < BN / 64; ++p)  // E[v, d] of the chunk
+            tma_load_2d(sB(s) + p * kPanelBytes, &tm_b, full(s), n0 + 64 * p, args.v0 + k0);
         }
-        const float p = vocab < V ? exp2f(s[n][el] * kLog2e - lse2) : 0.f;
-        gv[el] = (p - (vocab == tgt_id ? 1.f : 0.f)) * cf;
-      }
-      const int lr = mt * 16 + g;
-      const int lc = (ng * kNT + n) * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(sG + lr * kLdc + lc) = pack_bf16(gv[0], gv[1]);
-      *reinterpret_cast<uint32_t*>(sG + (lr + 8) * kLdc + lc) = pack_bf16(gv[2], gv[3]);
-    }
-    // phase 2: out[:, chunk out_c0 + c] += G * Y[:, that chunk] (contraction
-    // over Y's rows); the barrier of the first step publishes G
-#pragma unroll
-    for (int c = 0; c < kOutNC; ++c, ++j) {
-      cp_async_wait<1>();
-      __syncthreads();
-      fetch(j + 2);
-      const __nv_bfloat16* buf = sY + (j % kStages) * kChunk * kLdc;
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        uint32_t ga[4], b[4];
-        load_a_frag(ga, sG, kLdc, mt * 16, kk * 16, lane);
-        load_b_frag_kn(b, buf, kLdc, kk * 16, ng * 16, lane);
-        mma_bf16_16816(acc[c][0], ga, b[0], b[1]);
-        mma_bf16_16816(acc[c][1], ga, b[2], b[3]);
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
+  // ---- consumers: 64 output rows each ----
+  setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = x0 + mt * 16 + g + 8 * i;
-    if (row >= nx) continue;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < args.k_tiles; ++kt) {
+    const int s = kt % kS;
+    mbar_wait(full(s), (kt / kS) & 1);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kOutNC; ++c)
+    for (int kk = 0; kk < kGemmK / 16; ++kk) {
+      const uint64_t da = C::kTA ? desc_mnmajor(sA(s) + cw * kPanelBytes, kk, kPanelBytes)
+                                 : desc_kmajor<64, kGemmM>(sA(s), cw * 64, kk);
+      const uint64_t db = C::kTB ? desc_mnmajor(sB(s), kk, kPanelBytes)
+                                 : desc_kmajor<64, BN>(sB(s), 0, kk);
+      wgmma_ss<BN, C::kTA, C::kTB>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's products are done: free its stage
+    if (kt > 0) mbar_arrive(empty((kt - 1) % kS));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: accumulator register 4j + 2h + e is row 16w + g + 8h, column
+  // 8j + 2t + e of this warpgroup's 64 x BN tile (hopper.cuh)
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * D + (out_c0 + c) * kChunk +
-                                           ng * 16 +
-                                           n * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[c][n][2 * i], acc[c][n][2 * i + 1]);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = m0 + cw * 64 + w * 16 + g + 8 * hr;
+    if constexpr (kProduct == kProductG) {
+      // g = (p - onehot) * coef in bf16; columns past the chunk give 0
+      if (row >= args.T) continue;
+      const float lse2 = fmaxf(args.lse[row], kLseFloor) * kLog2e;
+      const float cf = args.coef[row];
+      const int tcol = args.target[row] - args.v0;  // the target's column in this chunk
+      __nv_bfloat16* grow = args.g + (long long)row * args.ldg + n0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float gv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * j + 2 * t + e;
+          const float p = col < args.nv ? exp2f(acc[4 * j + 2 * hr + e] * kLog2e - lse2) : 0.f;
+          gv[e] = (p - (col == tcol ? 1.f : 0.f)) * cf;
+        }
+        *reinterpret_cast<uint32_t*>(grow + 8 * j) = pack_bf16(gv[0], gv[1]);
+      }
+    } else if constexpr (kProduct == kProductDE) {
+      if (row >= args.nv) continue;  // rows of the chunk's vocabulary
+      __nv_bfloat16* orow = args.out + (long long)(args.v0 + row) * args.D + n0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+    } else {
+      if (row >= args.T) continue;
+      const long long off = (long long)row * args.D + n0 + 2 * t;
+      // the running sum of the earlier chunks, every load issued before the
+      // first store (a load after each store waited out its latency: 8.4
+      // against 1.7 ms over cruller_base's 7 chunks, H100)
+      float2 prev[BN / 8];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        prev[j] = args.first ? make_float2(0.f, 0.f)
+                             : *reinterpret_cast<const float2*>(args.acc + off + 8 * j);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float x = prev[j].x + acc[4 * j + 2 * hr], y = prev[j].y + acc[4 * j + 2 * hr + 1];
+        if (args.last)
+          *reinterpret_cast<uint32_t*>(args.out + off + 8 * j) = pack_bf16(x, y);
+        else
+          *reinterpret_cast<float2*>(args.acc + off + 8 * j) = make_float2(x, y);
+      }
+    }
   }
 }
 
@@ -538,27 +556,74 @@ int launch_fwd_bf16(const void* h, const void* e, const int* target, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kProduct, int BN>
+cudaError_t set_gemm_smem() {
+  return cudaFuncSetAttribute(ce_bwd_gemm_kernel<kProduct, BN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              GemmCfg<kProduct, BN>::kSmem);
+}
+
+template <int kProduct, int BN>
+void launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const CeBwdArgs& args, dim3 grid,
+                 cudaStream_t stream) {
+  ce_bwd_gemm_kernel<kProduct, BN>
+      <<<grid, 384, GemmCfg<kProduct, BN>::kSmem, stream>>>(a, b, args);
+}
+
+// K1, K2, K3 for each chunk [v0, v0 + Vc) of the vocabulary, in order.
 template <int D>
 int launch_bwd_bf16(const void* h, const void* e, const int* target, const float* lse,
-                    const float* coef, void* dh, void* de, int T, int V, cudaStream_t stream) {
-  constexpr int kWarps = kBwdWarps;
-  constexpr int BM = kBwdRows;
-  constexpr int kSmem = bwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(ce_bwd_bf16_kernel<D, true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                    const float* coef, void* dh, void* de, void* ws, void* dh_acc, int T, int V,
+                    int Vc, cudaStream_t stream) {
+  constexpr int BN = ce_bwd_bn(D);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!ws || Vc <= 0 || Vc % kVocabTile || (Vc < V && !dh_acc)) return invalid;
+  cudaError_t err = set_gemm_smem<kProductG, kVocabTile>();
+  if (err == cudaSuccess) err = set_gemm_smem<kProductDE, BN>();
+  if (err == cudaSuccess) err = set_gemm_smem<kProductDH, BN>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ce_bwd_bf16_kernel<D, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const __nv_bfloat16* hp = static_cast<const __nv_bfloat16*>(h);
-  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(e);
-  ce_bwd_bf16_kernel<D, true><<<dim3((T + BM - 1) / BM, bwd_parts<D>()), kWarps * 32, kSmem,
-                                  stream>>>(
-      hp, ep, target, lse, coef, static_cast<__nv_bfloat16*>(dh), T, V, T, V);
-  ce_bwd_bf16_kernel<D, false><<<dim3((V + BM - 1) / BM, bwd_parts<D>()), kWarps * 32, kSmem,
-                                   stream>>>(
-      ep, hp, target, lse, coef, static_cast<__nv_bfloat16*>(de), V, T, T, V);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap h_k, e_k, h_mn, e_mn;  // K-major boxes for K1, MN-major for K2 / K3
+  if (!make_map_2d(&h_k, h, T, D, D, kGemmM) || !make_map_2d(&e_k, e, V, D, D, kVocabTile) ||
+      !make_map_2d(&h_mn, h, T, D, D, 64) || !make_map_2d(&e_mn, e, V, D, D, 64))
+    return invalid;
+  CeBwdArgs args{};
+  args.target = target;
+  args.lse = lse;
+  args.coef = coef;
+  args.g = static_cast<__nv_bfloat16*>(ws);
+  args.acc = static_cast<float*>(dh_acc);
+  args.T = T;
+  args.D = D;
+  args.ldg = Vc;
+  const int m_tiles = (T + kGemmM - 1) / kGemmM;
+  for (int v0 = 0; v0 < V; v0 += Vc) {
+    const int nv = V - v0 < Vc ? V - v0 : Vc;
+    // the chunk's columns of the workspace: zeros past nv and past T
+    CUtensorMap g_k, g_mn;
+    if (!make_map_2d(&g_k, ws, T, nv, Vc, kGemmM) || !make_map_2d(&g_mn, ws, T, nv, Vc, 64))
+      return invalid;
+    args.v0 = v0;
+    args.nv = nv;
+    args.first = v0 == 0;
+    args.last = v0 + Vc >= V;
+    args.out = nullptr;
+    args.k_tiles = D / kGemmK;
+    args.m_tiles = m_tiles;
+    args.n_tiles = (nv + kVocabTile - 1) / kVocabTile;
+    launch_gemm<kProductG, kVocabTile>(h_k, e_k, args, dim3(args.m_tiles * args.n_tiles), stream);
+    args.out = static_cast<__nv_bfloat16*>(de);
+    args.k_tiles = (T + kGemmK - 1) / kGemmK;
+    args.m_tiles = (nv + kGemmM - 1) / kGemmM;
+    args.n_tiles = D / BN;
+    launch_gemm<kProductDE, BN>(g_mn, h_mn, args, dim3(args.m_tiles * args.n_tiles), stream);
+    args.out = static_cast<__nv_bfloat16*>(dh);
+    args.k_tiles = (nv + kGemmK - 1) / kGemmK;
+    args.m_tiles = m_tiles;
+    launch_gemm<kProductDH, BN>(g_k, e_mn, args, dim3(args.m_tiles * args.n_tiles), stream);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -595,9 +660,13 @@ extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, co
 // As above, plus lse (T,) from the forward and coef (T,) fp32, the loss's
 // derivative with respect to each token's nll (0 for ignored tokens).
 // Outputs dh (T, D) and de (V, D) in the inputs' dtype, every element written.
+// bf16 also takes the caller's scratch: ws, a (T, Vc) bf16 workspace (Vc a
+// multiple of 256: the vocabulary chunk), and dh_acc, a (T, D) fp32 buffer
+// (may be NULL when Vc >= V); h, e and ws 16-byte aligned. fp32 ignores them.
 extern "C" int pixparse_fused_ce_bwd(int dtype, const void* h, const void* e, const void* target,
-                                     const void* lse, const void* coef, void* dh, void* de, int T,
-                                     int V, int D, void* stream) {
+                                     const void* lse, const void* coef, void* dh, void* de,
+                                     void* ws, void* dh_acc, int T, int V, int D, int Vc,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int* tp = static_cast<const int*>(target);
@@ -605,9 +674,9 @@ extern "C" int pixparse_fused_ce_bwd(int dtype, const void* h, const void* e, co
   const float* cp = static_cast<const float*>(coef);
   if (dtype == 1) {
     switch (D) {
-      case 64: return launch_bwd_bf16<64>(h, e, tp, lp, cp, dh, de, T, V, s);
-      case 768: return launch_bwd_bf16<768>(h, e, tp, lp, cp, dh, de, T, V, s);
-      case 1024: return launch_bwd_bf16<1024>(h, e, tp, lp, cp, dh, de, T, V, s);
+      case 64: return launch_bwd_bf16<64>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
+      case 768: return launch_bwd_bf16<768>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
+      case 1024: return launch_bwd_bf16<1024>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -57,7 +57,7 @@ SIGNATURES = {
     },
     "fused_ce": {
         "pixparse_fused_ce_fwd": [I, P, P, P, P, P, I, I, I, P],
-        "pixparse_fused_ce_bwd": [I, P, P, P, P, P, P, P, I, I, I, P],
+        "pixparse_fused_ce_bwd": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
     },
     "window_attention": {
         "pixparse_window_attn_fwd": [

@@ -9,12 +9,13 @@ from the decoder's hidden states:
   under ``torch.utils.checkpoint``; the full ``(B, L, V)`` logits never
   exist at once.
 - :func:`fused_cross_entropy_from_hidden`: a :class:`torch.autograd.Function`
-  over the CUDA kernels of ``csrc/fused_ce.cu``: the logits never reach
-  device memory at all. The forward kernel streams the vocabulary past each
-  token tile and keeps a running (max, sum-exp, target logit); the backward
-  kernels recompute each logit tile and feed ``dh = g E`` and
-  ``dE = g^T h`` from it, with ``g = (softmax - onehot) * coef`` rounded to
-  the hidden dtype.
+  over the CUDA kernels of ``csrc/fused_ce.cu``: the (T, V) logits never
+  reach device memory. The forward kernel streams the vocabulary past each
+  token tile and keeps a running (max, sum-exp, target logit). The backward
+  walks the vocabulary in chunks (:func:`_ce_bwd_plan`): per chunk one
+  product builds ``g = (softmax - onehot) * coef``, rounded to the hidden
+  dtype, into a (T, chunk) workspace, and two more take ``dE = g^T h`` and
+  ``dh += g E`` from it.
 
 Beside the kernels stand :func:`fused_ce_fwd_plain` and
 :func:`fused_ce_bwd_plain`, plain PyTorch with the same rounding points; a
@@ -25,7 +26,7 @@ path on either device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +36,10 @@ from pixparse_tpu_torch.ops import _build
 IGNORE_ID = -100
 DEAD_LSE = -1e30
 CE_BF16_WIDTHS = (64, 768, 1024)  # depths the bf16 kernels are built for
+# The bf16 backward's workspace: g of one vocabulary chunk, (T, chunk) bf16,
+# the chunk a multiple of the kernels' vocabulary tile.
+CE_BWD_WORKSPACE_BYTES = 256 << 20
+CE_BWD_VOCAB_TILE = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -106,23 +111,57 @@ def fused_ce_fwd_plain(
     return lse, tgt
 
 
+def _ce_bwd_g(h, e, target, lse, coef, v0=0):
+    """g of the vocabulary rows ``e`` (those from ``v0`` on), rounded to
+    ``h``'s dtype, as fp32."""
+    s = torch.matmul(h.float(), e.float().t())
+    p = torch.exp(s - lse.clamp_min(0.5 * DEAD_LSE)[:, None])
+    onehot = target[:, None] == torch.arange(v0, v0 + e.shape[0], device=h.device)[None, :]
+    return ((p - onehot.float()) * coef[:, None]).to(h.dtype).float()
+
+
 def fused_ce_bwd_plain(
     h: torch.Tensor,
     e: torch.Tensor,
     target: torch.Tensor,  # (T,) int, -1 where ignored
     lse: torch.Tensor,  # (T,) fp32
     coef: torch.Tensor,  # (T,) fp32: d loss / d nll[t], 0 where ignored
+    vocab_chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: ``(dh (T, D), dE (V, D))`` in
     the dtypes of ``h`` and ``e``; ``g`` is rounded to ``h``'s dtype before
-    its two products, which accumulate in fp32."""
-    s = torch.matmul(h.float(), e.float().t())
-    p = torch.exp(s - lse.clamp_min(0.5 * DEAD_LSE)[:, None])
-    onehot = target[:, None] == torch.arange(e.shape[0], device=h.device)[None, :]
-    g = ((p - onehot.float()) * coef[:, None]).to(h.dtype).float()
-    dh = torch.matmul(g, e.float())
-    de = torch.matmul(g.t(), h.float())
-    return dh.to(h.dtype), de.to(e.dtype)
+    its two products, which accumulate in fp32.
+
+    ``vocab_chunk`` follows the bf16 kernels' order instead (for tests): per
+    chunk of that many vocabulary rows, g, that chunk's rows of dE, and dh
+    summed in fp32 chunk by chunk, rounded once at the end."""
+    if vocab_chunk is None:
+        g = _ce_bwd_g(h, e, target, lse, coef)
+        dh = torch.matmul(g, e.float())
+        de = torch.matmul(g.t(), h.float())
+        return dh.to(h.dtype), de.to(e.dtype)
+    dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    de = torch.empty_like(e)
+    for v0 in range(0, e.shape[0], vocab_chunk):
+        ec = e[v0:v0 + vocab_chunk]
+        g = _ce_bwd_g(h, ec, target, lse, coef, v0)
+        de[v0:v0 + vocab_chunk] = torch.matmul(g.t(), h.float()).to(e.dtype)
+        dh += torch.matmul(g, ec.float())
+    return dh.to(h.dtype), de
+
+
+def _ce_bwd_plan(T: int, V: int, D: int) -> Tuple[int, List[Tuple[int, int]], int]:
+    """The bf16 backward's vocabulary chunks: ``(Vc, [(v0, v1), ...],
+    workspace_bytes)``. ``Vc`` is the largest multiple of the vocabulary tile
+    whose (T, Vc) bf16 workspace fits ``CE_BWD_WORKSPACE_BYTES`` (at least
+    one tile, at most V rounded up to a tile); the chunks cover [0, V) in
+    order. ``D`` does not change the plan: every width takes the same
+    chunks."""
+    tile = CE_BWD_VOCAB_TILE
+    fit = CE_BWD_WORKSPACE_BYTES // (2 * max(T, 1)) // tile * tile
+    Vc = min(max(fit, tile), -(-V // tile) * tile)
+    chunks = [(v0, min(v0 + Vc, V)) for v0 in range(0, V, Vc)]
+    return Vc, chunks, 2 * T * Vc
 
 
 def _check_ce_operands(name, h, e, target):
@@ -171,10 +210,19 @@ def fused_ce_fwd(h: torch.Tensor, e: torch.Tensor, target: torch.Tensor):
 fused_ce_fwd.launches = 0
 
 
+def _tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its base is 16-byte aligned (as TMA needs), else an
+    aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_ce_bwd(h, e, target, lse, coef):
     """``(dh, dE)``: the CUDA kernels for CUDA tensors, the plain version for
-    CPU tensors. ``launches`` counts calls that launched (one call launches
-    the dh kernel and the dE kernel)."""
+    CPU tensors. ``launches`` counts calls that launched (one bf16 call
+    launches three products per vocabulary chunk, fp32 a dh and a dE
+    kernel). bf16 takes a (T, Vc) workspace and, with more than one chunk,
+    a (T, D) fp32 dh accumulator from the caching allocator for the length
+    of the call."""
     if not h.is_cuda:
         return fused_ce_bwd_plain(h, e, target, lse, coef)
     _check_ce_operands("fused_ce_bwd", h, e, target)
@@ -183,16 +231,27 @@ def fused_ce_bwd(h, e, target, lse, coef):
     lse = lse.to(torch.float32).contiguous()
     coef = coef.to(torch.float32).contiguous()
     T, D = h.shape
+    V = e.shape[0]
     dh = torch.empty_like(h)
     de = torch.empty_like(e)
     if T == 0:
         return dh, de.zero_()
+    ws = dh_acc = None
+    Vc = 0
+    if h.dtype == torch.bfloat16:
+        h, e = _tma_aligned(h), _tma_aligned(e)
+        Vc, chunks, _ = _ce_bwd_plan(T, V, D)
+        ws = torch.empty((T, Vc), dtype=torch.bfloat16, device=h.device)
+        if len(chunks) > 1:
+            dh_acc = torch.empty((T, D), dtype=torch.float32, device=h.device)
     lib = _build.library("fused_ce")
     with torch.cuda.device(h.device):
         err = lib.pixparse_fused_ce_bwd(
             _DTYPE_CODES[h.dtype], _build.ptr(h), _build.ptr(e), _build.ptr(target),
             _build.ptr(lse), _build.ptr(coef), _build.ptr(dh), _build.ptr(de),
-            T, e.shape[0], D, _build.stream_ptr(h.device),
+            None if ws is None else _build.ptr(ws),
+            None if dh_acc is None else _build.ptr(dh_acc),
+            T, V, D, Vc, _build.stream_ptr(h.device),
         )
     _build.check(err, "fused_ce_bwd")
     fused_ce_bwd.launches += 1

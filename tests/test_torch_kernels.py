@@ -422,6 +422,47 @@ def test_fused_ce_kernels_match_plain(cuda_device, T, V, D, dtype):
     assert (dh[target < 0] == 0).all()
 
 
+def _ce_bwd_edge_cases():
+    # V across the vocabulary-chunk boundary: at T = 16368 the plan's chunk is
+    # 8192 rows (one full chunk + 1 row; two + 8191 rows), cheap at D = 64
+    cases = [(16368, 8193, 64, 5), (16368, 16383, 64, 5)]
+    for D in (64, 768, 1024):
+        cases += [(T, 1000, D, 5) for T in (1, 63, 65, 129)]  # the 128-row tile's edges
+        cases += [(300, 200, D, 5),  # V below one 256-row vocabulary tile
+                  (129, 1000, D, 1)]  # every token ignored
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,D,ignore_every", _ce_bwd_edge_cases())
+def test_fused_ce_bwd_chunks_and_edges(cuda_device, T, V, D, ignore_every):
+    """The bf16 backward (three products per vocabulary chunk) at the edges of
+    its tiles and chunks: within the plain version's tolerance, ignored rows
+    of dh exactly 0, two calls bit-identical, its scratch returned to the
+    allocator, one launch counted per call."""
+    h, e, target = _ce_inputs(T, V, D, torch.bfloat16, cuda_device, T + V + D, ignore_every)
+    n_valid = int((target >= 0).sum())
+    lse, _ = fused_ce_fwd_plain(h, e, target)
+    coef = torch.where(target >= 0, 1.0 / max(n_valid, 1), 0.0).to(cuda_device)
+    before = fused_ce_bwd.launches
+    dh, de = fused_ce_bwd(h, e, target, lse, coef)
+    torch.cuda.synchronize()
+    assert fused_ce_bwd.launches == before + 1
+    dh_ref, de_ref = fused_ce_bwd_plain(h, e, target, lse, coef)
+    tol = dict(atol=2e-5, rtol=2e-2)
+    torch.testing.assert_close(dh.float(), dh_ref.float(), **tol)
+    torch.testing.assert_close(de.float(), de_ref.float(), **tol)
+    assert (dh[target < 0] == 0).all()
+    if n_valid == 0:
+        assert (dh == 0).all() and (de == 0).all()
+    allocated = torch.cuda.memory_allocated()
+    dh2, de2 = fused_ce_bwd(h, e, target, lse, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, dh2) and torch.equal(de, de2)
+    del dh2, de2
+    assert torch.cuda.memory_allocated() == allocated
+
+
 @pytest.mark.cuda
 def test_fused_ce_all_ignored_on_card(cuda_device):
     h, e, _ = _ce_inputs(64, 300, 64, torch.bfloat16, cuda_device, 3)

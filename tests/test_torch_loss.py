@@ -117,3 +117,63 @@ def test_plain_versions_have_the_kernels_semantics():
     dhb, deb = tl.fused_ce_bwd_plain(h.bfloat16(), e.bfloat16(), safe, lse, coef)
     assert dhb.dtype == deb.dtype == torch.bfloat16
     torch.testing.assert_close(dhb.float(), dh, atol=2e-3, rtol=5e-2)
+
+
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (0 at 0)."""
+    _, ex = torch.frexp(x.abs())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), ex - 8))
+
+
+# V = 384: a chunk of the whole vocabulary, 128 (three even chunks) and 100
+# (a ragged last chunk of 84)
+@pytest.mark.parametrize("vocab_chunk", [384, 128, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_plain_backward_matches_unchunked_and_jax(dtype, vocab_chunk):
+    """The plain backward in the bf16 kernels' order (g per vocabulary
+    chunk, dE per chunk, dh summed in fp32 chunk by chunk) against the
+    unchunked plain version (fp32: 1e-6; bf16: one bf16 step of the rounded
+    outputs, which round the same fp32 sums taken in another order) and, in
+    fp32, against the JAX package's fused-CE gradients (Pallas kernels in
+    interpret mode) at the file's atol 1e-5."""
+    hidden, emb, tgt = _data(2, 37, 48, 384, seed=vocab_chunk)
+    t = torch.from_numpy(tgt.reshape(-1))
+    valid = t != -100
+    safe = torch.where(valid, t, -1)
+    h = torch.from_numpy(hidden.reshape(-1, 48)).to(dtype)
+    e = torch.from_numpy(emb).to(dtype)
+    lse, _ = tl.fused_ce_fwd_plain(h, e, safe)
+    coef = torch.where(valid, 1.0 / int(valid.sum()), 0.0)
+    dh, de = tl.fused_ce_bwd_plain(h, e, safe, lse, coef, vocab_chunk=vocab_chunk)
+    dh_ref, de_ref = tl.fused_ce_bwd_plain(h, e, safe, lse, coef)
+    assert dh.dtype == de.dtype == dtype
+    assert torch.all(dh[~valid] == 0)
+    for name, a, b in (("dh", dh, dh_ref), ("dE", de, de_ref)):
+        a, b = a.float(), b.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0, msg=name)
+        else:
+            assert torch.all((a - b).abs() <= _bf16_step(torch.maximum(a.abs(), b.abs()))), name
+    if dtype == torch.float32:
+        _, _, (g_dh, g_de) = _jax_loss_and_grads(jl.fused_cross_entropy_from_hidden, hidden, emb, tgt)
+        np.testing.assert_allclose(dh.numpy(), g_dh.reshape(-1, 48), atol=1e-5, err_msg="dh")
+        np.testing.assert_allclose(de.numpy(), g_de, atol=1e-5, err_msg="dE")
+
+
+@pytest.mark.parametrize("T,V,D,n_chunks", [
+    (16368, 50265, 768, 7),  # cruller_base's train step
+    (3070, 57525, 1024, 2),  # donut_base's
+    (16368, 8193, 64, 2),  # one full chunk and one row
+    (16368, 100, 768, 1),  # V below one vocabulary tile
+    (1, 50265, 768, 1),  # one token
+    (1, 1, 64, 1),
+])
+def test_ce_bwd_plan_covers_the_vocabulary_within_budget(T, V, D, n_chunks):
+    Vc, chunks, ws_bytes = tl._ce_bwd_plan(T, V, D)
+    tile = tl.CE_BWD_VOCAB_TILE
+    assert len(chunks) == n_chunks
+    assert Vc % tile == 0 and Vc > 0
+    assert chunks[0][0] == 0 and chunks[-1][1] == V
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))  # in order, no gaps
+    assert all(v0 % tile == 0 and 0 < v1 - v0 <= Vc for v0, v1 in chunks)
+    assert ws_bytes == 2 * T * Vc <= tl.CE_BWD_WORKSPACE_BYTES
