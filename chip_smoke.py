@@ -35,9 +35,16 @@ stderr):
    flash and CE record carries ``ratio_to_library`` (kernel over the library
    call) and ``bound_share`` (bound over kernel). The ``device`` line carries
    the registers, spills and shared memory of the wgmma flash kernels
-   (``flash_ptxas``) and of the CE backward's three products (``ce_ptxas``),
-   from the build's ``-Xptxas -v`` log. The training kernels join at
-   the train step's shapes: the flash backward (dq, dk, dv) beside autograd
+   (``flash_ptxas``), of the CE backward's three products (``ce_ptxas``), of
+   the CE forward's product and merge (``ce_fwd_ptxas``) and of the decode
+   kernel (``decode_ptxas``), from the build's ``-Xptxas -v`` log. Every
+   decode and CE forward case must give the same bits on a second launch.
+   A decode record also carries ``device_ms`` and ``library_device_ms``:
+   the same timing with the card kept busy for ~0.1 ms between the flush
+   and the call, so neither the host's enqueue time nor the tail of the
+   flush is counted (each can add microseconds to a kernel this short).
+   The training kernels join at the train step's shapes: the flash
+   backward (dq, dk, dv) beside autograd
    through ``scaled_dot_product_attention``, and the fused cross entropy
    forward (lse and target logit, 1e-3/1e-4) and backward beside autograd
    through ``F.linear`` + ``F.cross_entropy``. Gradients are held row by row,
@@ -202,13 +209,18 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def median_ms(self, fn, n=25, warmup=3):
+    def median_ms(self, fn, n=25, warmup=3, busy=False):
+        """``busy``: the card spins ~0.1 ms after the flush, so the host has
+        enqueued ``fn`` and the flush's writes have drained before the
+        first event fires: device time alone."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(n):
             self.flush_buf.zero_()
+            if busy:
+                torch.cuda._sleep(200_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -314,6 +326,8 @@ def decode_cases(torch):
         ("test_width_d32", 3, 256, None, 2, 32, bf),
         ("fp32_b4_lk333", 4, 384, 333, 12, 64, f32),
         ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
+        # Lk not a multiple of the kernel's 10-key tile (H*D = 768), row 1 dead
+        ("ragged_lk997_dead_row", 16, 997, None, 12, 64, bf),
     ]
 
 
@@ -519,11 +533,17 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     lse, tgt = loss.fused_ce_fwd(h, e, target)
     torch.cuda.synchronize()
     lse_ref, tgt_ref = loss.fused_ce_fwd_plain(h, e, target)
+    lse2, tgt2 = loss.fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    fwd_repeatable = bool(torch.equal(lse, lse2) and torch.equal(tgt, tgt2))
+    del lse2, tgt2
     lse_err, lse_ok = close(lse, lse_ref, *LSE_TOL)
     tgt_err, tgt_ok = close(tgt, tgt_ref, *LSE_TOL)
-    ok = lse_ok and tgt_ok and bool((tgt[target < 0] == 0).all())
+    ok = lse_ok and tgt_ok and fwd_repeatable and bool((tgt[target < 0] == 0).all())
     fwd = dict(common, max_abs_err=max(lse_err, tgt_err), lse_max_abs_err=lse_err,
-               tgt_max_abs_err=tgt_err, tol=list(LSE_TOL), ok=ok)
+               tgt_max_abs_err=tgt_err, tol=list(LSE_TOL), repeatable=fwd_repeatable, ok=ok)
+    if dt == torch.bfloat16:  # the (max, sum-exp) partials per vocabulary tile
+        fwd.update(zip(("vocab_tiles", "partials_bytes"), loss._ce_fwd_plan(T, V)))
     t_ops = 2.0 * T * V * D / peak
     t_mem = (elt * D * (T + V) + 12 * T) / bw
     fwd.update(bound_ms=max(t_ops, t_mem) * 1e3,
@@ -961,15 +981,21 @@ def phase_kernels(torch, F, card_name, timer):
             mask = (torch.arange(Lk) < n_valid)[None].expand(B, Lk).contiguous().cuda()
         o = da.decode_attention(q, k, v, mask, num_heads=H)
         torch.cuda.synchronize()
+        repeatable = bool(torch.equal(da.decode_attention(q, k, v, mask, num_heads=H), o))
         o_ref = da.decode_attention_plain(q, k, v, mask, num_heads=H)
         atol, rtol = TOL[str(dt).split(".")[-1]]
         err, ok = close(o, o_ref, atol, rtol)
         dead = ~mask.any(dim=1)
         if bool(dead.any()):
             ok = ok and bool((o[dead] == 0).all())
-        rec = dict(case=name, shape=[B, Lk, H, D], dtype=str(dt), max_abs_err=err,
-                   tol=[atol, rtol], ok=ok, valid_keys=int(mask.sum()))
         elt = q.element_size()
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = da.decode_plan(B, Lk, HD * elt, n_sm)
+        rec = dict(case=name, shape=[B, Lk, H, D], dtype=str(dt), max_abs_err=err,
+                   tol=[atol, rtol], ok=ok and repeatable, repeatable=repeatable,
+                   valid_keys=int(mask.sum()), dead_rows=int(dead.sum()),
+                   plan_kt_split_keys_n_split=list(plan),
+                   dynamic_smem_bytes=decode_dynamic_smem(plan[0], HD, H, plan[1], elt))
         nvk = int(mask.sum())
         flops = 4.0 * D * H * nvk
         nbytes = elt * (2 * B * HD + 2 * nvk * HD) + B * Lk
@@ -984,8 +1010,13 @@ def phase_kernels(torch, F, card_name, timer):
         kt = k.view(B, Lk, H, D).transpose(1, 2)
         vt = v.view(B, Lk, H, D).transpose(1, 2)
         am = mask[:, None, None, :]
-        rec["library_ms"] = timer.median_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        rec["library_ms"] = timer.median_ms(lib)
+        rec.update(speed_shares(rec))
+        # the same with the card kept busy between the flush and the call
+        rec["device_ms"] = timer.median_ms(
+            lambda: da.decode_attention(q, k, v, mask, num_heads=H), busy=True)
+        rec["library_device_ms"] = timer.median_ms(lib, busy=True)
         results["decode_attention"].append(rec)
         note({"kernel": "decode_attention", **rec})
         if not rec["ok"]:
@@ -1997,8 +2028,10 @@ def phase_train_task(torch, runs=TRAIN_TASK_RUNS, device="cuda"):
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
 # (the CE backward's products, by output tile width BN) lay it out
 WGMMA_FLASH = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
-WGMMA_CE = ("ce_bwd_gemm_kernel",)
-CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh")
+WGMMA_CE = ("ce_gemm_kernel",)
+CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh", "F_lse")  # by the template's product index
+CE_FWD = ("ce_gemm_kernel", "ce_lse_merge_kernel")  # ce_fwd_ptxas: product F and the merge
+DECODE = ("decode_attn_split_kernel",)
 
 
 def flash_dynamic_smem(kernel, D):
@@ -2014,10 +2047,20 @@ def ce_dynamic_smem(BN):
     return 4 * (128 * 64 * 2 + BN * 64 * 2) + 2 * 4 * 8 + 1024
 
 
-def ptxas_summary(log, kernels=WGMMA_FLASH):
+def decode_dynamic_smem(kt, HD, H, split_keys, elt):
+    """The decode kernel's dynamic shared memory for a plan, as its Smem
+    lays it out: barriers, 3 stages of K and V tiles (or the p.v sums),
+    scores and probabilities, (max, max, alpha) per head, the split's mask."""
+    ring = max(3 * 2 * kt * HD * elt, 256 * (16 // elt + 1) * 4)
+    return -(-(128 + ring + 8 * kt * H + 12 * H + split_keys) // 16) * 16
+
+
+def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
     """Registers, spills and shared memory of the wgmma flash kernels (or,
-    with ``kernels=WGMMA_CE``, the CE backward's), from what ``nvcc -Xptxas
-    -v`` printed when the library was built."""
+    with ``kernels=WGMMA_CE``, the CE products named in ``ce_products``; with
+    ``DECODE``, the decode kernels, whose dynamic shared memory follows the
+    plan and is in each decode case's record), from what ``nvcc -Xptxas -v``
+    printed when the library was built."""
     import re
 
     out, cur = [], None
@@ -2028,8 +2071,17 @@ def ptxas_summary(log, kernels=WGMMA_FLASH):
             cur = None
             if name in WGMMA_CE:
                 prod, bn = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", m.group(1)).groups())
-                cur = {"kernel": name, "product": CE_PRODUCTS[prod], "BN": bn,
-                       "dynamic_smem_bytes": ce_dynamic_smem(bn)}
+                if CE_PRODUCTS[prod] in ce_products:
+                    cur = {"kernel": name, "product": CE_PRODUCTS[prod], "BN": bn,
+                           "dynamic_smem_bytes": ce_dynamic_smem(bn)}
+                    out.append(cur)
+            elif name in DECODE:
+                d = re.search(r"Li(\d+)E", m.group(1))
+                cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
+                       "D": int(d.group(1)) if d else None}
+                out.append(cur)
+            elif name == "ce_lse_merge_kernel":
+                cur = {"kernel": name, "dynamic_smem_bytes": 0}
                 out.append(cur)
             elif name:
                 d = re.search(r"ILi(\d+)E", m.group(1))
@@ -2096,7 +2148,9 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "flash_ptxas": flash_ptxas,
-          "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE)})
+          "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE),
+          "ce_fwd_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), CE_FWD, ("F_lse",)),
+          "decode_ptxas": ptxas_summary(_build.ptxas_log("decode_attention"), DECODE)})
 
     timer = Timer(torch)
     results = {}

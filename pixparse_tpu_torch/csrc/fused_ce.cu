@@ -12,10 +12,20 @@
 // Ignored tokens carry target -1 (matches no column) and coef 0, so their
 // rows of dh are exactly 0. The table is never padded in device memory.
 //
-// Forward (bf16). The logits never reach device memory: a block keeps 64
-// tokens resident and streams the vocabulary past them in 64 x 64 chunks
-// through a cp.async ring, mma.sync m16n8k16, with an online (max, sum-exp,
-// target logit) per thread merged once at the end.
+// Forward (bf16): one wgmma + TMA product F over the whole vocabulary, then
+// a small merge. What bounds it on an H100: the logits' product, 2*T*V*D
+// FLOP (1.26e12 at cruller_base: 1.28 ms at 989 TFLOP/s); its bytes (h and
+// E once) are far smaller. F runs the backward's mainloop below (as K1:
+// h and E K-major, 128 x 256 output tiles, blocks in groups of 8 token tiles
+// so a wave shares E in L2), with the tensor map over all of E (TMA reads
+// zeros past V: no chunks, no workspace). Its epilogue reduces each row of
+// the tile to (max, sum of exp2 relative to it) over the columns < V, and
+// the tile that holds a row's target column writes its logit to tgt. The
+// (m, l) pairs go to an fp32 buffer of ceil(V / 256) x T pairs from the
+// caller (25.8 MB at cruller_base); a second kernel merges each row's in
+// vocabulary-tile order into lse (DEAD_LSE where the sum is 0) and zeroes
+// tgt where the target matches no column. The logits never reach device
+// memory.
 //
 // Backward (bf16): three wgmma + TMA products per vocabulary chunk.
 // What bounds it on an H100: the three products, 6*T*V*D FLOP (3.8e12 at
@@ -43,12 +53,12 @@
 //       it, later ones add to it in chunk order, the last rounds it to bf16
 //       into dh (one chunk: straight to dh). No atomics: every output
 //       element has one owner, so the result is bit-for-bit repeatable.
-// Each product is one launch of the same warp-specialised mainloop: one
-// producer thread keeps a 4-stage mbarrier ring of 64-deep K tiles in
+// Each product (and F) is one launch of the same warp-specialised mainloop:
+// one producer thread keeps a 4-stage mbarrier ring of 64-deep K tiles in
 // flight by TMA (2-D tensor maps, 128B swizzle; rows and columns past the
 // matrix's edge read as zeros), two consumer warpgroups own 64 rows each of
 // a 128 x BN output tile and issue wgmma m64nBNk16 from shared memory
-// (BN = 256 for K1 and at D = 1024, 192 at D = 768, 64 at D = 64);
+// (BN = 256 for K1, F and at D = 1024, 192 at D = 768, 64 at D = 64);
 // setmaxnreg moves registers from the producer to the consumers. No (rows x
 // D) accumulator has to fit the registers: each block owns one 128 x BN
 // output tile. Compared with the mma.sync kernel this replaces (12*T*V*D of
@@ -72,190 +82,20 @@ using namespace pixparse::hopper;
 
 constexpr float kDeadLse = -1e30f;
 constexpr float kLseFloor = -0.5e30f;
-constexpr int kChunk = 64;       // rows and columns of a streamed chunk
-constexpr int kLdc = kChunk + 8; // padded chunk row stride
-constexpr int kStages = 3;
-constexpr int kFwdWarps = 8;
-
-// 64 x 64 chunk of Y (rows y0.., columns c0..) -> shared memory, rows >= ny
-// zero-filled. 512 16-byte pieces over the block's threads.
-template <int kThreads>
-__device__ __forceinline__ void fetch_chunk(__nv_bfloat16* sbuf, const __nv_bfloat16* Y, int D,
-                                            int y0, int ny, int c0) {
-#pragma unroll
-  for (int i = 0; i < 512 / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    const bool valid = y0 + r < ny;
-    const __nv_bfloat16* src = Y + (long long)(valid ? y0 + r : 0) * D + c0 + c;
-    cp_async_16(sbuf + r * kLdc + c, src, valid);
-  }
-}
-
-// How a block's warps share a (BM x 64) score tile: warp -> one 16-row m-tile
-// and kNT neighbouring 8-column n-tiles.
-template <int BM, int kWarps>
-struct WarpMap {
-  static constexpr int kMTiles = BM / 16;
-  static constexpr int kWarpsPerM = kWarps / kMTiles;
-  static constexpr int kNT = 8 / kWarpsPerM;
-};
-
-// s += X[:, c0 : c0 + 64] * chunk^T for this warp's part of the score tile.
-template <int kNT>
-__device__ __forceinline__ void score_chunk(float (&s)[kNT][4],
-                                            const __nv_bfloat16* sX, int ldx,
-                                            const __nv_bfloat16* sY, int c0, int mt, int ng,
-                                            int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kChunk / 16; ++kk) {
-    uint32_t xa[4];
-    load_a_frag(xa, sX, ldx, mt * 16, c0 + kk * 16, lane);
-#pragma unroll
-    for (int jp = 0; jp < kNT / 2; ++jp) {
-      uint32_t b[4];
-      load_b_frag_nk(b, sY, kLdc, (ng * kNT + 2 * jp) * 8, kk * 16, lane);
-      mma_bf16_16816(s[2 * jp], xa, b[0], b[1]);
-      mma_bf16_16816(s[2 * jp + 1], xa, b[2], b[3]);
-    }
-  }
-}
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (64 * (D + 8) + kStages * kChunk * kLdc) * (int)sizeof(__nv_bfloat16) +
-         2 * 64 * 3 * (int)sizeof(float);
-}
 
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kFwdWarps * 32) ce_fwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ e,
-    const int* __restrict__ target, float* __restrict__ lse_out, float* __restrict__ tgt_out,
-    int T, int V) {
-  constexpr int BM = 64;
-  constexpr int kThreads = kFwdWarps * 32;
-  constexpr int kLdx = D + 8;
-  constexpr int kNC = D / kChunk;
-  constexpr int kNT = WarpMap<BM, kFwdWarps>::kNT;                // 4
-  constexpr int kWarpsPerM = WarpMap<BM, kFwdWarps>::kWarpsPerM;  // 2
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sY = sX + BM * kLdx;
-  float* sStat = reinterpret_cast<float*>(sY + kStages * kChunk * kLdc);  // [2][64][3]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mt = warp / kWarpsPerM, ng = warp % kWarpsPerM;
-  const int t0 = blockIdx.x * BM;
-
-  load_tile_bf16<D, BM>(sX, h, D, t0, T);
-  int tgt_id[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = t0 + mt * 16 + g + 8 * i;
-    tgt_id[i] = row < T ? target[row] : -1;
-  }
-
-  // per-thread online softmax over the columns this thread owns (log2 domain)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
-
-  const int n_vt = (V + kChunk - 1) / kChunk;
-  const int total = n_vt * kNC;
-  auto fetch = [&](int j) {
-    if (j < total)
-      fetch_chunk<kThreads>(sY + (j % kStages) * kChunk * kLdc, e, D, (j / kNC) * kChunk, V,
-                            (j % kNC) * kChunk);
-    cp_async_commit();
-  };
-  fetch(0);
-  fetch(1);
-  int j = 0;
-  for (int vt = 0; vt < n_vt; ++vt) {
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int c = 0; c < kNC; ++c, ++j) {
-      cp_async_wait<1>();
-      __syncthreads();
-      fetch(j + 2);
-      score_chunk<kNT>(s, sX, kLdx, sY + (j % kStages) * kChunk * kLdc, c * kChunk, mt, ng, lane);
-    }
-    // masks, target logit, online (max, sum-exp)
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int el = 0; el < 4; ++el) {
-        const int i = el >> 1;
-        const int col = vt * kChunk + (ng * kNT + n) * 8 + 2 * t + (el & 1);
-        if (col == tgt_id[i]) tl[i] += s[n][el];
-        const float x = col < V ? s[n][el] * kLog2e : -INFINITY;
-        s[n][el] = x;
-        tmax[i] = fmaxf(tmax[i], x);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], tmax[i]);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-        sum += exp2f(s[n][2 * i] - m_use) + exp2f(s[n][2 * i + 1] - m_use);
-      l[i] = l[i] * exp2f(m[i] - m_use) + sum;
-      m[i] = m_new;
-    }
-  }
-  cp_async_wait<0>();
-
-  // merge the 4 lanes of a quad, then the warps that share the rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[i], sh);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[i], sh);
-      const float m_new = fmaxf(m[i], m_o);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      l[i] = l[i] * exp2f(m[i] - m_use) + l_o * exp2f(m_o - m_use);
-      m[i] = m_new;
-      tl[i] += __shfl_xor_sync(0xffffffffu, tl[i], sh);
-    }
-    if (t == 0) {
-      float* st = sStat + (ng * BM + mt * 16 + g + 8 * i) * 3;
-      st[0] = m[i];
-      st[1] = l[i];
-      st[2] = tl[i];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < BM && t0 + threadIdx.x < T) {
-    const float* a = sStat + threadIdx.x * 3;
-    const float* b = sStat + (BM + threadIdx.x) * 3;
-    const float m_new = fmaxf(a[0], b[0]);
-    const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-    const float lsum = a[1] * exp2f(a[0] - m_use) + b[1] * exp2f(b[0] - m_use);
-    lse_out[t0 + threadIdx.x] = lsum > 0.f ? (m_use + log2f(lsum)) * kLn2 : kDeadLse;
-    tgt_out[t0 + threadIdx.x] = a[2] + b[2];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward (bf16): the three products of a vocabulary chunk, one TMA +
-// wgmma mainloop
+// bf16: the forward's product and the backward's three products of a
+// vocabulary chunk, one TMA + wgmma mainloop
 // ---------------------------------------------------------------------------
 
 constexpr int kGemmM = 128;  // output rows of a block: two consumer warpgroups x 64
 constexpr int kGemmK = 64;   // depth of a K tile: one 128-byte swizzled panel
 constexpr int kGemmStages = 4;
 constexpr int kPanelBytes = 64 * 128;  // a 64 x 64 bf16 panel
-constexpr int kVocabTile = 256;        // K1's N tile; chunk starts are multiples of it
+constexpr int kVocabTile = 256;  // N tile of K1 and the forward; chunk starts are multiples of it
 
-enum CeProduct { kProductG = 0, kProductDE = 1, kProductDH = 2 };
+// The backward's K1, K2, K3 and the forward's logits product (F).
+enum CeProduct { kProductG = 0, kProductDE = 1, kProductDH = 2, kProductLse = 3 };
 
 // Output columns of a K2/K3 block: the whole width at D = 64, a quarter at
 // D = 768 and 1024.
@@ -266,7 +106,7 @@ struct GemmCfg {
   // Operands stored MN-major (the wgmma transpose bit): K2's A (G read as
   // G^T) and B (h), K3's B (E). The others are K-major.
   static constexpr int kTA = kProduct == kProductDE;
-  static constexpr int kTB = kProduct != kProductG;
+  static constexpr int kTB = kProduct == kProductDE || kProduct == kProductDH;
   static constexpr int kABytes = kGemmM * kGemmK * 2;
   static constexpr int kBBytes = BN * kGemmK * 2;
   static constexpr int kStageBytes = kABytes + kBBytes;
@@ -275,10 +115,12 @@ struct GemmCfg {
   static constexpr int kSmem = kBarOffset + 2 * kGemmStages * 8 + 1024;
 };
 
-struct CeBwdArgs {
+struct CeGemmArgs {
   const int* target;
   const float* lse;
   const float* coef;
+  float2* part;        // F: (m, l) per vocabulary tile and row, (n_tiles, T)
+  float* tgt;          // F: the target's logit (T,)
   __nv_bfloat16* g;    // K1: the (T, ldg) workspace
   __nv_bfloat16* out;  // K2: dE (V, D); K3: dh (T, D)
   float* acc;          // K3: dh_acc (T, D) fp32
@@ -292,9 +134,9 @@ struct CeBwdArgs {
 // n_tiles blocks). tm_a / tm_b: 2-D maps whose boxes are one 64-column panel and
 // 128 rows (K-major A), 256 rows (K1's B) or 64 rows (MN-major operands).
 template <int kProduct, int BN>
-__global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
+__global__ void __launch_bounds__(384, 1) ce_gemm_kernel(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-    const CeBwdArgs args) {
+    const CeGemmArgs args) {
   using C = GemmCfg<kProduct, BN>;
   constexpr int kS = kGemmStages;
   extern __shared__ __align__(16) unsigned char gemm_smem[];
@@ -308,9 +150,9 @@ __global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
   // fastest. K1: groups of 8 token tiles, so a wave of blocks shares its h
   // rows and its E rows in L2 (rows of E fastest re-read the whole chunk of
   // E for every token tile: 0.73 against 1.01 ms at donut_base, H100).
-  // K2, K3: the D / BN blocks of one output row tile run side by side and
-  // share its A operand.
-  constexpr int kGroup = kProduct == kProductG ? 8 : 1;
+  // F walks the tiles as K1 does. K2, K3: the D / BN blocks of one output
+  // row tile run side by side and share its A operand.
+  constexpr int kGroup = kProduct == kProductG || kProduct == kProductLse ? 8 : 1;
   const int per_group = kGroup * args.n_tiles;
   const int first = blockIdx.x / per_group * kGroup, r = blockIdx.x % per_group;
   const int rows = min(args.m_tiles - first, kGroup);
@@ -335,7 +177,7 @@ __global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
         const int k0 = kt * kGemmK;
         mbar_wait(empty(s), ((kt / kS) & 1) ^ 1);
         mbar_expect_tx(full(s), C::kStageBytes);
-        if constexpr (kProduct == kProductG) {
+        if constexpr (kProduct == kProductG || kProduct == kProductLse) {
           tma_load_2d(sA(s), &tm_a, full(s), k0, m0);            // h rows
           tma_load_2d(sB(s), &tm_b, full(s), k0, args.v0 + n0);  // E rows of the chunk
         } else if constexpr (kProduct == kProductDE) {
@@ -390,7 +232,40 @@ __global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = m0 + cw * 64 + w * 16 + g + 8 * hr;
-    if constexpr (kProduct == kProductG) {
+    if constexpr (kProduct == kProductLse) {
+      // the tile's max and sum of exp2 relative to it over the row's columns
+      // < V (exp2 domain), reduced over the quad that holds the row; the
+      // target's logit from the tile that holds its column. The shuffles
+      // run on every lane: rows past T only skip the stores.
+      const int lim = args.nv - n0 - 2 * t;  // this thread's column 8j + e is < V iff 8j + e < lim
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e < lim) mx = fmaxf(mx, acc[4 * j + 2 * hr + e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m2 = mx * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e < lim) sum += fast_exp2(fmaf(acc[4 * j + 2 * hr + e], kLog2e, -m2));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (row >= args.T) continue;
+      if (t == 0) args.part[(long long)(n0 / BN) * args.T + row] = make_float2(m2, sum);
+      const int tc = args.target[row] - n0 - 2 * t;  // the target as this thread's 8j + e
+      if (tc >= 0 && tc < BN && tc < lim) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + e == tc) args.tgt[row] = acc[4 * j + 2 * hr + e];
+      }
+    } else if constexpr (kProduct == kProductG) {
       // g = (p - onehot) * coef in bf16; columns past the chunk give 0
       if (row >= args.T) continue;
       const float lse2 = fmaxf(args.lse[row], kLseFloor) * kLog2e;
@@ -436,6 +311,30 @@ __global__ void __launch_bounds__(384, 1) ce_bwd_gemm_kernel(
       }
     }
   }
+}
+
+// lse per row from the forward's (m, l) partials, merged in vocabulary-tile
+// order (a repeat gives the same bits); tgt 0 where the target matches no
+// column (the product writes the others).
+constexpr int kMergeThreads = 128;
+
+__global__ void __launch_bounds__(kMergeThreads) ce_lse_merge_kernel(
+    const float2* __restrict__ part, const int* __restrict__ target, float* __restrict__ lse,
+    float* __restrict__ tgt, int T, int V, int n_tiles) {
+  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  if (row >= T) return;
+  float m = -INFINITY, l = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < n_tiles; ++i) {
+    const float2 p = part[(long long)i * T + row];
+    const float m_new = fmaxf(m, p.x);
+    const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+    l = l * exp2f(m - m_use) + p.y * exp2f(p.x - m_use);
+    m = m_new;
+  }
+  lse[row] = l > 0.f ? (m + log2f(l)) * kLn2 : kDeadLse;
+  const int tg = target[row];
+  if (tg < 0 || tg >= V) tgt[row] = 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -543,31 +442,49 @@ __global__ void __launch_bounds__(kF32Threads) ce_bwd_f32_kernel(
   }
 }
 
-template <int D>
-int launch_fwd_bf16(const void* h, const void* e, const int* target, float* lse, float* tgt,
-                    int T, int V, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(ce_fwd_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ce_fwd_bf16_kernel<D><<<(T + 63) / 64, kFwdWarps * 32, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(e), target, lse,
-      tgt, T, V);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int kProduct, int BN>
 cudaError_t set_gemm_smem() {
-  return cudaFuncSetAttribute(ce_bwd_gemm_kernel<kProduct, BN>,
+  return cudaFuncSetAttribute(ce_gemm_kernel<kProduct, BN>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               GemmCfg<kProduct, BN>::kSmem);
 }
 
 template <int kProduct, int BN>
-void launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const CeBwdArgs& args, dim3 grid,
+void launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const CeGemmArgs& args, dim3 grid,
                  cudaStream_t stream) {
-  ce_bwd_gemm_kernel<kProduct, BN>
+  ce_gemm_kernel<kProduct, BN>
       <<<grid, 384, GemmCfg<kProduct, BN>::kSmem, stream>>>(a, b, args);
+}
+
+// F over the whole vocabulary (the tensor map spans it; TMA zero-fills past
+// V), then the merge. part: (ceil(V / 256), T) float2.
+template <int D>
+int launch_fwd_bf16(const void* h, const void* e, const int* target, float* lse, float* tgt,
+                    void* part, int T, int V, cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!part) return invalid;
+  cudaError_t err = set_gemm_smem<kProductLse, kVocabTile>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap h_k, e_k;
+  if (!make_map_2d(&h_k, h, T, D, D, kGemmM) || !make_map_2d(&e_k, e, V, D, D, kVocabTile))
+    return invalid;
+  CeGemmArgs args{};
+  args.target = target;
+  args.part = static_cast<float2*>(part);
+  args.tgt = tgt;
+  args.T = T;
+  args.D = D;
+  args.v0 = 0;
+  args.nv = V;
+  args.k_tiles = D / kGemmK;
+  args.m_tiles = (T + kGemmM - 1) / kGemmM;
+  args.n_tiles = (V + kVocabTile - 1) / kVocabTile;
+  launch_gemm<kProductLse, kVocabTile>(h_k, e_k, args, dim3(args.m_tiles * args.n_tiles), stream);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ce_lse_merge_kernel<<<(T + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, stream>>>(
+      args.part, target, lse, tgt, T, V, args.n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K1, K2, K3 for each chunk [v0, v0 + Vc) of the vocabulary, in order.
@@ -586,7 +503,7 @@ int launch_bwd_bf16(const void* h, const void* e, const int* target, const float
   if (!make_map_2d(&h_k, h, T, D, D, kGemmM) || !make_map_2d(&e_k, e, V, D, D, kVocabTile) ||
       !make_map_2d(&h_mn, h, T, D, D, 64) || !make_map_2d(&e_mn, e, V, D, D, 64))
     return invalid;
-  CeBwdArgs args{};
+  CeGemmArgs args{};
   args.target = target;
   args.lse = lse;
   args.coef = coef;
@@ -631,10 +548,12 @@ int launch_bwd_bf16(const void* h, const void* e, const int* target, const float
 // dtype: 0 = float32, 1 = bfloat16 (h and e share it). h is a contiguous
 // (T, D) matrix, e a contiguous (V, D) table, target (T,) int32 with -1 for
 // ignored tokens; lse and tgt are (T,) fp32 outputs. bf16 takes D in
-// {64, 768, 1024}; fp32 any D <= 1024 that is a multiple of 4. Returns
-// the CUDA error code (0 = success).
+// {64, 768, 1024}, h and e 16-byte aligned, and the caller's scratch part,
+// ceil(V / 256) x T float2; fp32 any D <= 1024 that is a multiple of 4 (part
+// unused). Returns the CUDA error code (0 = success).
 extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, const void* target,
-                                     void* lse, void* tgt, int T, int V, int D, void* stream) {
+                                     void* lse, void* tgt, void* part, int T, int V, int D,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
   if (V <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -643,9 +562,9 @@ extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, co
   float* gp = static_cast<float*>(tgt);
   if (dtype == 1) {
     switch (D) {
-      case 64: return launch_fwd_bf16<64>(h, e, tp, lp, gp, T, V, s);
-      case 768: return launch_fwd_bf16<768>(h, e, tp, lp, gp, T, V, s);
-      case 1024: return launch_fwd_bf16<1024>(h, e, tp, lp, gp, T, V, s);
+      case 64: return launch_fwd_bf16<64>(h, e, tp, lp, gp, part, T, V, s);
+      case 768: return launch_fwd_bf16<768>(h, e, tp, lp, gp, part, T, V, s);
+      case 1024: return launch_fwd_bf16<1024>(h, e, tp, lp, gp, part, T, V, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

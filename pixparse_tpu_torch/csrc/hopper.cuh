@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels
-// (flash attention forward and backward, the fused cross-entropy backward's
-// three products): TMA tile loads into swizzled
-// shared memory, mbarrier pipelines, wgmma and its shared-memory
+// (flash attention forward and backward, the fused cross-entropy products,
+// decode attention): TMA tile loads into swizzled shared memory and 1-D
+// bulk copies, mbarrier pipelines, wgmma and its shared-memory
 // descriptors, register reallocation. Raw PTX, in the style of
 // mma_tiles.cuh, so that no CuTe/CUTLASS header is compiled.
 //
@@ -132,6 +132,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of device memory -> shared memory, no tensor map
+// (1-D bulk copy: both addresses 16-byte aligned, `bytes` a multiple of 16).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "decode_attention": {
         "pixparse_decode_attn_fwd": [
-            I, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, LL, I, F, P,
+            I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, I, I, I, F, P,
         ],
     },
     "flash_attention_bwd": {
@@ -56,7 +56,7 @@ SIGNATURES = {
         ],
     },
     "fused_ce": {
-        "pixparse_fused_ce_fwd": [I, P, P, P, P, P, I, I, I, P],
+        "pixparse_fused_ce_fwd": [I, P, P, P, P, P, P, I, I, I, P],
         "pixparse_fused_ce_bwd": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
     },
     "window_attention": {

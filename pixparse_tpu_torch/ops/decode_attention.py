@@ -5,8 +5,9 @@ Counterpart of :mod:`pixparse_tpu.ops.decode_attention`. q ``(B, 1, H*D)``,
 k/v ``(B, Lk, H*D)`` caches stored flat, mask ``(B, Lk)`` (> 0 / True =
 attend). Fully masked rows give zeros.
 
-- :func:`decode_attention`: caches in the compute dtype
-  (``csrc/decode_attention.cu``).
+- :func:`decode_attention`: caches in the compute dtype, each row H*D
+  contiguous elements (``csrc/decode_attention.cu``: a block per sample
+  and key split over all heads, planned by :func:`decode_plan`).
 - :func:`decode_attention_q8`: int8 caches with per-(sample, head,
   position) fp32 scales from :func:`quantize_kv_rows`
   (``csrc/decode_attention_q8.cu``). The query and the rows
@@ -21,7 +22,9 @@ kernel or raises. Each wrapper's ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -64,11 +67,39 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def num_splits(batch_heads: int, Lk: int, sm_count: int) -> int:
-    """Key splits per (sample, head): enough blocks for ~4 per SM, at least
-    64 keys per split."""
-    want = -(-4 * sm_count // max(batch_heads, 1))
-    return max(1, min(want, -(-Lk // 64)))
+DECODE_TILE_BYTES = 16384  # one stage's K (or V) tile in the kernel's ring
+DECODE_MAX_TILE_KEYS = 64
+DECODE_MAX_SPLIT_KEYS = 8192  # a split's mask bytes sit in shared memory
+DECODE_MAX_ROW_BYTES = 4096  # H*D*elt: one thread owns 16 bytes of a row
+
+
+def decode_plan(B: int, Lk: int, row_bytes: int, sm_count: int) -> Tuple[int, int, int]:
+    """The kernel's work split: ``(kt, split_keys, n_split)``. A block owns
+    one (sample, split) of ``split_keys`` keys over all heads and streams it
+    in tiles of ``kt`` keys (a tile of K holds about ``DECODE_TILE_BYTES``,
+    at most ``DECODE_MAX_TILE_KEYS`` keys). The splits give about two blocks
+    per SM (``B * n_split ~ 2 * sm_count``) and hold whole tiles; the
+    ``n_split`` splits cover ``Lk``."""
+    kt = max(1, min(DECODE_MAX_TILE_KEYS, DECODE_TILE_BYTES // row_bytes))
+    want = -(-2 * sm_count // max(B, 1))
+    split = -(-max(Lk, 1) // want)
+    split = min(-(-split // kt) * kt, DECODE_MAX_SPLIT_KEYS // kt * kt)
+    return kt, split, max(1, -(-Lk // split))
+
+
+_SPLIT_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, stream, B: int) -> torch.Tensor:
+    """The kernel's per-sample counters of finished splits: zeros, and each
+    launch leaves them zero. One buffer per (device, stream): launches on
+    one stream never overlap, so they share it."""
+    key = (device.index, stream.cuda_stream)
+    c = _SPLIT_COUNTERS.get(key)
+    if c is None or c.numel() < B:
+        c = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[key] = c
+    return c
 
 
 def _decode_cuda(q, k, v, mask, num_heads):
@@ -91,17 +122,30 @@ def _decode_cuda(q, k, v, mask, num_heads):
         raise ValueError(f"decode_attention: mask shape {tuple(mask.shape)} != ({B}, {Lk})")
     if not (k.is_cuda and v.is_cuda and mask.is_cuda):
         raise ValueError("decode_attention: q, k, v and mask must be on one CUDA device")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    elt = q.element_size()
+    if HD * elt > DECODE_MAX_ROW_BYTES:
+        raise ValueError(
+            f"decode_attention: rows of {HD * elt} bytes (H*D = {HD}); the kernel "
+            f"takes at most {DECODE_MAX_ROW_BYTES}"
+        )
+    vec = 16 // elt
+    if q.stride(2) != 1 or q.stride(0) % vec or q.data_ptr() % 16:
+        raise ValueError(
+            f"decode_attention: q must have contiguous, 16-byte aligned rows "
+            f"(got strides {tuple(q.stride())})"
+        )
+    for name, t in (("k", k), ("v", v)):
+        # a key tile is one contiguous run of whole rows (a 1-D bulk copy)
         if (
             t.stride(2) != 1
+            or (Lk > 1 and t.stride(1) != HD)
             or t.stride(0) % vec
-            or (t.shape[1] > 1 and t.stride(1) % vec)
             or t.data_ptr() % 16
         ):
             raise ValueError(
-                f"decode_attention: {name} must have contiguous, 16-byte aligned "
-                f"rows (got strides {tuple(t.stride())})"
+                f"decode_attention: {name} must be stored (B, Lk, H*D) with "
+                f"contiguous rows of H*D elements, 16-byte aligned (got strides "
+                f"{tuple(t.stride())})"
             )
     if mask.dtype != torch.bool:
         mask = mask > 0
@@ -110,16 +154,18 @@ def _decode_cuda(q, k, v, mask, num_heads):
     o = torch.empty((B, 1, HD), dtype=q.dtype, device=q.device)
     if B == 0:
         return o
-    n_split = num_splits(B * H, Lk, _sm_count(q.device.index or 0))
-    work = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device=q.device)
+    kt, split_keys, n_split = decode_plan(B, Lk, HD * elt, _sm_count(q.device.index or 0))
+    work = torch.empty(B * n_split * (HD + 2 * H), dtype=torch.float32, device=q.device)
     lib = _build.library("decode_attention")
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device)
+        counters = _split_counters(q.device, stream, B)
         err = lib.pixparse_decode_attn_fwd(
             _DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-            _build.ptr(mask), _build.ptr(o), _build.ptr(work),
+            _build.ptr(mask), _build.ptr(o), _build.ptr(work), _build.ptr(counters),
             B, H, Lk, D,
-            q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1), mask.stride(0),
-            n_split, float(D ** -0.5), _build.stream_ptr(q.device),
+            q.stride(0), k.stride(0), v.stride(0), mask.stride(0), kt, split_keys, n_split,
+            float(D ** -0.5), ctypes.c_void_p(stream.cuda_stream),
         )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

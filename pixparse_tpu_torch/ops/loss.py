@@ -10,8 +10,10 @@ from the decoder's hidden states:
   exist at once.
 - :func:`fused_cross_entropy_from_hidden`: a :class:`torch.autograd.Function`
   over the CUDA kernels of ``csrc/fused_ce.cu``: the (T, V) logits never
-  reach device memory. The forward kernel streams the vocabulary past each
-  token tile and keeps a running (max, sum-exp, target logit). The backward
+  reach device memory. The forward is one product over the whole
+  vocabulary whose epilogue keeps, per token and 256-entry vocabulary tile,
+  a (max, sum-exp) pair (:func:`_ce_fwd_plan`) and the target's logit; a
+  second kernel merges the pairs into the lse. The backward
   walks the vocabulary in chunks (:func:`_ce_bwd_plan`): per chunk one
   product builds ``g = (softmax - onehot) * coef``, rounded to the hidden
   dtype, into a (T, chunk) workspace, and two more take ``dE = g^T h`` and
@@ -37,7 +39,8 @@ IGNORE_ID = -100
 DEAD_LSE = -1e30
 CE_BF16_WIDTHS = (64, 768, 1024)  # depths the bf16 kernels are built for
 # The bf16 backward's workspace: g of one vocabulary chunk, (T, chunk) bf16,
-# the chunk a multiple of the kernels' vocabulary tile.
+# the chunk a multiple of the kernels' vocabulary tile (also the tile of the
+# forward's partials).
 CE_BWD_WORKSPACE_BYTES = 256 << 20
 CE_BWD_VOCAB_TILE = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -164,6 +167,14 @@ def _ce_bwd_plan(T: int, V: int, D: int) -> Tuple[int, List[Tuple[int, int]], in
     return Vc, chunks, 2 * T * Vc
 
 
+def _ce_fwd_plan(T: int, V: int) -> Tuple[int, int]:
+    """The bf16 forward's partials: ``(n_vtiles, bytes)``, one fp32 (max,
+    sum-exp) pair per token and vocabulary tile (the last tile may be
+    partial)."""
+    n_vtiles = -(-V // CE_BWD_VOCAB_TILE)
+    return n_vtiles, 8 * n_vtiles * T
+
+
 def _check_ce_operands(name, h, e, target):
     T, D = h.shape
     if h.dtype not in _DTYPE_CODES or e.dtype != h.dtype:
@@ -184,8 +195,10 @@ def _check_ce_operands(name, h, e, target):
 
 
 def fused_ce_fwd(h: torch.Tensor, e: torch.Tensor, target: torch.Tensor):
-    """``(lse, tgt)`` per token: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. ``launches`` counts kernel launches."""
+    """``(lse, tgt)`` per token: the CUDA kernels for CUDA tensors, the plain
+    version for CPU tensors. ``launches`` counts calls that launched (bf16: a
+    product and a merge, with (max, sum-exp) partials from the caching
+    allocator for the length of the call)."""
     if not h.is_cuda:
         return fused_ce_fwd_plain(h, e, target)
     _check_ce_operands("fused_ce_fwd", h, e, target)
@@ -196,11 +209,18 @@ def fused_ce_fwd(h: torch.Tensor, e: torch.Tensor, target: torch.Tensor):
     tgt = torch.empty((T,), dtype=torch.float32, device=h.device)
     if T == 0:
         return lse, tgt
+    V = e.shape[0]
+    part = None
+    if h.dtype == torch.bfloat16:
+        h, e = _tma_aligned(h), _tma_aligned(e)
+        n_vtiles, _ = _ce_fwd_plan(T, V)
+        part = torch.empty((n_vtiles, T, 2), dtype=torch.float32, device=h.device)
     lib = _build.library("fused_ce")
     with torch.cuda.device(h.device):
         err = lib.pixparse_fused_ce_fwd(
             _DTYPE_CODES[h.dtype], _build.ptr(h), _build.ptr(e), _build.ptr(target),
-            _build.ptr(lse), _build.ptr(tgt), T, e.shape[0], D, _build.stream_ptr(h.device),
+            _build.ptr(lse), _build.ptr(tgt), None if part is None else _build.ptr(part),
+            T, V, D, _build.stream_ptr(h.device),
         )
     _build.check(err, "fused_ce_fwd")
     fused_ce_fwd.launches += 1

@@ -126,11 +126,18 @@ def _jax_decode(q, k, v, mask, H):
     ))
 
 
-@pytest.mark.parametrize("Lk", [100, 128, 1009])
-def test_plain_decode_attention_matches_jax(Lk):
-    B, H, D = 3, 4, 64
+@pytest.mark.parametrize("B,Lk,H,D,n_valid", [
+    pytest.param(3, 100, 4, 64, 100, id="100"),
+    pytest.param(3, 128, 4, 64, 128, id="128"),
+    pytest.param(3, 1009, 4, 64, 1009, id="1009"),
+    # donut_base's cross geometry (H 16, D 64) at B=2: Lk not a multiple of
+    # the kernel's 8-key tile at H*D = 1024, the padded tail masked
+    pytest.param(2, 4861, 16, 64, 4800, id="donut_cross_lk4861_valid4800"),
+])
+def test_plain_decode_attention_matches_jax(B, Lk, H, D, n_valid):
     q, k, v, _ = _decode_inputs(B, Lk, H, D, seed=Lk)
-    mask = np.ones((B, Lk), bool)
+    mask = np.zeros((B, Lk), bool)
+    mask[:, :n_valid] = True
     out = decode_attention(*_t(q, k, v, mask), num_heads=H).numpy()
     np.testing.assert_allclose(out, _jax_decode(q, k, v, mask, H), **TOL)
 

@@ -8,7 +8,7 @@ machine without the JAX package:
 Without a card the ``cuda``-marked tests skip: a CUDA kernel has no CPU
 mode. chip_smoke.py holds the same kernels against the same plain versions
 at the serving path's shapes. The unmarked tests check the host-side pieces
-around the kernels (the build cache key, the split heuristic, the flash
+around the kernels (the build cache key, the decode split plan, the flash
 wrapper's layout check), which run anywhere.
 """
 
@@ -21,7 +21,9 @@ from pixparse_tpu_torch.ops.decode_attention import (
     decode_attention_plain,
     decode_attention_q8,
     decode_attention_q8_plain,
-    num_splits,
+    decode_plan,
+    DECODE_MAX_SPLIT_KEYS,
+    DECODE_TILE_BYTES,
     quantize_kv_rows,
 )
 from pixparse_tpu_torch.ops.flash_attention import (
@@ -97,12 +99,29 @@ def test_build_cache_key_follows_headers(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "batch_heads,Lk,want",
-    [(192, 1024, 3), (192, 64, 1), (12, 1024, 16), (4000, 1024, 1), (192, 1, 1)],
+    "B,Lk,row_bytes,want",
+    [
+        (16, 1024, 1536, (10, 70, 15)),  # cruller_base's cross cache, H*D = 768
+        (16, 128, 1536, (10, 10, 13)),  # its self cache: one tile a split
+        (16, 64, 1536, (10, 10, 7)),
+        (1, 1024, 1536, (10, 10, 103)),  # one sample: many short splits
+        (333, 1024, 1536, (10, 1030, 1)),  # more samples than two per SM: one split
+        (16, 1, 1536, (10, 10, 1)),  # one key
+        (8, 4864, 2048, (8, 152, 32)),  # donut_base's cross cache, H*D = 1024
+        (3, 256, 128, (64, 64, 4)),  # H*D = 64: the tile stops at 64 keys
+        (4, 384, 3072, (5, 10, 39)),  # fp32
+        (1, 32768, 1536, (10, 130, 253)),
+        (16, 0, 1536, (10, 10, 1)),  # an empty cache still launches one split
+    ],
 )
-def test_decode_split_count(batch_heads, Lk, want):
-    """About 4 blocks per SM on a 132-SM card, never under 64 keys a split."""
-    assert num_splits(batch_heads, Lk, 132) == want
+def test_decode_plan(B, Lk, row_bytes, want):
+    """About two blocks per SM on a 132-SM card; splits of whole key tiles
+    of at most DECODE_TILE_BYTES that together cover the cache."""
+    kt, split, n_split = decode_plan(B, Lk, row_bytes, 132)
+    assert (kt, split, n_split) == want
+    assert split % kt == 0 and split <= DECODE_MAX_SPLIT_KEYS
+    assert kt * row_bytes <= DECODE_TILE_BYTES
+    assert (n_split - 1) * split < max(Lk, 1) <= n_split * split
 
 
 @pytest.mark.cuda
@@ -187,6 +206,40 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, D):
     ref = decode_attention_plain(q, k, v, mask, num_heads=H)
     torch.testing.assert_close(o.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert (o[1] == 0).all()
+    assert torch.equal(decode_attention(q, k, v, mask, num_heads=H), o)  # fixed-order merge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(32, 8), (64, 16), (128, 6)])
+@pytest.mark.parametrize("whole_tiles", [0, 7])
+def test_decode_kernel_ragged_masks_and_partial_tiles(cuda_device, D, H, whole_tiles):
+    """Lk below one key tile, or whole tiles and a partial one (never a
+    multiple of the tile); masks with holes, a dead row, a short prefix,
+    only the first or only the last key: within the plain version's
+    tolerance, dead rows exactly 0, a second launch bit-identical."""
+    kt, _, _ = decode_plan(1, 1, H * D * 2, 132)
+    Lk = whole_tiles * kt + kt // 2 + 1
+    B = 7
+    gen = torch.Generator().manual_seed(Lk + D)
+    q = torch.randn(B, 1, H * D, generator=gen).to(cuda_device, torch.bfloat16)
+    k = torch.randn(B, Lk, H * D, generator=gen).to(cuda_device, torch.bfloat16)
+    v = torch.randn(B, Lk, H * D, generator=gen).to(cuda_device, torch.bfloat16)
+    mask = torch.rand(B, Lk, generator=gen) > 0.25  # holes
+    mask[1] = False  # dead row
+    mask[2, Lk // 2 + 1:] = False  # a short prefix
+    mask[3] = True
+    mask[4] = False
+    mask[4, 0] = True  # only the first key
+    mask[5] = False
+    mask[5, -1] = True  # only the last key
+    mask = mask.to(cuda_device)
+    o = decode_attention(q, k, v, mask, num_heads=H)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q, k, v, mask, num_heads=H)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
+    assert (o[1] == 0).all()
+    assert torch.equal(decode_attention(q, k, v, mask, num_heads=H), o)
 
 
 @pytest.mark.cuda
@@ -198,6 +251,13 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
         decode_attention(q, k, k, mask, num_heads=2)
     with pytest.raises(ValueError, match="mask shape"):
         decode_attention(q, k, k, mask[:, :8], num_heads=3)
+    # a key tile is one contiguous run of rows: strided caches are refused,
+    # not copied
+    wide = torch.zeros(2, 16, 192, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        decode_attention(q, wide[:, :, :96], k, mask, num_heads=3)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        decode_attention(q, k, wide[:, :, 96:], mask, num_heads=3)
 
 
 def _bwd_inputs(B, Lq, Lk, H, D, dtype, device, seed, fused=True):
@@ -461,6 +521,53 @@ def test_fused_ce_bwd_chunks_and_edges(cuda_device, T, V, D, ignore_every):
     assert torch.equal(dh, dh2) and torch.equal(de, de2)
     del dh2, de2
     assert torch.cuda.memory_allocated() == allocated
+
+
+def _ce_fwd_edge_cases():
+    # T not a multiple of the 128-row tile, V not a multiple of the
+    # 256-entry vocabulary tile; one token; V exactly one tile
+    return [(130, 517), (300, 1000), (257, 3001), (1, 256), (77, 255)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 768, 1024])
+@pytest.mark.parametrize("T,V", _ce_fwd_edge_cases())
+def test_fused_ce_fwd_kernel_edges(cuda_device, D, T, V):
+    """The bf16 forward (one product over the whole vocabulary, then the
+    merge of its per-tile partials) at the edges of its tiles, with targets
+    at columns 0, 255, 256 and V - 1 (either side of a tile boundary):
+    within the plain version's tolerance, ignored rows' tgt exactly 0, a
+    second launch bit-identical, the partials returned to the allocator."""
+    h, e, target = _ce_inputs(T, V, D, torch.bfloat16, cuda_device, T + V + D)
+    for i, col in enumerate((0, 255, 256, V - 1)):
+        if 1 + i < T and col < V:
+            target[1 + i] = col
+    before = fused_ce_fwd.launches
+    lse, tgt = fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    assert fused_ce_fwd.launches == before + 1
+    lse_ref, tgt_ref = fused_ce_fwd_plain(h, e, target)
+    torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+    torch.testing.assert_close(tgt, tgt_ref, **LSE_TOL)
+    assert (tgt[target < 0] == 0).all()
+    allocated = torch.cuda.memory_allocated()
+    lse2, tgt2 = fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, lse2) and torch.equal(tgt, tgt2)
+    del lse2, tgt2
+    assert torch.cuda.memory_allocated() == allocated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 768, 1024])
+def test_fused_ce_fwd_all_ignored_rows(cuda_device, D):
+    """Every token ignored: lse is still each row's logsumexp, tgt exactly 0."""
+    h, e, target = _ce_inputs(129, 1000, D, torch.bfloat16, cuda_device, D, ignore_every=1)
+    lse, tgt = fused_ce_fwd(h, e, target)
+    torch.cuda.synchronize()
+    lse_ref, _ = fused_ce_fwd_plain(h, e, target)
+    torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+    assert (tgt == 0).all()
 
 
 @pytest.mark.cuda

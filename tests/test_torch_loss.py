@@ -177,3 +177,23 @@ def test_ce_bwd_plan_covers_the_vocabulary_within_budget(T, V, D, n_chunks):
     assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))  # in order, no gaps
     assert all(v0 % tile == 0 and 0 < v1 - v0 <= Vc for v0, v1 in chunks)
     assert ws_bytes == 2 * T * Vc <= tl.CE_BWD_WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("T,V,n_vtiles", [
+    (16368, 50265, 197),  # cruller_base's train step: 25.8 MB of partials
+    (3070, 57525, 225),  # donut_base's: 5.5 MB
+    (300, 517, 3),  # V not a multiple of the 256-entry tile
+    (65, 256, 1),  # exactly one tile
+    (65, 257, 2),  # one tile and one entry
+    (1, 1, 1),
+])
+def test_ce_fwd_plan_partials_cover_the_vocabulary(T, V, n_vtiles):
+    """The bf16 forward keeps one fp32 (max, sum-exp) pair per token and
+    vocabulary tile: every column of the vocabulary falls in exactly one
+    tile, the last one maybe partial."""
+    n, nbytes = tl._ce_fwd_plan(T, V)
+    tile = tl.CE_BWD_VOCAB_TILE
+    assert n == n_vtiles
+    assert (n - 1) * tile < V <= n * tile
+    assert nbytes == 2 * 4 * n * T
+
