@@ -17,8 +17,10 @@ stderr):
    ``torch.nn.functional.scaled_dot_product_attention`` call on the same
    inputs (a yardstick only; the port never calls it) and its bound.
    Window attention is held at donut_base's four stage shapes at B=8
-   (2560x1920), with and without the shift mask, plus windows 7 and 4 and
-   an fp32 case (its yardstick: SDPA with ``attn_mask = bias + mask``); the
+   (2560x1920), with and without the shift mask, at the train step's B=2
+   (shifted), plus windows 7 and 4 and an fp32 case (its yardstick: SDPA
+   with ``attn_mask = bias + mask``), each record with its launch (blocks
+   per SM, shared memory, ring stages, mask slots, the plan's runs); the
    int8 decode kernel at the cruller_base and donut_base cross caches and a
    ragged cache with a dead row (its yardsticks: SDPA and the bf16 decode
    kernel on the dequantized caches; the kernel's integer sums are exact, so
@@ -36,13 +38,16 @@ stderr):
    call) and ``bound_share`` (bound over kernel). The ``device`` line carries
    the registers, spills and shared memory of the wgmma flash kernels
    (``flash_ptxas``), of the CE backward's three products (``ce_ptxas``), of
-   the CE forward's product and merge (``ce_fwd_ptxas``) and of the decode
-   kernel (``decode_ptxas``), from the build's ``-Xptxas -v`` log. Every
-   decode and CE forward case must give the same bits on a second launch.
-   A decode record also carries ``device_ms`` and ``library_device_ms``:
-   the same timing with the card kept busy for ~0.1 ms between the flush
-   and the call, so neither the host's enqueue time nor the tail of the
-   flush is counted (each can add microseconds to a kernel this short).
+   the CE forward's product and merge (``ce_fwd_ptxas``), of the decode
+   kernel (``decode_ptxas``) and of the bf16 window kernels at ww 100 and
+   head dim 32 (``window_ptxas``), from the build's ``-Xptxas -v`` log.
+   Every decode, CE forward and window (forward and backward, dbias
+   included) case must give the same bits on a second launch.
+   A decode or window record also carries ``device_ms`` and
+   ``library_device_ms``: the same timing with the card kept busy for ~0.1
+   ms between the flush and the call, so neither the host's enqueue time
+   nor the tail of the flush is counted (each can add microseconds to a
+   short kernel).
    The training kernels join at the train step's shapes: the flash
    backward (dq, dk, dv) beside autograd
    through ``scaled_dot_product_attention``, and the fused cross entropy
@@ -333,7 +338,9 @@ def decode_cases(torch):
 
 def window_cases(torch):
     """donut_base's four stages at B=8, 2560x1920 (window 10, maps 640x480
-    down to 80x60), shifted (masked) and not; windows 7 and 4; fp32."""
+    down to 80x60), shifted (masked) and not; the four stages at the train
+    step's B=2, shifted; stage 0 at B=1, shifted (one image per window
+    position, as ``app.infer --batch_size 1``); windows 7 and 4; fp32."""
     bf, f32 = torch.bfloat16, torch.float32
     # name, images, map (h, w), window, C, H, shifted, dtype
     cases = []
@@ -342,7 +349,11 @@ def window_cases(torch):
         for shifted in (True, False):
             tag = "shifted" if shifted else "unshifted"
             cases.append((f"stage{stage}_b8_n100_c{C}_h{H}_{tag}", 8, hw, 10, C, H, shifted, bf))
+    for stage, (C, H) in enumerate(((128, 4), (256, 8), (512, 16), (1024, 32))):
+        hw = (640 >> stage, 480 >> stage)
+        cases.append((f"stage{stage}_b2_n100_c{C}_h{H}_shifted", 2, hw, 10, C, H, True, bf))
     cases += [
+        ("stage0_b1_n100_c128_h4_shifted", 1, (640, 480), 10, 128, 4, True, bf),
         ("window7_b8_n49_c128_h4_shifted", 8, (56, 56), 7, 128, 4, True, bf),
         ("window4_b8_n16_c32_h2_shifted", 8, (16, 16), 4, 32, 2, True, bf),
         ("fp32_b2_n100_c256_h8_shifted", 2, (80, 60), 10, 256, 8, True, f32),
@@ -600,6 +611,19 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     return fwd, bwd
 
 
+def window_launch(wa, direction, q, mask, H, N):
+    """The window kernel's launch for these inputs: its configuration (blocks
+    per SM, shared memory, ring stages, mask slots) and its plan."""
+    import torch
+
+    D = q.shape[-1] // H
+    cfg = wa.window_config(direction, q.dtype, N, D, mask is not None, q.device)
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    period = 1 if mask is None else mask.shape[0]
+    plan = wa.window_plan(q.shape[0], period, H, N, D, n_sms, cfg["blocks_per_sm"])
+    return {"launch": dict(cfg, runs=plan.runs, grid=plan.grid, items_per_head=plan.items)}
+
+
 def check_window(torch, F, wa, timer, peaks, gen, case):
     from pixparse_tpu_torch.models.swin import _shift_attn_mask
 
@@ -617,11 +641,13 @@ def check_window(torch, F, wa, timer, peaks, gen, case):
         mask = torch.from_numpy(_shift_attn_mask(mh, mw, window, window // 2)).cuda()
     o = wa.window_attention(q, k, v, bias, mask)
     torch.cuda.synchronize()
+    repeatable = bool(torch.equal(wa.window_attention(q, k, v, bias, mask), o))
     o_ref = wa.window_attention_plain(q, k, v, bias, mask)
     atol, rtol = TOL[str(dt).split(".")[-1]]
     err, ok = close(o, o_ref, atol, rtol)
     rec = dict(case=name, shape=[nB, N, C, H], mask_period=nW if shifted else None,
-               dtype=str(dt), max_abs_err=err, tol=[atol, rtol], ok=ok)
+               dtype=str(dt), max_abs_err=err, tol=[atol, rtol], ok=ok and repeatable,
+               repeatable=repeatable, **window_launch(wa, "fwd", q, mask, H, N))
     del o, o_ref
     elt = q.element_size()
     flops = 4.0 * nB * N * N * C  # q k^T and p v
@@ -639,8 +665,11 @@ def check_window(torch, F, wa, timer, peaks, gen, case):
     if shifted:
         am = (am + mask.repeat(n_img, 1, 1)[:, None])
     am = am.to(dt)
-    rec["library_ms"] = timer.median_ms(
-        lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=am))
+    lib = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=am)
+    rec["library_ms"] = timer.median_ms(lib)
+    # the same with the card kept busy while the host enqueues the call
+    rec["device_ms"] = timer.median_ms(lambda: wa.window_attention(q, k, v, bias, mask), busy=True)
+    rec["library_device_ms"] = timer.median_ms(lib, busy=True)
     del qkv, q, k, v, am
     return rec
 
@@ -663,6 +692,7 @@ def check_window_bwd(torch, F, wa, timer, peaks, gen, case):
     args = (q, k, v, do, bias, mask)
     got = wa.window_attention_bwd(*args)
     torch.cuda.synchronize()
+    repeatable = all(torch.equal(a, b) for a, b in zip(got, wa.window_attention_bwd(*args)))
     want = wa.window_attention_bwd_plain(*args)
     rtol = BWD_ROW_RTOL[str(dt).split(".")[-1]]
     errs, row_errs, ok = {}, {}, True
@@ -674,7 +704,9 @@ def check_window_bwd(torch, F, wa, timer, peaks, gen, case):
         ok = ok and this_ok
     rec = dict(case=name, shape=[nB, N, C, H], mask_period=nW if shifted else None,
                dtype=str(dt), max_abs_err=max(errs.values()), errs=errs,
-               worst_row_rel_err=row_errs, tol=["row L2", rtol, "floor", BWD_ROW_FLOOR], ok=ok)
+               worst_row_rel_err=row_errs, tol=["row L2", rtol, "floor", BWD_ROW_FLOOR],
+               ok=ok and repeatable, repeatable=repeatable,
+               **window_launch(wa, "bwd", q, mask, H, N))
     del got, want
     elt = q.element_size()
     flops = 10.0 * nB * N * N * C  # s, dp, dv, dq, dk
@@ -704,8 +736,10 @@ def check_window_bwd(torch, F, wa, timer, peaks, gen, case):
         grads_of = (*leaves, bias_leaf)
         rec["library"] = "autograd through window_attention_plain"
         dout = do
-    rec["library_ms"] = timer.median_ms(
-        lambda: torch.autograd.grad(out, grads_of, dout, retain_graph=True), n=10)
+    lib = lambda: torch.autograd.grad(out, grads_of, dout, retain_graph=True)
+    rec["library_ms"] = timer.median_ms(lib, n=10)
+    rec["device_ms"] = timer.median_ms(lambda: wa.window_attention_bwd(*args), busy=True)
+    rec["library_device_ms"] = timer.median_ms(lib, n=10, busy=True)
     del qkv, q, k, v, do, am, out, leaves
     return rec
 
@@ -2032,6 +2066,7 @@ WGMMA_CE = ("ce_gemm_kernel",)
 CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh", "F_lse")  # by the template's product index
 CE_FWD = ("ce_gemm_kernel", "ce_lse_merge_kernel")  # ce_fwd_ptxas: product F and the merge
 DECODE = ("decode_attn_split_kernel",)
+WINDOW = ("window_fwd_ring_kernel", "window_bwd_ring_kernel")  # at ww 100, head dim 32
 
 
 def flash_dynamic_smem(kernel, D):
@@ -2059,8 +2094,9 @@ def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
     """Registers, spills and shared memory of the wgmma flash kernels (or,
     with ``kernels=WGMMA_CE``, the CE products named in ``ce_products``; with
     ``DECODE``, the decode kernels, whose dynamic shared memory follows the
-    plan and is in each decode case's record), from what ``nvcc -Xptxas -v``
-    printed when the library was built."""
+    plan and is in each decode case's record; with ``WINDOW``, the window
+    kernels at donut_base's ww 100 and head dim 32), from what ``nvcc
+    -Xptxas -v`` printed when the library was built."""
     import re
 
     out, cur = [], None
@@ -2080,6 +2116,12 @@ def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
                 cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
                        "D": int(d.group(1)) if d else None}
                 out.append(cur)
+            elif name in WINDOW:
+                d, rt = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", m.group(1)).groups())
+                if (d, rt) == (32, 7):  # donut_base's windows
+                    cur = {"kernel": name, "D": d, "row_tiles": rt,
+                           "bias_mask_in_smem": "Lb0E" not in m.group(1)}
+                    out.append(cur)
             elif name == "ce_lse_merge_kernel":
                 cur = {"kernel": name, "dynamic_smem_bytes": 0}
                 out.append(cur)
@@ -2145,12 +2187,22 @@ def main(argv=None) -> int:
             fh.write(f"== {stem}\n{_build.ptxas_log(stem)}\n")
     flash_ptxas = (ptxas_summary(_build.ptxas_log("flash_attention"))
                    + ptxas_summary(_build.ptxas_log("flash_attention_bwd")))
+    from pixparse_tpu_torch.ops import window_attention as wa
+
+    window_ptxas = []
+    for stem, direction in (("window_attention", "fwd"), ("window_attention_bwd", "bwd")):
+        ring = wa.window_config(direction, torch.bfloat16, 100, 32, True, 0)  # shifted stage 0
+        for rec in ptxas_summary(_build.ptxas_log(stem), WINDOW):
+            if rec["bias_mask_in_smem"]:
+                rec.update(dynamic_smem_bytes=ring["smem_bytes"], ring=ring)
+            window_ptxas.append(rec)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "flash_ptxas": flash_ptxas,
           "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE),
           "ce_fwd_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), CE_FWD, ("F_lse",)),
-          "decode_ptxas": ptxas_summary(_build.ptxas_log("decode_attention"), DECODE)})
+          "decode_ptxas": ptxas_summary(_build.ptxas_log("decode_attention"), DECODE),
+          "window_ptxas": window_ptxas})
 
     timer = Timer(torch)
     results = {}

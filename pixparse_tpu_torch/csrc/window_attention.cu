@@ -6,9 +6,11 @@
 // : per window of ww tokens and per head,
 //   o = softmax(q k^T * Dh^-0.5 + bias[h] + mask[w % nW]) v
 // with q/k/v (nB, ww, C = H * Dh), windows ordered b * nW + w. The scale
-// multiplies the fp32 product before the bias is added, the softmax runs in
-// fp32 and p is rounded to the input dtype before p v (bf16), as the TPU
-// kernel does.
+// multiplies the fp32 product, then bias + mask is added (summed once per
+// window position: at most one fp32 rounding of a logit from the TPU
+// kernel's order, none for Swin's 0 / -1e9 masks), the softmax runs in fp32
+// and p is rounded to the input dtype before p v (bf16), as the TPU kernel
+// does.
 //
 // What bounds it on an H100: at donut_base's stage 0 (B = 8, 2560x1920:
 // 24576 windows of ww = 100, H = 4, Dh = 32, bf16) the two products are
@@ -17,31 +19,33 @@
 // it is bound by the bytes of q, k, v and o, plus the shift mask (nW x ww x
 // ww fp32, 123 MB at stage 0, more than the 50 MB L2), read once.
 //
-// What the design does about it:
-// - one block per (window position w, chunk of up to 8 images, head h),
-//   one warp per 16 rows of the window (7 warps at ww = 100): every window of the block shares bias[h] and mask[w], so the
-//   block adds the two once into shared memory (ww x ww fp32) and reads the
-//   sum for every window; consecutive blocks share w, so each mask row is
-//   fetched from device memory about once. (The TPU kernel adds bias and
-//   mask to each score in turn; adding them first differs by at most one
-//   fp32 rounding of a logit, and not at all for Swin's 0 / -1e9 masks.)
-// - q, k and v of a window (ww x Dh each) are read in place through their
-//   row stride (they are column slices of the fused qkv projection, stride
-//   3C: no copy) into shared memory by cp.async, rows past ww zero-filled to
-//   the next multiple of 16;
-// - each warp takes its 16-row tile of the window: s = q k^T on mma.sync
-//   m16n8k16 (bf16 in, fp32 accumulate) for the whole key row at once (up to
-//   144 keys in registers; the row count is a template parameter, so every
-//   loop over keys is unrolled), scale, bias and mask added in registers, padded
-//   keys set to -inf, row max and sum reduced across the quad, p rounded to
-//   bf16 straight from the accumulators into A fragments of p v; only the ww
-//   real rows are stored. Scores never leave the SM. That per-window
-//   arithmetic is window_tile.cuh's window_tile_attend, which the banded
-//   probe (window_band.cu) shares; this file does the loads and the layout.
-// This is the simple first version: mma.sync, no wgmma or TMA.
+// What the design does about it (the ring, the plan and the score step are
+// window_ring.cuh's, shared with the backward):
+// - persistent blocks, one wave: block (head h, run r) walks a static,
+//   balanced run of (window position, image) items of head h
+//   (ops/window_attention.py::window_plan). bias[h] comes into shared
+//   memory once per run by one bulk copy; with a mask, mask[w] comes once
+//   per window position into one of two slots, where a combiner warp adds
+//   bias[h] to it; the scores read that one table;
+// - one producer thread keeps each window's q, k and v tiles (one head's
+//   Dh channels, read in place through the row stride: q/k/v are column
+//   slices of the fused qkv projection) in flight by TMA through a ring of
+//   four to six stages (a 3-D tensor map per operand zero-fills the rows
+//   past ww), so the loads of the next windows overlap the products of
+//   this one; the consumers wait on the stage's mbarrier and release it, no
+//   block-wide barrier;
+// - two units of one warp per 16-row tile (7 warps at ww = 100) take the
+//   run's items in turns, so 14 warps share one copy of bias and mask. A
+//   warp needs no other warp's results: s = q k^T on mma.sync m16n8k16
+//   (bf16 in, fp32 accumulate) for its whole key row in registers, scale,
+//   bias, mask, padded keys -inf, row max and sum reduced across the quad,
+//   p rounded to bf16 straight from the accumulators into the A fragments
+//   of p v; only the ww real rows are stored.
+// mma.sync, not wgmma: a warp's 16 rows pad ww = 100 to 112 (wgmma's
+// 64-row tiles to 128), and each warp walks its rows with no barrier.
 //
-// fp32 inputs take a SIMT kernel (fp32 FMA, no tensor cores) with the same
-// semantics; it exists for the fp32 parity path, not for speed.
+// fp32 inputs take a SIMT kernel (fp32 FMA, no tensor cores) over the same
+// runs; it exists for the fp32 parity path, not for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,87 +53,118 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
-#include "window_tile.cuh"
+#include "window_ring.cuh"
 
 namespace {
 
 using namespace pixparse;
+using namespace pixparse::window;
 
-constexpr int kMaxTokens = 144;           // window 12
-constexpr int kWarps = 4;  // fp32 kernel
-constexpr int kImagesPerBlock = 8;        // windows per block, one per image
+constexpr int kWarps = 4;      // fp32 kernel
+constexpr int kMaxStages = 6;  // bf16 kernel's ring
 
-// bias[h] + mask[w] -> shared memory (N * N fp32), once per block.
-__device__ __forceinline__ void load_bias_mask(float* dst, const float* bias_h,
-                                               const float* mask_w, int n2) {
-  for (int i = threadIdx.x; i < n2; i += blockDim.x)
-    dst[i] = mask_w ? bias_h[i] + mask_w[i] : bias_h[i];
-}
-
-// The block's work: windows b * period + w for b in [b0, b1), head h.
-struct BlockWork {
-  int w, h, b0, b1;
+template <int kRowTiles>
+struct FwdShape {
+  static constexpr int kUnits = kRowTiles <= 7 ? 2 : 1;
+  static constexpr int kConsumers = kUnits * kRowTiles * 32;
+  static constexpr int kThreads = kConsumers + 64;  // + the producer and combiner warps
 };
 
-__device__ __forceinline__ BlockWork block_work(int n_images, int H) {
-  const int n_chunks = (n_images + kImagesPerBlock - 1) / kImagesPerBlock;
-  int idx = blockIdx.x;  // ((w * n_chunks) + chunk) * H + h: neighbours share w
-  BlockWork bw;
-  bw.h = idx % H;
-  idx /= H;
-  const int chunk = idx % n_chunks;
-  bw.w = idx / n_chunks;
-  bw.b0 = chunk * kImagesPerBlock;
-  bw.b1 = min(bw.b0 + kImagesPerBlock, n_images);
-  return bw;
-}
-
-// One warp per 16-row tile of the window: kRowTiles = n_pad / 16 warps, and
-// every loop over keys has a compile-time trip count (no guards, so the
-// compiler interleaves the fragment loads, products and exponentials).
 template <int D, int kRowTiles>
-__global__ void __launch_bounds__(kRowTiles * 32) window_attn_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ mask, __nv_bfloat16* __restrict__ o, int n_images, int period,
-    int N, int H, long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-    long long v_rs, float scale) {
-  constexpr int kLds = D + 8;  // padded row: spreads the fragment loads over banks
-  constexpr int kNPad = kRowTiles * 16;
-  constexpr int kTile = kNPad * kLds;  // one q, k or v tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kTile;
-  __nv_bfloat16* sV = sK + kTile;
-  float* sBM = reinterpret_cast<float*>(sV + kTile);  // bias[h] + mask[w]
-
-  const BlockWork bw = block_work(n_images, H);
+__global__ void __launch_bounds__(FwdShape<kRowTiles>::kThreads, 1) window_fwd_ring_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+    const float* __restrict__ mask, __nv_bfloat16* __restrict__ o, const RingLayout L,
+    int n_images, int period, int N, int H, int runs, int nn, int ldb, float scale) {
+  using S = FwdShape<kRowTiles>;
+  constexpr int kKeyTiles = 2 * kRowTiles;
+  constexpr int kDTiles = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const RingBars rb{base + static_cast<uint32_t>(L.bar_off), L.stages, L.slots};
+  const Run run = block_run(H, runs, period * n_images);
+  init_ring(rb, kRowTiles * 32, S::kConsumers);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == S::kUnits * kRowTiles) {  // the producer warp
+    if (lane == 0) {
+      const CUtensorMap* const maps[3] = {&tm_q, &tm_k, &tm_v};
+      produce<D, 3, false>(L, rb, base, gbase, maps, run, n_images, period, bias, mask, nn, lane);
+    }
+    return;
+  }
+  if (warp == S::kUnits * kRowTiles + 1) {  // the combiner warp
+    if (L.slots) combine(L, rb, gbase, run, n_images, lane);
+    return;
+  }
+  const int unit = warp / kRowTiles, row0 = (warp % kRowTiles) * 16;
+  const int t = lane % 4, r_lo = row0 + lane / 4;
   const int C = H * D;
-  load_bias_mask(sBM, bias + (long long)bw.h * N * N,
-                 mask ? mask + (long long)bw.w * N * N : nullptr, N * N);
-  for (int b = bw.b0; b < bw.b1; ++b) {
-    const long long win = (long long)b * period + bw.w;
-    load_rows_async<D>(sQ, q + win * q_bs + bw.h * D, q_rs, N, kNPad);
-    load_rows_async<D>(sK, k + win * k_bs + bw.h * D, k_rs, N, kNPad);
-    load_rows_async<D>(sV, v + win * v_bs + bw.h * D, v_rs, N, kNPad);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    window_tile_attend<D, kRowTiles>(sQ, sK, sV, sBM, N, scale, [&](int row) {
-      return o + win * (long long)N * C + (long long)row * C + bw.h * D;
-    });
-    __syncthreads();  // the tiles are refilled for the next window
+  const float* sBias = reinterpret_cast<const float*>(gbase + L.bias_off);
+  if (L.bias_smem) mbar_wait(rb.bias_full(), 0);
+  const int len = run.end - run.begin, w_first = run.begin / n_images;
+  for (int n = unit; n < len; n += S::kUnits) {
+    const int i = run.begin + n, w = i / n_images, b = i - w * n_images;
+    const float* table = sBias;  // or its window position's bias + mask
+    if (L.slots) {
+      const int j = w - w_first, slot = j % L.slots;
+      table = reinterpret_cast<const float*>(gbase + L.slot_off + slot * L.table_bytes);
+      mbar_wait(rb.slot_ready(slot), (j / L.slots) & 1);
+    }
+    const int st = n % L.stages;
+    mbar_wait(rb.tile_full(st), (n / L.stages) & 1);
+    const uint32_t sQ = base + L.stage_off + st * 3 * L.tile_bytes;
+    const uint32_t sK = sQ + L.tile_bytes, sV = sK + L.tile_bytes;
+
+    float s[kKeyTiles][4];
+    rows_x_rows<D, kRowTiles>(s, sQ, sK, row0, lane);
+    float inv[2];
+    softmax_rows<kRowTiles, false>(s, table, table, N, ldb, scale, r_lo, t, inv);
+    release_masks(rb, L, run, n_images, n, S::kUnits);
+
+    // o = p v, p normalised and rounded to bf16 in the A fragments
+    float acc[kDTiles][4];
+#pragma unroll
+    for (int d = 0; d < kDTiles; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
+                             pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
+                             pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
+                             pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bv[4];
+        b_frag_kn<D>(bv, sV, kk * 16, n2 * 16, lane);
+        mma_bf16_16816(acc[2 * n2], a, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * n2 + 1], a, bv[2], bv[3]);
+      }
+    }
+    mbar_arrive(rb.tile_empty(st));  // this thread's reads of the stage are done
+
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * period + w) * N * C + run.h * D + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r_lo + 8 * hr;
+      if (row >= N) continue;
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row) * C + d * 8) =
+            __floats2bfloat162_rn(acc[d][2 * hr], acc[d][2 * hr + 1]);
+    }
   }
 }
 
 // fp32 path: one warp per query row at a time; lanes split the keys for the
-// scores and the head dim for p v.
+// scores and the head dim for p v. bias[h] + mask[w] is summed into shared
+// memory whenever the run reaches a new window position.
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32) window_attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ mask, float* __restrict__ o,
-    int n_images, int period, int N, int H, long long q_bs, long long q_rs, long long k_bs,
-    long long k_rs, long long v_bs, long long v_rs, float scale) {
+    int n_images, int period, int N, int H, int runs, int nn, int ldb, long long q_bs,
+    long long q_rs, long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale) {
   constexpr int kLds = D + 1;
   constexpr int kKeysPerLane = (kMaxTokens + 31) / 32;
   extern __shared__ float smem_f[];
@@ -139,29 +174,38 @@ __global__ void __launch_bounds__(kWarps * 32) window_attn_f32_kernel(
   float* sP = sV + N * kLds;  // one probability row per warp
   float* sBM = sP + kWarps * kMaxTokens;  // bias[h] + mask[w]
 
-  const BlockWork bw = block_work(n_images, H);
+  const Run run = block_run(H, runs, period * n_images);
   const int C = H * D;
-  load_bias_mask(sBM, bias + (long long)bw.h * N * N,
-                 mask ? mask + (long long)bw.w * N * N : nullptr, N * N);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* p_row = sP + warp * kMaxTokens;
+  const float* bias_h = bias + static_cast<long long>(run.h) * nn;
+  int w_cur = -1;
 
-  for (int b = bw.b0; b < bw.b1; ++b) {
-    const long long win = (long long)b * period + bw.w;
+  for (int i = run.begin; i < run.end; ++i) {
+    const int w = i / n_images, b = i - w * n_images;
+    const long long win = static_cast<long long>(b) * period + w;
     __syncthreads();
-    for (int i = threadIdx.x; i < N * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      sQ[r * kLds + c] = q[win * q_bs + (long long)r * q_rs + bw.h * D + c];
-      sK[r * kLds + c] = k[win * k_bs + (long long)r * k_rs + bw.h * D + c];
-      sV[r * kLds + c] = v[win * v_bs + (long long)r * v_rs + bw.h * D + c];
+    if (w != w_cur) {
+      const float* mask_w = mask ? mask + static_cast<long long>(w) * nn : nullptr;
+      for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+        const int r = e / N, c = e % N;
+        sBM[e] = mask_w ? bias_h[r * ldb + c] + mask_w[r * ldb + c] : bias_h[r * ldb + c];
+      }
+      w_cur = w;
+    }
+    for (int e = threadIdx.x; e < N * D; e += blockDim.x) {
+      const int r = e / D, c = e % D;
+      sQ[r * kLds + c] = q[win * q_bs + static_cast<long long>(r) * q_rs + run.h * D + c];
+      sK[r * kLds + c] = k[win * k_bs + static_cast<long long>(r) * k_rs + run.h * D + c];
+      sV[r * kLds + c] = v[win * v_bs + static_cast<long long>(r) * v_rs + run.h * D + c];
     }
     __syncthreads();
     for (int row = warp; row < N; row += kWarps) {
       float sc[kKeysPerLane];
       float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int col = lane + 32 * i;
+      for (int e = 0; e < kKeysPerLane; ++e) {
+        const int col = lane + 32 * e;
         float x = -INFINITY;
         if (col < N) {
           float dot = 0.f;
@@ -169,26 +213,26 @@ __global__ void __launch_bounds__(kWarps * 32) window_attn_f32_kernel(
           for (int d = 0; d < D; ++d) dot = fmaf(sQ[row * kLds + d], sK[col * kLds + d], dot);
           x = dot * scale + sBM[row * N + col];
         }
-        sc[i] = x;
+        sc[e] = x;
         mx = fmaxf(mx, x);
       }
 #pragma unroll
       for (int s = 16; s > 0; s >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
       float l = 0.f;
 #pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        sc[i] = expf(sc[i] - mx);
-        l += sc[i];
+      for (int e = 0; e < kKeysPerLane; ++e) {
+        sc[e] = expf(sc[e] - mx);
+        l += sc[e];
       }
 #pragma unroll
       for (int s = 16; s > 0; s >>= 1) l += __shfl_xor_sync(0xffffffffu, l, s);
 #pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int col = lane + 32 * i;
-        if (col < N) p_row[col] = sc[i] / l;
+      for (int e = 0; e < kKeysPerLane; ++e) {
+        const int col = lane + 32 * e;
+        if (col < N) p_row[col] = sc[e] / l;
       }
       __syncwarp();
-      float* orow = o + win * (long long)N * C + (long long)row * C + bw.h * D;
+      float* orow = o + win * N * C + static_cast<long long>(row) * C + run.h * D;
       for (int d = lane; d < D; d += 32) {
         float acc = 0.f;
         for (int c = 0; c < N; ++c) acc = fmaf(p_row[c], sV[c * kLds + d], acc);
@@ -199,110 +243,120 @@ __global__ void __launch_bounds__(kWarps * 32) window_attn_f32_kernel(
   }
 }
 
-// Dynamic shared memory above 48 KB must be allowed per kernel first.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+struct FwdArgs {
+  const void *q, *k, *v;
+  const float *bias, *mask;
+  void* o;
+  int n_images, period, N, H, runs, nn, ldb;
+  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, int kRowTiles>
+bool ring_bf16(int nn, bool has_mask, RingLayout* L) {
+  return choose_ring(L, 3, 16 * kRowTiles, D, nn, has_mask, true, 0, kMaxStages,
+                     max_smem_optin());
 }
 
 template <int D, int kRowTiles>
-int launch_bf16_tiles(const void* q, const void* k, const void* v, const float* bias,
-                      const float* mask, void* o, int n_images, int period, int N, int H,
-                      long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                      long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
-  const size_t smem =
-      3ull * kRowTiles * 16 * (D + 8) * sizeof(__nv_bfloat16) + sizeof(float) * N * N;
-  const int grid = period * ((n_images + kImagesPerBlock - 1) / kImagesPerBlock) * H;
-  const int err = allow_smem(window_attn_bf16_kernel<D, kRowTiles>, smem);
-  if (err) return err;
-  window_attn_bf16_kernel<D, kRowTiles><<<grid, kRowTiles * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, mask, static_cast<__nv_bfloat16*>(o), n_images,
-      period, N, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const float* bias, const float* mask,
-                void* o, int n_images, int period, int N, int H, long long q_bs, long long q_rs,
-                long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
-                cudaStream_t stream) {
-#define PIXPARSE_TILES_ARGS \
-  q, k, v, bias, mask, o, n_images, period, N, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, stream
-  switch ((N + 15) / 16) {
-    case 1: return launch_bf16_tiles<D, 1>(PIXPARSE_TILES_ARGS);
-    case 2: return launch_bf16_tiles<D, 2>(PIXPARSE_TILES_ARGS);
-    case 3: return launch_bf16_tiles<D, 3>(PIXPARSE_TILES_ARGS);
-    case 4: return launch_bf16_tiles<D, 4>(PIXPARSE_TILES_ARGS);
-    case 5: return launch_bf16_tiles<D, 5>(PIXPARSE_TILES_ARGS);
-    case 6: return launch_bf16_tiles<D, 6>(PIXPARSE_TILES_ARGS);
-    case 7: return launch_bf16_tiles<D, 7>(PIXPARSE_TILES_ARGS);
-    case 8: return launch_bf16_tiles<D, 8>(PIXPARSE_TILES_ARGS);
-    case 9: return launch_bf16_tiles<D, 9>(PIXPARSE_TILES_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+struct ConfigBf16 {
+  static int run(int nn, bool has_mask, Config* cfg) {
+    if (!ring_bf16<D, kRowTiles>(nn, has_mask, &cfg->L)) return kInvalid;
+    cfg->threads = FwdShape<kRowTiles>::kThreads;
+    return occupancy<window_fwd_ring_kernel<D, kRowTiles>>(cfg);
   }
-#undef PIXPARSE_TILES_ARGS
+};
+
+template <int D, int kRowTiles>
+struct LaunchBf16 {
+  static int run(const FwdArgs& a) {
+    RingLayout L;
+    if (!ring_bf16<D, kRowTiles>(a.nn, a.mask != nullptr, &L)) return kInvalid;
+    const int err = allow_smem<window_fwd_ring_kernel<D, kRowTiles>>(L.smem);
+    if (err) return err;
+    const int nB = a.n_images * a.period, C = a.H * D, npad = 16 * kRowTiles;
+    CUtensorMap tq, tk, tv;
+    if (!make_window_map<D>(&tq, a.q, C, a.N, nB, npad, a.q_rs, a.q_bs) ||
+        !make_window_map<D>(&tk, a.k, C, a.N, nB, npad, a.k_rs, a.k_bs) ||
+        !make_window_map<D>(&tv, a.v, C, a.N, nB, npad, a.v_rs, a.v_bs))
+      return kInvalid;
+    window_fwd_ring_kernel<D, kRowTiles>
+        <<<a.H * a.runs, FwdShape<kRowTiles>::kThreads, L.smem, a.stream>>>(
+            tq, tk, tv, a.bias, a.mask, static_cast<__nv_bfloat16*>(a.o), L, a.n_images,
+            a.period, a.N, a.H, a.runs, a.nn, a.ldb, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int D>
+int f32_smem(int N) {
+  return static_cast<int>((3ull * N * (D + 1) + kWarps * kMaxTokens + N * N) * sizeof(float));
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const float* bias, const float* mask,
-               void* o, int n_images, int period, int N, int H, long long q_bs, long long q_rs,
-               long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
-               cudaStream_t stream) {
-  const size_t smem = (3ull * N * (D + 1) + kWarps * kMaxTokens + N * N) * sizeof(float);
-  const int grid = period * ((n_images + kImagesPerBlock - 1) / kImagesPerBlock) * H;
-  const int err = allow_smem(window_attn_f32_kernel<D>, smem);
-  if (err) return err;
-  window_attn_f32_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, mask, static_cast<float*>(o), n_images, period, N, H, q_bs, q_rs, k_bs, k_rs, v_bs,
-      v_rs, scale);
-  return static_cast<int>(cudaGetLastError());
-}
+struct ConfigF32 {
+  static int run(int N, Config* cfg) {
+    cfg->L = RingLayout{};
+    cfg->L.smem = f32_smem<D>(N);
+    cfg->threads = kWarps * 32;
+    return occupancy<window_attn_f32_kernel<D>>(cfg);
+  }
+};
+
+template <int D>
+struct LaunchF32 {
+  static int run(const FwdArgs& a) {
+    const int smem = f32_smem<D>(a.N);
+    const int err = allow_smem<window_attn_f32_kernel<D>>(smem);
+    if (err) return err;
+    window_attn_f32_kernel<D><<<a.H * a.runs, kWarps * 32, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), a.bias, a.mask, static_cast<float*>(a.o), a.n_images,
+        a.period, a.N, a.H, a.runs, a.nn, a.ldb, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs,
+        a.v_rs, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v are (nB, N, H*D) with batch and
-// row strides in elements (channels contiguous); bias is a contiguous
-// (H, N, N) fp32 tensor; mask a contiguous (period, N, N) fp32 tensor or
-// NULL (then period = 1); o is a contiguous (nB, N, H*D) tensor of the q
-// dtype. nB must be a multiple of period. Returns the CUDA error code of the
-// launch (0 = success).
+// row strides in elements (channels contiguous, rows 16-byte aligned); bias
+// is (H, nn) fp32 and mask (period, nn) fp32 or NULL (then period is 1),
+// each table N rows of ldb floats (ldb = N rounded up to even, nn = N * ldb
+// rounded up to a multiple of 4: what table_ldb / table_nn give); o is a
+// contiguous (nB, N, H*D) tensor of the q dtype. nB must be a multiple of
+// period. The grid is H * runs blocks (ops/window_attention.py::window_plan).
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int pixparse_window_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                                         const void* bias, const void* mask, void* o, int nB,
-                                        int period, int N, int H, int D, long long q_bs,
-                                        long long q_rs, long long k_bs, long long k_rs,
-                                        long long v_bs, long long v_rs, float scale,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nB <= 0 || H <= 0 || period <= 0 || nB % period || N <= 0 || N > kMaxTokens)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* b = static_cast<const float*>(bias);
-  const float* m = static_cast<const float*>(mask);
-  const int n_images = nB / period;
-#define PIXPARSE_WINDOW_ARGS \
-  q, k, v, b, m, o, n_images, period, N, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, s
-  if (dtype == 1) {
-    switch (D) {
-      case 16: return launch_bf16<16>(PIXPARSE_WINDOW_ARGS);
-      case 32: return launch_bf16<32>(PIXPARSE_WINDOW_ARGS);
-      case 64: return launch_bf16<64>(PIXPARSE_WINDOW_ARGS);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (dtype == 0) {
-    switch (D) {
-      case 16: return launch_f32<16>(PIXPARSE_WINDOW_ARGS);
-      case 32: return launch_f32<32>(PIXPARSE_WINDOW_ARGS);
-      case 64: return launch_f32<64>(PIXPARSE_WINDOW_ARGS);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-#undef PIXPARSE_WINDOW_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+                                        int period, int N, int H, int D, int nn, int ldb,
+                                        int runs, long long q_bs, long long q_rs, long long k_bs,
+                                        long long k_rs, long long v_bs, long long v_rs,
+                                        float scale, void* stream) {
+  if (nB <= 0 || H <= 0 || period <= 0 || nB % period || N <= 0 || N > kMaxTokens ||
+      runs <= 0 || nn != table_nn(N) || ldb != table_ldb(N))
+    return kInvalid;
+  FwdArgs a{q, k, v, static_cast<const float*>(bias), static_cast<const float*>(mask), o,
+            nB / period, period, N, H, runs, nn, ldb, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
+            static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return by_shape<LaunchBf16>(N, D, a);
+  if (dtype == 0) return by_head_dim<LaunchF32>(D, a);
+  return kInvalid;
+}
+
+// The launch configuration of (dtype, N, D, with or without a mask), for
+// the plan: out[] as window_ring.cuh's config_out writes it (blocks per SM
+// from the kernel's registers and shared memory). Returns a CUDA error code
+// (0 = success).
+extern "C" int pixparse_window_attn_fwd_config(int dtype, int N, int D, int has_mask, int* out) {
+  if (N <= 0 || N > kMaxTokens) return kInvalid;
+  Config cfg;
+  int err = kInvalid;
+  if (dtype == 1) err = by_shape<ConfigBf16>(N, D, table_nn(N), has_mask != 0, &cfg);
+  if (dtype == 0) err = by_head_dim<ConfigF32>(D, N, &cfg);
+  if (err) return err;
+  config_out(cfg, out);
+  return 0;
 }

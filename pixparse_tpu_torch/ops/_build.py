@@ -61,14 +61,16 @@ SIGNATURES = {
     },
     "window_attention": {
         "pixparse_window_attn_fwd": [
-            I, P, P, P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, LL, LL, F, P,
+            I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, LL, LL, LL, LL, LL, LL, F, P,
         ],
+        "pixparse_window_attn_fwd_config": [I, I, I, I, P],
     },
     "window_attention_bwd": {
         "pixparse_window_attn_bwd": [
-            I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+            I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
             LL, LL, LL, LL, LL, LL, LL, LL, F, P,
         ],
+        "pixparse_window_attn_bwd_config": [I, I, I, I, P],
     },
     "layer_norm": {
         "pixparse_layer_norm_fwd": [I, P, P, P, P, I, I, F, P],

@@ -10,8 +10,10 @@ with q/k/v ``(nB, ww, C)``, ``C = H * Dh``, heads flat in the channels;
 ``bias`` ``(H, ww, ww)`` and ``mask`` ``(nW, ww, ww)`` fp32. Windows are
 ordered ``b * nW + w`` (``models/swin.py::_window_partition``), so the mask
 repeats with period ``nW``. The scale multiplies the fp32 product before
-the bias is added, the softmax runs in fp32 and p is rounded to the input
-dtype before ``p v``.
+the bias and then the mask are added, the softmax runs in fp32 and p is
+rounded to the input dtype before ``p v``. (The bf16 kernels add bias +
+mask, summed once per window position: at most one fp32 rounding of a
+logit apart, none for Swin's 0 / -1e9 masks.)
 
 Backward (both versions), from q, k, v, do and the forward's bias and mask
 (no lse is saved, as in JAX): s and the softmax are recomputed in fp32,
@@ -27,11 +29,16 @@ kernels (``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``) or
 raises. ``window_attention.launches`` and ``window_attention_bwd.launches``
 count wrapper calls that launched (the backward's call launches the
 backward kernel and the dbias reduction).
+
+Both kernels walk the work :func:`window_plan` lays out: one wave of
+persistent blocks, each a static run of (window position, image) items of
+one head, the runs of a head balanced within one item.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -84,6 +91,102 @@ def _rows_ok(t: torch.Tensor) -> bool:
     )
 
 
+class WindowPlan(NamedTuple):
+    """The kernels' grid: ``runs`` runs of each head's ``items`` (window
+    position, image) items, one block per (head, run), ``grid = H * runs``.
+    The backward writes one dbias partial per block."""
+
+    runs: int
+    grid: int
+    items: int
+
+
+def window_plan(nB: int, period: int, H: int, N: int, D: int, n_sms: int,
+                blocks_per_sm: int) -> WindowPlan:
+    """Work of the window kernels for ``nB`` windows (mask period
+    ``period``, 1 without a mask), ``H`` heads of ``D`` channels and ``N``
+    tokens, on ``n_sms`` SMs that each hold ``blocks_per_sm`` blocks (the
+    kernel's own occupancy, from its registers and shared memory).
+
+    Each head's ``period * (nB // period)`` items, window position major,
+    are cut into the same number of runs, as many as one wave of blocks
+    allows (each head at least one, at most one item a run). Block ``r * H
+    + h`` takes run ``r`` of head ``h``: items ``r * n // runs`` to ``(r + 1)
+    * n // runs``, so the runs differ by at most one item, a block keeps
+    bias[h] for its whole run, and the heads' blocks of one run index cover
+    the same window positions at the same time."""
+    if nB <= 0 or period <= 0 or nB % period or H <= 0:
+        raise ValueError(f"window_plan: {nB} windows, period {period}, {H} heads")
+    if not 0 < N <= MAX_WINDOW_TOKENS or D not in HEAD_DIMS:
+        raise ValueError(f"window_plan: {N} tokens, head dim {D}")
+    if n_sms <= 0 or blocks_per_sm <= 0:
+        raise ValueError(f"window_plan: {n_sms} SMs x {blocks_per_sm} blocks")
+    items = nB  # period * (nB // period)
+    runs = max(1, min(items, n_sms * blocks_per_sm // H))
+    return WindowPlan(runs, H * runs, items)
+
+
+def bwd_partials_shape(plan: WindowPlan, H: int, N: int) -> Tuple[int, int, int, int]:
+    """The backward's dbias scratch: one ``(N, N)`` fp32 partial per block."""
+    return (H, plan.runs, N, N)
+
+
+def table_layout(N: int) -> Tuple[int, int]:
+    """``(ldb, nn)`` of the kernels' bias and mask tables: N rows of ``ldb``
+    floats (N rounded up to even: pairs of logits are read as one float2),
+    one table every ``nn`` floats (a multiple of 4: one 16-byte aligned bulk
+    copy)."""
+    ldb = N + (N & 1)
+    return ldb, -(-N * ldb // 4) * 4
+
+
+def _tables(t: torch.Tensor, N: int) -> torch.Tensor:
+    """``(n, N, N)`` -> ``(n, nn)`` fp32 tables in :func:`table_layout`'s
+    layout; a view of the input for even N (no copy)."""
+    ldb, nn = table_layout(N)
+    t = t.to(torch.float32).contiguous()
+    if ldb == N and nn == N * N:
+        return t.reshape(t.shape[0], nn)
+    out = t.new_zeros((t.shape[0], nn))
+    out[:, : N * ldb].view(t.shape[0], N, ldb)[:, :, :N] = t
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _config_cached(kind: str, dtype_code: int, N: int, D: int, has_mask: bool, index: int) -> dict:
+    import ctypes
+
+    lib = _build.library("window_attention" if kind == "fwd" else "window_attention_bwd")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        err = getattr(lib, f"pixparse_window_attn_{kind}_config")(
+            dtype_code, N, D, int(has_mask), ctypes.cast(out, ctypes.c_void_p))
+    _build.check(err, f"window_attention {kind} config")
+    keys = ("blocks_per_sm", "smem_bytes", "stages", "mask_slots", "bias_in_smem", "threads")
+    return dict(zip(keys, list(out)))
+
+
+def window_config(kind: str, dtype: torch.dtype, N: int, D: int, has_mask: bool, device) -> dict:
+    """What one launch of the ``kind`` (``"fwd"`` or ``"bwd"``) kernel uses
+    on ``device``: blocks per SM, dynamic shared memory, ring stages, mask
+    slots, whether bias[h] sits in shared memory, threads per block."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    return _config_cached(kind, _DTYPE_CODES[dtype], N, D, bool(has_mask), index)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(kind: str, dtype: torch.dtype, nB: int, period: int, H: int, N: int, D: int,
+                 has_mask: bool, index: int) -> WindowPlan:
+    cfg = _config_cached(kind, _DTYPE_CODES[dtype], N, D, has_mask, index)
+    return window_plan(nB, period, H, N, D, _n_sms(index), cfg["blocks_per_sm"])
+
+
 def _window_cuda(q, k, v, bias, mask):
     nB, N, C = q.shape
     H = bias.shape[0]
@@ -113,20 +216,20 @@ def _window_cuda(q, k, v, bias, mask):
                 f"window_attention: {name} must have contiguous, 16-byte aligned "
                 f"rows (got strides {tuple(t.stride())})"
             )
-    bias = bias.to(torch.float32).contiguous()
-    n_period = 1
-    if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
-        n_period = mask.shape[0]
     o = torch.empty((nB, N, C), dtype=q.dtype, device=q.device)
     if nB == 0:
         return o
+    period = 1 if mask is None else mask.shape[0]
+    ldb, nn = table_layout(N)
+    bias_t = _tables(bias, N)
+    mask_t = None if mask is None else _tables(mask, N)
+    plan = _launch_plan("fwd", q.dtype, nB, period, H, N, Dh, mask is not None, q.device.index)
     lib = _build.library("window_attention")
     with torch.cuda.device(q.device):
         err = lib.pixparse_window_attn_fwd(
             _DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-            _build.ptr(bias), None if mask is None else _build.ptr(mask), _build.ptr(o),
-            nB, n_period, N, H, Dh,
+            _build.ptr(bias_t), None if mask_t is None else _build.ptr(mask_t), _build.ptr(o),
+            nB, period, N, H, Dh, nn, ldb, plan.runs,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             float(Dh ** -0.5), _build.stream_ptr(q.device),
         )
@@ -162,19 +265,6 @@ def window_attention_bwd_plain(q, k, v, do, bias, mask=None):
     return out(dq), out(dk), out(dv), dbias
 
 
-def _bwd_layout(nB: int, period: int, H: int, device) -> tuple:
-    """(period, w_per_block, images_per_block, n_parts) of the backward's
-    grid: a block takes a run of window positions of up to 8 images and one
-    head, about four blocks per SM in all (each block writes one dbias
-    partial). Without a mask every window is its own position."""
-    n_images = nB // period
-    ipb = min(n_images, 8)
-    n_chunks = -(-n_images // ipb)
-    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    wpb = max(1, period * n_chunks * H // target)
-    return period, wpb, ipb, -(-period // wpb) * n_chunks
-
-
 def _window_bwd_cuda(q, k, v, do, bias, mask):
     nB, N, C = q.shape
     H = bias.shape[0]
@@ -206,22 +296,23 @@ def _window_bwd_cuda(q, k, v, do, bias, mask):
                 f"window_attention_bwd: {name} must have contiguous, 16-byte aligned "
                 f"rows (got strides {tuple(t.stride())})"
             )
-    bias = bias.to(torch.float32).contiguous()
-    if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty((nB, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
     dbias = torch.empty((H, N, N), dtype=torch.float32, device=q.device)
     if nB == 0:
         return dq, dk, dv, dbias.zero_()
-    period, wpb, ipb, n_parts = _bwd_layout(nB, nB if mask is None else mask.shape[0], H, q.device)
-    partial = torch.empty((H, n_parts, N, N), dtype=torch.float32, device=q.device)
+    period = 1 if mask is None else mask.shape[0]
+    ldb, nn = table_layout(N)
+    bias_t = _tables(bias, N)
+    mask_t = None if mask is None else _tables(mask, N)
+    plan = _launch_plan("bwd", q.dtype, nB, period, H, N, Dh, mask is not None, q.device.index)
+    partial = torch.empty(bwd_partials_shape(plan, H, N), dtype=torch.float32, device=q.device)
     lib = _build.library("window_attention_bwd")
     with torch.cuda.device(q.device):
         err = lib.pixparse_window_attn_bwd(
             _DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-            _build.ptr(bias), None if mask is None else _build.ptr(mask),
+            _build.ptr(bias_t), None if mask_t is None else _build.ptr(mask_t),
             _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), _build.ptr(partial), _build.ptr(dbias),
-            nB, period, N, H, Dh, wpb, ipb,
+            nB, period, N, H, Dh, nn, ldb, plan.runs,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             do.stride(0), do.stride(1), float(Dh ** -0.5), _build.stream_ptr(q.device),
         )

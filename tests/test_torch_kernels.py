@@ -613,6 +613,14 @@ def _window_inputs(nB, N, H, D, dtype, device, seed, n_period=None):
     (12, 49, 3, 16, 4),     # window 7
     (9, 16, 2, 64, 3),      # window 4 (swin_test)
     (20, 144, 2, 32, 20),   # window 12, one window per image
+    (100, 49, 2, 32, 4),    # 100 items a head: not a multiple of the runs
+    (1, 100, 4, 32, None),  # a single window
+    (1, 100, 4, 32, 1),     # a single masked window
+    (8, 144, 2, 64, 4),     # window 12 at head dim 64
+    # one image per window position (B = 1, shifted): each position is read
+    # by one of the forward's two units only, and runs span many positions
+    (64, 100, 4, 32, 64),
+    (3072, 100, 4, 32, 3072),  # donut_base stage 0 at B = 1
 ])
 def test_window_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_period):
     q, k, v, bias, mask = _window_inputs(nB, N, H, D, dtype, cuda_device, N + D, n_period)
@@ -655,6 +663,11 @@ def _rows_close(got, want, rtol, name):
     (9, 16, 2, 64, 3),      # window 4 (swin_test)
     (20, 144, 2, 32, 20),   # window 12, one window per image
     (64, 100, 2, 64, 16),   # several window positions a block
+    (100, 49, 2, 32, 4),    # 100 items a head: not a multiple of the runs
+    (1, 100, 4, 32, None),  # a single window
+    (1, 100, 4, 32, 1),     # a single masked window
+    (8, 144, 2, 64, 4),     # window 12 at head dim 64
+    (64, 100, 4, 32, 64),   # one image per window position
 ])
 def test_window_bwd_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_period):
     q, k, v, bias, mask = _window_inputs(nB, N, H, D, dtype, cuda_device, N + D + 1, n_period)
@@ -671,6 +684,48 @@ def test_window_bwd_kernel_matches_plain(cuda_device, dtype, nB, N, H, D, n_peri
         _rows_close(a.view(nB, N, H, D), b.view(nB, N, H, D), rtol, name)
     assert got[3].shape == (H, N, N) and got[3].dtype == torch.float32
     _rows_close(got[3], want[3], rtol, "dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nB,N,H,D,n_period", [
+    (48, 100, 4, 32, 6),    # donut_base stage 0 widths, shifted
+    (10, 100, 8, 32, None),  # unshifted
+    (8, 144, 2, 64, 4),     # window 12 at head dim 64
+    (12, 49, 3, 16, 4),     # window 7 (odd: padded bias and mask tables)
+])
+def test_window_kernels_read_qkv_slices_in_place_and_repeat(cuda_device, nB, N, H, D, n_period):
+    """q/k/v as column slices of one (nB, N, 3C) projection (models/swin.py)
+    give the same bits as contiguous copies, and a second launch gives the
+    same bits as the first, dbias included (no atomics)."""
+    q, k, v, bias, mask = _window_inputs(nB, N, H, D, torch.bfloat16, cuda_device, 7, n_period)
+    assert q.stride(1) == 3 * H * D and not q.is_contiguous()
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(cuda_device, q.dtype)
+    copies = [t.contiguous() for t in (q, k, v)]
+    o = window_attention(q, k, v, bias, mask)
+    assert torch.equal(o, window_attention(q, k, v, bias, mask))
+    assert torch.equal(o, window_attention(*copies, bias, mask))
+    got = window_attention_bwd(q, k, v, do, bias, mask)
+    again = window_attention_bwd(q, k, v, do, bias, mask)
+    from_copies = window_attention_bwd(*copies, do, bias, mask)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), got, again, from_copies):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+def test_window_kernels_keep_bias_and_mask_in_shared_memory(cuda_device):
+    """At donut_base's windows (ww 100, head dim 32) both bf16 kernels hold
+    bias[h] in shared memory for the run and, with a mask, two slots of bias
+    + mask; one block per SM, a ring of at least two stages."""
+    from pixparse_tpu_torch.ops.window_attention import window_config
+
+    props = torch.cuda.get_device_properties(cuda_device)
+    for kind in ("fwd", "bwd"):
+        for has_mask in (True, False):
+            cfg = window_config(kind, torch.bfloat16, 100, 32, has_mask, cuda_device)
+            want = (1, 2) if has_mask else (1, 0)
+            assert (cfg["bias_in_smem"], cfg["mask_slots"]) == want, (kind, cfg)
+            assert cfg["stages"] >= 2 and cfg["blocks_per_sm"] >= 1, (kind, cfg)
+            assert cfg["smem_bytes"] <= getattr(props, "shared_memory_per_block_optin", 232448)
 
 
 @pytest.mark.cuda

@@ -223,7 +223,9 @@ def test_probe_wrappers_route_cpu_tensors_to_plain():
     assert (mp.mxu_dots.launches, wb.banded_attention.launches) == before
 
 
-@pytest.mark.parametrize("tool", ["mxu_probe", "window_band_probe"])
+@pytest.mark.parametrize(
+    "tool", ["mxu_probe", "window_band_probe", "window_variants", "window_host_time"]
+)
 def test_probe_tools_run_on_cuda_and_raise_without_it(monkeypatch, capsys, tool):
     import importlib
 
