@@ -71,15 +71,20 @@ stderr):
    1e-4 relative, every repeat's slab equal bit for bit; yardstick one
    ``torch.matmul`` on the K-concatenated operands batched over the
    repeats) and the banded window kernel at the probe's smoke, stage 0 and
-   stage 2 maps (bf16 1e-2/1e-2; yardstick partition + SDPA with
-   ``attn_mask = bias`` + reverse, three calls).
+   stage 2 maps (bf16 1e-2/1e-2, the same bits on a second launch;
+   yardstick partition + SDPA with ``attn_mask = bias`` + reverse, three
+   calls; beside it kernel #14 on the same windows, partitioned beforehand).
+   Both carry ``device_ms``, ``bound_share`` and ``ratio_to_library``, in
+   the kernels line too.
 3. ``probes``: the probe tools' main paths on the card
    (``pixparse_tpu_torch.tools.mxu_probe`` and ``.window_band_probe all``):
    useful TFLOP/s of the three MXU-probe variants and of ``torch.matmul``;
    per geometry the current window path (partition, kernel #14, reverse)
    against the banded one (kernel #17 on the NHWC map), their max|diff|
-   (at most 1e-3) and the two kernels alone. Counters zeroed before, read
-   after; each probe kernel must have launched. In the kernels line this
+   (at most 1e-3) and the two kernels alone; then the two answers on lines
+   of their own (``probe_answer``: each variant's useful TFLOP/s and time
+   over ``torch.matmul``; banded over current path, #17 over #14). Counters
+   zeroed before, read after; each probe kernel must have launched. In the kernels line this
    run's launches are summed for #16 and #17 only (for #14 they stay in
    ``launches_by_path``).
 4. ``serve_model``: the port's ``Cruller`` at cruller_base width
@@ -865,7 +870,8 @@ def check_mxu(torch, mp, timer, peaks, case):
     same = bool((out == out[0]).all())  # every repeat's slab, bit for bit
     rec = dict(case=name, shape=[mp.SLABS, mp.M, mp.N, mp.R, mp.G], dtype="bfloat16",
                max_abs_err=err, max_rel_err=float(((out[0] - ref).abs() / ref.abs()).max()),
-               tol=[0.0, MXU_RTOL], repeats_identical=same, ok=ok and same)
+               tol=[0.0, MXU_RTOL], repeats_identical=same, ok=ok and same,
+               blocks_per_sm=mp.blocks_per_sm(variant, "cuda"))
     del out
     # the slices the dots read (each once), and the G slabs written once each
     K = mp.VARIANTS[variant][1]
@@ -879,6 +885,10 @@ def check_mxu(torch, mp, timer, peaks, case):
     # yardstick: one torch.matmul on the K-concatenated operands, batched over the repeats
     a_rep, b_rep = mp.library_operands(a, b, variant)
     rec["library_ms"] = timer.median_ms(lambda: torch.matmul(a_rep, b_rep))
+    rec["device_ms"] = timer.median_ms(lambda: mp.mxu_dots(a, b, variant), busy=True)
+    rec["library_device_ms"] = timer.median_ms(lambda: torch.matmul(a_rep, b_rep), busy=True)
+    rec.update(speed_shares(rec),
+               useful_tflops=mp.useful_flop() / (rec["ms"] * 1e-3) / 1e12)
     return rec
 
 
@@ -891,7 +901,9 @@ def band_cases():
             for w, (_, B, Hp, Wp, C, H, win, tbw, _) in wb.GEOMETRIES.items()]
 
 
-def check_band(torch, F, wb, timer, peaks, gen, case):
+def check_band(torch, F, wb, wa, timer, peaks, gen, case):
+    from pixparse_tpu_torch.models.swin import _window_partition
+
     name, B, Hp, Wp, C, H, win, tbw = case
     peak_bf16, _, bw = peaks
     ww, Dh = win * win, C // H
@@ -901,11 +913,16 @@ def check_band(torch, F, wb, timer, peaks, gen, case):
     bias = torch.randn(H, ww, ww, device="cuda", generator=gen) * 0.5
     o = wb.banded_attention(qkv, bias, win, tbw)
     torch.cuda.synchronize()
+    repeatable = bool(torch.equal(wb.banded_attention(qkv, bias, win, tbw), o))
     o_ref = wb.banded_attention_plain(qkv, bias, win, tbw)
     atol, rtol = TOL["bfloat16"]
     err, ok = close(o, o_ref, atol, rtol)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = wb.band_config(win, Dh, qkv.device)
+    plan = wb.band_plan(B, Hp, Wp, win, H, Dh, n_sms, cfg["blocks_per_sm"])
     rec = dict(case=name, shape=[B, Hp, Wp, C, H, win, tbw], windows=nB, dtype="torch.bfloat16",
-               max_abs_err=err, tol=[atol, rtol], ok=ok)
+               max_abs_err=err, tol=[atol, rtol], ok=ok and repeatable, repeatable=repeatable,
+               launch=dict(cfg, runs=plan.runs, grid=plan.grid))
     del o, o_ref
     nbytes = 2 * qkv.numel() + 2 * B * Hp * Wp * C + 4 * bias.numel()  # qkv, o, bias once
     t_ops = 4.0 * nB * ww * ww * C / peak_bf16
@@ -930,7 +947,18 @@ def check_band(torch, F, wb, timer, peaks, gen, case):
     rec["library_max_abs_err"] = close(library(), wb.banded_attention_plain(qkv, bias, win, tbw),
                                        atol, rtol)[0]
     rec["library_ms"] = timer.median_ms(library)
-    del qkv
+    rec["device_ms"] = timer.median_ms(lambda: wb.banded_attention(qkv, bias, win, tbw), busy=True)
+    rec["library_device_ms"] = timer.median_ms(library, busy=True)
+    # kernel #14 on the same windows, partitioned beforehand (the probe's
+    # question is what the partition and reverse copies cost beside it)
+    q, k, v = _window_partition(qkv, win).split(C, dim=-1)
+    rec["window_kernel_ms"] = timer.median_ms(lambda: wa.window_attention(q, k, v, bias))
+    rec["window_kernel_device_ms"] = timer.median_ms(
+        lambda: wa.window_attention(q, k, v, bias), busy=True)
+    rec.update(speed_shares(rec),
+               device_ratio_to_window_kernel=rec["device_ms"] / rec["window_kernel_device_ms"],
+               device_ratio_to_library=rec["device_ms"] / rec["library_device_ms"])
+    del qkv, q, k, v
     return rec
 
 
@@ -1109,7 +1137,7 @@ def phase_kernels(torch, F, card_name, timer):
             failed.append(f"mxu_dots/{case[0]}")
         torch.cuda.empty_cache()
     for case in band_cases():
-        rec = check_band(torch, F, wb, timer, peaks, cuda_gen, case)
+        rec = check_band(torch, F, wb, wa, timer, peaks, cuda_gen, case)
         results["banded_attention"].append(rec)
         note({"kernel": "banded_attention", **rec})
         if not rec["ok"]:
@@ -1225,6 +1253,15 @@ def phase_probes(torch):
     sync(torch)
     counts = read_counts()
     emit({"phase": "probes", "mxu": mxu, "window_band": band, "launches": counts})
+    # the two answers, on lines of their own
+    matmul_us = next(r["us"] for r in mxu if r["variant"] == "matmul")
+    emit({"probe_answer": "mxu", "useful_tflops": {r["variant"]: r["tflops"] for r in mxu},
+          "time_over_matmul": {r["variant"]: r["us"] / matmul_us for r in mxu
+                               if r["variant"] != "matmul"}})
+    emit({"probe_answer": "window_band",
+          "banded_over_current": {r["name"]: r["banded_ms"] / r["current_ms"] for r in band},
+          "band_kernel_over_window_kernel": {
+              r["name"]: r["band_kernel_ms"] / r["window_kernel_ms"] for r in band}})
     missing = [k for k in PROBE_KERNELS if counts[k] == 0]
     if missing:
         raise SystemExit(f"probes: kernels never launched: {missing}")
@@ -2243,6 +2280,9 @@ def main(argv=None) -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                # the probe kernels: busy-timer time and shares
+                **({k: rec[k] for k in ("device_ms", "bound_share", "ratio_to_library")}
+                   if name in PROBE_OWN_KERNELS else {}),
             })
         emit({"kernels": line})
     print(smi, flush=True)

@@ -20,7 +20,9 @@
 // ww fp32, 123 MB at stage 0, more than the 50 MB L2), read once.
 //
 // What the design does about it (the ring, the plan and the score step are
-// window_ring.cuh's, shared with the backward):
+// window_ring.cuh's, shared with the backward; the bf16 kernel itself,
+// window_fwd_ring_kernel, is too, shared with the banded kernel #17 of
+// window_band.cu, which reads the same windows from the NHWC map):
 // - persistent blocks, one wave: block (head h, run r) walks a static,
 //   balanced run of (window position, image) items of head h
 //   (ops/window_attention.py::window_plan). bias[h] comes into shared
@@ -60,101 +62,25 @@ namespace {
 using namespace pixparse;
 using namespace pixparse::window;
 
-constexpr int kWarps = 4;      // fp32 kernel
-constexpr int kMaxStages = 6;  // bf16 kernel's ring
+constexpr int kWarps = 4;  // fp32 kernel
 
-template <int kRowTiles>
-struct FwdShape {
-  static constexpr int kUnits = kRowTiles <= 7 ? 2 : 1;
-  static constexpr int kConsumers = kUnits * kRowTiles * 32;
-  static constexpr int kThreads = kConsumers + 64;  // + the producer and combiner warps
+// The bf16 kernel's source of rows (window_ring.cuh's
+// window_fwd_ring_kernel): q, k and v are (nB, N, C) tensors, one 3-D map
+// each (make_window_map: npad-row boxes, the rows past N zero-filled), and
+// o is a contiguous (nB, N, C) tensor.
+template <int D>
+struct Partitioned {
+  CUtensorMap maps[3];
+  int N, C;
+  __device__ __forceinline__ void operator()(uint32_t dst, int t, int window, int h,
+                                             uint32_t bar) const {
+    tma_load_3d(dst, &maps[t], bar, h * D, 0, window);
+  }
+  __device__ __forceinline__ long long row0(int window) const {
+    return static_cast<long long>(window) * N * C;
+  }
+  __device__ __forceinline__ long long row_off(int r) const { return static_cast<long long>(r) * C; }
 };
-
-template <int D, int kRowTiles>
-__global__ void __launch_bounds__(FwdShape<kRowTiles>::kThreads, 1) window_fwd_ring_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
-    const float* __restrict__ mask, __nv_bfloat16* __restrict__ o, const RingLayout L,
-    int n_images, int period, int N, int H, int runs, int nn, int ldb, float scale) {
-  using S = FwdShape<kRowTiles>;
-  constexpr int kKeyTiles = 2 * kRowTiles;
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-  const RingBars rb{base + static_cast<uint32_t>(L.bar_off), L.stages, L.slots};
-  const Run run = block_run(H, runs, period * n_images);
-  init_ring(rb, kRowTiles * 32, S::kConsumers);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == S::kUnits * kRowTiles) {  // the producer warp
-    if (lane == 0) {
-      const CUtensorMap* const maps[3] = {&tm_q, &tm_k, &tm_v};
-      produce<D, 3, false>(L, rb, base, gbase, maps, run, n_images, period, bias, mask, nn, lane);
-    }
-    return;
-  }
-  if (warp == S::kUnits * kRowTiles + 1) {  // the combiner warp
-    if (L.slots) combine(L, rb, gbase, run, n_images, lane);
-    return;
-  }
-  const int unit = warp / kRowTiles, row0 = (warp % kRowTiles) * 16;
-  const int t = lane % 4, r_lo = row0 + lane / 4;
-  const int C = H * D;
-  const float* sBias = reinterpret_cast<const float*>(gbase + L.bias_off);
-  if (L.bias_smem) mbar_wait(rb.bias_full(), 0);
-  const int len = run.end - run.begin, w_first = run.begin / n_images;
-  for (int n = unit; n < len; n += S::kUnits) {
-    const int i = run.begin + n, w = i / n_images, b = i - w * n_images;
-    const float* table = sBias;  // or its window position's bias + mask
-    if (L.slots) {
-      const int j = w - w_first, slot = j % L.slots;
-      table = reinterpret_cast<const float*>(gbase + L.slot_off + slot * L.table_bytes);
-      mbar_wait(rb.slot_ready(slot), (j / L.slots) & 1);
-    }
-    const int st = n % L.stages;
-    mbar_wait(rb.tile_full(st), (n / L.stages) & 1);
-    const uint32_t sQ = base + L.stage_off + st * 3 * L.tile_bytes;
-    const uint32_t sK = sQ + L.tile_bytes, sV = sK + L.tile_bytes;
-
-    float s[kKeyTiles][4];
-    rows_x_rows<D, kRowTiles>(s, sQ, sK, row0, lane);
-    float inv[2];
-    softmax_rows<kRowTiles, false>(s, table, table, N, ldb, scale, r_lo, t, inv);
-    release_masks(rb, L, run, n_images, n, S::kUnits);
-
-    // o = p v, p normalised and rounded to bf16 in the A fragments
-    float acc[kDTiles][4];
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
-                             pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
-                             pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
-                             pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t bv[4];
-        b_frag_kn<D>(bv, sV, kk * 16, n2 * 16, lane);
-        mma_bf16_16816(acc[2 * n2], a, bv[0], bv[1]);
-        mma_bf16_16816(acc[2 * n2 + 1], a, bv[2], bv[3]);
-      }
-    }
-    mbar_arrive(rb.tile_empty(st));  // this thread's reads of the stage are done
-
-    __nv_bfloat16* ob = o + (static_cast<long long>(b) * period + w) * N * C + run.h * D + 2 * t;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = r_lo + 8 * hr;
-      if (row >= N) continue;
-#pragma unroll
-      for (int d = 0; d < kDTiles; ++d)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row) * C + d * 8) =
-            __floats2bfloat162_rn(acc[d][2 * hr], acc[d][2 * hr + 1]);
-    }
-  }
-}
 
 // fp32 path: one warp per query row at a time; lanes split the keys for the
 // scores and the head dim for p v. bias[h] + mask[w] is summed into shared
@@ -254,38 +180,28 @@ struct FwdArgs {
 };
 
 template <int D, int kRowTiles>
-bool ring_bf16(int nn, bool has_mask, RingLayout* L) {
-  return choose_ring(L, 3, 16 * kRowTiles, D, nn, has_mask, true, 0, kMaxStages,
-                     max_smem_optin());
-}
-
-template <int D, int kRowTiles>
 struct ConfigBf16 {
   static int run(int nn, bool has_mask, Config* cfg) {
-    if (!ring_bf16<D, kRowTiles>(nn, has_mask, &cfg->L)) return kInvalid;
-    cfg->threads = FwdShape<kRowTiles>::kThreads;
-    return occupancy<window_fwd_ring_kernel<D, kRowTiles>>(cfg);
+    return fwd_config<D, kRowTiles, Partitioned<D>>(nn, has_mask, 16 * kRowTiles, cfg);
   }
 };
 
 template <int D, int kRowTiles>
 struct LaunchBf16 {
   static int run(const FwdArgs& a) {
+    const int npad = 16 * kRowTiles;
     RingLayout L;
-    if (!ring_bf16<D, kRowTiles>(a.nn, a.mask != nullptr, &L)) return kInvalid;
-    const int err = allow_smem<window_fwd_ring_kernel<D, kRowTiles>>(L.smem);
-    if (err) return err;
-    const int nB = a.n_images * a.period, C = a.H * D, npad = 16 * kRowTiles;
-    CUtensorMap tq, tk, tv;
-    if (!make_window_map<D>(&tq, a.q, C, a.N, nB, npad, a.q_rs, a.q_bs) ||
-        !make_window_map<D>(&tk, a.k, C, a.N, nB, npad, a.k_rs, a.k_bs) ||
-        !make_window_map<D>(&tv, a.v, C, a.N, nB, npad, a.v_rs, a.v_bs))
+    if (!fwd_ring<D, kRowTiles>(a.nn, a.mask != nullptr, npad, &L)) return kInvalid;
+    const int nB = a.n_images * a.period, C = a.H * D;
+    Partitioned<D> src;
+    src.N = a.N;
+    src.C = C;
+    if (!make_window_map<D>(&src.maps[0], a.q, C, a.N, nB, npad, a.q_rs, a.q_bs) ||
+        !make_window_map<D>(&src.maps[1], a.k, C, a.N, nB, npad, a.k_rs, a.k_bs) ||
+        !make_window_map<D>(&src.maps[2], a.v, C, a.N, nB, npad, a.v_rs, a.v_bs))
       return kInvalid;
-    window_fwd_ring_kernel<D, kRowTiles>
-        <<<a.H * a.runs, FwdShape<kRowTiles>::kThreads, L.smem, a.stream>>>(
-            tq, tk, tv, a.bias, a.mask, static_cast<__nv_bfloat16*>(a.o), L, a.n_images,
-            a.period, a.N, a.H, a.runs, a.nn, a.ldb, a.scale);
-    return static_cast<int>(cudaGetLastError());
+    return fwd_launch<D, kRowTiles>(src, L, a.bias, a.mask, a.o, a.n_images, a.period, a.N,
+                                    a.H, a.runs, a.nn, a.ldb, a.scale, a.stream);
   }
 };
 

@@ -121,8 +121,8 @@ __global__ void __launch_bounds__(BwdShape<kRowTiles>::kThreads, 1) window_bwd_r
   init_ring(rb, S::kConsumers, S::kConsumers);  // (fences the inits above too)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == kRowTiles) {  // the producer warp
-    const CUtensorMap* const maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
-    produce<D, 4, true>(L, rb, base, gbase, maps, run, n_images, period, bias, mask, nn, lane);
+    const WindowMaps<D, 4> load{{&tm_q, &tm_k, &tm_v, &tm_do}};
+    produce<4, true>(L, rb, base, gbase, load, run, n_images, period, bias, mask, nn, lane);
     return;
   }
   const int row0 = warp * 16;

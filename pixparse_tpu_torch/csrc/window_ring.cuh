@@ -2,7 +2,9 @@
 // and backward (window_attention_bwd.cu, kernel #15) share on Hopper: the
 // plan's runs of work, the shared-memory ring and the warps that feed it,
 // fragments of swizzled tiles, and the score step (s = q k^T, scale, bias,
-// mask, softmax) that both recompute per window.
+// mask, softmax) that both recompute per window. The bf16 forward kernel
+// itself is here too (window_fwd_ring_kernel): #14 runs it over partitioned
+// windows and the banded kernel #17 (window_band.cu) over the NHWC map.
 //
 // Work (plan in ops/window_attention.py::window_plan). An item is one
 // (window position w, image b) pair of one head h, window b * period + w.
@@ -27,8 +29,13 @@
 //   against 0.45 ms at donut stage 0, B = 2; equal at B = 8). The backward,
 //   at 249 registers a thread, has no room for another warp: its producer
 //   warp adds between its copies;
-// - the window's q/k/v(/do) tiles (npad rows of D bf16, rows past ww zero-
-//   filled by the tensor map's bound) by TMA into one of `stages` stages.
+// - the window's q/k/v(/do) tiles by TMA into one of `stages` stages,
+//   through a loader that says where an item's rows live: a 3-D map per
+//   operand over partitioned windows (WindowMaps for kernel #15,
+//   window_attention.cu's Partitioned for #14: npad rows of D bf16, rows
+//   past ww zero-filled by the map's bound), or one 4-D map over the NHWC
+//   qkv map (window_band.cu's Banded, kernel #17: ww rows, its pad rows
+//   zeroed once before the first copy).
 // Every copy completes on an mbarrier; consumers wait on the barrier of
 // what they read (a mask slot's `ready` barrier: the sum is written) and
 // arrive on its `empty` barrier when done. No block-wide barrier follows a
@@ -295,17 +302,30 @@ __device__ __forceinline__ void mbar_arrive_count(uint32_t bar, uint32_t count) 
                : "memory");
 }
 
+// The tile loader of kernel #15: one 3-D map (channel, token, window) per
+// operand over a (nB, N, C) tensor (make_window_map); tile t of window
+// `window`, head h, is one box of map t.
+template <int D, int kTiles>
+struct WindowMaps {
+  const CUtensorMap* maps[kTiles];
+  __device__ __forceinline__ void operator()(uint32_t dst, int t, int window, int h,
+                                             uint32_t bar) const {
+    tma_load_3d(dst, maps[t], bar, h * D, 0, window);
+  }
+};
+
 // The producer: bias[h] when there is no mask, then an event loop that
 // never waits on one resource while another is ready: the next item's
 // kTiles tiles as soon as their stage is free, the next window position's
 // mask as soon as its slot is free, and (kCombine) bias[h] added into the
 // next landed mask slot. Without kCombine one thread runs it and a combiner
 // warp does the adds; with it the whole warp runs it, lane 0 deciding and
-// issuing the copies, every lane adding.
-template <int D, int kTiles, bool kCombine>
+// issuing the copies, every lane adding. `load(dst, t, window, h, bar)`
+// copies tile t of an item (window b * period + w of head h), L.box_bytes
+// of it, completing on `bar`.
+template <int kTiles, bool kCombine, class Loader>
 __device__ __forceinline__ void produce(const RingLayout& L, const RingBars& rb, uint32_t base,
-                                        unsigned char* gbase,
-                                        const CUtensorMap* const (&maps)[kTiles], const Run& run,
+                                        unsigned char* gbase, const Loader& load, const Run& run,
                                         int n_images, int period, const float* bias,
                                         const float* mask, int nn, int lane) {
   const bool leader = !kCombine || lane == 0;
@@ -327,8 +347,8 @@ __device__ __forceinline__ void produce(const RingLayout& L, const RingBars& rb,
       mbar_expect_tx(rb.tile_full(st), kTiles * L.box_bytes);
 #pragma unroll
       for (int t = 0; t < kTiles; ++t)
-        tma_load_3d(base + L.stage_off + (st * kTiles + t) * L.tile_bytes, maps[t],
-                    rb.tile_full(st), run.h * D, 0, b * period + w);
+        load(base + L.stage_off + (st * kTiles + t) * L.tile_bytes, t, b * period + w, run.h,
+             rb.tile_full(st));
       ++n;
       moved = true;
     }
@@ -478,6 +498,33 @@ __device__ __forceinline__ void softmax_rows(float (&s)[2 * kRowTiles][4], const
   }
 }
 
+// o = p v for a warp's 16 rows from row0: s holds exp(x - max) of the
+// rows' whole padded key row (softmax_rows), normalised by inv and rounded
+// to bf16 straight into the A fragments; v a tile stored [key][D],
+// swizzled. acc[d] is the 8 channels 8d..8d+7 of the two rows a lane
+// holds, as mma.sync lays them out.
+template <int D, int kRowTiles>
+__device__ __forceinline__ void p_times_v(float (&acc)[D / 8][4],
+                                          const float (&s)[2 * kRowTiles][4],
+                                          const float (&inv)[2], uint32_t sV, int lane) {
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kRowTiles; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
+                           pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
+                           pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
+                           pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t bv[4];
+      b_frag_kn<D>(bv, sV, kk * 16, n2 * 16, lane);
+      mma_bf16_16816(acc[2 * n2], a, bv[0], bv[1]);
+      mma_bf16_16816(acc[2 * n2 + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host: the tensor map of one of q/k/v/do
 // ---------------------------------------------------------------------------
@@ -615,6 +662,139 @@ int by_head_dim(int D, Args&&... args) {
     case 64: return F<64>::run(args...);
     default: return kInvalid;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// the bf16 forward: kernel #14 over partitioned windows (window_attention.cu)
+// and kernel #17 over the NHWC map (window_band.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdMaxStages = 6;
+
+template <int kRowTiles>
+struct FwdShape {
+  static constexpr int kUnits = kRowTiles <= 7 ? 2 : 1;
+  static constexpr int kConsumers = kUnits * kRowTiles * 32;
+  static constexpr int kThreads = kConsumers + 64;  // + the producer and combiner warps
+};
+
+// o = softmax(q k^T * scale + bias[h] (+ mask[w])) v over the plan's runs.
+// `src` says where an item's rows live: src(dst, t, window, h, bar) is the
+// ring's loader (tile t: q, k, v); in o, row r of window `window` starts
+// src.row0(window) + src.row_off(r) elements in (its channel 0; a row's C =
+// H * D channels are contiguous). A thread's two rows are the same in every
+// window, so their offsets are worked out once. A tile's box may hold fewer rows than the tile
+// (L.box_bytes < npad rows): the rows past it are zeroed once, before the
+// first copy, and never written again (the score step sets keys >= N to
+// -inf and never stores rows >= N, but p v reads v's pad rows: zeros keep
+// 0 * v finite).
+template <int D, int kRowTiles, class Src>
+__global__ void __launch_bounds__(FwdShape<kRowTiles>::kThreads, 1) window_fwd_ring_kernel(
+    const __grid_constant__ Src src, const float* __restrict__ bias,
+    const float* __restrict__ mask, __nv_bfloat16* __restrict__ o, const RingLayout L,
+    int n_images, int period, int N, int H, int runs, int nn, int ldb, float scale) {
+  using S = FwdShape<kRowTiles>;
+  constexpr int kKeyTiles = 2 * kRowTiles;
+  constexpr int kDTiles = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const RingBars rb{base + static_cast<uint32_t>(L.bar_off), L.stages, L.slots};
+  const Run run = block_run(H, runs, period * n_images);
+  {  // the pad rows of every tile of every stage (the sync in init_ring
+     // orders these stores before every read)
+    const int pad = (16 * kRowTiles * D * 2 - L.box_bytes) / 16;
+    for (int e = threadIdx.x; e < 3 * L.stages * pad; e += blockDim.x) {
+      unsigned char* tile = gbase + L.stage_off + (e / pad) * L.tile_bytes + L.box_bytes;
+      reinterpret_cast<uint4*>(tile)[e % pad] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  init_ring(rb, kRowTiles * 32, S::kConsumers);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == S::kUnits * kRowTiles) {  // the producer warp
+    if (lane == 0)
+      produce<3, false>(L, rb, base, gbase, src, run, n_images, period, bias, mask, nn, lane);
+    return;
+  }
+  if (warp == S::kUnits * kRowTiles + 1) {  // the combiner warp
+    if (L.slots) combine(L, rb, gbase, run, n_images, lane);
+    return;
+  }
+  const int unit = warp / kRowTiles, row0 = (warp % kRowTiles) * 16;
+  const int t = lane % 4, r_lo = row0 + lane / 4;
+  const long long row_off[2] = {src.row_off(r_lo), src.row_off(r_lo + 8)};
+  const float* sBias = reinterpret_cast<const float*>(gbase + L.bias_off);
+  if (L.bias_smem) mbar_wait(rb.bias_full(), 0);
+  const int len = run.end - run.begin, w_first = run.begin / n_images;
+  for (int n = unit; n < len; n += S::kUnits) {
+    const int i = run.begin + n, w = i / n_images, b = i - w * n_images;
+    const float* table = sBias;  // or its window position's bias + mask
+    if (L.slots) {
+      const int j = w - w_first, slot = j % L.slots;
+      table = reinterpret_cast<const float*>(gbase + L.slot_off + slot * L.table_bytes);
+      mbar_wait(rb.slot_ready(slot), (j / L.slots) & 1);
+    }
+    const int st = n % L.stages;
+    mbar_wait(rb.tile_full(st), (n / L.stages) & 1);
+    const uint32_t sQ = base + L.stage_off + st * 3 * L.tile_bytes;
+    const uint32_t sK = sQ + L.tile_bytes, sV = sK + L.tile_bytes;
+
+    float s[kKeyTiles][4];
+    rows_x_rows<D, kRowTiles>(s, sQ, sK, row0, lane);
+    float inv[2];
+    softmax_rows<kRowTiles, false>(s, table, table, N, ldb, scale, r_lo, t, inv);
+    release_masks(rb, L, run, n_images, n, S::kUnits);
+
+    // o = p v, p normalised and rounded to bf16 in the A fragments
+    float acc[kDTiles][4];
+    p_times_v<D, kRowTiles>(acc, s, inv, sV, lane);
+    mbar_arrive(rb.tile_empty(st));  // this thread's reads of the stage are done
+
+    __nv_bfloat16* ob = o + src.row0(b * period + w) + run.h * D + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (r_lo + 8 * hr >= N) continue;
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_off[hr] + d * 8) =
+            __floats2bfloat162_rn(acc[d][2 * hr], acc[d][2 * hr + 1]);
+    }
+  }
+}
+
+// The forward's ring at (N, D): bias[h] in shared memory, up to
+// kFwdMaxStages stages, mask slots with a mask; each tile's box `box_rows`
+// rows (npad for a 3-D map that zero-fills the rest, N for #17's box).
+template <int D, int kRowTiles>
+bool fwd_ring(int nn, bool has_mask, int box_rows, RingLayout* L) {
+  if (!choose_ring(L, 3, 16 * kRowTiles, D, nn, has_mask, true, 0, kFwdMaxStages,
+                   max_smem_optin()))
+    return false;
+  L->box_bytes = box_rows * D * 2;
+  return true;
+}
+
+template <int D, int kRowTiles, class Src>
+int fwd_config(int nn, bool has_mask, int box_rows, Config* cfg) {
+  if (!fwd_ring<D, kRowTiles>(nn, has_mask, box_rows, &cfg->L)) return kInvalid;
+  cfg->threads = FwdShape<kRowTiles>::kThreads;
+  return occupancy<window_fwd_ring_kernel<D, kRowTiles, Src>>(cfg);
+}
+
+// One launch of H * runs blocks on ring L (fwd_ring).
+template <int D, int kRowTiles, class Src>
+int fwd_launch(const Src& src, const RingLayout& L, const float* bias, const float* mask,
+               void* o, int n_images, int period, int N, int H, int runs, int nn, int ldb,
+               float scale, cudaStream_t stream) {
+  const int err = allow_smem<window_fwd_ring_kernel<D, kRowTiles, Src>>(L.smem);
+  if (err) return err;
+  window_fwd_ring_kernel<D, kRowTiles, Src>
+      <<<H * runs, FwdShape<kRowTiles>::kThreads, L.smem, stream>>>(
+          src, bias, mask, static_cast<__nv_bfloat16*>(o), L, n_images, period, N, H, runs, nn,
+          ldb, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace window

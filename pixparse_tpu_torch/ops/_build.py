@@ -87,7 +87,10 @@ SIGNATURES = {
         "pixparse_mxu_probe": [I, P, P, P, I, I, I, I, I, P],
         "pixparse_mxu_probe_blocks_per_sm": [I],
     },
-    "window_band": {"pixparse_window_band_fwd": [P, P, P, I, I, I, I, I, I, F, P]},
+    "window_band": {
+        "pixparse_window_band_fwd": [P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+        "pixparse_window_band_config": [I, I, P],
+    },
 }
 
 _lock = threading.Lock()

@@ -20,11 +20,13 @@ every element of ``o``:
   ``(32, 128, N)``, c = 64·(r mod 2).
 
 The TPU tool repeats the whole sum G times on its sequential grid. On the
-card the repeats are a grid dimension of the kernel, so the launch fills
-every SM, and repeat g writes its own slab ``out[g]`` (all equal). Every
-variant keeps three dots' operands in flight in shared memory, so its
-occupancy (blocks per SM, printed beside the rate) follows its tile width.
-Useful TFLOP/s is ``2·G·R·M·N·128 / t``, the TPU tool's normalisation. The
+card one persistent block per SM walks the (output tile, repeat) pairs
+(:func:`probe_schedule`), and repeat g writes its own slab ``out[g]`` (all
+equal). The kernel is ``wgmma`` fed by TMA through a 4-stage ring of
+64-deep k-tiles (``csrc/mxu_probe.cu``), so the rates it prints are the
+tensor cores' at each contraction width, and the packed slice is only a
+TMA box coordinate. Its occupancy (blocks per SM) is printed beside the
+rate. Useful TFLOP/s is ``2·G·R·M·N·128 / t``, the TPU tool's normalisation. The
 yardstick, timed only, is one ``torch.matmul`` of the dot-ordered,
 K-concatenated operands ``(M, 128·R) @ (128·R, N)`` batched over the G
 repeats (stride-0 batch views: one copy of each operand).
@@ -37,7 +39,7 @@ Run on the card (importing this module runs nothing)::
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +56,8 @@ SLABS = 32
 # variant -> (buffer width W: a's columns and b's rows, one dot's depth K)
 VARIANTS = {"k64": (64, 64), "k128": (128, 128), "k64x2": (128, 64)}
 _CODES = {"k64": 0, "k128": 1, "k64x2": 2}
-TILE = 128  # the kernel's output tile: M and N are multiples of it
-MAX_REPEATS = 65535  # the kernel's grid dimension
+TILE = 128  # the kernel's output tile rows; M and N are multiples of it
+MAX_REPEATS = 65535  # the kernel counts (tile, repeat) pairs in 32 bits
 
 
 def n_dots(variant: str, dots: int = R) -> int:
@@ -88,6 +90,27 @@ def _slices(variant: str, slabs: int, dots: int):
     return [(r % slabs, (r % 2) * K if W != K else 0) for r in range(n_dots(variant, dots))]
 
 
+def tile_cols(n: int) -> int:
+    """Columns of the kernel's output tile: 256 where N allows, else 128."""
+    return 256 if n % 256 == 0 else TILE
+
+
+def probe_schedule(m: int, n: int, repeats: int, n_sms: int,
+                   blocks_per_sm: int = 1) -> List[List[Tuple[int, int, int]]]:
+    """The persistent kernel's work on a card of ``n_sms`` SMs: for each
+    block, the ``(repeat, m0, n0)`` of every (output tile, repeat) pair it
+    computes, in order. The launch takes one wave, min(pairs, SMs x blocks
+    per SM) blocks; pair p is tile ``p % tiles`` of repeat ``p // tiles``
+    (tiles of ``TILE`` x ``tile_cols(n)``, row-major); block x takes pairs
+    x, x + blocks, ... (``csrc/mxu_probe.cu::launch``, ``mxu_probe_kernel``)."""
+    bn = tile_cols(n)
+    tiles_n = n // bn
+    tiles = (m // TILE) * tiles_n
+    blocks = min(tiles * repeats, n_sms * blocks_per_sm)
+    return [[(p // tiles, (p % tiles) // tiles_n * TILE, (p % tiles) % tiles_n * bn)
+             for p in range(x, tiles * repeats, blocks)] for x in range(blocks)]
+
+
 def mxu_dots_plain(a: torch.Tensor, b: torch.Tensor, variant: str, dots: int = R) -> torch.Tensor:
     """Plain PyTorch version: ``(M, N)`` fp32, a loop of fp32 matmuls over
     the same slices in the kernel's order of dots."""
@@ -112,6 +135,8 @@ def _mxu_cuda(a, b, variant, dots, repeats):
         raise ValueError(f"mxu_dots: M {m} and N {n} must be multiples of {TILE}")
     if repeats > MAX_REPEATS:
         raise ValueError(f"mxu_dots: at most {MAX_REPEATS} repeats (got {repeats})")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("mxu_dots: a and b must be 16-byte aligned")
     out = torch.empty((repeats, m, n), dtype=torch.float32, device=a.device)
     lib = _build.library("mxu_probe")
     with torch.cuda.device(a.device):
@@ -162,7 +187,7 @@ def blocks_per_sm(variant: str, device) -> int:
     """The kernel's occupancy in this variant: blocks that fit one SM."""
     with torch.cuda.device(device):
         n = _build.library("mxu_probe").pixparse_mxu_probe_blocks_per_sm(_CODES[variant])
-    if n < 0:
+    if n <= 0:
         raise RuntimeError(f"mxu_dots[{variant}]: occupancy query failed")
     return n
 
@@ -201,6 +226,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     with torch.inference_mode():
         recs = [run(v, device, args.iters) for v in VARIANTS]
         recs.append(run_library(device, args.iters))
+    print("time over matmul: " + ", ".join(
+        f"{r['variant']} {r['us'] / recs[-1]['us']:.3f}" for r in recs[:-1]), flush=True)
     return recs
 
 

@@ -18,6 +18,11 @@ Both include the same projection, so their difference is the two copies
 against the in-kernel gather. :func:`run` also times the two kernels alone
 on the same windows.
 
+Since the kernel is #14's design (persistent runs, a TMA ring, bias[h] in
+shared memory: ``csrc/window_ring.cuh``) with one 4-D tensor map over the
+NHWC map as its gather, the answer is a banded path whose kernel runs at
+#14's rate: what the two copies cost against an in-kernel gather.
+
 Geometries (window 10, the JAX tool's): the stage grids of a 1280x960 page,
 half of donut_base's 2560x1920 in each dimension, at B = 4: ``stage0`` 320x240
 (C 128, 4 heads), ``stage2`` 80x60 (C 512, 16 heads); ``reshape`` is a 20x20
@@ -25,8 +30,9 @@ smoke map (C 128, 4 heads). ``tbw`` is the TPU kernel's band of windows per
 tile; the port takes it only to check the same geometry: ``(Wp // win) %
 tbw`` must be 0 (the TPU grid, ``nww // tbw`` bands, never writes the last
 windows otherwise).
-The CUDA kernel is built for window 10 and head dim 32, the geometries
-here; other shapes raise on a CUDA tensor (the plain version takes any).
+The CUDA kernel takes bf16, head dims 16, 32 and 64 and windows of at most
+144 tokens (the window ring's shapes); other shapes raise on a CUDA tensor
+(the plain version takes any).
 
 Run on the card (importing this module runs nothing)::
 
@@ -36,7 +42,9 @@ Run on the card (importing this module runs nothing)::
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Optional, Sequence
+import ctypes
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,11 +52,19 @@ import torch
 from pixparse_tpu_torch.device import resolve_device
 from pixparse_tpu_torch.models.swin import _window_partition, _window_reverse
 from pixparse_tpu_torch.ops import _build
-from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+from pixparse_tpu_torch.ops.window_attention import (
+    HEAD_DIMS,
+    MAX_WINDOW_TOKENS,
+    WindowPlan,
+    _n_sms,
+    _tables,
+    table_layout,
+    window_attention,
+    window_attention_plain,
+    window_plan,
+)
 from pixparse_tpu_torch.tools import event_ms
 
-# the one geometry csrc/window_band.cu is built for
-BAND_WIN, BAND_HEAD_DIM = 10, 32
 # which -> (label, B, Hp, Wp, C, heads, win, tbw, timed iterations)
 GEOMETRIES = {
     "reshape": ("reshape-smoke", 1, 20, 20, 128, 4, 10, 2, 5),
@@ -92,28 +108,87 @@ def banded_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, win: int,
     return _window_reverse(window_attention_plain(q, k, v, bias), win, B, Hp, Wp)
 
 
+def band_window(n: int, nwh: int, nww: int) -> Tuple[int, int, int]:
+    """Window ``n`` of the map as ``(b, i, j)``: image, window row, window
+    column, row-major (``_window_partition``'s window order; the kernel's
+    ``Banded::window``)."""
+    b, r = divmod(n, nwh * nww)
+    return (b, *divmod(r, nww))
+
+
+def band_box(b: int, i: int, j: int, head: int, part: int, C: int, D: int,
+             win: int) -> Tuple[int, int, int, int]:
+    """The kernel's one TMA copy of tile ``part`` (0 q, 1 k, 2 v) of window
+    ``(b, i, j)``, head ``head``: the box's coordinates ``(c0, x0, y0, b)``
+    in the 4-D map ``(3C, Wp, Hp, B)`` over the NHWC qkv map (``csrc/
+    window_band.cu::Banded``). The box is ``(D, win, win, 1)``."""
+    return part * C + head * D, j * win, i * win, b
+
+
+def box_rows(qkv: torch.Tensor, box: Tuple[int, int, int, int], D: int,
+             win: int) -> torch.Tensor:
+    """What the box copies, in the order it lands in shared memory:
+    ``(win * win, D)``, row ``r`` the pixel ``(y0 + r // win, x0 + r %
+    win)`` of image ``b``, channels ``c0 .. c0 + D``."""
+    c0, x0, y0, b = box
+    return qkv[b, y0:y0 + win, x0:x0 + win, c0:c0 + D].reshape(win * win, D)
+
+
+def band_plan(B: int, Hp: int, Wp: int, win: int, heads: int, D: int, n_sms: int,
+              blocks_per_sm: int) -> WindowPlan:
+    """The kernel's grid: ``window_plan`` over the map's ``B * (Hp / win) *
+    (Wp / win)`` windows with period 1 (no mask): block ``r * heads + h``
+    takes run r of head h's windows, in ``band_window`` order."""
+    n_windows = B * (Hp // win) * (Wp // win)
+    return window_plan(n_windows, 1, heads, win * win, D, n_sms, blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_config(win: int, D: int, index: int) -> dict:
+    lib = _build.library("window_band")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        err = lib.pixparse_window_band_config(win, D, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(err, "banded_attention config")
+    keys = ("blocks_per_sm", "smem_bytes", "stages", "mask_slots", "bias_in_smem", "threads")
+    return dict(zip(keys, list(out)))
+
+
+def band_config(win: int, D: int, device) -> dict:
+    """What one launch at window ``win`` and head dim ``D`` uses on
+    ``device``: blocks per SM, dynamic shared memory, ring stages, threads
+    per block (``window_config``'s keys)."""
+    index = torch.device(device).index
+    return _band_config(win, D, torch.cuda.current_device() if index is None else index)
+
+
 def _banded_cuda(qkv, bias, win):
     B, Hp, Wp, C3 = qkv.shape
     heads = bias.shape[0]
     Dh = C3 // 3 // heads
+    N = win * win
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"banded_attention: CUDA kernel takes bfloat16 qkv (got {qkv.dtype})")
-    if (win, Dh) != (BAND_WIN, BAND_HEAD_DIM):
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"banded_attention: head dim {Dh} not in {HEAD_DIMS}")
+    if N > MAX_WINDOW_TOKENS:
         raise ValueError(
-            f"banded_attention: CUDA kernel is built for window {BAND_WIN} and head dim "
-            f"{BAND_HEAD_DIM}, the probe's geometries (got window {win}, head dim {Dh})"
-        )
+            f"banded_attention: window {win} has {N} tokens (at most {MAX_WINDOW_TOKENS})")
     if not (bias.is_cuda and bias.device == qkv.device):
         raise ValueError("banded_attention: qkv and bias must be on one CUDA device")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("banded_attention: qkv must be contiguous and 16-byte aligned")
-    bias = bias.to(torch.float32).contiguous()
+    ldb, nn = table_layout(N)
+    bias_t = _tables(bias, N)
+    index = qkv.device.index
+    plan = band_plan(B, Hp, Wp, win, heads, Dh, _n_sms(index),
+                     _band_config(win, Dh, index)["blocks_per_sm"])
     o = torch.empty((B, Hp, Wp, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     lib = _build.library("window_band")
     with torch.cuda.device(qkv.device):
         err = lib.pixparse_window_band_fwd(
-            _build.ptr(qkv), _build.ptr(bias), _build.ptr(o), B, Hp, Wp, win, heads, Dh,
-            float(Dh ** -0.5), _build.stream_ptr(qkv.device),
+            _build.ptr(qkv), _build.ptr(bias_t), _build.ptr(o), B, Hp, Wp, win, heads, Dh, nn,
+            ldb, plan.runs, float(Dh ** -0.5), _build.stream_ptr(qkv.device),
         )
     _build.check(err, "banded_attention")
     banded_attention.launches += 1
@@ -177,6 +252,8 @@ def run(name: str, B: int, Hp: int, Wp: int, C: int, heads: int, win: int, tbw: 
     rec["window_kernel_ms"] = event_ms(lambda: window_attention(q, k, v, bias), iters)
     print(f"[{name}] kernels alone: #17 banded {rec['band_kernel_ms']:7.3f} ms, "
           f"#14 window {rec['window_kernel_ms']:7.3f} ms", flush=True)
+    print(f"[{name}] banded / current path {rec['banded_ms'] / rec['current_ms']:.3f}, "
+          f"#17 / #14 {rec['band_kernel_ms'] / rec['window_kernel_ms']:.3f}", flush=True)
     return rec
 
 

@@ -1,7 +1,8 @@
 """Time the bf16 window-attention forward (kernel #14) against edited copies
 of its source, in one process on the card.
 
-A variant is the port's ``csrc/`` with text substitutions, built with
+A variant is the port's ``csrc/`` with text substitutions in
+``window_ring.cuh`` (where the bf16 forward kernel lives), built with
 ``ops/_build.NVCC_FLAGS`` into ``csrc/build/variants/<name>/`` and loaded
 beside the tree's own library. Each case times the tree's kernel, every
 variant, then the tree's again (CUDA events around one launch, the L2 cache
@@ -38,13 +39,12 @@ from pixparse_tpu_torch.ops import _build
 from pixparse_tpu_torch.ops import window_attention as wa
 
 STEM = "window_attention"
+EDITED = "window_ring.cuh"
 VARIANTS = {
     "producer_combines": [
         ("static constexpr int kThreads = kConsumers + 64;",
          "static constexpr int kThreads = kConsumers + 32;"),
-        ("    if (lane == 0) {\n      const CUtensorMap* const maps[3]",
-         "    {\n      const CUtensorMap* const maps[3]"),
-        ("produce<D, 3, false>", "produce<D, 3, true>"),
+        ("    if (lane == 0)\n      produce<3, false>", "    produce<3, true>"),
     ],
 }
 # name, images, stage map (h, w), C, H: donut_base at 2560x1920, window 10, shifted
@@ -61,13 +61,14 @@ def _build_variant(name, subs) -> ctypes.CDLL:
     shutil.rmtree(root, ignore_errors=True)
     src = root / "src"
     shutil.copytree(_build.CSRC, src, ignore=shutil.ignore_patterns("build"))
-    path = src / f"{STEM}.cu"
-    text = path.read_text()
+    edited = src / EDITED
+    text = edited.read_text()
     for old, new in subs:
         if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} not in {STEM}.cu")
+            raise RuntimeError(f"variant {name}: {old!r} not in {EDITED}")
         text = text.replace(old, new)
-    path.write_text(text)
+    edited.write_text(text)
+    path = src / f"{STEM}.cu"
     flags = [str(src) if f == str(_build.CSRC) else f for f in _build.NVCC_FLAGS]
     out = root / f"lib{STEM}.so"
     subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(path)], check=True,

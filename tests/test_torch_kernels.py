@@ -855,7 +855,11 @@ def test_int8_head_is_exact_on_card(cuda_device, B, V, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["k64", "k128", "k64x2"])
-@pytest.mark.parametrize("m,n,dots,repeats", [(128, 128, 3, 3), (256, 384, 8, 2)])
+@pytest.mark.parametrize("m,n,dots,repeats", [
+    (128, 128, 3, 1), (128, 128, 3, 3),
+    (256, 384, 8, 2),  # 128-column tiles
+    (512, 256, 64, 256),  # the tool's size: 1024 (tile, repeat) pairs over the SMs
+])
 def test_mxu_probe_kernel_matches_plain(cuda_device, variant, m, n, dots, repeats):
     """fp32 sums of positive products in another order: 1e-4 relative; every
     repeat's slab is the same sum in the same order, bit for bit."""
@@ -892,10 +896,20 @@ def _band_inputs(B, Hp, Wp, C, heads, win, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hp,Wp,C,heads,win,tbw", [
     (1, 20, 20, 128, 4, 10, 2),  # the probe's smoke map
+    (2, 20, 20, 128, 4, 10, 2),
+    (1, 40, 30, 64, 2, 10, 3),
+    (2, 40, 30, 64, 2, 10, 3),
     (2, 20, 30, 64, 2, 10, 3),
+    (4, 320, 240, 128, 4, 10, 6),  # the probe's stage 0
     (1, 80, 60, 512, 16, 10, 6),  # the probe's stage-2 map at B = 1
+    (2, 20, 20, 64, 4, 10, 2),  # head dim 16 (32-byte swizzle)
+    (2, 20, 20, 128, 2, 10, 2),  # head dim 64 (128-byte swizzle)
+    (2, 14, 21, 96, 3, 7, 3),  # window 7: 49 rows, odd (padded bias tables)
+    (1, 24, 24, 128, 2, 12, 2),  # window 12: 144 rows, one unit a block
 ])
 def test_window_band_kernel_matches_plain(cuda_device, B, Hp, Wp, C, heads, win, tbw):
+    """bf16 1e-2 + 1e-2·|ref|, as #14; a second launch gives the same bits
+    (every window's rows come from one box and are summed in one order)."""
     qkv, bias = _band_inputs(B, Hp, Wp, C, heads, win, cuda_device, Wp + C)
     before = banded_attention.launches
     o = banded_attention(qkv, bias, win, tbw)
@@ -904,6 +918,7 @@ def test_window_band_kernel_matches_plain(cuda_device, B, Hp, Wp, C, heads, win,
     assert o.shape == (B, Hp, Wp, C) and o.dtype == torch.bfloat16
     ref = banded_attention_plain(qkv, bias, win, tbw)
     torch.testing.assert_close(o.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert torch.equal(o, banded_attention(qkv, bias, win, tbw))
 
 
 @pytest.mark.cuda
@@ -911,10 +926,10 @@ def test_window_band_kernel_rejects_what_it_does_not_take(cuda_device):
     qkv, bias = _band_inputs(1, 20, 20, 128, 4, 10, cuda_device, 0)
     with pytest.raises(ValueError, match="bfloat16"):
         banded_attention(qkv.float(), bias, 10, 2)
-    with pytest.raises(ValueError, match="head dim 32"):
+    with pytest.raises(ValueError, match="head dim 128"):
         banded_attention(qkv, bias[:1], 10, 2)  # one head of 128
     with pytest.raises(ValueError, match="contiguous"):
         banded_attention(qkv.transpose(1, 2), bias, 10, 2)
-    small, small_bias = _band_inputs(1, 14, 14, 64, 2, 7, cuda_device, 0)
-    with pytest.raises(ValueError, match="window 10"):
-        banded_attention(small, small_bias, 7, 1)
+    big, big_bias = _band_inputs(1, 26, 26, 64, 2, 13, cuda_device, 0)
+    with pytest.raises(ValueError, match="169 tokens"):
+        banded_attention(big, big_bias, 13, 2)

@@ -12,6 +12,10 @@ Tolerance: 1e-5 relative. Each output element is a sum of 512 positive
 products (values ~150) that the two sides take in another order; fp32
 rounding of such a sum stays within a few units of 6e-8 relative (measured:
 ~2e-7).
+
+The CUDA kernel's persistent schedule (``probe_schedule``: block -> its
+(tile, repeat) pairs) is checked in pure Python: every pair once, in one
+balanced wave.
 """
 
 import ast
@@ -121,3 +125,23 @@ def test_wrapper_rejects_bad_operands():
         mxu_probe.mxu_dots(a, b, "k64", dots=0)
     with pytest.raises(ValueError, match="must be positive"):
         mxu_probe.mxu_dots(a, b, "k64", repeats=0)
+
+
+@pytest.mark.parametrize("m,n,repeats", [
+    (mxu_probe.M, mxu_probe.N, mxu_probe.G),  # the tool's size: 1024 pairs
+    (128, 128, 1),
+    (128, 128, 3),
+    (256, 384, 2),  # N not a multiple of 256: 128-column tiles
+])
+def test_probe_schedule_takes_every_pair_once(m, n, repeats):
+    n_sms = 132
+    schedule = mxu_probe.probe_schedule(m, n, repeats, n_sms)
+    bn = mxu_probe.tile_cols(n)
+    assert bn == (256 if n % 256 == 0 else 128)
+    want = {(g, m0, n0) for g in range(repeats) for m0 in range(0, m, 128)
+            for n0 in range(0, n, bn)}
+    got = [pair for block in schedule for pair in block]
+    assert len(got) == len(set(got)) == len(want) and set(got) == want
+    assert len(schedule) == min(len(want), n_sms)  # one wave, one block per SM
+    sizes = [len(block) for block in schedule]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1

@@ -14,6 +14,11 @@ Geometries: the tool's smoke map (1x20x20, C 128, 4 heads, tbw 2) and a
 2x20x30 map (C 64, 2 heads, tbw 3). Same numpy inputs on both sides.
 Tolerance: fp32 1e-5 (summation order only); bf16 2e-2 (qkv, p and the
 output round to 8 mantissa bits, at different places in XLA and PyTorch).
+
+The CUDA kernel's host-side pieces, in pure Python: its one TMA box per
+tile (``band_box``, rows in box order) against ``_window_partition``, and
+its plan (``band_plan``: ``window_plan`` with period 1) against every
+(window, head) pair.
 """
 
 import functools
@@ -31,6 +36,7 @@ from jax.experimental import pallas as pl
 
 import pixparse_tpu.models.swin  # noqa: F401  (cached before the JAX tool imports it)
 import pixparse_tpu.ops.window_attention  # noqa: F401
+from pixparse_tpu_torch.models.swin import _window_partition
 from pixparse_tpu_torch.tools import window_band_probe as port
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -127,3 +133,48 @@ def test_bad_geometry_raises():
         for fn in (port.banded_attention, port.banded_attention_plain):
             with pytest.raises(ValueError, match=match):
                 fn(q, b, 10, tbw)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("Hp,Wp", [(20, 20), (40, 30)])
+def test_band_box_rows_are_the_partitioned_window(B, Hp, Wp):
+    """The kernel's box for (window, head, q/k/v) holds, row for row, what
+    ``_window_partition`` puts in that window's head slice."""
+    C, heads, win = 64, 2, 10
+    D, nwh, nww = C // heads, Hp // win, Wp // win
+    qkv = torch.from_numpy(np.random.RandomState(Hp + B).randn(B, Hp, Wp, 3 * C))
+    windows = _window_partition(qkv, win)  # (B * nwh * nww, win * win, 3C)
+    assert windows.shape[0] == B * nwh * nww
+    for n in range(windows.shape[0]):
+        b, i, j = port.band_window(n, nwh, nww)
+        assert 0 <= b < B and 0 <= i < nwh and 0 <= j < nww
+        for h in range(heads):
+            for part in range(3):
+                box = port.band_box(b, i, j, h, part, C, D, win)
+                c0, x0, y0, bb = box
+                assert x0 + win <= Wp and y0 + win <= Hp and c0 + D <= 3 * C and bb == b
+                want = windows[n, :, part * C + h * D:part * C + (h + 1) * D]
+                assert torch.equal(port.box_rows(qkv, box, D, win), want), (n, h, part)
+
+
+def _block_windows(plan, heads):
+    """(head, windows) of every block, as ``window_ring.cuh::block_run``
+    cuts a head's items (period 1: item = window)."""
+    return [(x % heads, range((x // heads) * plan.items // plan.runs,
+                              (x // heads + 1) * plan.items // plan.runs))
+            for x in range(plan.grid)]
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("which", list(port.GEOMETRIES))
+def test_band_plan_takes_every_window_and_head_once(which, blocks_per_sm):
+    _, B, Hp, Wp, C, heads, win, _, _ = port.GEOMETRIES[which]
+    n_sms = 132
+    plan = port.band_plan(B, Hp, Wp, win, heads, C // heads, n_sms, blocks_per_sm)
+    n_windows = B * (Hp // win) * (Wp // win)
+    assert plan.items == n_windows and plan.grid == heads * plan.runs
+    assert plan.grid <= max(n_sms * blocks_per_sm, heads)
+    seen = [(n, h) for h, windows in _block_windows(plan, heads) for n in windows]
+    assert len(seen) == len(set(seen)) == n_windows * heads
+    sizes = [len(w) for _, w in _block_windows(plan, heads)]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
