@@ -21,10 +21,17 @@ stderr):
    (shifted), plus windows 7 and 4 and an fp32 case (its yardstick: SDPA
    with ``attn_mask = bias + mask``), each record with its launch (blocks
    per SM, shared memory, ring stages, mask slots, the plan's runs); the
-   int8 decode kernel at the cruller_base and donut_base cross caches and a
-   ragged cache with a dead row (its yardsticks: SDPA and the bf16 decode
-   kernel on the dequantized caches; the kernel's integer sums are exact, so
-   it is held to its plain version within 1e-2/1e-2 in bf16).
+   int8 decode kernel at the cruller_base and donut_base cross caches (the
+   first by a block per (sample, head), the second by key splits), a
+   ragged cache with a dead row, a ragged length (997: its scales take plain
+   loads) and a cache whose splits end inside runs of masked keys (its
+   yardsticks: SDPA and the bf16 decode kernel on the dequantized caches,
+   both by the plain and the busy timer; the kernel's integer sums are
+   exact, so it is held to its plain version, merging over the same splits,
+   within 1e-2/1e-2 in bf16, and to its own bits on a second launch); the
+   LayerNorm kernels at every shape of the donut_base B=2 train step, each
+   with its launches per step (counted from the model's geometry, 58 in
+   all), the same bits on a second launch, and ``device_ms``.
    Tolerance, on every element, ``|kernel - plain| <= atol + rtol*|plain|``:
    1e-2/1e-2 in bf16 (outputs round to 8 mantissa bits and the kernels sum
    in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4. The flash forward
@@ -39,11 +46,13 @@ stderr):
    the registers, spills and shared memory of the wgmma flash kernels
    (``flash_ptxas``), of the CE backward's three products (``ce_ptxas``), of
    the CE forward's product and merge (``ce_fwd_ptxas``), of the decode
-   kernel (``decode_ptxas``) and of the bf16 window kernels at ww 100 and
-   head dim 32 (``window_ptxas``), from the build's ``-Xptxas -v`` log.
+   kernel (``decode_ptxas``), of the int8 decode kernel (``q8_ptxas``), of
+   the LayerNorm backward (``ln_bwd_ptxas``) and of the bf16 window kernels
+   at ww 100 and head dim 32 (``window_ptxas``), from the build's ``-Xptxas
+   -v`` log.
    Every decode, CE forward and window (forward and backward, dbias
    included) case must give the same bits on a second launch.
-   A decode or window record also carries ``device_ms`` and
+   A decode, int8 decode, LayerNorm or window record also carries ``device_ms`` and
    ``library_device_ms``: the same timing with the card kept busy for ~0.1
    ms between the flush and the call, so neither the host's enqueue time
    nor the tail of the flush is counted (each can add microseconds to a
@@ -384,29 +393,71 @@ def window_bwd_cases(torch):
     return cases
 
 
+def donut_ln_sites(B=2, model_name="donut_base"):
+    """``{(rows, width): launches}`` of the LayerNorms in one donut_base
+    train step at batch B, from the model's geometry: the patch embedding's
+    norm at stage 0; two per Swin block at its stage's map; each patch
+    merging's over 4C at the merged map; the final norm, if the encoder has
+    one; the decoder's three per layer, its embedding's and its final one
+    over B x (text length - 1) rows."""
+    from pixparse_tpu_torch.models.config import get_model_config
+    from pixparse_tpu_torch.models.cruller import resolve_cruller_cfgs
+
+    enc, dec, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=DONUT_VOCAB)
+    sites = {}
+
+    def add(rows, width, n):
+        sites[(rows, width)] = sites.get((rows, width), 0) + n
+
+    h, w, C = enc.img_size[0] // enc.patch_size, enc.img_size[1] // enc.patch_size, enc.embed_dim
+    add(B * h * w, C, 1)
+    for stage, depth in enumerate(enc.depths):
+        if stage:
+            h, w = -(-h // 2), -(-w // 2)
+            add(B * h * w, 4 * C, 1)
+            C *= 2
+        add(B * h * w, C, 2 * depth)
+    if enc.final_norm:
+        add(B * h * w, C, 1)
+    add(B * (dec.max_position_embeddings - 1), dec.d_model,
+        3 * dec.decoder_layers + int(dec.layernorm_embedding) + int(dec.add_final_layer_norm))
+    return sites
+
+
+DONUT_LN_NAMES = {  # the donut_base B=2 step's LayerNorm shapes
+    (614400, 128): "swin_stage0", (153600, 256): "swin_stage1", (153600, 512): "swin_merge1",
+    (38400, 512): "swin_stage2", (38400, 1024): "swin_merge2", (9600, 1024): "swin_stage3",
+    (9600, 2048): "swin_merge3", (3070, 1024): "decoder",
+}
+
+
 def ln_cases(torch):
-    """Swin stage 0, stage 2 and the last patch merging at B=2 (2560x1920),
-    and the donut decoder's rows (B=2, 1535 tokens, d 1024)."""
+    """Every LayerNorm shape of the donut_base B=2 train step (2560x1920,
+    text 1535) in bf16, each with its launches per step; Swin stages 0 and
+    2, the last merge and the decoder in fp32 too."""
+    sites = donut_ln_sites()
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         tag = str(dt).split(".")[-1]
-        cases += [
-            (f"swin_stage0_r614400_d128_{tag}", 614400, 128, dt),
-            (f"swin_stage2_r38400_d512_{tag}", 38400, 512, dt),
-            (f"swin_merge3_r9600_d2048_{tag}", 9600, 2048, dt),
-            (f"decoder_r3070_d1024_{tag}", 3070, 1024, dt),
-        ]
+        for (R, D), n in sites.items():
+            if dt == torch.float32 and (R, D) not in ((614400, 128), (38400, 512), (9600, 2048),
+                                                      (3070, 1024)):
+                continue
+            cases.append((f"{DONUT_LN_NAMES.get((R, D), 'site')}_r{R}_d{D}_{tag}", R, D, dt, n))
     return cases
 
 
 def q8_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
-    # name, B, Lk (cache length), n_valid (None = ragged mask with a dead row), H, D, dtype
+    # name, B, Lk (cache length), mask (valid keys; "ragged": ragged with a
+    # dead row; "split_holes": masked runs across every split's end), H, D, dtype
     return [
         ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64, bf),
         ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
-        ("ragged_with_dead_row_b16_lk1024", 16, 1024, None, 12, 64, bf),
-        ("test_width_d32_b3_lk256", 3, 256, None, 2, 32, bf),
+        ("ragged_with_dead_row_b16_lk1024", 16, 1024, "ragged", 12, 64, bf),
+        ("ragged_lk997_dead_row_b4", 4, 997, "ragged", 12, 64, bf),
+        ("split_ends_in_masked_runs_b4_lk1024", 4, 1024, "split_holes", 12, 64, bf),
+        ("test_width_d32_b3_lk256", 3, 256, "ragged", 2, 32, bf),
         ("fp32_b4_lk384_valid333", 4, 384, 333, 12, 64, f32),
     ]
 
@@ -751,7 +802,7 @@ def check_window_bwd(torch, F, wa, timer, peaks, gen, case):
 
 def check_ln(torch, F, lnm, timer, peaks, gen, case):
     """One case -> (forward record, backward record)."""
-    name, R, D, dt = case
+    name, R, D, dt, per_step = case
     _, _, bw = peaks
     x = (torch.randn(R, D, device="cuda", generator=gen) * 2 + 0.5).to(dt)
     w = 1 + 0.3 * torch.randn(D, device="cuda", generator=gen)
@@ -761,23 +812,35 @@ def check_ln(torch, F, lnm, timer, peaks, gen, case):
     elt = x.element_size()
     tag = str(dt).split(".")[-1]
     atol, rtol = TOL[tag]
-    common = dict(case=name, shape=[R, D], dtype=str(dt))
+    common = dict(case=name, shape=[R, D], dtype=str(dt), launches_per_step=per_step)
 
     y = lnm.layer_norm_fwd(x, w, b, eps)
     torch.cuda.synchronize()
+    repeatable = bool(torch.equal(lnm.layer_norm_fwd(x, w, b, eps), y))
     y_ref = lnm.layer_norm_fwd_plain(x, w, b, eps)
     err, ok = close(y, y_ref, atol, rtol)
-    fwd = dict(common, max_abs_err=err, tol=[atol, rtol], ok=ok)
+    fwd = dict(common, max_abs_err=err, tol=[atol, rtol], ok=ok and repeatable,
+               repeatable=repeatable)
     del y, y_ref
     fwd.update(bound_ms=(2 * elt * R * D + 8 * D) / bw * 1e3, bound_by="bytes")
     fwd["ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd(x, w, b, eps))
     fwd["plain_ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd_plain(x, w, b, eps), n=5, warmup=1)
     wl, bl = w.to(dt), b.to(dt)
     fwd["library_ms"] = timer.median_ms(lambda: F.layer_norm(x, (D,), wl, bl, eps))
+    fwd["device_ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd(x, w, b, eps), busy=True)
+    fwd.update(speed_shares(fwd))
 
     dx, dw, db = lnm.layer_norm_bwd(x, w, dy, eps)
     torch.cuda.synchronize()
-    dx_ref, dw_ref, db_ref = lnm.layer_norm_bwd_plain(x, w, dy, eps)
+    again = lnm.layer_norm_bwd(x, w, dy, eps)
+    repeatable = all(bool(torch.equal(u, v)) for u, v in zip((dx, dw, db), again))
+    del again
+    idx = torch.cuda.current_device()
+    plan = lnm.layer_norm_bwd_plan(R, D, elt, lnm._sm_count(idx),
+                                   lnm._bwd_blocks_per_sm(idx, 1 if dt == torch.bfloat16 else 0, D))
+    # dweight / dbias summed as the kernels sum them (per-block partials)
+    dx_ref, dw_ref, db_ref = lnm.layer_norm_bwd_plain(
+        x, w, dy, eps, row_ranges=lnm.layer_norm_bwd_row_ranges(R, *plan))
     dx_err, dx_ok = close(dx, dx_ref, atol, rtol)
     # dweight / dbias: sums over R rows, each held as one row (L2 error
     # within rtol of its norm)
@@ -785,25 +848,39 @@ def check_ln(torch, F, lnm, timer, peaks, gen, case):
     db_err, db_rel, db_ok = rows_close(db[None], db_ref[None], rtol)
     bwd = dict(common, max_abs_err=max(dx_err, dw_err, db_err), dx_max_abs_err=dx_err,
                dw_rel_err=dw_rel, db_rel_err=db_rel, tol=[atol, rtol, "dw/db row L2", rtol],
-               ok=dx_ok and dw_ok and db_ok)
+               ok=dx_ok and dw_ok and db_ok and repeatable, repeatable=repeatable,
+               plan_group_rows_groups_blocks=list(plan))
     del dx, dw, db, dx_ref, dw_ref, db_ref
     bwd.update(bound_ms=(3 * elt * R * D + 12 * D) / bw * 1e3, bound_by="bytes")
     bwd["ms"] = timer.median_ms(lambda: lnm.layer_norm_bwd(x, w, dy, eps))
     bwd["plain_ms"] = timer.median_ms(lambda: lnm.layer_norm_bwd_plain(x, w, dy, eps), n=5, warmup=1)
     leaves = [t.detach().requires_grad_() for t in (x, wl, bl)]
     out = F.layer_norm(leaves[0], (D,), leaves[1], leaves[2], eps)
-    bwd["library_ms"] = timer.median_ms(
-        lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    lib = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    bwd["library_ms"] = timer.median_ms(lib)
+    bwd["device_ms"] = timer.median_ms(lambda: lnm.layer_norm_bwd(x, w, dy, eps), busy=True)
+    bwd["library_device_ms"] = timer.median_ms(lib, busy=True)
+    bwd.update(speed_shares(bwd))
     return fwd, bwd
 
 
 def check_q8(torch, F, da, timer, peaks, gen, case):
-    name, B, Lk, n_valid, H, D, dt = case
+    name, B, Lk, mask_kind, H, D, dt = case
     peak_bf16, peak_f32, bw = peaks
     HD = H * D
+    idx = torch.cuda.current_device()
+    by_heads = da.decode_q8_by_heads(B, Lk, H, da._sm_count(idx))
+    plan = da.decode_plan_q8(B, Lk, H, D, da._sm_count(idx),
+                             da._q8_blocks_per_sm(idx, 1 if dt == torch.bfloat16 else 0, D))
+    split = None if by_heads else plan[1]  # the per-head kernel's softmax is unsplit
     q = torch.randn(B, 1, HD, generator=gen).to("cuda", dt)
-    if n_valid is None:
+    n_valid = mask_kind if isinstance(mask_kind, int) else None
+    if mask_kind == "ragged":
         mask = ragged_mask(torch, B, Lk, gen)
+    elif mask_kind == "split_holes":  # the last keys of every split and the first of the next
+        mask = torch.ones(B, Lk, dtype=torch.bool)
+        for end in range(plan[1], Lk, plan[1]):
+            mask[:, end - 5:end + 7] = False
     else:
         mask = (torch.arange(Lk) < n_valid)[None].expand(B, Lk).contiguous()
     caches = []
@@ -818,14 +895,17 @@ def check_q8(torch, F, da, timer, peaks, gen, case):
     args = (q, k_i8, v_i8, ks, vs, mask)
     o = da.decode_attention_q8(*args, num_heads=H)
     torch.cuda.synchronize()
-    o_ref = da.decode_attention_q8_plain(*args, num_heads=H)
+    repeatable = bool(torch.equal(da.decode_attention_q8(*args, num_heads=H), o))
+    o_ref = da.decode_attention_q8_plain(*args, num_heads=H, split_keys=split)
     err, ok = close(o, o_ref, 1e-2, 1e-2)
     dead = ~mask.any(dim=1)
     if bool(dead.any()):
         ok = ok and bool((o[dead] == 0).all())
     nvk = int(mask.sum())
     rec = dict(case=name, shape=[B, Lk, H, D], dtype=str(dt), max_abs_err=err,
-               tol=[1e-2, 1e-2], ok=ok, valid_keys=nvk)
+               tol=[1e-2, 1e-2], ok=ok and repeatable, repeatable=repeatable, valid_keys=nvk,
+               dead_rows=int(dead.sum()), path="heads" if by_heads else "splits",
+               plan_kt_split_keys_n_split_slots=None if by_heads else list(plan))
     elt = q.element_size()
     # int8 K and V rows and their two fp32 scales per valid key, q, o, mask
     nbytes = 2 * nvk * HD + 8 * nvk * H + 2 * elt * B * HD + B * Lk
@@ -841,10 +921,16 @@ def check_q8(torch, F, da, timer, peaks, gen, case):
     qt = q.view(B, 1, H, D).transpose(1, 2)
     kt, vt = (t.transpose(1, 2) for t in deq)
     am = mask[:, None, None, :]
-    rec["library_ms"] = timer.median_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    rec["library_ms"] = timer.median_ms(lib)
     kf, vf = (t.reshape(B, Lk, HD) for t in deq)
-    rec["bf16_kernel_ms"] = timer.median_ms(lambda: da.decode_attention(q, kf, vf, mask, num_heads=H))
+    bf16_kernel = lambda: da.decode_attention(q, kf, vf, mask, num_heads=H)
+    rec["bf16_kernel_ms"] = timer.median_ms(bf16_kernel)
+    rec["device_ms"] = timer.median_ms(lambda: da.decode_attention_q8(*args, num_heads=H),
+                                       busy=True)
+    rec["library_device_ms"] = timer.median_ms(lib, busy=True)
+    rec["bf16_kernel_device_ms"] = timer.median_ms(bf16_kernel, busy=True)
+    rec.update(speed_shares(rec))
     return rec
 
 
@@ -1123,6 +1209,15 @@ def phase_kernels(torch, F, card_name, timer):
             if not rec["ok"]:
                 failed.append(f"{kname}/{case[0]}")
         torch.cuda.empty_cache()
+    # a donut_base B=2 step's LayerNorm work: launches x time, over its shapes
+    step = {}
+    for kname in ("layer_norm_fwd", "layer_norm_bwd"):
+        recs = [r for r in results[kname] if r["dtype"] == "torch.bfloat16"]
+        step[kname] = {k: sum(r["launches_per_step"] * r[k] for r in recs)
+                       for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+        step[kname]["launches"] = sum(r["launches_per_step"] for r in recs)
+    note({"layer_norm_step_ms": step})
+    results["layer_norm_step"] = step
     for case in q8_cases(torch):
         rec = check_q8(torch, F, da, timer, peaks, gen, case)
         results["decode_attention_q8"].append(rec)
@@ -1190,6 +1285,7 @@ EVAL_KERNELS = {  # eval_task's two runs
     "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
 }
 PROBE_OWN_KERNELS = ("mxu_dots", "banded_attention")  # #16, #17: only the probes run them
+BUSY_TIMED = ("decode_attention_q8", "layer_norm_bwd")  # records with device_ms, in the line
 PROBE_KERNELS = PROBE_OWN_KERNELS + ("window_attention",)  # probes' run
 TRAIN_KERNELS = {  # train_task's runs
     "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
@@ -1908,6 +2004,8 @@ def phase_train_donut(torch, steps=DONUT_TRAIN_STEPS, B=2, model_name="donut_bas
     }
     emit(rec)
     problems = []
+    if sum(donut_ln_sites(B, model_name).values()) != n_ln:  # the kernels phase's shapes
+        problems.append(f"{n_ln} LayerNorms, the geometry counts {donut_ln_sites(B, model_name)}")
     ref = modes["none"]
     blocks, dec_sites = enc_cfg.depth, 2 * bart_cfg.decoder_layers
     for name, r in modes.items():
@@ -2103,6 +2201,7 @@ WGMMA_CE = ("ce_gemm_kernel",)
 CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh", "F_lse")  # by the template's product index
 CE_FWD = ("ce_gemm_kernel", "ce_lse_merge_kernel")  # ce_fwd_ptxas: product F and the merge
 DECODE = ("decode_attn_split_kernel",)
+Q8_LN_BWD = ("decode_attn_q8_kernel", "ln_bwd_kernel")  # template arguments as parsed
 WINDOW = ("window_fwd_ring_kernel", "window_bwd_ring_kernel")  # at ww 100, head dim 32
 
 
@@ -2152,6 +2251,10 @@ def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
                 d = re.search(r"Li(\d+)E", m.group(1))
                 cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
                        "D": int(d.group(1)) if d else None}
+                out.append(cur)
+            elif name in Q8_LN_BWD:
+                cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
+                       "template": [int(x) for x in re.findall(r"Li(\d+)E", m.group(1))]}
                 out.append(cur)
             elif name in WINDOW:
                 d, rt = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", m.group(1)).groups())
@@ -2239,6 +2342,8 @@ def main(argv=None) -> int:
           "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE),
           "ce_fwd_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), CE_FWD, ("F_lse",)),
           "decode_ptxas": ptxas_summary(_build.ptxas_log("decode_attention"), DECODE),
+          "q8_ptxas": ptxas_summary(_build.ptxas_log("decode_attention_q8"), Q8_LN_BWD[:1]),
+          "ln_bwd_ptxas": ptxas_summary(_build.ptxas_log("layer_norm"), Q8_LN_BWD[1:]),
           "window_ptxas": window_ptxas})
 
     timer = Timer(torch)
@@ -2280,9 +2385,9 @@ def main(argv=None) -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                # the probe kernels: busy-timer time and shares
+                # the probe kernels, #9 and #13: busy-timer time and shares
                 **({k: rec[k] for k in ("device_ms", "bound_share", "ratio_to_library")}
-                   if name in PROBE_OWN_KERNELS else {}),
+                   if name in PROBE_OWN_KERNELS + BUSY_TIMED else {}),
             })
         emit({"kernels": line})
     print(smi, flush=True)

@@ -75,12 +75,14 @@ SIGNATURES = {
     "layer_norm": {
         "pixparse_layer_norm_fwd": [I, P, P, P, P, I, I, F, P],
         "pixparse_layer_norm_bwd": [I, P, P, P, P, P, P, P, I, I, I, F, P],
-        "pixparse_layer_norm_bwd_blocks": [I],
+        "pixparse_layer_norm_bwd_blocks_per_sm": [I, I],
     },
     "decode_attention_q8": {
         "pixparse_decode_attn_q8_fwd": [
-            I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, F, P,
+            I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, LL,
+            I, I, I, I, I, I, F, P,
         ],
+        "pixparse_decode_attn_q8_blocks_per_sm": [I, I],
     },
     # the probe tools' kernels (pixparse_tpu_torch/tools)
     "mxu_probe": {

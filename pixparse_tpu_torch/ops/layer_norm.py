@@ -11,7 +11,9 @@ input dtype. Two implementations, chosen as the JAX package chooses them:
   kernels of ``csrc/layer_norm.cu`` (TPU kernels #12/#13). The forward reads
   x once and writes y in x's dtype and saves no statistics; the backward
   recomputes them from x, writes dx in x's dtype and sums dweight/dbias over
-  the rows in fp32 (per-block partials, then a second pass: deterministic).
+  the rows in fp32: one wave of persistent blocks over contiguous ranges of
+  row groups (:func:`layer_norm_bwd_plan`), per-block partials, then a
+  second pass in a fixed order (deterministic).
 
 Beside the kernels stand :func:`layer_norm_fwd_plain` and
 :func:`layer_norm_bwd_plain`, plain PyTorch with the kernels' math; a CPU
@@ -24,8 +26,9 @@ partial-sum kernel).
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,9 +60,14 @@ def layer_norm_fwd_plain(x, weight, bias, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def layer_norm_bwd_plain(x, weight, dy, eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def layer_norm_bwd_plain(
+    x, weight, dy, eps: float, row_ranges: Optional[List[Tuple[int, int]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: ``(dx in x's dtype, dweight
-    fp32, dbias fp32)``, statistics recomputed from x."""
+    fp32, dbias fp32)``, statistics recomputed from x. With ``row_ranges``
+    (:func:`layer_norm_bwd_row_ranges`) dweight/dbias are summed as the
+    kernels sum them: one partial per block's range of rows, then partial
+    ``w, w + 32, ...`` in order for w < 32, then those 32 sums in order."""
     xf, g = x.float(), dy.float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
@@ -69,7 +77,78 @@ def layer_norm_bwd_plain(x, weight, dy, eps: float) -> Tuple[torch.Tensor, torch
     m1 = dxh.mean(-1, keepdim=True)
     m2 = (dxh * xhat).mean(-1, keepdim=True)
     dx = rstd * (dxh - m1 - xhat * m2)
-    return dx.to(x.dtype), (g * xhat).sum(0), g.sum(0)
+    if row_ranges is None:
+        return dx.to(x.dtype), (g * xhat).sum(0), g.sum(0)
+    parts = torch.stack([torch.cat([(g[lo:hi] * xhat[lo:hi]).sum(0), g[lo:hi].sum(0)])
+                         for lo, hi in row_ranges])
+    sums = torch.zeros_like(parts[0])
+    for w in range(LN_SUM_WARPS):
+        sw = torch.zeros_like(parts[0])
+        for part in parts[w::LN_SUM_WARPS]:
+            sw = sw + part
+        sums = sums + sw
+    D = x.shape[1]
+    return dx.to(x.dtype), sums[:D], sums[D:]
+
+
+LN_BWD_THREADS = 256
+LN_SUM_WARPS = 32  # the partial-sum kernel's warps
+
+
+def layer_norm_bwd_config(D: int, elt: int) -> Tuple[int, int, int]:
+    """The backward kernel's ``(TR, K, U)`` for width D and element size
+    ``elt``: a row takes TR threads (D / 8 rounded up to a power of two, at
+    most 32, doubled while a thread would hold more than 2 chunks of 8, up
+    to 256), each K chunks (K = 4 beyond); each thread takes U rows of a
+    group at once (``U * K <= 4`` in bf16, 2 in fp32)."""
+    n = D // 8
+    tr = 1
+    while tr < n and tr < 32:
+        tr *= 2
+    while -(-n // tr) > 2 and tr < 256:
+        tr *= 2
+    k = -(-n // tr)
+    if tr == 256 and k > 2:
+        k = 4
+    return tr, k, max(1, (4 if elt == 2 else 2) // k)
+
+
+@functools.lru_cache(maxsize=256)
+def layer_norm_bwd_plan(R: int, D: int, elt: int, sm_count: int,
+                        blocks_per_sm: int) -> Tuple[int, int, int]:
+    """``(G, n_groups, n_blocks)``: rows go in groups of ``G = (256 / TR) *
+    U`` consecutive rows (the unit of one bulk copy of x and of dy), and one
+    wave of at most ``sm_count * blocks_per_sm`` persistent blocks takes
+    contiguous ranges of groups (:func:`layer_norm_bwd_row_ranges`): as few
+    blocks as give each the most groups any block must take (fewer partials
+    to sum, no later finish)."""
+    tr, _, u = layer_norm_bwd_config(D, elt)
+    G = (LN_BWD_THREADS // tr) * u
+    n_groups = -(-R // G)
+    rounds = -(-n_groups // (sm_count * blocks_per_sm))
+    return G, n_groups, -(-n_groups // rounds)
+
+
+def layer_norm_bwd_row_ranges(R: int, G: int, n_groups: int, n_blocks: int) -> List[Tuple[int, int]]:
+    """Block i's rows: groups ``[n_groups * i // n_blocks, n_groups * (i + 1)
+    // n_blocks)``, as the kernel cuts them."""
+    return [(min(R, n_groups * i // n_blocks * G), min(R, n_groups * (i + 1) // n_blocks * G))
+            for i in range(n_blocks)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(device_index: int, dtype_code: int, D: int) -> int:
+    lib = _build.library("layer_norm")
+    with torch.cuda.device(device_index):
+        n = lib.pixparse_layer_norm_bwd_blocks_per_sm(dtype_code, D)
+    if n <= 0:
+        raise RuntimeError("layer_norm_bwd: occupancy query failed")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(name, x, *others):
@@ -116,6 +195,9 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps:
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} vs x {tuple(x.shape)}")
     x, dy = x.contiguous(), dy.contiguous()
+    # row groups are bulk copies: 16-byte aligned
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
+    dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     w = weight.to(torch.float32).contiguous()
     R, D = x.shape
     dx = torch.empty_like(x)
@@ -123,12 +205,15 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps:
     db = torch.empty(D, dtype=torch.float32, device=x.device)
     if R == 0:
         return dx, dw.zero_(), db.zero_()
-    lib = _build.library("layer_norm")
-    n_blocks = lib.pixparse_layer_norm_bwd_blocks(R)
+    dev = x.device.index or 0
+    code = _DTYPE_CODES[x.dtype]
+    _, _, n_blocks = layer_norm_bwd_plan(
+        R, D, x.element_size(), _sm_count(dev), _bwd_blocks_per_sm(dev, code, D))
     partial = torch.empty((n_blocks, 2, D), dtype=torch.float32, device=x.device)
+    lib = _build.library("layer_norm")
     with torch.cuda.device(x.device):
         err = lib.pixparse_layer_norm_bwd(
-            _DTYPE_CODES[x.dtype], _build.ptr(x), _build.ptr(w), _build.ptr(dy), _build.ptr(dx),
+            code, _build.ptr(x), _build.ptr(w), _build.ptr(dy), _build.ptr(dx),
             _build.ptr(partial), _build.ptr(dw), _build.ptr(db), R, D, n_blocks, float(eps),
             _build.stream_ptr(x.device),
         )

@@ -22,6 +22,7 @@ from pixparse_tpu_torch.ops.decode_attention import (
     decode_attention_q8,
     decode_attention_q8_plain,
     decode_plan,
+    decode_plan_q8,
     DECODE_MAX_SPLIT_KEYS,
     DECODE_TILE_BYTES,
     quantize_kv_rows,
@@ -41,6 +42,8 @@ from pixparse_tpu_torch.ops.layer_norm import (
     layer_norm_bwd,
     layer_norm_bwd_plain,
     layer_norm_fwd,
+    layer_norm_bwd_plan,
+    layer_norm_bwd_row_ranges,
     layer_norm_fwd_plain,
 )
 from pixparse_tpu_torch.ops.window_attention import (
@@ -837,6 +840,137 @@ def test_q8_decode_kernel_rejects_what_it_does_not_take(cuda_device):
         decode_attention_q8(q, k_i8, v_i8, ks, vs, mask, num_heads=8)
     with pytest.raises(ValueError, match="mask shape"):
         decode_attention_q8(q, k_i8, v_i8, ks, vs, mask[:, :64], num_heads=2)
+
+
+def _q8_splits(B, Lk, H, D, dtype, device):
+    """(split_keys, n_split) of the kernel's key splits; (None, 1) where it
+    takes a block per (sample, head), whose softmax is the unsplit one."""
+    from pixparse_tpu_torch.ops import decode_attention as da
+
+    idx = device.index or 0
+    if da.decode_q8_by_heads(B, Lk, H, da._sm_count(idx)):
+        return None, 1
+    _, split, n_split, _ = decode_plan_q8(
+        B, Lk, H, D, da._sm_count(idx), da._q8_blocks_per_sm(idx, 1 if dtype == torch.bfloat16 else 0, D))
+    return split, n_split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("B,Lk", [(1, 1), (1, 997), (1, 1024), (1, 4864),
+                                  (16, 1), (16, 997), (16, 1024), (16, 4864)])
+def test_q8_decode_kernel_splits_match_plain(cuda_device, dtype, D, B, Lk):
+    """The kernel (key splits, or a block per (sample, head) where B * H
+    fills the card and rows are short) against the plain version that
+    merges the softmax over the same splits; every sample but the first has
+    a ragged mask, one (B > 2) is dead, and with several splits one sample
+    has valid keys only in its last split; a repeat gives the same bits."""
+    H = 768 // D
+    gen = torch.Generator().manual_seed(B * Lk + D)
+    q = torch.randn(B, 1, H * D, generator=gen).to(cuda_device, dtype)
+    k_i8, k_scale = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    v_i8, v_scale = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    mask[0] = True
+    split, n_split = _q8_splits(B, Lk, H, D, dtype, cuda_device)
+    if B > 2:
+        mask[1] = False
+        if n_split > 1:
+            mask[2, :(n_split - 1) * split] = False
+    args = [t.to(cuda_device) for t in (k_i8, v_i8, k_scale, v_scale, mask)]
+    before = decode_attention_q8.launches
+    o = decode_attention_q8(q, *args, num_heads=H)
+    again = decode_attention_q8(q, *args, num_heads=H)
+    torch.cuda.synchronize()
+    assert decode_attention_q8.launches == before + 2
+    assert torch.equal(o, again)
+    ref = decode_attention_q8_plain(q, *args, num_heads=H, split_keys=split)
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    if B > 2:
+        assert (o[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk", [997, 1024])
+def test_q8_decode_kernel_scale_layouts(cuda_device, Lk):
+    """The scales' rows come by bulk copy where they are 16-byte aligned
+    (Lk = 1024) and by plain loads elsewhere (Lk * 4 not a multiple of 16,
+    or a base off 16 bytes): views of a head-padded (B, 8, Lk) tensor, as the
+    JAX package lays them out, and shifted copies give the same bits."""
+    B, H, D = 4, 6, 64
+    gen = torch.Generator().manual_seed(Lk)
+    q = torch.randn(B, 1, H * D, generator=gen).to(cuda_device, torch.bfloat16)
+    k_i8, ks = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    v_i8, vs = quantize_kv_rows(torch.randn(B, Lk, H * D, generator=gen), H)
+    mask = (torch.rand(B, Lk, generator=gen) > 0.2).to(cuda_device)
+    k_i8, v_i8, ks, vs = (t.to(cuda_device) for t in (k_i8, v_i8, ks, vs))
+    o = decode_attention_q8(q, k_i8, v_i8, ks, vs, mask, num_heads=H)
+
+    def padded(t):
+        return torch.cat([t, torch.ones(B, 8 - H, Lk, device=cuda_device)], dim=1)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda_device)[1:].view(t.shape).copy_(t)
+
+    for make in (padded, shifted):
+        assert torch.equal(o, decode_attention_q8(q, k_i8, v_i8, make(ks), make(vs), mask,
+                                                  num_heads=H)), make.__name__
+    split, _ = _q8_splits(B, Lk, H, D, torch.bfloat16, cuda_device)
+    ref = decode_attention_q8_plain(q, k_i8, v_i8, ks, vs, mask, num_heads=H, split_keys=split)
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_q8_decode_kernel_rejects_strided_rows(cuda_device):
+    q, k_i8, v_i8, ks, vs, mask = _q8_inputs(4, 128, 2, 64, torch.bfloat16, cuda_device, 0)
+    wide = torch.zeros(4, 128, 256, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        decode_attention_q8(q, wide[:, :, :128], v_i8, ks, vs, mask, num_heads=2)
+
+
+def _ln_bwd_check(device, R, D, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(R, D, device=device, generator=gen) * 2 + 0.5).to(dtype)
+    w = 1 + 0.3 * torch.randn(D, device=device, generator=gen)
+    dy = torch.randn(R, D, device=device, generator=gen).to(dtype)
+    before = layer_norm_bwd.launches
+    dx, dw, db = layer_norm_bwd(x, w, dy, 1e-5)
+    again = layer_norm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert layer_norm_bwd.launches == before + 2
+    for name, a, b in zip(("dx", "dw", "db"), (dx, dw, db), again):
+        assert torch.equal(a, b), name
+    from pixparse_tpu_torch.ops import layer_norm as lnm
+
+    idx = device.index or 0
+    plan = layer_norm_bwd_plan(R, D, x.element_size(), lnm._sm_count(idx),
+                               lnm._bwd_blocks_per_sm(idx, 1 if dtype == torch.bfloat16 else 0, D))
+    dx_ref, dw_ref, db_ref = layer_norm_bwd_plain(
+        x, w, dy, 1e-5, row_ranges=layer_norm_bwd_row_ranges(R, *plan))
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), dx_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dw, dw_ref, atol=tol * R ** 0.5, rtol=tol)
+    torch.testing.assert_close(db, db_ref, atol=tol * R ** 0.5, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 3, 1000])
+@pytest.mark.parametrize("D", [8, 128, 136, 1024, 2048, 8192])
+def test_layer_norm_bwd_kernel_rows_and_widths(cuda_device, dtype, R, D):
+    """The persistent backward at the narrowest and widest rows (a lane per
+    row at D = 8, 16 lanes at 128, 17 chunks on 32 lanes at 136, 2 to 8
+    warps a row from 1024 up), short and partial row groups, against the
+    plain version summed in the kernel's order; bit-identical repeats."""
+    _ln_bwd_check(cuda_device, R, D, dtype, R + D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_swin_stage0(cuda_device, dtype):
+    """Swin stage 0 of the donut B=2 step: 614400 rows of 128."""
+    _ln_bwd_check(cuda_device, 614400, 128, dtype, 0)
 
 
 @pytest.mark.cuda
