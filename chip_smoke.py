@@ -31,7 +31,9 @@ stderr):
    within 1e-2/1e-2 in bf16, and to its own bits on a second launch); the
    LayerNorm kernels at every shape of the donut_base B=2 train step, each
    with its launches per step (counted from the model's geometry, 58 in
-   all), the same bits on a second launch, and ``device_ms``.
+   all), the same bits on a second launch, and ``device_ms``; each forward
+   record carries its launch (``plan``: blocks, blocks per SM, row groups,
+   rows a group, rows a thread, lanes a row).
    Tolerance, on every element, ``|kernel - plain| <= atol + rtol*|plain|``:
    1e-2/1e-2 in bf16 (outputs round to 8 mantissa bits and the kernels sum
    in another order), 1e-4/1e-4 in fp32; lse 1e-3/1e-4. The flash forward
@@ -47,9 +49,9 @@ stderr):
    (``flash_ptxas``), of the CE backward's three products (``ce_ptxas``), of
    the CE forward's product and merge (``ce_fwd_ptxas``), of the decode
    kernel (``decode_ptxas``), of the int8 decode kernel (``q8_ptxas``), of
-   the LayerNorm backward (``ln_bwd_ptxas``) and of the bf16 window kernels
-   at ww 100 and head dim 32 (``window_ptxas``), from the build's ``-Xptxas
-   -v`` log.
+   the LayerNorm backward and forward (``ln_bwd_ptxas``, ``ln_fwd_ptxas``)
+   and of the bf16 window kernels at ww 100 and head dim 32
+   (``window_ptxas``), from the build's ``-Xptxas -v`` log.
    Every decode, CE forward and window (forward and backward, dbias
    included) case must give the same bits on a second launch.
    A decode, int8 decode, LayerNorm or window record also carries ``device_ms`` and
@@ -169,7 +171,7 @@ import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
-          "eval_task", "train_model", "train_donut", "train_task")
+          "eval_task", "train_model", "train_donut", "train_task", "pretrained_train")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -819,8 +821,15 @@ def check_ln(torch, F, lnm, timer, peaks, gen, case):
     repeatable = bool(torch.equal(lnm.layer_norm_fwd(x, w, b, eps), y))
     y_ref = lnm.layer_norm_fwd_plain(x, w, b, eps)
     err, ok = close(y, y_ref, atol, rtol)
+    idx = torch.cuda.current_device()
+    code = 1 if dt == torch.bfloat16 else 0
+    lanes, _, rows_a_thread = lnm.layer_norm_config(D, elt)
+    per_sm = lnm._blocks_per_sm("fwd", idx, code, D)
+    G, n_groups, n_blocks = lnm.layer_norm_plan(R, D, elt, lnm._sm_count(idx), per_sm)
     fwd = dict(common, max_abs_err=err, tol=[atol, rtol], ok=ok and repeatable,
-               repeatable=repeatable)
+               repeatable=repeatable,
+               plan={"blocks": n_blocks, "blocks_per_sm": per_sm, "groups": n_groups,
+                     "group_rows": G, "rows_a_thread": rows_a_thread, "lanes_a_row": lanes})
     del y, y_ref
     fwd.update(bound_ms=(2 * elt * R * D + 8 * D) / bw * 1e3, bound_by="bytes")
     fwd["ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd(x, w, b, eps))
@@ -828,16 +837,16 @@ def check_ln(torch, F, lnm, timer, peaks, gen, case):
     wl, bl = w.to(dt), b.to(dt)
     fwd["library_ms"] = timer.median_ms(lambda: F.layer_norm(x, (D,), wl, bl, eps))
     fwd["device_ms"] = timer.median_ms(lambda: lnm.layer_norm_fwd(x, w, b, eps), busy=True)
-    fwd.update(speed_shares(fwd))
+    fwd["library_device_ms"] = timer.median_ms(lambda: F.layer_norm(x, (D,), wl, bl, eps), busy=True)
+    fwd.update(speed_shares(fwd), device_bound_share=fwd["bound_ms"] / fwd["device_ms"],
+               device_ratio_to_library=fwd["device_ms"] / fwd["library_device_ms"])
 
     dx, dw, db = lnm.layer_norm_bwd(x, w, dy, eps)
     torch.cuda.synchronize()
     again = lnm.layer_norm_bwd(x, w, dy, eps)
     repeatable = all(bool(torch.equal(u, v)) for u, v in zip((dx, dw, db), again))
     del again
-    idx = torch.cuda.current_device()
-    plan = lnm.layer_norm_bwd_plan(R, D, elt, lnm._sm_count(idx),
-                                   lnm._bwd_blocks_per_sm(idx, 1 if dt == torch.bfloat16 else 0, D))
+    plan = lnm.layer_norm_plan(R, D, elt, lnm._sm_count(idx), lnm._blocks_per_sm("bwd", idx, code, D))
     # dweight / dbias summed as the kernels sum them (per-block partials)
     dx_ref, dw_ref, db_ref = lnm.layer_norm_bwd_plain(
         x, w, dy, eps, row_ranges=lnm.layer_norm_bwd_row_ranges(R, *plan))
@@ -1285,8 +1294,9 @@ EVAL_KERNELS = {  # eval_task's two runs
     "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
 }
 PROBE_OWN_KERNELS = ("mxu_dots", "banded_attention")  # #16, #17: only the probes run them
-BUSY_TIMED = ("decode_attention_q8", "layer_norm_bwd")  # records with device_ms, in the line
+BUSY_TIMED = ("decode_attention_q8", "layer_norm_fwd", "layer_norm_bwd")  # with device_ms in the line
 PROBE_KERNELS = PROBE_OWN_KERNELS + ("window_attention",)  # probes' run
+PRETRAINED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 TRAIN_KERNELS = {  # train_task's runs
     "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
     "donut_base": ("window_attention", "window_attention_bwd", "flash_attention_fwd",
@@ -1648,16 +1658,18 @@ def phase_serve_donut(torch, new_tokens=DONUT_NEW_TOKENS, B=8, model_name="donut
     return rec
 
 
-def saved_tokenizer(path, vocab):
+def saved_tokenizer(path, vocab, specials=True):
     """The byte-level tokenizer, the OCR tasks' special tokens (those the
     pretrain phase adds) at the ids their replay gives them, then filler
     tokens up to ``vocab`` entries, saved to ``path`` (the task's tokenizer
-    name)."""
+    name). ``specials=False``: ``vocab`` entries without the special tokens,
+    as a published tokenizer is before the task adds its own."""
     from pixparse_tpu_torch.task.common import SPECIAL_TOKENS_FROM_PRETRAIN, add_special_tokens
     from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer
 
     tokenizer = ByteLevelTokenizer()
-    add_special_tokens(tokenizer, SPECIAL_TOKENS_FROM_PRETRAIN)
+    if specials:
+        add_special_tokens(tokenizer, SPECIAL_TOKENS_FROM_PRETRAIN)
     tokenizer.add_tokens([f"<filler_{i}>" for i in range(vocab - len(tokenizer))])
     tokenizer.save_pretrained(path)
     return path
@@ -2193,6 +2205,156 @@ def phase_train_task(torch, runs=TRAIN_TASK_RUNS, device="cuda"):
     return {f"train_task_{m}": t for m, t in totals.items()}
 
 
+PRETRAINED_B = 16  # pretrained_train: batch and steps at cruller_base
+PRETRAINED_STEPS = 2
+# the published files it stands in for: vit_base_patch16_224 (3 channels,
+# 14x14 patches + cls) and facebook/bart-base's decoder (6 layers, vocab
+# 50265, 1026 positions)
+PRETRAINED_FILES = dict(in_chans=3, grid=14, layers=6, vocab=BART_VOCAB, positions=1026)
+
+
+def pretrained_files(torch, out_dir, enc_name, dec_name, in_chans, grid, layers, vocab, positions,
+                     seed=0):
+    """Seeded stand-ins for published backbones, written as ``.pt`` under
+    their clean names: a timm-layout ViT (``in_chans`` channels, a ``grid``
+    x ``grid`` patch grid + cls) and an HF-layout decoder (``model.decoder.*``
+    and ``lm_head``; ``layers`` layers, ``vocab`` tokens, ``positions``
+    rows). The port's own modules at those shapes carry exactly these names.
+    Returns both state dicts (CPU, fp32)."""
+    import dataclasses
+
+    from pixparse_tpu_torch.models.bart import BartCausalDecoder, resolve_bart_cfg
+    from pixparse_tpu_torch.models.pretrained import _clean_name
+    from pixparse_tpu_torch.models.vit import VIT_ARCH_TABLE, ViT, resolve_vit_cfg
+
+    gen = torch.Generator().manual_seed(seed)
+    side = grid * VIT_ARCH_TABLE[enc_name.split(".")[0]]["patch_size"]
+    vit = ViT(resolve_vit_cfg(enc_name, (side, side), in_chans)[0], "xla")
+    vit.init_weights(gen)
+    bart_cfg = resolve_bart_cfg(dec_name, num_decoder_layers=layers, vocab_size=vocab)
+    bart_cfg = dataclasses.replace(bart_cfg, max_position_embeddings=positions - bart_cfg.pos_offset)
+    bart = BartCausalDecoder(bart_cfg, "xla")
+    bart.init_weights(gen)
+    dicts = []
+    for name, module in ((enc_name, vit), (dec_name, bart)):
+        sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        torch.save(sd, os.path.join(out_dir, _clean_name(name) + ".pt"))
+        dicts.append(sd)
+    return dicts
+
+
+def phase_pretrained_train(torch, model_name="cruller_base", B=PRETRAINED_B, steps=PRETRAINED_STEPS,
+                           files=PRETRAINED_FILES, device="cuda"):
+    """``cruller_pretrain`` with both backbones from local files:
+    ``$PIXPARSE_PRETRAINED_DIR`` holds :func:`pretrained_files`, and the
+    tokenizer is the byte-level one padded to the file's vocabulary, to
+    which the task adds its special tokens. ``train_setup`` with both
+    ``pretrained`` flags adapts (at cruller_base) 3 -> 1 channels, 14x14 ->
+    36x28 positions, 6 -> 4 decoder layers and 50265 -> the tokenizer's
+    vocabulary; the loaded weights must equal the file tensors adapted here
+    (``torch.equal``). Then ``steps`` steps of ``train_one_interval`` at
+    batch B, each loss finite; counters zeroed before the steps, read after."""
+    import re
+    import shutil
+    import tempfile
+
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.train import train_one_interval
+    from pixparse_tpu_torch.models import interop
+    from pixparse_tpu_torch.models.pretrained import _fit_rows, maybe_load_pretrained
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrained_")
+    env_before = os.environ.get("PIXPARSE_PRETRAINED_DIR")
+    try:
+        tok_dir = saved_tokenizer(os.path.join(tmp, "tokenizer"), files["vocab"], specials=False)
+        cfg = TaskCrullerPretrainCfg(
+            model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+            device=device, num_intervals=1, num_warmup_intervals=0,
+            opt=OptimizationCfg(learning_rate=3e-4),
+        )
+        cfg.model.image_encoder.pretrained = cfg.model.text_decoder.pretrained = True
+        task, _ = TaskFactory.create_task("cruller_pretrain", cfg, DeviceEnv.initialize(device),
+                                          monitor=None)
+        vit_cfg, bart_cfg = task.vit_cfg, task.bart_cfg
+        t0 = time.perf_counter()
+        vit_sd, bart_sd = pretrained_files(torch, tmp, cfg.model.image_encoder.name,
+                                           cfg.model.text_decoder.name, **files)
+        write_s = time.perf_counter() - t0
+        os.environ["PIXPARSE_PRETRAINED_DIR"] = tmp
+        t0 = time.perf_counter()
+        maybe_load_pretrained(cfg.model, vit_cfg, bart_cfg)
+        resolve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        task.train_setup(num_batches_per_interval=steps, seed=0)
+        sync(torch)
+        setup_s = time.perf_counter() - t0
+        # the file tensors adapted here, as the model should now hold them
+        want = dict(vit_sd)
+        want["patch_embed.proj.weight"] = interop.adapt_patch_weight(
+            want["patch_embed.proj.weight"], vit_cfg.in_chans)
+        want["pos_embed"] = interop.resize_pos_embed(want["pos_embed"], vit_cfg.grid_size)
+        want = {interop.ENC_PREFIX + k: v for k, v in want.items()}
+        dec = {}
+        for k, v in bart_sd.items():
+            layer = re.match(r"model\.decoder\.layers\.(\d+)\.", k)
+            if k.startswith("model.decoder.") and (not layer or int(layer.group(1)) < bart_cfg.decoder_layers):
+                dec[interop.DEC_PREFIX + k[len("model.decoder."):]] = v
+        key = interop.DEC_PREFIX + "embed_positions.weight"
+        dec[key] = _fit_rows(dec[key], bart_cfg.max_position_embeddings + bart_cfg.pos_offset)
+        want.update(interop.resize_token_embeddings(dec, task.vocab_size))
+        got = task.model.state_dict()
+        mismatched = [k for k in want if not torch.equal(got[k].detach().cpu(), want[k])]
+        not_from_files = sorted(set(got) - set(want) - {interop.LM_HEAD_KEY})
+        loader = SeededLoader(torch, steps, B, vit_cfg.img_size, task.max_position_embeddings,
+                              seed=11, in_chans=vit_cfg.in_chans, vocab=task.vocab_size)
+        losses = []
+        step = task.train_step
+
+        def recorded(sample):
+            out = step(sample)
+            losses.append(float(out["loss"]))
+            return out
+
+        task.train_step = recorded
+        reset_counts()
+        t0 = time.perf_counter()
+        train_one_interval(task, loader)
+        sync(torch)
+        train_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        if env_before is None:
+            os.environ.pop("PIXPARSE_PRETRAINED_DIR", None)
+        else:
+            os.environ["PIXPARSE_PRETRAINED_DIR"] = env_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = not mismatched and not not_from_files
+    emit({"phase": "pretrained_train", "model": model_name, "batch": B, "steps": steps,
+          "files": files, "adapted_to": {"in_chans": vit_cfg.in_chans, "grid": list(vit_cfg.grid_size),
+                                         "decoder_layers": bart_cfg.decoder_layers,
+                                         "vocab": task.vocab_size},
+          "write_files_s": write_s, "resolve_and_load_s": resolve_s, "train_setup_s": setup_s,
+          "loaded_equal_adapted_files": ok, "mismatched": mismatched[:8],
+          "not_from_files": not_from_files[:8], "losses": losses, "train_s": train_s,
+          "launches": launches, "launch_unit": "wrapper calls"})
+    problems = []
+    if not ok:
+        problems.append(f"loaded tensors differ from the adapted files: {mismatched[:4]} {not_from_files[:4]}")
+    if len(losses) != steps or not all(abs(x) < float("inf") for x in losses):
+        problems.append(f"losses not finite: {losses}")
+    if device == "cuda":
+        absent = [k for k in PRETRAINED_KERNELS if launches[k] <= 0]
+        if absent:
+            problems.append(f"main path never launched {absent}")
+    if problems:
+        raise SystemExit("pretrained_train failed: " + "; ".join(problems))
+    return {"pretrained_train": launches}
+
+
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
 # (the CE backward's products, by output tile width BN) lay it out
@@ -2201,7 +2363,7 @@ WGMMA_CE = ("ce_gemm_kernel",)
 CE_PRODUCTS = ("K1_g", "K2_dE", "K3_dh", "F_lse")  # by the template's product index
 CE_FWD = ("ce_gemm_kernel", "ce_lse_merge_kernel")  # ce_fwd_ptxas: product F and the merge
 DECODE = ("decode_attn_split_kernel",)
-Q8_LN_BWD = ("decode_attn_q8_kernel", "ln_bwd_kernel")  # template arguments as parsed
+Q8_LN = ("decode_attn_q8_kernel", "ln_bwd_kernel", "ln_fwd_kernel")  # template arguments as parsed
 WINDOW = ("window_fwd_ring_kernel", "window_bwd_ring_kernel")  # at ww 100, head dim 32
 
 
@@ -2252,7 +2414,7 @@ def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
                 cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
                        "D": int(d.group(1)) if d else None}
                 out.append(cur)
-            elif name in Q8_LN_BWD:
+            elif name in Q8_LN:
                 cur = {"kernel": name, "dtype": "bf16" if "bfloat16" in m.group(1) else "fp32",
                        "template": [int(x) for x in re.findall(r"Li(\d+)E", m.group(1))]}
                 out.append(cur)
@@ -2342,8 +2504,9 @@ def main(argv=None) -> int:
           "ce_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), WGMMA_CE),
           "ce_fwd_ptxas": ptxas_summary(_build.ptxas_log("fused_ce"), CE_FWD, ("F_lse",)),
           "decode_ptxas": ptxas_summary(_build.ptxas_log("decode_attention"), DECODE),
-          "q8_ptxas": ptxas_summary(_build.ptxas_log("decode_attention_q8"), Q8_LN_BWD[:1]),
-          "ln_bwd_ptxas": ptxas_summary(_build.ptxas_log("layer_norm"), Q8_LN_BWD[1:]),
+          "q8_ptxas": ptxas_summary(_build.ptxas_log("decode_attention_q8"), Q8_LN[:1]),
+          "ln_bwd_ptxas": ptxas_summary(_build.ptxas_log("layer_norm"), Q8_LN[1:2]),
+          "ln_fwd_ptxas": ptxas_summary(_build.ptxas_log("layer_norm"), Q8_LN[2:]),
           "window_ptxas": window_ptxas})
 
     timer = Timer(torch)
@@ -2367,6 +2530,8 @@ def main(argv=None) -> int:
         path_launches.update(phase_train_donut(torch, profile=args.profile))
     if "train_task" in phases:
         path_launches.update(phase_train_task(torch))
+    if "pretrained_train" in phases:
+        path_launches.update(phase_pretrained_train(torch))
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)
@@ -2385,7 +2550,7 @@ def main(argv=None) -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                # the probe kernels, #9 and #13: busy-timer time and shares
+                # the probe kernels, #9, #12 and #13: busy-timer time and shares
                 **({k: rec[k] for k in ("device_ms", "bound_share", "ratio_to_library")}
                    if name in PROBE_OWN_KERNELS + BUSY_TIMED else {}),
             })

@@ -17,16 +17,33 @@
 // element's bytes, far below the ~295 FLOP/byte ridge: the bytes of x and y
 // (forward) or x, dy and dx (backward), each read or written once.
 //
-// What the forward does about it: a row lives in registers: one warp per
-// row up to D = 2048 (each lane holds K chunks of 8 elements, read and
-// written as 16-byte vectors), S = 2 or 4 warps per row up to D = 8192; the
-// statistics are two-pass in fp32 (the mean, then the centred sum of
-// squares), as in the TPU kernel, and reduced by warp shuffles (and a
-// fixed-order sum across the row's warps).
+// What the forward does about it (it reads x once and writes y once):
+// - one wave of persistent blocks (SMs x the kernel's own occupancy; plan:
+//   ops/layer_norm.py::layer_norm_plan), so no block pays its start-up
+//   for a few rows. Block i walks row groups i, i + n_blocks, ... : at any
+//   moment the blocks read one stretch of x, and that was faster than the
+//   backward's contiguous ranges at all eight shapes of a donut step (1-5%,
+//   H100 by the busy timer, variants built and timed in turns in one run);
+// - a row takes TR threads, the backward's shape: D / 8 rounded up to a
+//   power of two, at most 32, so narrow rows share a warp (16 lanes a row
+//   at D = 128, no lane idle); above D = 512 64 to 256 threads, their sums
+//   exchanged behind a named barrier of the row's warps; each thread takes
+//   U rows of a group at once;
+// - the next group's x is in flight while the current group is reduced:
+//   each thread loads its share of it into registers as raw 16-byte vectors
+//   before the current group's two reductions (register double-buffering);
+//   y is stored from registers as 16-byte vectors. Measured no better in the
+//   same runs: the backward's bulk-copy ring (4 stages; equal at the wide
+//   shapes, 11% slower at (3070, 1024)), prefetching two groups ahead,
+//   holding the rows raw instead of as floats, 3 or 4 blocks per SM (spills)
+//   and twice the rows a thread. What is left is near x.clone()'s time on
+//   the same rows (1.03-1.07x; PERF.md);
+// - a thread's columns are the same in every row, so its columns of w and b
+//   are loaded once per block and stay in registers.
 //
 // What the backward does about it:
 // - one wave of persistent blocks (SMs x the kernel's own occupancy; plan:
-//   ops/layer_norm.py::layer_norm_bwd_plan), each walking a contiguous range
+//   ops/layer_norm.py::layer_norm_plan), each walking a contiguous range
 //   of row groups. One thread keeps the next groups' x and dy in flight by
 //   1-D bulk copies (a group is G whole rows, one contiguous run of bytes)
 //   through a 3-stage mbarrier ring of <= 16 KB per operand, so the loads of
@@ -54,9 +71,6 @@ namespace {
 
 using pixparse::smem_addr;
 using namespace pixparse::hopper;
-
-constexpr int kWarps = 4;  // per block
-constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -89,113 +103,17 @@ __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// Sum of `NV` values over the row: the warp's lanes, then (S > 1) the row's
-// S warps in a fixed order through `red` ([NV][kWarps]). Every thread of the
-// block must call it (it holds barriers when S > 1).
-template <int S, int NV>
-__device__ __forceinline__ void row_sum(float (&v)[NV], float* red) {
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v[j] += __shfl_xor_sync(0xffffffffu, v[j], s);
-  if (S == 1) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // the previous call's readers are done
-  if (lane == 0)
-#pragma unroll
-    for (int j = 0; j < NV; ++j) red[j * kWarps + warp] = v[j];
-  __syncthreads();
-  const int first = (warp / S) * S;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < S; ++i) sum += red[j * kWarps + first + i];
-    v[j] = sum;
-  }
-}
-
-// Chunk (8 elements) i of this thread's share of a row.
-template <int S>
-__device__ __forceinline__ int chunk_of(int i) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  return lane + 32 * ((warp % S) + S * i);
-}
-
-template <typename T, int K, int S>
-__global__ void __launch_bounds__(kThreads) ln_fwd_kernel(const T* __restrict__ x,
-                                                          const float* __restrict__ w,
-                                                          const float* __restrict__ b,
-                                                          T* __restrict__ y, int R, int D,
-                                                          float eps) {
-  constexpr int kRows = kWarps / S;  // rows per block
-  __shared__ float red[kWarps];
-  const int row = blockIdx.x * kRows + (threadIdx.x / 32) / S;
-  const bool live = row < R;  // no early return: S > 1 holds barriers
-  const int n_chunks = D / 8;
-  const T* xr = x + (long long)row * D;
-  float v[K][8];
-  float sum[1] = {0.f};
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int c = chunk_of<S>(i);
-    if (live && c < n_chunks) {
-      load8(xr + c * 8, v[i]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sum[0] += v[i][e];
-  }
-  row_sum<S, 1>(sum, red);
-  const float mu = sum[0] / D;
-  float sq[1] = {0.f};
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (chunk_of<S>(i) < n_chunks) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = v[i][e] - mu;
-        sq[0] += d * d;
-      }
-    }
-  }
-  row_sum<S, 1>(sq, red);
-  const float rstd = rsqrtf(sq[0] / D + eps);
-  if (!live) return;  // the last barrier is behind every thread
-  T* yr = y + (long long)row * D;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int c = chunk_of<S>(i);
-    if (c >= n_chunks) continue;
-    float wv[8], bv[8], o[8];
-    load8(w + c * 8, wv);
-    load8(b + c * 8, bv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = (v[i][e] - mu) * rstd * wv[e] + bv[e];
-    store8(yr + c * 8, o);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 256;
-constexpr int kBwdStages = 3;
-constexpr int kSumCols = 32;      // columns per block of the partial-sum kernel
-constexpr int kSumThreads = 1024;  // its warps split the partials
+constexpr int kThreads = 256;  // both row kernels
 
 // A row takes TR threads (a power of two), each K chunks of 8 columns; each
 // thread takes U rows of a group of G = (256 / TR) * U rows.
 template <typename T, int TR, int K>
-struct BwdShape {
+struct RowShape {
   static constexpr int kU = (sizeof(T) == 2 ? 4 : 2) / K > 0 ? (sizeof(T) == 2 ? 4 : 2) / K : 1;
-  static constexpr int kSlots = kBwdThreads / TR;  // rows at once
+  static constexpr int kSlots = kThreads / TR;  // rows at once
   static constexpr int kGroup = kSlots * kU;
   static constexpr int kRowWarps = TR > 32 ? TR / 32 : 1;
-  static constexpr int kMinBlocks = K * kU <= 4 && K <= 2 ? 2 : 1;
+  static constexpr int kMinBlocks = K * kU <= 4 && K <= 2 ? 2 : 1;  // the backward's
 };
 
 // Sum of NV values over a row's TR threads: shuffles inside the warp, then
@@ -225,14 +143,159 @@ __device__ __forceinline__ void row_reduce(float (&v)[NV], float* red) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// Eight elements of T as loaded: one 16-byte vector in bf16, two in fp32.
+template <typename T>
+struct Raw8 {
+  uint4 u[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_raw8(const T* p, Raw8<T>& r) {
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)) / 2; ++i)
+    r.u[i] = __ldcs(reinterpret_cast<const uint4*>(p) + i);  // read once: streaming
+}
+
+__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& r, float (&f)[8]) {
+  const uint4 u = r.u[0];
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void unpack8(const Raw8<float>& r, float (&f)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(r.u[i].x);
+    f[4 * i + 1] = __uint_as_float(r.u[i].y);
+    f[4 * i + 2] = __uint_as_float(r.u[i].z);
+    f[4 * i + 3] = __uint_as_float(r.u[i].w);
+  }
+}
+
+// Block i takes groups i, i + n_blocks, i + 2 n_blocks, ...
+// (ops/layer_norm.py::layer_norm_fwd_groups).
+template <typename T, int TR, int K>
+__global__ void __launch_bounds__(kThreads, 2)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, T* __restrict__ y, int R, int D, float eps) {
+  using Shape = RowShape<T, TR, K>;
+  constexpr int U = Shape::kU, P = Shape::kSlots, G = Shape::kGroup;
+  __shared__ float red[2][P * U * Shape::kRowWarps];
+  const int tid = threadIdx.x, slot = tid / TR, lane_r = tid % TR;
+  const int n_chunks = D / 8;
+  const long long n_groups = (R + G - 1) / G;
+  const int n_mine = static_cast<int>((n_groups - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  // the block's g-th group
+  auto row0_of = [&](int g) { return (static_cast<long long>(g) * gridDim.x + blockIdx.x) * G; };
+
+  float wv[K][8], bv[K][8];  // this thread's columns: the same in every row
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int c = lane_r + TR * i;
+    if (c < n_chunks) {
+      load8(w + c * 8, wv[i]);
+      load8(b + c * 8, bv[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wv[i][e] = bv[i][e] = 0.f;
+    }
+  }
+  Raw8<T> next[U][K];  // the next group's x, as loaded
+  auto fetch = [&](int g) {
+    const long long row0 = row0_of(g);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = row0 + slot + P * u;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int c = lane_r + TR * i;
+        if (row < R && c < n_chunks) load_raw8(x + row * D + c * 8, next[u][i]);
+      }
+    }
+  };
+  if (n_mine > 0) fetch(0);
+  for (int g = 0; g < n_mine; ++g) {
+    const long long row0 = row0_of(g);
+    float v[U][K][8], sum[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool live = row0 + slot + P * u < R;  // rows past R: zeros, stored nowhere
+      sum[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        if (live && lane_r + TR * i < n_chunks) {
+          unpack8(next[u][i], v[u][i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[u][i][e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum[u] += v[u][i][e];
+      }
+    }
+    if (g + 1 < n_mine) fetch(g + 1);  // in flight through this group's reductions
+    row_reduce<TR, U>(sum, red[0]);
+    float mu[U], sq[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      mu[u] = sum[u] / D;
+      sq[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        if (lane_r + TR * i < n_chunks) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = v[u][i][e] - mu[u];
+            sq[u] += d * d;
+          }
+        }
+      }
+    }
+    row_reduce<TR, U>(sq, red[1]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = row0 + slot + P * u;
+      if (row >= R) continue;
+      const float rstd = rsqrtf(sq[u] / D + eps);
+      T* yr = y + row * D;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int c = lane_r + TR * i;
+        if (c >= n_chunks) continue;
+        float o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = (v[u][i][e] - mu[u]) * rstd * wv[i][e] + bv[i][e];
+        store8(yr + c * 8, o);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdStages = 3;
+constexpr int kSumCols = 32;      // columns per block of the partial-sum kernel
+constexpr int kSumThreads = 1024;  // its warps split the partials
+
 // Groups [n_groups * i / n_blocks, n_groups * (i + 1) / n_blocks) for block i
 // (ops/layer_norm.py::layer_norm_bwd_row_ranges mirrors it). The block's
 // sums of dy * xhat and dy go to partial[blockIdx.x] ([2][D]).
 template <typename T, int TR, int K>
-__global__ void __launch_bounds__(kBwdThreads, (BwdShape<T, TR, K>::kMinBlocks))
+__global__ void __launch_bounds__(kThreads, (RowShape<T, TR, K>::kMinBlocks))
     ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w, const T* __restrict__ dy,
                   T* __restrict__ dx, float* __restrict__ partial, int R, int D, float eps) {
-  using Shape = BwdShape<T, TR, K>;
+  using Shape = RowShape<T, TR, K>;
   constexpr int U = Shape::kU, P = Shape::kSlots, G = Shape::kGroup;
   constexpr int kRedFloats = P * 2 * U * Shape::kRowWarps;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -378,7 +441,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdShape<T, TR, K>::kMinBlocks))
   }
   __syncthreads();
   float* out = partial + static_cast<long long>(blockIdx.x) * 2 * D;
-  for (int col = tid; col < 2 * D; col += kBwdThreads) {
+  for (int col = tid; col < 2 * D; col += kThreads) {
     float t = 0.f;
 #pragma unroll
     for (int p = 0; p < P; ++p) t += sums[p * 2 * D + col];
@@ -413,31 +476,38 @@ __global__ void __launch_bounds__(kSumThreads) ln_partial_sum_kernel(
   else db[col - D] = t;
 }
 
-template <typename T, int K, int S>
-int launch_fwd(const void* x, const float* w, const float* b, void* y, int R, int D, float eps,
-               cudaStream_t stream) {
-  constexpr int kRows = kWarps / S;
-  ln_fwd_kernel<T, K, S><<<(R + kRows - 1) / kRows, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, b, static_cast<T*>(y), R, D, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
 struct FwdLaunch {
   const void* x;
   const float *w, *b;
   void* y;
-  int R, D;
+  int R, D, n_blocks;
   float eps;
   cudaStream_t stream;
-  template <typename T, int K, int S>
+  template <typename T, int TR, int K>
   int run() const {
-    return launch_fwd<T, K, S>(x, w, b, y, R, D, eps, stream);
+    constexpr int G = RowShape<T, TR, K>::kGroup;
+    if (n_blocks > (R + G - 1) / G) return static_cast<int>(cudaErrorInvalidValue);
+    ln_fwd_kernel<T, TR, K><<<n_blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, b, static_cast<T*>(y), R, D, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Blocks of the forward kernel for width D that one SM holds at once.
+struct FwdOccupancy {
+  template <typename T, int TR, int K>
+  int run() const {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ln_fwd_kernel<T, TR, K>, kThreads, 0) !=
+        cudaSuccess)
+      return 0;
+    return n;
   }
 };
 
 template <typename T, int TR, int K>
 size_t bwd_smem(int D) {
-  return static_cast<size_t>(kBwdStages) * 2 * BwdShape<T, TR, K>::kGroup * D * sizeof(T);
+  return static_cast<size_t>(kBwdStages) * 2 * RowShape<T, TR, K>::kGroup * D * sizeof(T);
 }
 
 template <typename T, int TR, int K>
@@ -458,12 +528,12 @@ struct BwdLaunch {
   cudaStream_t stream;
   template <typename T, int TR, int K>
   int run() const {
-    constexpr int G = BwdShape<T, TR, K>::kGroup;
+    constexpr int G = RowShape<T, TR, K>::kGroup;
     if (n_blocks > (R + G - 1) / G) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = bwd_smem<T, TR, K>(D);
     const cudaError_t err = bwd_prepare<T, TR, K>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ln_bwd_kernel<T, TR, K><<<n_blocks, kBwdThreads, smem, stream>>>(
+    ln_bwd_kernel<T, TR, K><<<n_blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(x), w, static_cast<const T*>(dy), static_cast<T*>(dx), partial, R, D,
         eps);
     // the partial sums launch while the row kernel's last blocks run
@@ -490,18 +560,18 @@ struct BwdOccupancy {
     const size_t smem = bwd_smem<T, TR, K>(D);
     if (bwd_prepare<T, TR, K>(smem) != cudaSuccess) return 0;
     int n = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ln_bwd_kernel<T, TR, K>, kBwdThreads,
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ln_bwd_kernel<T, TR, K>, kThreads,
                                                       smem) != cudaSuccess)
       return 0;
     return n;
   }
 };
 
-// The backward's (TR, K) for width D (ops/layer_norm.py::layer_norm_bwd_config
+// Both row kernels' (TR, K) for width D (ops/layer_norm.py::layer_norm_config
 // mirrors it): TR = D / 8 rounded up to a power of two, at most 32; doubled
 // while a thread would hold more than 2 chunks, up to 256; K = 4 beyond.
 template <typename T, typename Launch>
-int bwd_dispatch(int D, const Launch& l) {
+int dispatch(int D, const Launch& l) {
   const int n = D / 8;
   int tr = 1;
   while (tr < n && tr < 32) tr *= 2;
@@ -520,40 +590,42 @@ int bwd_dispatch(int D, const Launch& l) {
   }
 }
 
-// The (K, S) shape for width D: K chunks of 8 per lane, S warps per row.
-template <typename T, typename Launch>
-int dispatch(int D, const Launch& l) {
-  const int per_lane = (D / 8 + 31) / 32;
-  if (per_lane <= 1) return l.template run<T, 1, 1>();
-  if (per_lane <= 2) return l.template run<T, 2, 1>();
-  if (per_lane <= 4) return l.template run<T, 4, 1>();
-  if (per_lane <= 8) return l.template run<T, 8, 1>();
-  if (per_lane <= 16) return l.template run<T, 8, 2>();
-  return l.template run<T, 8, 4>();
-}
-
 bool width_ok(int D) { return D > 0 && D % 8 == 0 && D <= 8192; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y share it). x and y are
-// contiguous (R, D) matrices, w and b (D,) fp32; D a multiple of 8 up to
-// 8192. Returns the CUDA error code of the launch (0 = success).
+// contiguous (R, D) matrices, 16-byte aligned, w and b (D,) fp32; D a
+// multiple of 8 up to 8192. n_blocks from ops/layer_norm.py::
+// layer_norm_plan (1 .. the row groups of R). Returns the CUDA error
+// code of the launch (0 = success).
 extern "C" int pixparse_layer_norm_fwd(int dtype, const void* x, const void* w, const void* b,
-                                       void* y, int R, int D, float eps, void* stream) {
-  if (R < 0 || !width_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+                                       void* y, int R, int D, int n_blocks, float eps,
+                                       void* stream) {
+  if (R < 0 || !width_ok(D) || (R > 0 && n_blocks <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  const FwdLaunch l{x, static_cast<const float*>(w), static_cast<const float*>(b), y, R, D, eps,
-                    static_cast<cudaStream_t>(stream)};
+  const FwdLaunch l{x, static_cast<const float*>(w), static_cast<const float*>(b), y, R, D,
+                    n_blocks, eps, static_cast<cudaStream_t>(stream)};
   if (dtype == 1) return dispatch<__nv_bfloat16>(D, l);
   if (dtype == 0) return dispatch<float>(D, l);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Blocks of the forward kernel for (dtype, D) one SM holds at once (its
+// registers); 0 on error.
+extern "C" int pixparse_layer_norm_fwd_blocks_per_sm(int dtype, int D) {
+  if (!width_ok(D)) return 0;
+  const FwdOccupancy l{};
+  if (dtype == 1) return dispatch<__nv_bfloat16>(D, l);
+  if (dtype == 0) return dispatch<float>(D, l);
+  return 0;
+}
+
 // As above, plus dy (R, D) in x's dtype; outputs dx (R, D) in x's dtype and
 // dw, db (D,) fp32. x and dy 16-byte aligned (their row groups are bulk
 // copies). partial is (n_blocks, 2, D) fp32 scratch; n_blocks from
-// ops/layer_norm.py::layer_norm_bwd_plan (1 .. the row groups of R).
+// ops/layer_norm.py::layer_norm_plan (1 .. the row groups of R).
 extern "C" int pixparse_layer_norm_bwd(int dtype, const void* x, const void* w, const void* dy,
                                        void* dx, void* partial, void* dw, void* db, int R, int D,
                                        int n_blocks, float eps, void* stream) {
@@ -561,8 +633,8 @@ extern "C" int pixparse_layer_norm_bwd(int dtype, const void* x, const void* w, 
   const BwdLaunch l{x, static_cast<const float*>(w), dy, dx, static_cast<float*>(partial),
                     static_cast<float*>(dw), static_cast<float*>(db), R, D, n_blocks, eps,
                     static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) return bwd_dispatch<__nv_bfloat16>(D, l);
-  if (dtype == 0) return bwd_dispatch<float>(D, l);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(D, l);
+  if (dtype == 0) return dispatch<float>(D, l);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -571,7 +643,7 @@ extern "C" int pixparse_layer_norm_bwd(int dtype, const void* x, const void* w, 
 extern "C" int pixparse_layer_norm_bwd_blocks_per_sm(int dtype, int D) {
   if (!width_ok(D)) return 0;
   const BwdOccupancy l{D};
-  if (dtype == 1) return bwd_dispatch<__nv_bfloat16>(D, l);
-  if (dtype == 0) return bwd_dispatch<float>(D, l);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(D, l);
+  if (dtype == 0) return dispatch<float>(D, l);
   return 0;
 }

@@ -12,11 +12,19 @@ transposed to ``nn.Linear``'s ``(out, in)``, the patch kernel
 ``(D, C, p, p)``, and LayerNorm ``scale`` becomes ``weight``. Swin
 encoders map as the JAX package's ``swin_params_to_torch`` does (timm names;
 the relative-position index is a fixed buffer, not a parameter).
+
+What a checkpoint of another shape needs before it loads, as the JAX
+package does it: :func:`resize_token_embeddings` (the vocab-resize replay:
+a checkpoint saved before the finetune tokens were added gets new tied-table
+rows drawn exactly as the JAX package draws them), :func:`resize_pos_embed`
+(a ViT position grid resized as ``jax.image.resize(method="bilinear")``
+resizes it, antialiased when it shrinks) and :func:`adapt_patch_weight`
+(3 -> 1 input channels by a sum, 1 -> 3 by a repeat over 3).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,21 +60,106 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return normalize_state_dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
+def checkpoint_vocab(state_dict: Mapping[str, Any]) -> Optional[int]:
+    """Rows of the checkpoint's token table (any key ending in
+    ``embed_tokens.weight``), or ``None`` without one."""
+    for k, v in state_dict.items():
+        if k.endswith("embed_tokens.weight"):
+            return int(v.shape[0])
+    return None
+
+
+def resize_token_embeddings(
+    state_dict: Mapping[str, torch.Tensor], new_vocab: int, seed: int = 0, init_std: float = 0.02
+) -> Dict[str, torch.Tensor]:
+    """The state dict with its tied token table (``DEC_PREFIX +
+    embed_tokens.weight``, and the tied head where present) cut or grown to
+    ``new_vocab`` rows. Shrinking keeps the first rows; new rows are
+    ``normal(0, init_std)`` from ``np.random.RandomState(seed)``, drawn as the
+    JAX package draws them, so both give the same bits."""
+    key = DEC_PREFIX + "embed_tokens.weight"
+    emb = state_dict[key]
+    old_vocab, d = emb.shape
+    out = dict(state_dict)
+    if new_vocab <= old_vocab:
+        table = emb if new_vocab == old_vocab else emb[:new_vocab].clone()
+    else:
+        extra = np.random.RandomState(seed).normal(0.0, init_std, size=(new_vocab - old_vocab, d))
+        table = torch.cat([emb, torch.from_numpy(extra.astype(np.float32)).to(emb.dtype)])
+    out[key] = table
+    if LM_HEAD_KEY in out:
+        out[LM_HEAD_KEY] = table
+    return out
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """``(n_out, n_in)`` weights of ``jax.image.resize(method="bilinear")``
+    along one axis (``scale_and_translate`` with the triangle kernel,
+    antialiased: the kernel widens by ``n_in / n_out`` when it shrinks; as
+    ``F.interpolate(mode="bilinear", align_corners=False)`` when it grows)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    dist = (sample[:, None] - torch.arange(n_in, dtype=torch.float32)[None, :]).abs() / kernel_scale
+    w = (1.0 - dist).clamp_min(0.0)
+    total = w.sum(1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return w * inside[:, None]
+
+
+def resize_pos_embed(
+    pos: torch.Tensor,  # (1, N_old, D): the cls token's first where has_cls
+    new_grid: Tuple[int, int],
+    old_grid: Optional[Tuple[int, int]] = None,
+    has_cls: bool = True,
+) -> torch.Tensor:
+    """ViT position embeddings resized on their grid around the cls token:
+    bilinear as ``jax.image.resize`` (antialiased when it shrinks), in fp32.
+    ``old_grid`` defaults to a square grid."""
+    n_prefix = 1 if has_cls else 0
+    prefix, grid = pos[:, :n_prefix], pos[:, n_prefix:].float()
+    if old_grid is None:
+        side = int(round(grid.shape[1] ** 0.5))
+        old_grid = (side, side)
+    if tuple(old_grid) == tuple(new_grid):
+        return pos
+    grid = grid.reshape(*old_grid, -1)
+    wh, ww = _resize_weights(old_grid[0], new_grid[0]), _resize_weights(old_grid[1], new_grid[1])
+    # along the width first, then the height (as JAX's einsum contracts)
+    resized = torch.einsum("ph,hqd->pqd", wh, torch.einsum("qw,hwd->hqd", ww, grid))
+    return torch.cat([prefix.float(), resized.reshape(1, new_grid[0] * new_grid[1], -1)], dim=1)
+
+
+def adapt_patch_weight(w: torch.Tensor, in_chans: int) -> torch.Tensor:
+    """A ``(D, C, p, p)`` patch-embed conv weight for ``in_chans`` input
+    channels: 3 -> 1 by the sum over channels, 1 -> 3 by a repeat over 3
+    divided by 3 (timm's ``adapt_input_conv``); other counts raise."""
+    c = w.shape[1]
+    if c == in_chans:
+        return w
+    if in_chans == 1:
+        return w.sum(dim=1, keepdim=True)
+    if c == 1:
+        return w.repeat(1, in_chans, 1, 1) / in_chans
+    raise ValueError(f"cannot adapt the patch embedding from {c} to {in_chans} channels")
+
+
 def load_cruller_state_dict(model, state_dict: Mapping[str, Any]) -> None:
     """Load a reference-layout state dict into a port ``Cruller`` strictly.
-    A checkpoint without the tied head gets it from ``embed_tokens``; a
-    checkpoint whose vocab differs from the model's raises."""
+    A checkpoint whose vocab differs from the model's (saved before the
+    finetune tokens were added) gets its tied table resized first
+    (:func:`resize_token_embeddings`, as the JAX package's
+    ``import_torch_params`` replays it); a checkpoint without the tied head
+    gets it from ``embed_tokens``."""
     sd = normalize_state_dict(state_dict)
-    emb_key = DEC_PREFIX + "embed_tokens.weight"
-    if emb_key in sd:
-        sd.setdefault(LM_HEAD_KEY, sd[emb_key])
-        ckpt_vocab = sd[emb_key].shape[0]
+    ckpt_vocab = checkpoint_vocab(sd)
+    if ckpt_vocab is not None:
+        sd.pop(LM_HEAD_KEY, None)  # tied: it follows the (resized) table
         if ckpt_vocab != model.bart_cfg.vocab_size:
-            raise ValueError(
-                f"checkpoint vocab {ckpt_vocab} != model vocab "
-                f"{model.bart_cfg.vocab_size} (tokenizer + special tokens); the "
-                "vocab-resize replay is not ported yet (ROADMAP.md Queue 1)"
-            )
+            sd = resize_token_embeddings(sd, model.bart_cfg.vocab_size)
+        sd[LM_HEAD_KEY] = sd[DEC_PREFIX + "embed_tokens.weight"]
     model.load_state_dict(sd, strict=True)
 
 

@@ -73,7 +73,8 @@ SIGNATURES = {
         "pixparse_window_attn_bwd_config": [I, I, I, I, P],
     },
     "layer_norm": {
-        "pixparse_layer_norm_fwd": [I, P, P, P, P, I, I, F, P],
+        "pixparse_layer_norm_fwd": [I, P, P, P, P, I, I, I, F, P],
+        "pixparse_layer_norm_fwd_blocks_per_sm": [I, I],
         "pixparse_layer_norm_bwd": [I, P, P, P, P, P, P, P, I, I, I, F, P],
         "pixparse_layer_norm_bwd_blocks_per_sm": [I, I],
     },

@@ -8,12 +8,13 @@ input dtype. Two implementations, chosen as the JAX package chooses them:
   under autograd;
 - ``'pallas'`` (opt-in, ``PIXPARSE_LN_IMPL=pallas`` or ``impl='pallas'``, the
   JAX package's names): a :class:`torch.autograd.Function` over the CUDA
-  kernels of ``csrc/layer_norm.cu`` (TPU kernels #12/#13). The forward reads
-  x once and writes y in x's dtype and saves no statistics; the backward
-  recomputes them from x, writes dx in x's dtype and sums dweight/dbias over
-  the rows in fp32: one wave of persistent blocks over contiguous ranges of
-  row groups (:func:`layer_norm_bwd_plan`), per-block partials, then a
-  second pass in a fixed order (deterministic).
+  kernels of ``csrc/layer_norm.cu`` (TPU kernels #12/#13). Both kernels are
+  one wave of persistent blocks over row groups, cut alike
+  (:func:`layer_norm_plan`, each with its own occupancy). The forward
+  reads x once and writes y in x's dtype and saves no statistics; the
+  backward recomputes them from x, writes dx in x's dtype and sums
+  dweight/dbias over the rows in fp32: per-block partials, then a second
+  pass in a fixed order (deterministic).
 
 Beside the kernels stand :func:`layer_norm_fwd_plain` and
 :func:`layer_norm_bwd_plain`, plain PyTorch with the kernels' math; a CPU
@@ -91,16 +92,16 @@ def layer_norm_bwd_plain(
     return dx.to(x.dtype), sums[:D], sums[D:]
 
 
-LN_BWD_THREADS = 256
+LN_THREADS = 256  # both kernels' blocks
 LN_SUM_WARPS = 32  # the partial-sum kernel's warps
 
 
-def layer_norm_bwd_config(D: int, elt: int) -> Tuple[int, int, int]:
-    """The backward kernel's ``(TR, K, U)`` for width D and element size
-    ``elt``: a row takes TR threads (D / 8 rounded up to a power of two, at
-    most 32, doubled while a thread would hold more than 2 chunks of 8, up
-    to 256), each K chunks (K = 4 beyond); each thread takes U rows of a
-    group at once (``U * K <= 4`` in bf16, 2 in fp32)."""
+def layer_norm_config(D: int, elt: int) -> Tuple[int, int, int]:
+    """Both kernels' ``(TR, K, U)`` for width D and element size ``elt``: a
+    row takes TR threads (D / 8 rounded up to a power of two, at most 32,
+    doubled while a thread would hold more than 2 chunks of 8, up to 256),
+    each K chunks (K = 4 beyond); each thread takes U rows of a group at once
+    (``U * K <= 4`` in bf16, 2 in fp32)."""
     n = D // 8
     tr = 1
     while tr < n and tr < 32:
@@ -114,36 +115,51 @@ def layer_norm_bwd_config(D: int, elt: int) -> Tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def layer_norm_bwd_plan(R: int, D: int, elt: int, sm_count: int,
-                        blocks_per_sm: int) -> Tuple[int, int, int]:
+def layer_norm_plan(R: int, D: int, elt: int, sm_count: int,
+                    blocks_per_sm: int) -> Tuple[int, int, int]:
     """``(G, n_groups, n_blocks)``: rows go in groups of ``G = (256 / TR) *
-    U`` consecutive rows (the unit of one bulk copy of x and of dy), and one
-    wave of at most ``sm_count * blocks_per_sm`` persistent blocks takes
-    contiguous ranges of groups (:func:`layer_norm_bwd_row_ranges`): as few
-    blocks as give each the most groups any block must take (fewer partials
-    to sum, no later finish)."""
-    tr, _, u = layer_norm_bwd_config(D, elt)
-    G = (LN_BWD_THREADS // tr) * u
+    U`` consecutive rows (the backward's unit of one bulk copy of x and of
+    dy), and one wave of at most ``sm_count * blocks_per_sm`` persistent
+    blocks (the kernel's own occupancy) takes the groups
+    (:func:`layer_norm_bwd_row_ranges`, :func:`layer_norm_fwd_groups`): as
+    few blocks as give each the most groups any block must take (fewer
+    partials to sum, no later finish)."""
+    tr, _, u = layer_norm_config(D, elt)
+    G = (LN_THREADS // tr) * u
     n_groups = -(-R // G)
     rounds = -(-n_groups // (sm_count * blocks_per_sm))
     return G, n_groups, -(-n_groups // rounds)
 
 
 def layer_norm_bwd_row_ranges(R: int, G: int, n_groups: int, n_blocks: int) -> List[Tuple[int, int]]:
-    """Block i's rows: groups ``[n_groups * i // n_blocks, n_groups * (i + 1)
-    // n_blocks)``, as the kernel cuts them."""
+    """The backward's block i takes rows of groups ``[n_groups * i //
+    n_blocks, n_groups * (i + 1) // n_blocks)``, as the kernel cuts them."""
     return [(min(R, n_groups * i // n_blocks * G), min(R, n_groups * (i + 1) // n_blocks * G))
             for i in range(n_blocks)]
 
 
+def layer_norm_fwd_groups(n_groups: int, n_blocks: int, i: int) -> range:
+    """The forward's block i takes groups ``i, i + n_blocks, ...``, as the
+    kernel walks them (at any moment the blocks read one stretch of x)."""
+    return range(i, n_groups, n_blocks)
+
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_blocks_per_sm(device_index: int, dtype_code: int, D: int) -> int:
+def _blocks_per_sm(direction: str, device_index: int, dtype_code: int, D: int) -> int:
     lib = _build.library("layer_norm")
     with torch.cuda.device(device_index):
-        n = lib.pixparse_layer_norm_bwd_blocks_per_sm(dtype_code, D)
+        n = getattr(lib, f"pixparse_layer_norm_{direction}_blocks_per_sm")(dtype_code, D)
     if n <= 0:
-        raise RuntimeError("layer_norm_bwd: occupancy query failed")
+        raise RuntimeError(f"layer_norm_{direction}: occupancy query failed")
     return n
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_blocks(device_index: int, dtype_code: int, elt: int, R: int, D: int) -> int:
+    """The forward's block count, per (device, dtype, R, D): the plan once."""
+    return layer_norm_plan(R, D, elt, _sm_count(device_index),
+                           _blocks_per_sm("fwd", device_index, dtype_code, D))[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,22 +177,27 @@ def _check(name, x, *others):
         raise ValueError(f"{name}: all operands must be on one CUDA device")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float):
     """``(R, D)`` -> y: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if not x.is_cuda:
         return layer_norm_fwd_plain(x, weight, bias, eps)
     _check("layer_norm_fwd", x, weight, bias)
-    x = x.contiguous()
-    w = weight.to(torch.float32).contiguous()
-    b = bias.to(torch.float32).contiguous()
+    # rows, w and b are read as 16-byte vectors
+    x, w, b = (_aligned(t.contiguous()) for t in (x, weight.to(torch.float32), bias.to(torch.float32)))
     y = torch.empty_like(x)
     R, D = x.shape
+    code = _DTYPE_CODES[x.dtype]
+    n_blocks = _fwd_blocks(x.device.index or 0, code, x.element_size(), R, D) if R else 0
     lib = _build.library("layer_norm")
     with torch.cuda.device(x.device):
         err = lib.pixparse_layer_norm_fwd(
-            _DTYPE_CODES[x.dtype], _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(y),
-            R, D, float(eps), _build.stream_ptr(x.device),
+            code, _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(y),
+            R, D, n_blocks, float(eps), _build.stream_ptr(x.device),
         )
     _build.check(err, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
@@ -194,11 +215,9 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps:
     _check("layer_norm_bwd", x, weight, dy)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} vs x {tuple(x.shape)}")
-    x, dy = x.contiguous(), dy.contiguous()
     # row groups are bulk copies: 16-byte aligned
-    x = x if x.data_ptr() % 16 == 0 else x.clone()
-    dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
-    w = weight.to(torch.float32).contiguous()
+    x, dy = _aligned(x.contiguous()), _aligned(dy.contiguous())
+    w = _aligned(weight.to(torch.float32).contiguous())  # read as 16-byte vectors
     R, D = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
@@ -207,8 +226,8 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps:
         return dx, dw.zero_(), db.zero_()
     dev = x.device.index or 0
     code = _DTYPE_CODES[x.dtype]
-    _, _, n_blocks = layer_norm_bwd_plan(
-        R, D, x.element_size(), _sm_count(dev), _bwd_blocks_per_sm(dev, code, D))
+    _, _, n_blocks = layer_norm_plan(
+        R, D, x.element_size(), _sm_count(dev), _blocks_per_sm("bwd", dev, code, D))
     partial = torch.empty((n_blocks, 2, D), dtype=torch.float32, device=x.device)
     lib = _build.library("layer_norm")
     with torch.cuda.device(x.device):

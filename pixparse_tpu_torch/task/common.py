@@ -34,12 +34,20 @@ def fold_image_stats(mean, std, image_fmt: str):
 
 def resolve_model_name(cfg) -> None:
     """Shared ``__post_init__`` body for task cfg dataclasses: resolve
-    ``model_name`` through the JSON registry into ``cfg.model``."""
+    ``model_name`` through the JSON registry into ``cfg.model``. The
+    ``pretrained`` / ``pretrained_path`` flags given beside ``model_name``
+    (``--task.model.image_encoder.pretrained true``) are kept: an asked-for
+    backbone is never dropped for random weights. (The JAX package replaces
+    the whole ``cfg.model`` and drops them.)"""
     if cfg.model_name:
         model = get_model_config(cfg.model_name)
         if model is None:
             _logger.warning(f"Model config for {cfg.model_name} was not found, using defaults.")
         else:
+            for part in ("image_encoder", "text_decoder"):
+                given, registered = getattr(cfg.model, part), getattr(model, part)
+                registered.pretrained = registered.pretrained or given.pretrained
+                registered.pretrained_path = given.pretrained_path or registered.pretrained_path
             cfg.model = model
     else:
         cfg.model_name = "custom"

@@ -3,11 +3,14 @@
 
 - :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay,
   model construction (ViT or Swin encoder, fp32 master weights, forward in
-  the compute dtype, the remat mode: ``resolve_remat``, ``auto_remat``),
+  the compute dtype, the remat mode: ``resolve_remat``, ``auto_remat``;
+  a resume checkpoint, else the pretrained backbones the cfg asks for:
+  ``models/pretrained.py``),
   the train state and the train step, in-step shift of the pretrain
   sequences, the gradient-accumulation buffer, counters, logging with rate
   and MFU, and a reference-``.pt``-compatible ``state_dict``.
-- :class:`BaseCrullerEvalTask`: the same vocabulary replay, the model (ViT
+- :class:`BaseCrullerEvalTask`: the same vocabulary replay (a checkpoint
+  from before the task's tokens gets its table resized), the model (ViT
   or Swin encoder, bf16 or int8 decode mode) on the task's device in the
   compute dtype, and the KV-cached greedy decode.
 
@@ -30,6 +33,7 @@ from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
+from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
 from pixparse_tpu_torch.ops.generation import generate
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
@@ -182,13 +186,13 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             self.resume_state_dict = None
             _logger.info("imported torch checkpoint into train state")
         else:
-            if cfg.model.image_encoder.pretrained or cfg.model.text_decoder.pretrained:
-                # asked-for pretrained weights are never silently replaced
-                raise NotImplementedError(
-                    "pretrained backbones are not ported yet (ROADMAP.md Queue 1); "
-                    "resume from a .pt checkpoint or train from seeded random weights"
-                )
             model.init_weights(torch.Generator().manual_seed(seed))
+            # the cfg's pretrained flags (the reference defaults to pretrained
+            # backbones); raises where no weights resolve, never a silent no-op
+            pretrained = maybe_load_pretrained(cfg.model, self.vit_cfg, self.bart_cfg)
+            if pretrained:
+                load_pretrained(model, pretrained)
+                _logger.info("initialized from pretrained backbones: %s", ", ".join(pretrained))
         # fp32 master weights on the device; the forward casts at use
         self.model = model.to(device=self.device, dtype=torch.float32).train()
         self.model.decoder.dropout_generator = torch.Generator(device=self.device)

@@ -154,7 +154,7 @@ def ln_timeline(flush) -> list:
     lib = _build_copy("layer_norm", text)
     _build.library("layer_norm")
     _build._libs["layer_norm"] = lib
-    lnm._bwd_blocks_per_sm.cache_clear()
+    lnm._blocks_per_sm.cache_clear()
     out = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for R, D in ((3070, 1024), (38400, 512), (614400, 128)):
@@ -165,8 +165,8 @@ def ln_timeline(flush) -> list:
         rows = (ctypes.c_ulonglong * (1024 * 8))()
         sums = (ctypes.c_ulonglong * (2048 * 8))()
         lib.pixparse_timeline(ctypes.cast(rows, ctypes.c_void_p), ctypes.cast(sums, ctypes.c_void_p))
-        _, _, n_blocks = lnm.layer_norm_bwd_plan(R, D, 2, lnm._sm_count(0),
-                                                 lnm._bwd_blocks_per_sm(0, 1, D))
+        _, _, n_blocks = lnm.layer_norm_plan(R, D, 2, lnm._sm_count(0),
+                                             lnm._blocks_per_sm("bwd", 0, 1, D))
         r = [[rows[i * 8 + k] for k in range(len(LN_PHASES))] for i in range(n_blocks)]
         s = [[sums[i * 8 + k] for k in range(len(LN_SUM_PHASES))] for i in range((2 * D + 31) // 32)]
         t0 = min(v[0] for v in r)

@@ -1,11 +1,12 @@
-"""Host time per call of the LayerNorm backward and int8 decode wrappers.
+"""Host time per call of the LayerNorm and int8 decode wrappers.
 
 Enqueue only, no synchronisation inside the timed loop (the method of
 ``window_host_time``): the microseconds the host spends in
 
 - ``layer_norm_bwd`` against one autograd backward through ``F.layer_norm``
-  (``torch.autograd.grad``, the graph kept) on the same bf16 rows, at the
-  donut_base decoder's (3070, 1024) and Swin stage 2's (38400, 512);
+  (``torch.autograd.grad``, the graph kept) and ``layer_norm_fwd`` against
+  one ``F.layer_norm`` on the same bf16 rows, at the donut_base decoder's
+  (3070, 1024) and Swin stage 2's (38400, 512);
 - ``decode_attention_q8`` against ``decode_attention`` (bf16) at the
   cruller_base cross cache (B 16, 1024 keys, 12 heads of 64),
 
@@ -55,6 +56,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rec[f"ln_bwd_wrapper_us_{R}x{D}"] = host_us(lambda: lnm.layer_norm_bwd(x, w, dy, 1e-5))
         rec[f"ln_autograd_us_{R}x{D}"] = host_us(
             lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+        rec[f"ln_fwd_wrapper_us_{R}x{D}"] = host_us(lambda: lnm.layer_norm_fwd(x, w, b, 1e-5))
+        rec[f"f_layer_norm_us_{R}x{D}"] = host_us(
+            lambda: F.layer_norm(x, (D,), leaves[1].detach(), leaves[2].detach(), 1e-5))
     B, Lk, H, D = 16, 1024, 12, 64
     q = torch.randn(B, 1, H * D, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, Lk, H * D, device="cuda", generator=gen).bfloat16()

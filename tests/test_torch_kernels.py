@@ -42,7 +42,7 @@ from pixparse_tpu_torch.ops.layer_norm import (
     layer_norm_bwd,
     layer_norm_bwd_plain,
     layer_norm_fwd,
-    layer_norm_bwd_plan,
+    layer_norm_plan,
     layer_norm_bwd_row_ranges,
     layer_norm_fwd_plain,
 )
@@ -944,8 +944,9 @@ def _ln_bwd_check(device, R, D, dtype, seed):
     from pixparse_tpu_torch.ops import layer_norm as lnm
 
     idx = device.index or 0
-    plan = layer_norm_bwd_plan(R, D, x.element_size(), lnm._sm_count(idx),
-                               lnm._bwd_blocks_per_sm(idx, 1 if dtype == torch.bfloat16 else 0, D))
+    code = 1 if dtype == torch.bfloat16 else 0
+    plan = layer_norm_plan(R, D, x.element_size(), lnm._sm_count(idx),
+                           lnm._blocks_per_sm("bwd", idx, code, D))
     dx_ref, dw_ref, db_ref = layer_norm_bwd_plain(
         x, w, dy, 1e-5, row_ranges=layer_norm_bwd_row_ranges(R, *plan))
     tol = TOL[dtype]
@@ -971,6 +972,52 @@ def test_layer_norm_bwd_kernel_rows_and_widths(cuda_device, dtype, R, D):
 def test_layer_norm_bwd_kernel_swin_stage0(cuda_device, dtype):
     """Swin stage 0 of the donut B=2 step: 614400 rows of 128."""
     _ln_bwd_check(cuda_device, 614400, 128, dtype, 0)
+
+
+LN_FWD_ROWS = (1, 3, 3070, 614400)
+LN_FWD_WIDTHS = (8, 128, 136, 1024, 2048, 8192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,D", [(R, D) for R in LN_FWD_ROWS for D in LN_FWD_WIDTHS
+                                 if R * D <= 614400 * 2048])  # the plain version's fp32 copies fit
+def test_layer_norm_fwd_kernel_rows_and_widths(cuda_device, dtype, R, D):
+    """The persistent forward at the narrowest and widest rows (a lane per
+    row at D = 8, 16 lanes at 128, 17 chunks on 32 lanes at 136, 2 to 8
+    warps a row from 1024 up), a short and a partial row group, the donut
+    decoder's 3070 rows and Swin stage 0's 614400: within one bf16 step of
+    the plain version, the same bits on a repeat, one launch a call, and a
+    grid of one resident wave."""
+    from pixparse_tpu_torch.ops import layer_norm as lnm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(R + D)
+    x = (torch.randn(R, D, device=cuda_device, generator=gen) * 2 + 0.5).to(dtype)
+    w = 1 + 0.3 * torch.randn(D, device=cuda_device, generator=gen)
+    b = 0.2 * torch.randn(D, device=cuda_device, generator=gen)
+    before = layer_norm_fwd.launches
+    y = layer_norm_fwd(x, w, b, 1e-5)
+    again = layer_norm_fwd(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert layer_norm_fwd.launches == before + 2
+    assert torch.equal(y, again)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), layer_norm_fwd_plain(x, w, b, 1e-5).float(),
+                               atol=tol, rtol=tol)
+    idx = cuda_device.index or 0
+    per_sm = lnm._blocks_per_sm("fwd", idx, 1 if dtype == torch.bfloat16 else 0, D)
+    _, n_groups, n_blocks = layer_norm_plan(R, D, x.element_size(), lnm._sm_count(idx), per_sm)
+    assert 1 <= n_blocks <= min(n_groups, lnm._sm_count(idx) * per_sm)
+
+
+@pytest.mark.cuda
+def test_layer_norm_fwd_kernel_misaligned_rows(cuda_device):
+    """x starting 8 bytes past a 16-byte boundary is copied, not misread."""
+    base = torch.randn(3 * 128 + 4, device=cuda_device)
+    x = base[4:].view(3, 128)
+    w, b = torch.ones(128, device=cuda_device), torch.zeros(128, device=cuda_device)
+    torch.testing.assert_close(layer_norm_fwd(x, w, b, 1e-5), layer_norm_fwd_plain(x, w, b, 1e-5),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The LayerNorm backward kernel's work split, on the CPU.
 
-- ``layer_norm_bwd_config`` / ``layer_norm_bwd_plan`` /
+- ``layer_norm_config`` / ``layer_norm_plan`` /
   ``layer_norm_bwd_row_ranges`` (pure Python, mirrors of the kernel's
   launch): a row's threads and chunks cover its width, 16 lanes a row at
   D = 128, a row group of at most 16 KB per operand, one wave of blocks,
@@ -23,9 +23,9 @@ import torch
 from pixparse_tpu.ops.layer_norm import _ln_ref
 from pixparse_tpu.ops.layer_norm import layer_norm as jax_layer_norm
 from pixparse_tpu_torch.ops.layer_norm import (
-    layer_norm_bwd_config,
+    layer_norm_config,
     layer_norm_bwd_plain,
-    layer_norm_bwd_plan,
+    layer_norm_plan,
     layer_norm_bwd_row_ranges,
 )
 
@@ -36,7 +36,7 @@ WIDTHS = (8, 16, 24, 64, 128, 136, 256, 512, 1000, 1024, 2048, 4096, 8192)
 @pytest.mark.parametrize("elt", [2, 4])
 @pytest.mark.parametrize("D", WIDTHS)
 def test_layer_norm_bwd_config(D, elt):
-    tr, k, u = layer_norm_bwd_config(D, elt)
+    tr, k, u = layer_norm_config(D, elt)
     assert tr & (tr - 1) == 0 and 1 <= tr <= 256
     assert D <= tr * k * 8  # the row's threads cover its chunks of 8
     assert tr == 1 or k == 4 or (tr // 2) * k * 8 < D  # with no narrower row
@@ -54,7 +54,7 @@ def test_layer_norm_bwd_config(D, elt):
 ])
 @pytest.mark.parametrize("elt,blocks_per_sm", [(2, 2), (4, 1)])
 def test_layer_norm_bwd_row_ranges_cover_rows_once(R, D, elt, blocks_per_sm):
-    G, n_groups, n_blocks = layer_norm_bwd_plan(R, D, elt, SMS, blocks_per_sm)
+    G, n_groups, n_blocks = layer_norm_plan(R, D, elt, SMS, blocks_per_sm)
     assert (n_groups - 1) * G < R <= n_groups * G
     assert 1 <= n_blocks <= min(n_groups, SMS * blocks_per_sm)
     ranges = layer_norm_bwd_row_ranges(R, G, n_groups, n_blocks)
@@ -78,7 +78,7 @@ def _inputs(R, D, seed):
 @pytest.mark.parametrize("R,D,sms", [(300, 128, 2), (37, 256, 1), (64, 1024, 4), (1000, 136, 3)])
 def test_plain_in_kernel_order_matches_jax(R, D, sms):
     x, w, b, dy = _inputs(R, D, R + D)
-    plan = layer_norm_bwd_plan(R, D, 4, sms, 2)
+    plan = layer_norm_plan(R, D, 4, sms, 2)
     ranges = layer_norm_bwd_row_ranges(R, *plan)
     assert len(ranges) > 1
     got = layer_norm_bwd_plain(*(torch.from_numpy(t) for t in (x, w, dy)), 1e-6,

@@ -19,7 +19,7 @@ from flax import linen as nn
 from pixparse_tpu.models import Cruller as JaxCruller
 from pixparse_tpu.models import get_model_config as jax_model_config
 from pixparse_tpu.models import resolve_cruller_cfgs as jax_resolve
-from pixparse_tpu.models.torch_interop import cruller_params_to_torch
+from pixparse_tpu.models.torch_interop import cruller_params_to_torch, resize_token_embeddings
 from pixparse_tpu_torch.models.bart import KVCache
 from pixparse_tpu_torch.models.config import get_model_config
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
@@ -142,10 +142,16 @@ def test_reference_export_loads_strictly(pair, tmp_path):
 
 
 def test_vocab_mismatch_and_unported_modes_raise(pair):
+    """A checkpoint 2 rows short of the model's vocab loads with its tied
+    table resized exactly as the JAX package's import resizes it (the
+    vocab-resize replay); the unported decode modes raise."""
     _, params, tm, _, _ = pair
     v, b, _ = resolve_cruller_cfgs(get_model_config("cruller_test"), vocab_size=VOCAB + 2)
-    with pytest.raises(ValueError, match="vocab"):
-        load_cruller_state_dict(Cruller(v, b), tm.state_dict())
+    grown = Cruller(v, b)
+    load_cruller_state_dict(grown, tm.state_dict())
+    want = resize_token_embeddings(params["text_decoder"], VOCAB + 2)["embed_tokens"]["embedding"]
+    np.testing.assert_array_equal(grown.tied_embedding.detach().numpy(), np.asarray(want))
+    assert grown.decoder.lm_head.weight is grown.decoder.model.decoder.embed_tokens.weight
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         Cruller(v, b, kv_cache_dtype="fp8")
     with pytest.raises(ValueError, match="lm_head_dtype"):

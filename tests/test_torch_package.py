@@ -3,8 +3,8 @@
 - importing every module of the port (the list below names them, so a module
   that goes missing is noticed) loads no JAX, flax,
   optax, orbax or ``pixparse_tpu``, and no PIL, transformers, tokenizers,
-  wandb or tensorboard either (those are imported inside the functions that
-  need them);
+  wandb, tensorboard, safetensors or timm either (those are imported inside
+  the functions that need them);
 - no source file of the port, nor ``chip_smoke.py``, imports the former
   anywhere or the latter at module level;
 - entry points default to the CUDA device and raise without it;
@@ -27,7 +27,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pixparse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
-LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard")
+LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard", "safetensors", "timm")
 MODULES = (
     # serving
     "app.infer", "data.transforms", "device", "framework.cli", "framework.config",
@@ -41,6 +41,8 @@ MODULES = (
     "framework.checkpoint", "framework.monitor", "framework.optimization",
     "framework.profiling", "framework.train", "framework.train_state", "ops.dense", "ops.loss",
     "task.task_cruller_pretrain", "utils.metrics", "utils.ocr_eval", "utils.text_metrics",
+    # pretrained backbones from local files
+    "models.pretrained",
     # donut_base serving, the eval CLI and the int8 decode mode
     "app.eval", "framework.eval", "models.swin", "ops.window_attention",
     # donut_base training, the remat modes and the opt-in LayerNorm kernels
@@ -108,8 +110,9 @@ def _module_level_imports(path: Path):
 
 
 def test_optional_packages_are_imported_only_inside_functions():
-    """PIL, transformers, tokenizers, wandb and tensorboard: a module of the
-    port may use them, but only inside the function that needs them."""
+    """PIL, transformers, tokenizers, wandb, tensorboard, safetensors and
+    timm: a module of the port may use them, but only inside the function
+    that needs them."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [
         (str(f.relative_to(ROOT)), name)
@@ -120,7 +123,7 @@ def test_optional_packages_are_imported_only_inside_functions():
     assert bad == []
     # and they are used somewhere, inside functions: the check above is not vacuous
     used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
-    assert {"PIL", "wandb"} <= used
+    assert {"PIL", "wandb", "safetensors", "timm"} <= used
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
