@@ -73,7 +73,11 @@ stderr):
    CE backward also runs at one full vocabulary chunk and one row (T 16368,
    V 8193, D 768); every backward case must give the same bits on a second
    launch, and its record carries the call's workspace and fp32 dh
-   accumulator bytes and its peak memory over its inputs. A
+   accumulator bytes and its peak memory over its inputs. The finetune
+   path's shapes join too: flash forward and backward at B=8, causal 511
+   and cross 511x1009, and the CE at T 4088 over the CORD vocabulary
+   (50322) with the finetune collates' -100 pattern (a prompt prefix and a
+   pad tail in every 511-token row). A
    flash-gradient row whose true value is 0 (a causal query that sees one
    key) carries fp32 cancellation noise in kernel and plain version alike,
    so rows under 1% of the tensor's mean row norm are held to 2e-2 of that
@@ -149,6 +153,34 @@ stderr):
    1 and 2; one full-state checkpoint is saved and
    restored. This is the training main-path run: counters zeroed before, read
    after, and each training kernel must have launched.
+10. ``pretrained_train``: ``cruller_pretrain`` with both backbones from
+   seeded stand-in files of the published ViT-B/16 and bart-base
+   (``$PIXPARSE_PRETRAINED_DIR``): the loaded weights equal the file tensors
+   adapted independently; 2 steps at B=16.
+11. ``finetune_tasks``: the finetune and eval tasks at cruller_base over
+   in-process indexable datasets of seeded uint8 pages (CORD-shaped nested
+   ``gt_parse`` strings, DocVQA questions of different lengths, RVL-CDIP
+   labels) fed through ``HfDatasetLoader`` and each task's ``collate_fn``
+   (no PIL, no ``datasets`` on the card machine), the tokenizer padded to
+   50265 entries and grown by each task's replay: (a)
+   ``cruller_finetune_cord`` from a seeded pretrain checkpoint (50267 ->
+   50322 rows), B=8, text 511, two intervals of 2 batches: losses finite,
+   the second interval's mean below the first's; on the first batch the
+   task's own ``loss_fn`` and every parameter's gradient on the kernel path
+   against the plain path (loss 1e-3 relative, each gradient 5e-2 in L2);
+   (b)
+   ``cruller_eval_{cord,docvqa,rvlcdip}`` in bf16 from (a)'s weights
+   (B=8, 8, 16; up to 512, 512, 6 tokens) through ``evaluate``: finite
+   metrics, and the first DocVQA decode step on its ragged, left-aligned
+   prompts within 5e-2 of a plain parallel pass; (c)
+   ``cruller_finetune_xent`` with (a)'s encoder, B=16, 3 steps. Counters
+   zeroed before and read after each run, each count equal to what the
+   geometry gives: per step (a) depth + 2 x decoder layers flash forward
+   and backward and one of each CE kernel, (c) depth flash forward and
+   backward; per eval batch depth flash forward and, per single-token
+   decode step, 2 x decoder layers decode launches; every other count 0.
+   Samples/s, ms/step (median after the first step) and pages/s in the
+   phase's line.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -163,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -171,7 +204,8 @@ import time
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
-          "eval_task", "train_model", "train_donut", "train_task", "pretrained_train")
+          "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
+          "finetune_tasks")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -180,6 +214,11 @@ DONUT_VOCAB = 57525  # donut_base's (its mBART decoder's table)
 DONUT_NEW_TOKENS = 64  # serve_donut: fixed decode budget (EOS disabled)
 DONUT_TRAIN_STEPS = 3  # train_donut: steps under each remat mode (the first one warms up)
 BYTE_IDS = (4, 260)  # the byte-level tokenizer's 256 byte tokens
+FINETUNE_B = 8  # finetune_tasks (a): CORD finetune batch, 2 batches an interval, 2 intervals
+FINETUNE_TEXT = 511  # the finetune collates' 512 tokens, shifted
+# (a)'s vocabulary: BART_VOCAB, the two pretrain tokens, then the CORD
+# replay's 55 new ones (finetune_tasks checks it)
+CORD_FINETUNE_VOCAB = BART_VOCAB + 57
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -307,7 +346,7 @@ def flash_cases(torch):
         ("multi_tile_lk2509", 2, 2509, 2509, 12, 64, bf, False, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, False, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, False, None),
-    ] + flash_new_cases(torch)
+    ] + flash_new_cases(torch) + flash_finetune_cases(torch)
 
 
 def flash_new_cases(torch, backward=False):
@@ -333,6 +372,18 @@ def flash_new_cases(torch, backward=False):
         ("edge_lq1_lk129_causal", 2, 1, 129, 4, 64, bf, True, None),
         ("causal_lq100_lk200", 2, 100, 200, 4, 64, bf, True, None),
         ("kv_lens_on_tile_boundary", 3, 300, 300, 4, 64, bf, False, [128, 129, 256]),
+    ]
+
+
+def flash_finetune_cases(torch):
+    """finetune_tasks (a)'s decoder sites: B=8, the collates' 511 tokens
+    (the 512 of the collate, shifted), against the 1009 encoder tokens."""
+    bf = torch.bfloat16
+    # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
+    return [
+        ("finetune_self_causal_b8_l511", FINETUNE_B, FINETUNE_TEXT, FINETUNE_TEXT, 12, 64, bf,
+         True, None),
+        ("finetune_cross_b8_lq511_lk1009", FINETUNE_B, FINETUNE_TEXT, 1009, 12, 64, bf, False, None),
     ]
 
 
@@ -489,12 +540,12 @@ def flash_bwd_cases(torch):
         ("causal_lq100_lk300_d128", 2, 100, 300, 4, 128, bf, True, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, True, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, True, None),
-    ] + flash_new_cases(torch, backward=True)
+    ] + flash_new_cases(torch, backward=True) + flash_finetune_cases(torch)
 
 
 def ce_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
-    # name, T, V, D, dtype, share of ignored tokens
+    # name, T, V, D, dtype, share of ignored tokens (or "collate": collate_ignored)
     return [
         ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, bf, 0.3),
         # the backward's vocabulary chunks at T 16368 are 8192 rows: one full
@@ -504,7 +555,25 @@ def ce_cases(torch):
         ("donut_t3070_v57525_d1024", 2 * 1535, DONUT_VOCAB, 1024, bf, 0.3),
         ("test_width_t300_v517_d64", 300, 517, 64, bf, 0.2),
         ("fp32_t200_v1001_d256", 200, 1001, 256, f32, 0.2),
+        # finetune_tasks (a): B=8 rows of 511 at the vocabulary the CORD
+        # replay grows, ignored where the finetune collates put -100
+        ("finetune_cord_t4088_v50322_d768", FINETUNE_B * FINETUNE_TEXT, CORD_FINETUNE_VOCAB, 768,
+         bf, "collate"),
     ]
+
+
+def collate_ignored(target, L, gen):
+    """Masks ``target`` as the finetune collates do, in rows of ``L``: a
+    prompt prefix (DocVQA's question; none to 63 positions) and the pad tail
+    after each row's text (an eighth of ``L`` to all of it) -> -100."""
+    import torch
+
+    rows = target.view(-1, L)
+    pos = torch.arange(L)[None]
+    prompt = torch.randint(0, 64, (rows.shape[0], 1), generator=gen)
+    end = torch.randint(L // 8, L + 1, (rows.shape[0], 1), generator=gen)
+    rows[(pos < prompt) | (pos >= end)] = -100
+    return target
 
 
 def visible_pairs(B, Lq, Lk, causal, lens):
@@ -593,7 +662,10 @@ def check_fused_ce(torch, F, loss, timer, peaks, gen, case):
     h = (torch.randn(T, D, generator=gen) * 0.5).to("cuda", dt)
     e = (torch.randn(V, D, generator=gen) * 0.2).to("cuda", dt)
     target = torch.randint(0, V, (T,), generator=gen)
-    target[torch.rand(T, generator=gen) < ignored] = -1
+    if ignored == "collate":
+        target = collate_ignored(target, FINETUNE_TEXT, gen)
+    else:
+        target[torch.rand(T, generator=gen) < ignored] = -1
     target = target.cuda()
     n_valid = int((target >= 0).sum())
     elt = h.element_size()
@@ -2311,15 +2383,7 @@ def phase_pretrained_train(torch, model_name="cruller_base", B=PRETRAINED_B, ste
         not_from_files = sorted(set(got) - set(want) - {interop.LM_HEAD_KEY})
         loader = SeededLoader(torch, steps, B, vit_cfg.img_size, task.max_position_embeddings,
                               seed=11, in_chans=vit_cfg.in_chans, vocab=task.vocab_size)
-        losses = []
-        step = task.train_step
-
-        def recorded(sample):
-            out = step(sample)
-            losses.append(float(out["loss"]))
-            return out
-
-        task.train_step = recorded
+        losses, _ = timed_steps(task, lambda: sync(torch))
         reset_counts()
         t0 = time.perf_counter()
         train_one_interval(task, loader)
@@ -2353,6 +2417,372 @@ def phase_pretrained_train(torch, model_name="cruller_base", B=PRETRAINED_B, ste
     if problems:
         raise SystemExit("pretrained_train failed: " + "; ".join(problems))
     return {"pretrained_train": launches}
+
+
+# --------------------------------------------------------------------------
+# the finetune and eval tasks
+# --------------------------------------------------------------------------
+
+FINETUNE_BATCHES = 2
+EVAL_BATCH = {"cord": 8, "docvqa": 8, "rvlcdip": 16}  # (b): one batch each
+XENT_B, XENT_STEPS = 16, 3  # (c)
+# what each run of finetune_tasks launches, exactly, from the encoder's
+# depth d, the decoder's layers l, the run's steps (train) or batches (eval)
+# n and its single-token decode steps s; every other count is 0
+FINETUNE_TASK_KERNELS = {
+    "finetune_cord": lambda d, l, n, s: dict(
+        flash_attention_fwd=n * (d + 2 * l), flash_attention_bwd=n * (d + 2 * l),
+        fused_ce_fwd=n, fused_ce_bwd=n),
+    "eval_cord": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
+    "eval_docvqa": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
+    "eval_rvlcdip": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
+    "finetune_xent": lambda d, l, n, s: dict(flash_attention_fwd=n * d, flash_attention_bwd=n * d),
+}
+STEP1_LOSS_RTOL = 1e-3  # finetune_tasks (a): task.loss_fn, kernel path vs plain path
+STEP1_GRAD_RTOL = 5e-2  # each parameter's gradient, in L2
+STEP1_GRAD_FLOOR = 1e-2  # of the median leaf norm: leaves whose true gradient is 0
+CORD_FIELDS = ("nm", "cnt", "unitprice", "price")
+
+
+def uint8_pages(n, H, W, rng):
+    """Page-like uint8 (H, W) arrays, as an image dataset holds them: light
+    background with dark text-line bands."""
+    import numpy as np
+
+    pages = []
+    for _ in range(n):
+        page = np.full((H, W), 235, np.uint8)
+        for y in range(8, H - 16, 24):
+            w = int(rng.randint(W // 4, W - 16))
+            page[y:y + 12, 8:8 + w] = rng.randint(0, 100, (12, w))
+        pages.append(page)
+    return pages
+
+
+def cord_items(n, H, W, rng):
+    """CORD-shaped items: ``ground_truth`` a JSON string of a nested
+    ``gt_parse`` (menu rows, sub total, total)."""
+    def money():
+        return f"{rng.randint(1, 999)}.{rng.randint(0, 99):02d}"
+
+    items = []
+    for page in uint8_pages(n, H, W, rng):
+        menu = [{k: (f"item {rng.randint(1000)} " * 2).strip() if k == "nm" else money()
+                 for k in CORD_FIELDS[:2 + rng.randint(3)]} for _ in range(1 + rng.randint(12))]
+        gt = {"gt_parse": {"menu": menu,
+                           "sub_total": {"subtotal_price": money(), "tax_price": money()},
+                           "total": {"total_price": money(), "cashprice": money(),
+                                     "changeprice": money()}}}
+        items.append({"image": page, "ground_truth": json.dumps(gt)})
+    return items
+
+
+def docvqa_items(n, H, W, rng):
+    """DocVQA eval-shaped items: several questions of different lengths."""
+    words = "what is the total amount date name of company on this page form".split()
+    return [{"image": page, "question_id": i, "labels": {
+        "question": " ".join(rng.choice(words, 2 + 3 * (i % 4))) + "?",
+        "answers": [f"answer {i}", str(rng.randint(100))]}}
+        for i, page in enumerate(uint8_pages(n, H, W, rng))]
+
+
+def rvlcdip_items(n, H, W, rng):
+    return [{"image": page, "label": i % 16} for i, page in enumerate(uint8_pages(n, H, W, rng))]
+
+
+def hf_bundle(items, B, collate_fn, is_train, seed=0):
+    from pixparse_tpu_torch.data.loader import HfDatasetLoader
+    from pixparse_tpu_torch.data.wds import LoaderBundle
+
+    loader = HfDatasetLoader(items, B, collate_fn, is_train=is_train, seed=seed, num_workers=2)
+    return LoaderBundle(loader=loader, num_batches=len(loader), num_samples=len(items))
+
+
+def timed_steps(task, sync_fn):
+    """Wraps ``task.train_step``: each step's loss (read, so the step has
+    ended) and wall ms land in the returned lists."""
+    losses, times = [], []
+    step = task.train_step
+
+    def recorded(sample):
+        t0 = time.perf_counter()
+        out = step(sample)
+        losses.append(float(out["loss"]))
+        sync_fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    task.train_step = recorded
+    return losses, times
+
+
+def first_decode_vs_plain(torch, task, images, prompts):
+    """The first decode step of ``generate``'s path on ragged prompts
+    (right-padded, left-aligned: pad keys at the front of the self cache):
+    prefill, argmax, one single-token decode (the decode kernel on the card),
+    against one teacher-forced pass of plain attention over the same tokens,
+    positions and key mask."""
+    from pixparse_tpu_torch.models.bart import KVCache
+    from pixparse_tpu_torch.ops.generation import _left_align_prompts
+
+    model, pad = task.model, task.tokenizer.pad_token_id
+    with torch.inference_mode():
+        enc = task.encode_images(images)
+        prompts = torch.as_tensor(prompts, device=enc.device).long()
+        aligned, positions, valid = _left_align_prompts(prompts, pad)
+        B, Lp = aligned.shape
+        buffer = torch.full((B, Lp + 1), pad, dtype=torch.long, device=enc.device)
+        buffer[:, :Lp] = aligned
+        cache = KVCache(max_len=Lp + 1)
+        first = model.decode(aligned, enc, cache, key_pad_mask=buffer != pad, mode="prefill",
+                             positions=positions)[:, -1].argmax(-1)
+        buffer[:, Lp] = first
+        step = model.decode(first[:, None], enc, cache, key_pad_mask=buffer != pad,
+                            mode="decode", positions=valid[:, None])[:, -1]
+        impl = model.attn_impl
+        model.attn_impl = "xla"
+        try:
+            parallel = model.decode(
+                buffer, enc, attention_mask=buffer != pad, mode="train",
+                positions=torch.cat([positions, valid[:, None]], dim=1))[:, -1]
+        finally:
+            model.attn_impl = impl
+    err, ok = close(step, parallel, 5e-2, 5e-2)
+    return {"prompt_lengths": valid.tolist(), "max_abs_err": err, "tol": [5e-2, 5e-2], "ok": ok}
+
+
+def step1_kernel_vs_plain(torch, task, batch, kernel_impl):
+    """The train task's own loss (``task.loss_fn``) and the gradient of every
+    parameter on ``batch``, dropout off, on the kernel path (``kernel_impl``
+    attention, the fused CE) and on the plain path (plain attention, the
+    chunked plain CE in the task's place): the loss within
+    STEP1_LOSS_RTOL, each leaf's gradient within STEP1_GRAD_RTOL in L2 of the
+    plain one (or of STEP1_GRAD_FLOOR of the median leaf norm, for leaves
+    whose true gradient is 0, as the key biases' is)."""
+    import pixparse_tpu_torch.task.cruller_base as base
+    from pixparse_tpu_torch.ops import loss as loss_ops
+
+    model = task.model
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    fused = base.cross_entropy_from_hidden
+    losses, grads = {}, {}
+    model.eval()
+    try:
+        for path, impl, ce in (("kernel", kernel_impl, fused),
+                               ("plain", "xla", loss_ops.chunked_cross_entropy_from_hidden)):
+            model.attn_impl, base.cross_entropy_from_hidden = impl, ce
+            loss, _ = task.loss_fn(batch)
+            got = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+            losses[path] = float(loss.detach())
+            grads[path] = [torch.zeros_like(p) if g is None else g.float()
+                           for (_, p), g in zip(named, got)]
+            del loss, got
+    finally:
+        model.attn_impl, base.cross_entropy_from_hidden = kernel_impl, fused
+        model.train()
+    norms = [float(g.norm()) for g in grads["plain"]]
+    floor = STEP1_GRAD_FLOOR * statistics.median(norms)
+    rel = {n: float((a - b).norm()) / max(ref, floor) for (n, _), a, b, ref in
+           zip(named, grads["kernel"], grads["plain"], norms)}
+    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    global_norms = {path: math.sqrt(sum(float(g.square().sum()) for g in gs))
+                    for path, gs in grads.items()}
+    loss_ok = abs(losses["kernel"] - losses["plain"]) <= STEP1_LOSS_RTOL * abs(losses["plain"])
+    return {"loss": losses, "grad_norm": global_norms, "leaves": len(named),
+            "worst_leaf_rel_err": {n: rel[n] for n in worst}, "grad_floor": floor,
+            "tol": {"loss_rel": STEP1_LOSS_RTOL, "grad_leaf_rel": STEP1_GRAD_RTOL,
+                    "grad_floor_of_median": STEP1_GRAD_FLOOR},
+            "ok": loss_ok and rel[worst[0]] <= STEP1_GRAD_RTOL}
+
+
+def counted_decode_steps(model):
+    """Wraps ``model.decode``: the returned list's one entry counts its
+    single-token decode steps (each launches the decode kernel once a
+    decoder layer for self- and once for cross-attention)."""
+    steps = [0]
+    decode = model.decode
+
+    def counted(ids, *args, mode="train", **kw):
+        steps[0] += mode == "decode" and ids.shape[1] == 1
+        return decode(ids, *args, mode=mode, **kw)
+
+    model.decode = counted
+    return steps
+
+
+def phase_finetune_tasks(torch, model_name="cruller_base", B=FINETUNE_B,
+                         n_batches=FINETUNE_BATCHES, eval_batch=EVAL_BATCH, xent=(XENT_B, XENT_STEPS),
+                         tok_vocab=BART_VOCAB, lr=3e-4, device="cuda"):
+    """The finetune and eval tasks through their entry points, over
+    in-process indexable datasets of seeded uint8 pages fed through
+    ``HfDatasetLoader`` and each task's ``collate_fn`` (the card machine has
+    neither PIL nor ``datasets``); the tokenizer is the byte-level one padded
+    to ``tok_vocab`` entries, to which each task adds its own tokens.
+
+    (a) ``cruller_finetune_cord`` from a seeded pretrain ``state_dict``
+    (vocabulary ``tok_vocab`` + 2, grown by the CORD replay), two intervals
+    of ``n_batches`` batches of ``B``: losses finite and the second
+    interval's mean below the first's; the step-1 loss of the kernel path
+    (flash + fused CE) and every parameter's gradient against the plain
+    path's (plain attention, chunked plain CE) on the first batch
+    (``step1_kernel_vs_plain``). (b)
+    ``cruller_eval_{cord,docvqa,rvlcdip}`` in bf16 from (a)'s weights, one
+    batch each through ``framework.eval.evaluate``: every metric finite; the
+    first DocVQA decode step's logits on its ragged prompts within 5e-2 of
+    the plain path's. (c) ``cruller_finetune_xent`` with (a)'s encoder,
+    ``xent[1]`` steps of ``xent[0]``. Counters zeroed before and read after
+    each run; each run must launch exactly what FINETUNE_TASK_KERNELS
+    works out from its geometry, and nothing else."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.eval import evaluate
+    from pixparse_tpu_torch.framework.train import train_one_interval
+    from pixparse_tpu_torch.models.cruller import Cruller
+    from pixparse_tpu_torch.models.interop import cruller_state_dict
+    from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY, TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    env = DeviceEnv.initialize(device)
+    rng = np.random.RandomState(0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    runs, launches, problems = {}, {}, []
+
+    def make(name, **kw):
+        cfg = TASK_CLASS_REGISTRY[name][1](
+            model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), device=device, **kw)
+        return TaskFactory.create_task(name, cfg, env)[0]
+
+    def check_launches(tag, vit, bart, n, decode_steps=0):
+        """On the card, ``tag``'s counts must be FINETUNE_TASK_KERNELS'; on
+        the CPU every count is 0."""
+        want = {k: 0 for k in counters()}
+        if device == "cuda":
+            want.update(FINETUNE_TASK_KERNELS[tag](vit.depth, bart.decoder_layers, n, decode_steps))
+        if launches[tag] != want:
+            problems.append(f"{tag}: launched {launches[tag]}, want {want}")
+
+    try:
+        tok_dir = saved_tokenizer(os.path.join(tmp, "tokenizer"), tok_vocab, specials=False)
+        # (a) CORD finetune from a seeded pretrain checkpoint
+        train_kw = dict(dtype="bfloat16", num_intervals=2, num_warmup_intervals=0,
+                        opt=OptimizationCfg(learning_rate=lr))
+        task = make("cruller_finetune_cord", **train_kw)
+        pre_vocab = task.vocab_size_base
+        t0 = time.perf_counter()
+        pre = Cruller(task.vit_cfg, dataclasses.replace(task.bart_cfg, vocab_size=pre_vocab))
+        task.resume_state_dict = cruller_state_dict(pre.init_weights(torch.Generator().manual_seed(0)))
+        del pre
+        H, W = task.vit_cfg.img_size
+        bundle = hf_bundle(cord_items(B * n_batches, H, W, rng), B, task.collate_fn, True)
+        task.train_setup(num_batches_per_interval=bundle.num_batches, seed=0)
+        setup_s = time.perf_counter() - t0
+        first = task._to_device(task.normalize_batch(task.collate_fn(
+            [bundle.loader.dataset[i] for i in bundle.loader.batch_indices()[0]])))
+        step1 = step1_kernel_vs_plain(torch, task, first, "flash" if device == "cuda" else "xla")
+        losses, times = timed_steps(task, lambda: sync(torch))
+        reset_counts()
+        t0 = time.perf_counter()
+        for interval in range(2):
+            bundle.set_interval(interval)
+            task.interval_idx = interval
+            train_one_interval(task, bundle)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches["finetune_cord"] = read_counts()
+        ms = statistics.median(times[1:]) if len(times) > 1 else times[0]
+        halves = [float(np.mean(losses[:n_batches])), float(np.mean(losses[n_batches:]))]
+        runs["finetune_cord"] = {
+            "vocab": [pre_vocab, task.vocab_size], "batch": B, "text_len": int(first["text"].shape[1]),
+            "steps": len(losses), "losses": losses, "interval_mean_losses": halves,
+            "step_ms": times, "ms_per_step": ms, "samples_per_s": B / (ms / 1e3),
+            "wall_samples_per_s": len(losses) * B / wall, "setup_s": setup_s,
+            "step1_kernel_vs_plain": step1, "launches": launches["finetune_cord"]}
+        if not (len(losses) == 2 * n_batches and all(np.isfinite(losses)) and halves[1] < halves[0]):
+            problems.append(f"finetune_cord: losses not finite and falling: {losses}")
+        if tok_vocab == BART_VOCAB and task.vocab_size != CORD_FINETUNE_VOCAB:
+            problems.append(f"finetune_cord: vocabulary {task.vocab_size}, the kernels phase "
+                            f"holds the fused CE at {CORD_FINETUNE_VOCAB}")
+        if not step1["ok"]:
+            problems.append(f"finetune_cord: step 1, kernel path vs plain path: {step1}")
+        check_launches("finetune_cord", task.vit_cfg, task.bart_cfg, len(losses))
+        weights = task.state_dict()
+        del task, first
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b) the three eval tasks in bf16 from (a)'s weights
+        makers = {"cord": cord_items, "docvqa": docvqa_items, "rvlcdip": rvlcdip_items}
+        for short, n in eval_batch.items():
+            tag = f"eval_{short}"
+            task = make(f"cruller_eval_{short}", dtype="bfloat16")
+            task.resume_state_dict = weights
+            task.setup()
+            items = makers[short](n, H, W, rng)
+            bundle = hf_bundle(items, n, task.collate_fn, False)
+            decode_steps = counted_decode_steps(task.model)
+            reset_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            metrics = evaluate(task, {"eval": bundle})
+            sync(torch)
+            dt = time.perf_counter() - t0
+            launches[tag], steps = read_counts(), decode_steps[0]
+            avg = metrics["eval"]["average"]
+            flat = avg["classification"] if short == "rvlcdip" else avg
+            runs[tag] = {"vocab": task.vocab_size, "batch": n, "seconds": dt,
+                         "pages_per_s": n / dt, "max_generation_length": task.max_generation_length,
+                         "decode_steps": steps, "metrics": avg, "launches": launches[tag]}
+            if not flat or not all(np.isfinite(v) for v in flat.values()):
+                problems.append(f"{tag}: metrics missing or not finite: {avg}")
+            if short == "docvqa":
+                batch = task.collate_fn(items)
+                dec = first_decode_vs_plain(torch, task, batch["images"],
+                                            task.batch_prompts(batch["questions"]))
+                runs[tag]["first_decode_vs_plain"] = dec
+                if not dec["ok"] or len(set(dec["prompt_lengths"])) < 2:
+                    problems.append(f"{tag}: first decode step vs plain path: {dec}")
+            check_launches(tag, task.vit_cfg, task.bart_cfg, bundle.num_batches, steps)
+            del task
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+        # (c) the classifier with (a)'s encoder
+        xb, xsteps = xent
+        task = make("cruller_finetune_xent", **dict(train_kw, num_intervals=1))
+        task.resume_state_dict = weights
+        bundle = hf_bundle(rvlcdip_items(xb * xsteps, H, W, rng), xb, task.collate_fn, True)
+        task.train_setup(num_batches_per_interval=bundle.num_batches, seed=0)
+        losses, times = timed_steps(task, lambda: sync(torch))
+        reset_counts()
+        t0 = time.perf_counter()
+        train_one_interval(task, bundle)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches["finetune_xent"] = read_counts()
+        ms = statistics.median(times[1:]) if len(times) > 1 else times[0]
+        runs["finetune_xent"] = {
+            "batch": xb, "steps": len(losses), "losses": losses, "step_ms": times,
+            "ms_per_step": ms, "samples_per_s": xb / (ms / 1e3),
+            "wall_samples_per_s": len(losses) * xb / wall, "state_dict_keys": sorted(
+                {k.split(".")[0] for k in task.state_dict()}), "launches": launches["finetune_xent"]}
+        if len(losses) != xsteps or not all(np.isfinite(losses)):
+            problems.append(f"finetune_xent: losses not finite: {losses}")
+        check_launches("finetune_xent", task.vit_cfg, task.bart_cfg, len(losses))
+        del task
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "finetune_tasks", "model": model_name, "dtype": "bfloat16",
+          "tokenizer": f"pixparse_bytelevel + filler tokens to {tok_vocab}, from a saved directory",
+          "runs": runs, "launch_unit": "wrapper calls"})
+    if problems:
+        raise SystemExit("finetune_tasks failed: " + "; ".join(problems))
+    return {f"finetune_tasks_{tag}": n for tag, n in launches.items()}
 
 
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
@@ -2532,6 +2962,8 @@ def main(argv=None) -> int:
         path_launches.update(phase_train_task(torch))
     if "pretrained_train" in phases:
         path_launches.update(phase_pretrained_train(torch))
+    if "finetune_tasks" in phases:
+        path_launches.update(phase_finetune_tasks(torch))
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -15,10 +15,14 @@ JSON -> ``task.end()``::
         --data.eval.source 'funsd-{000..003}.tar' --data.eval.num_samples 50 \\
         --data.eval.batch_size 16 --data.eval.split eval
 
-One process on one device: ``--task.device`` (default ``cuda``; without a
-card that raises, ``--task.device cpu`` asks for the CPU). ``--eval.s3_bucket``
-raises (the port reads local checkpoints only). ``donut_eval_ocr``, the HF
-baseline that needs published weights, is not registered.
+Tasks: ``cruller_eval_ocr`` and ``cruller_eval_{cord,docvqa,rvlcdip}``
+(those three read ``--data.eval.format hf_dataset``: ``--data.eval.source
+SinglePageDocVQA`` from ``$PIXPARSE_DOCVQA_DIR`` with ``--data.eval.split
+val``, or a ``datasets.load_dataset`` source). One process on one device:
+``--task.device`` (default ``cuda``; without a card that raises,
+``--task.device cpu`` asks for the CPU). ``--eval.s3_bucket`` raises (the
+port reads local checkpoints only). ``donut_eval_ocr``, the HF baseline that
+needs published weights, is not registered.
 """
 
 from __future__ import annotations

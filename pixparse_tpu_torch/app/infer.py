@@ -3,7 +3,9 @@
 
 Takes a directory / glob of page images, batches them through the
 KV-cached greedy decode on the CUDA card (``--task.device cpu`` to run on
-the CPU) and writes one JSON line ``{"file", "text"}`` per page:
+the CPU) and writes one JSON line ``{"file", "text"}`` per page (the
+JSON-completion tasks ``cruller_eval_{cord,docvqa,rvlcdip}`` add the
+parsed ``"json"``, by ``token2json``):
 
     python -m pixparse_tpu_torch.app.infer \\
         --infer.task_name cruller_eval_ocr \\
@@ -24,7 +26,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass, replace
-from typing import List
+from typing import List, Optional
 
 from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import random_seed, setup_logging
@@ -68,6 +70,18 @@ def _list_images(spec: str) -> List[str]:
     return files
 
 
+def _maybe_json(text: str) -> Optional[dict]:
+    """Generated markup parsed into a dict, or None (a malformed generation
+    keeps only its raw text)."""
+    from pixparse_tpu_torch.utils.json_utils import token2json
+
+    try:
+        out = token2json(text)
+    except Exception:  # noqa: BLE001 -- any parse failure: raw text only
+        return None
+    return out if out else None
+
+
 def infer(infer_cfg: InferCfg, task_cfg) -> int:
     if infer_cfg.continuous:
         raise NotImplementedError(
@@ -95,6 +109,7 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
     _logger.info("%d images on %s", len(files), env)
     bs = max(1, infer_cfg.batch_size)
     prompt = infer_cfg.prompt or task.task_start_token
+    emit_json = infer_cfg.task_name != "cruller_eval_ocr"
 
     def _record(f: str, text: str) -> dict:
         # strip only the structural frame -- the leading prompt and the
@@ -104,7 +119,12 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
         eos = task.tokenizer.eos_token or ""
         if eos and text.endswith(eos):
             text = text[: -len(eos)]
-        return {"file": f, "text": text.strip()}
+        rec = {"file": f, "text": text.strip()}
+        if emit_json:
+            parsed = _maybe_json(rec["text"])
+            if parsed is not None:
+                rec["json"] = parsed
+        return rec
 
     records = _infer_batched(infer_cfg, task, files, prompt, bs, _record)
     lines = [json.dumps(r, ensure_ascii=False) for r in records]

@@ -13,6 +13,23 @@ counters) as the directory ``checkpoint-{i}/``; ``--train.resume`` with such
 a directory (or with no path: the newest one of the experiment) restores
 optimizer and interval state too, with a ``.pt`` file only the weights.
 
+Tasks: ``cruller_pretrain`` and the finetunes ``cruller_finetune_{cord,
+docvqa,rvlcdip,xent}``. Data: ``--data.train.format webdataset`` (tar
+shards) or ``hf_dataset`` (``--data.train.source SinglePageDocVQA`` reads
+``$PIXPARSE_DOCVQA_DIR``; any other source goes to
+``datasets.load_dataset(source)[split]``), batched with the task's collate.
+A ``.pt`` from another task (a pretrain checkpoint into a finetune) loads
+with the vocabulary resized to the task's; ``cruller_finetune_xent`` takes
+the encoder of a Cruller checkpoint and writes ``encoder.trunk.*`` +
+``final_fc.*``::
+
+    python -m pixparse_tpu_torch.app.train \\
+        --train.task_name cruller_finetune_cord \\
+        --train.resume true --train.checkpoint_path ./pretrain/checkpoint-29.pt \\
+        --task.model_name cruller_base --task.dtype bfloat16 \\
+        --data.train.format hf_dataset --data.train.source naver-clova-ix/cord-v2 \\
+        --data.train.split train --data.train.num_samples 800 --data.train.batch_size 8
+
 The task runs on ``--task.device`` (default ``cuda``; without a card that
 raises, ``--task.device cpu`` asks for the CPU). The mesh flags of the JAX
 package have no counterpart, and the S3 resume branch raises.

@@ -18,7 +18,7 @@ class DatasetCfg:
     num_samples: int
     batch_size: int
     split: str  # "train" | "test" | "val"
-    format: str = "webdataset"  # "hf_dataset" is not ported yet
+    format: str = "webdataset"  # or "hf_dataset"
     num_workers: int = 4
 
 

@@ -6,7 +6,9 @@ embedding-table shapes and ids."""
 from __future__ import annotations
 
 import logging
-from typing import Iterable
+from typing import Iterable, List
+
+import numpy as np
 
 from pixparse_tpu_torch.models.config import get_model_config
 
@@ -17,6 +19,53 @@ SEP_TOKEN = "<sep/>"
 # tokens the pretrain phase added, replayed before loading a pretrain
 # checkpoint in finetune/eval tasks
 SPECIAL_TOKENS_FROM_PRETRAIN = [SEP_TOKEN, PRETRAIN_TASK_START]
+
+# the CORD field tokens (56 entries; additions are sorted-set, the list is
+# kept in the reference's order)
+CORD_FINETUNE_TOKENS = [
+    SEP_TOKEN,
+    "<s_cord>",
+    "</s_service_price>", "<s_subtotal_price>", "<s_discountprice>", "</s_sub>",
+    "<s_sub>", "</s_total_etc>", "</s_discountprice>", "</s_vatyn>",
+    "</s_subtotal_price>", "<s_changeprice>", "</s_total>", "</s_unitprice>",
+    "<s_emoneyprice>", "</s_tax_price>", "</s_othersvc_price>", "</s_cnt>",
+    "<s_vatyn>", "<s_unitprice>", "<s_total>", "<s_price>", "</s_price>",
+    "<s_sub_total>", "</s_num>", "<s_total_etc>", "</s_creditcardprice>",
+    "<s_tax_price>", "<s_menu>", "<s_nm>", "<s_menutype_cnt>",
+    "</s_changeprice>", "<s_num>", "<s_itemsubtotal>", "</s_etc>",
+    "<s_creditcardprice>", "</s_menuqty_cnt>", "</s_emoneyprice>",
+    "<s_menuqty_cnt>", "<s_discount_price>", "</s_menu>", "</s_sub_total>",
+    "<s_etc>", "</s_void_menu>", "<s_cashprice>", "</s_discount_price>",
+    "</s_total_price>", "</s_nm>", "<s_service_price>", "<s_othersvc_price>",
+    "</s_itemsubtotal>", "<s_void_menu>", "<s_total_price>", "</s_cashprice>",
+    "</s_menutype_cnt>", "<s_cnt>",
+]
+
+# the RVL-CDIP class tokens
+RVLCDIP_FINETUNE_TOKENS = [
+    SEP_TOKEN,
+    "<s_rvlcdip>",
+    "<s_class>", "</s_class>",
+    "<advertisement/>", "<budget/>", "<email/>", "<file_folder/>", "<form/>",
+    "<handwritten/>", "<invoice/>", "<letter/>", "<memo/>", "<news_article/>",
+    "<presentation/>", "<questionnaire/>", "<resume/>",
+    "<scientific_publication/>", "<scientific_report/>", "<specification/>",
+]
+
+# RVL-CDIP label -> class name
+RVLCDIP_INT2STR = {
+    0: "letter", 1: "form", 2: "email", 3: "handwritten", 4: "advertisement",
+    5: "scientific_report", 6: "scientific_publication", 7: "specification",
+    8: "file_folder", 9: "news_article", 10: "budget", 11: "invoice",
+    12: "presentation", 13: "questionnaire", 14: "resume", 15: "memo",
+}
+
+# the DocVQA prompt and answer tags
+DOCVQA_FINETUNE_TOKENS = [
+    SEP_TOKEN,
+    "<s_docvqa>", "<s_answer>",
+    "<s_question>", "</s_question>", "</s_answer>",
+]
 
 
 def add_special_tokens(tokenizer, tokens: Iterable[str]) -> int:
@@ -30,6 +79,25 @@ def fold_image_stats(mean, std, image_fmt: str):
     if image_fmt == "L":
         return (sum(mean) / len(mean),), (sum(std) / len(std),)
     return tuple(mean), tuple(std)
+
+
+def stack_images(images: List[np.ndarray]) -> np.ndarray:
+    """Stack transformed (H, W, C) float32 images into an NHWC batch."""
+    return np.stack([np.asarray(im, np.float32) for im in images], axis=0)
+
+
+def tokenize_batch(tokenizer, texts: List[str], max_length: int) -> np.ndarray:
+    """Fixed-shape batched tokenization (the finetune collates): each text
+    without special tokens, right-padded and truncated to ``max_length``
+    -> (B, max_length) int32."""
+    rows = [
+        tokenizer(
+            text, add_special_tokens=False, return_tensors="np", max_length=max_length,
+            padding="max_length", truncation=True,
+        ).input_ids[0]
+        for text in texts
+    ]
+    return np.stack(rows).astype(np.int32)
 
 
 def resolve_model_name(cfg) -> None:

@@ -122,6 +122,13 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         super().__init__(cfg, device_env, monitor)
         self.setup_tokenizer(cfg.tokenizer, self.base_special_tokens, self.finetune_special_tokens)
         self.max_position_embeddings = cfg.model.text_decoder.max_length
+        # the finetune collates tokenize to a fixed length (512 for CORD and
+        # DocVQA); clamp it to the position table so a small config never
+        # indexes past its positions
+        if getattr(self, "collate_text_length", None):
+            self.collate_text_length = min(
+                type(self).collate_text_length, self.max_position_embeddings
+            )
         self.device = device_env.device
         self.compute_dtype = _compute_dtype(cfg.dtype)
         self.num_image_chs = 1 if cfg.model.image_encoder.image_fmt == "L" else 3
@@ -205,6 +212,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             )
             return loss, {}
 
+        self.loss_fn = loss_fn  # (device batch) -> (loss, aux): the step's loss
         self.train_step_fn = make_train_step(
             loss_fn, self.optimizer,
             reseed=self.model.decoder.dropout_generator.manual_seed,
@@ -292,7 +300,8 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         self.batch_idx += 1
         self.interval_batch_idx += 1
 
-        if self.eval_frequency and self.monitor and self.step_idx % self.eval_frequency == 0:
+        if (self.eval_frequency and self.monitor and "text" in batch
+                and self.step_idx % self.eval_frequency == 0):
             self._log_train_reconstruction(batch)
         self._samples_since_log += batch["image"].shape[0]
 
@@ -301,7 +310,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             now = time.perf_counter()
             rate = self._samples_since_log / (now - self._time_last) if self._time_last else None
             extra = {}
-            if rate:
+            if rate and "text" in batch:  # the classifier (xent) has no text
                 from pixparse_tpu_torch.framework.profiling import cruller_train_flops, mfu
 
                 if self._flops_per_sample_step is None:
@@ -399,6 +408,7 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         super().__init__(cfg, device_env, monitor)
         self.setup_tokenizer(cfg.tokenizer, self.base_special_tokens, self.finetune_special_tokens)
         self.max_position_embeddings = cfg.model.text_decoder.max_length
+        self.collate_text_length = min(512, self.max_position_embeddings)
         self.max_generation_length = min(
             type(self).max_generation_length, self.max_position_embeddings
         )
@@ -472,3 +482,13 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
     def prompt_ids(self, prompt: str, batch_size: int) -> np.ndarray:
         ids = np.asarray(self.tokenizer.encode(prompt, add_special_tokens=False), np.int32)
         return np.tile(ids[None, :], (batch_size, 1))
+
+    def average_metrics(self, metrics: Dict[int, Dict[str, float]]) -> Dict[str, float]:
+        """Each key of the first batch's metrics, averaged over the batches
+        that report it."""
+        if not metrics:
+            return {}
+        keys = list(next(iter(metrics.values())).keys())
+        return {
+            k: float(np.mean([m[k] for m in metrics.values() if k in m])) for k in keys
+        }

@@ -1,15 +1,43 @@
 """Task registry and factory (counterpart of
 :mod:`pixparse_tpu.task.task_factory`): public task names ->
 ``(TaskClass, TaskCfg)``; ``create_task`` builds the cfg from parsed args and
-the task from ``(cfg, device_env, monitor)``. The other tasks join as their
-slices are ported (ROADMAP.md Queue 1)."""
+the task from ``(cfg, device_env, monitor)``. ``donut_eval_ocr`` and
+``pix2struct_pretrain`` are not ported yet (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Tuple
 
+from pixparse_tpu_torch.task.task_cruller_eval_cord import (
+    TaskCrullerEvalCORD,
+    TaskCrullerEvalCORDCfg,
+)
+from pixparse_tpu_torch.task.task_cruller_eval_docvqa import (
+    TaskCrullerEvalDOCVQA,
+    TaskCrullerEvalDOCVQACfg,
+)
 from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCR, TaskCrullerEvalOCRCfg
+from pixparse_tpu_torch.task.task_cruller_eval_rvlcdip import (
+    TaskCrullerEvalRVLCDIP,
+    TaskCrullerEvalRVLCDIPCfg,
+)
+from pixparse_tpu_torch.task.task_cruller_finetune_cord import (
+    TaskCrullerFinetuneCORD,
+    TaskCrullerFinetuneCORDCfg,
+)
+from pixparse_tpu_torch.task.task_cruller_finetune_docvqa import (
+    TaskCrullerFinetuneDOCVQA,
+    TaskCrullerFinetuneDOCVQACfg,
+)
+from pixparse_tpu_torch.task.task_cruller_finetune_rvlcdip import (
+    TaskCrullerFinetuneRVLCDIP,
+    TaskCrullerFinetuneRVLCDIPCfg,
+)
+from pixparse_tpu_torch.task.task_cruller_finetune_xent import (
+    TaskCrullerFinetuneXent,
+    TaskCrullerFinetuneXentCfg,
+)
 from pixparse_tpu_torch.task.task_cruller_pretrain import (
     TaskCrullerPretrain,
     TaskCrullerPretrainCfg,
@@ -17,7 +45,14 @@ from pixparse_tpu_torch.task.task_cruller_pretrain import (
 
 TASK_CLASS_REGISTRY = {
     "cruller_eval_ocr": (TaskCrullerEvalOCR, TaskCrullerEvalOCRCfg),
+    "cruller_eval_rvlcdip": (TaskCrullerEvalRVLCDIP, TaskCrullerEvalRVLCDIPCfg),
+    "cruller_eval_cord": (TaskCrullerEvalCORD, TaskCrullerEvalCORDCfg),
+    "cruller_eval_docvqa": (TaskCrullerEvalDOCVQA, TaskCrullerEvalDOCVQACfg),
     "cruller_pretrain": (TaskCrullerPretrain, TaskCrullerPretrainCfg),
+    "cruller_finetune_rvlcdip": (TaskCrullerFinetuneRVLCDIP, TaskCrullerFinetuneRVLCDIPCfg),
+    "cruller_finetune_cord": (TaskCrullerFinetuneCORD, TaskCrullerFinetuneCORDCfg),
+    "cruller_finetune_docvqa": (TaskCrullerFinetuneDOCVQA, TaskCrullerFinetuneDOCVQACfg),
+    "cruller_finetune_xent": (TaskCrullerFinetuneXent, TaskCrullerFinetuneXentCfg),
 }
 
 

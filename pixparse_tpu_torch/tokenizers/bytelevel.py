@@ -69,8 +69,12 @@ class ByteLevelTokenizer:
         self._char_byte = {c: b for b, c in byte_char.items()}
         self._id_token = {i: t for t, i in self._vocab.items()}
         self._special: List[str] = [self.bos_token, self.eos_token, self.unk_token, self.pad_token]
-        # tokens encode() splits out whole, grouped by their first character
-        self._whole: Dict[str, Dict[str, None]] = {}
+        # tokens encode() splits out whole: by first character, then by
+        # length (longest first), so a position costs a set lookup a length
+        # and not a scan of every token (a vocabulary padded with tens of
+        # thousands of added tokens)
+        self._whole: Dict[str, Dict[int, set]] = {}
+        self._whole_lengths: Dict[str, List[int]] = {}
         for tok in self._special:
             self._match_whole(tok)
 
@@ -102,7 +106,20 @@ class ByteLevelTokenizer:
         return self._vocab[self.unk_token]
 
     def _match_whole(self, tok: str):
-        self._whole.setdefault(tok[0], {})[tok] = None
+        by_len = self._whole.setdefault(tok[0], {})
+        if len(tok) not in by_len:
+            by_len[len(tok)] = set()
+            self._whole_lengths[tok[0]] = sorted(by_len, reverse=True)
+        by_len[len(tok)].add(tok)
+
+    def _longest_whole(self, text: str, i: int) -> Optional[str]:
+        """The longest whole-split token that starts at ``text[i]``, or None."""
+        by_len = self._whole.get(text[i])
+        if by_len:
+            for n in self._whole_lengths[text[i]]:
+                if text[i:i + n] in by_len[n]:
+                    return text[i:i + n]
+        return None
 
     def add_tokens(self, tokens: Sequence[str]) -> int:
         """Plain added tokens -> number new to the vocabulary (each new one
@@ -161,10 +178,7 @@ class ByteLevelTokenizer:
         ids: List[int] = []
         start = i = 0
         while i < len(text):
-            match = max(
-                (t for t in self._whole.get(text[i], ()) if text.startswith(t, i)),
-                key=len, default=None,
-            )
+            match = self._longest_whole(text, i)
             if match is None:
                 i += 1
                 continue

@@ -160,7 +160,7 @@ def test_webdataset_loader_batches_match_jax(tokenizers, tmp_path):
         np.testing.assert_array_equal(g[2], w[2])
 
 
-def test_create_loader_formats(tmp_path):
+def test_create_loader_formats(tmp_path, monkeypatch):
     path = str(tmp_path / "shard-00000.tar")
     _make_shard(path, 4)
     tok = ByteLevelTokenizer()
@@ -172,9 +172,12 @@ def test_create_loader_formats(tmp_path):
         anno_preprocess=partial(tp.preprocess_ocr_anno, **_kwargs(tok)), seed=0,
     )
     assert bundle.num_batches == 2 and len(list(bundle.loader)) == 2
-    with pytest.raises(NotImplementedError, match="hf_dataset"):
-        create_loader(DatasetCfg(source="x", num_samples=1, batch_size=1, split="train",
-                                 format="hf_dataset"), is_train=True)
+    # hf_dataset: the local SinglePageDocVQA branch (tests/test_torch_hf_loader.py
+    # covers the loader); an empty directory has no annotation file
+    monkeypatch.setenv("PIXPARSE_DOCVQA_DIR", str(tmp_path / "empty"))
+    with pytest.raises(FileNotFoundError, match="train_v1.0.json"):
+        create_loader(DatasetCfg(source="SinglePageDocVQA", num_samples=1, batch_size=1,
+                                 split="train", format="hf_dataset"), is_train=True)
     with pytest.raises(ValueError, match="unknown dataset format"):
         create_loader(DatasetCfg(source="x", num_samples=1, batch_size=1, split="train",
                                  format="parquet"), is_train=True)

@@ -101,8 +101,8 @@ def test_infer_defaults_to_cuda_and_refuses_continuous(pages):
             infer_main(flags)
     with pytest.raises(NotImplementedError, match="continuous"):
         infer_main(flags + ["--infer.continuous", "true", "--task.device", "cpu"])
-    with pytest.raises(SystemExit):
-        infer_main(["--infer.task_name", "cruller_eval_cord", "--infer.images", pages])
+    with pytest.raises(SystemExit):  # a task the port does not register yet
+        infer_main(["--infer.task_name", "donut_eval_ocr", "--infer.images", pages])
 
 
 def _tokenizer_pair():

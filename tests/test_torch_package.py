@@ -3,7 +3,7 @@
 - importing every module of the port (the list below names them, so a module
   that goes missing is noticed) loads no JAX, flax,
   optax, orbax or ``pixparse_tpu``, and no PIL, transformers, tokenizers,
-  wandb, tensorboard, safetensors or timm either (those are imported inside
+  wandb, tensorboard, safetensors, timm or datasets either (those are imported inside
   the functions that need them);
 - no source file of the port, nor ``chip_smoke.py``, imports the former
   anywhere or the latter at module level;
@@ -27,7 +27,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pixparse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
-LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard", "safetensors", "timm")
+LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard", "safetensors", "timm",
+        "datasets")
 MODULES = (
     # serving
     "app.infer", "data.transforms", "device", "framework.cli", "framework.config",
@@ -49,6 +50,11 @@ MODULES = (
     "models.remat",
     # the probe tools and their kernels
     "tools", "tools.mxu_probe", "tools.window_band_probe",
+    # the finetune and eval tasks, the indexable-dataset loader, the JSON metrics
+    "data.datasets_utils", "task.task_cruller_eval_cord", "task.task_cruller_eval_docvqa",
+    "task.task_cruller_eval_rvlcdip", "task.task_cruller_finetune_cord",
+    "task.task_cruller_finetune_docvqa", "task.task_cruller_finetune_rvlcdip",
+    "task.task_cruller_finetune_xent", "utils.json_utils", "utils.tree_edit",
 )
 
 
@@ -123,7 +129,7 @@ def test_optional_packages_are_imported_only_inside_functions():
     assert bad == []
     # and they are used somewhere, inside functions: the check above is not vacuous
     used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
-    assert {"PIL", "wandb", "safetensors", "timm"} <= used
+    assert {"PIL", "wandb", "safetensors", "timm", "datasets"} <= used
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
