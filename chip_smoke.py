@@ -181,6 +181,39 @@ stderr):
    decode step, 2 x decoder layers decode launches; every other count 0.
    Samples/s, ms/step (median after the first step) and pages/s in the
    phase's line.
+12. ``beam_eval``: beam search (K=4) through ``TaskCrullerEvalOCR
+   .generate_ids`` with ``num_beams = 4``, seed-0 weights in bf16, EOS
+   off, at cruller_base (B=16, 128 tokens; bf16 and the int8 mode) and
+   donut_base (B=8, 64 tokens), each beside greedy at the same batch
+   (pages/s, decode ms a step, peak memory): ``num_beams=1`` tokens equal
+   greedy ``generate``'s; at ``length_penalty=0`` the best beam's summed
+   log-prob (one teacher-forced pass) at least the greedy sequence's less
+   1e-2; the second decode step, on caches reordered across beams,
+   through the decode kernels against the plain decode attention on a
+   copy of the same caches within 5e-2/5e-2; exact launch counts (the
+   encode's, and 2 x decoder layers decode launches a step, split between
+   #8 and #9 in the int8 mode). The reorder alone (``KVCache.reorder``
+   at the mean prefix) is timed on the card's clock.
+13. ``sample``: ``generate(sample=True)`` at cruller_base, B=16, 64 tokens:
+   the same generator seed gives the same tokens, another seed others;
+   one step's draws for 4096 repeats of one row pass a chi-square test
+   (64 bins of equal expected count) against ``softmax(logits / 5.0)``
+   computed in fp64 on the host, p > 1e-3.
+14. ``naive``: KV-cached ``generate`` against ``generate_naive`` (a
+   cache-free full-prefix pass per token through the flash kernels) at
+   cruller_base, B=4, 32 tokens: equal up to the first disagreement, where
+   the naive path's top-2 logit margin must be under 0.0625.
+15. ``large``: cruller_large (ViT-L/14 on 798x616, 2509 tokens, 24 layers;
+   a 10-layer bart-large decoder, vocab 50265) at full width and depth:
+   ``serve_model``'s run at B=8, 64 tokens (its encoder held token by
+   token: each token's L2 error within 5e-2 of its norm; with the
+   profile's idle share) and ``train_model``'s at B=8, 3 steps under the
+   auto remat mode (``mlp``), with the B=2 kernel-vs-plain step and the
+   exact launch counts (the ``large_serve`` and ``large_train`` lines).
+   The kernels phase holds the flash kernels at its shapes (B=8, H=16:
+   2509, causal 1023, 1023x2509) and the CE at T 8184, D 1024, V 50265; the
+   decode kernels at 64 rows for ``beam_eval``: the kernels line carries
+   them as ``new_path_cases``.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -205,7 +238,7 @@ import time
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
-          "finetune_tasks")
+          "finetune_tasks", "beam_eval", "sample", "naive", "large")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -219,6 +252,8 @@ FINETUNE_TEXT = 511  # the finetune collates' 512 tokens, shifted
 # (a)'s vocabulary: BART_VOCAB, the two pretrain tokens, then the CORD
 # replay's 55 new ones (finetune_tasks checks it)
 CORD_FINETUNE_VOCAB = BART_VOCAB + 57
+BEAM_K = 4  # beam_eval: beams per page
+LARGE_B = 8  # large: serving and training batch at cruller_large
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -346,7 +381,20 @@ def flash_cases(torch):
         ("multi_tile_lk2509", 2, 2509, 2509, 12, 64, bf, False, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, False, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, False, None),
-    ] + flash_new_cases(torch) + flash_finetune_cases(torch)
+    ] + flash_new_cases(torch) + flash_finetune_cases(torch) + flash_large_cases(torch)
+
+
+def flash_large_cases(torch):
+    """The large phase's train step: cruller_large's encoder (B=8, 2509
+    tokens, 16 heads) and its decoder's two sites (1023 tokens, causal self
+    and cross over the encoder)."""
+    bf = torch.bfloat16
+    # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
+    return [
+        ("large_encode_b8_l2509_h16", LARGE_B, 2509, 2509, 16, 64, bf, False, None),
+        ("large_self_causal_b8_l1023_h16", LARGE_B, 1023, 1023, 16, 64, bf, True, None),
+        ("large_cross_b8_lq1023_lk2509_h16", LARGE_B, 1023, 2509, 16, 64, bf, False, None),
+    ]
 
 
 def flash_new_cases(torch, backward=False):
@@ -400,6 +448,8 @@ def decode_cases(torch):
         ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
         # Lk not a multiple of the kernel's 10-key tile (H*D = 768), row 1 dead
         ("ragged_lk997_dead_row", 16, 997, None, 12, 64, bf),
+        # beam_eval: B * K rows of the cruller_base cross cache
+        ("beam_cross_b64_lk1024_valid1009", 16 * BEAM_K, 1024, 1009, 12, 64, bf),
     ]
 
 
@@ -507,6 +557,8 @@ def q8_cases(torch):
     return [
         ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64, bf),
         ("donut_cross_b8_lk4864_valid4800", 8, 4864, 4800, 16, 64, bf),
+        # beam_eval's int8 run: B * K rows of the cruller_base cross cache
+        ("beam_cross_b64_lk1024_valid1009", 16 * BEAM_K, 1024, 1009, 12, 64, bf),
         ("ragged_with_dead_row_b16_lk1024", 16, 1024, "ragged", 12, 64, bf),
         ("ragged_lk997_dead_row_b4", 4, 997, "ragged", 12, 64, bf),
         ("split_ends_in_masked_runs_b4_lk1024", 4, 1024, "split_holes", 12, 64, bf),
@@ -540,7 +592,8 @@ def flash_bwd_cases(torch):
         ("causal_lq100_lk300_d128", 2, 100, 300, 4, 128, bf, True, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, True, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, True, None),
-    ] + flash_new_cases(torch, backward=True) + flash_finetune_cases(torch)
+    ] + flash_new_cases(torch, backward=True) + flash_finetune_cases(torch) + flash_large_cases(
+        torch)
 
 
 def ce_cases(torch):
@@ -559,6 +612,8 @@ def ce_cases(torch):
         # replay grows, ignored where the finetune collates put -100
         ("finetune_cord_t4088_v50322_d768", FINETUNE_B * FINETUNE_TEXT, CORD_FINETUNE_VOCAB, 768,
          bf, "collate"),
+        # the large phase's train step: bart-large's width over its vocabulary
+        ("large_t8184_v50265_d1024", LARGE_B * 1023, BART_VOCAB, 1024, bf, 0.3),
     ]
 
 
@@ -1359,6 +1414,18 @@ KERNELS = [
     ("banded_attention", "cuda", "pixparse_tpu_torch/csrc/window_band.cu",
      "tools/window_band_probe.py:39 (band_fwd_kernel)", "stage0_b4_320x240_c128_h4"),
 ]
+# the kernels line's records of the new paths' shapes, beside each main case
+NEW_PATH_CASES = {
+    "flash_attention_fwd": ("large_encode_b8_l2509_h16", "large_self_causal_b8_l1023_h16",
+                            "large_cross_b8_lq1023_lk2509_h16"),
+    "flash_attention_bwd": ("large_encode_b8_l2509_h16", "large_self_causal_b8_l1023_h16",
+                            "large_cross_b8_lq1023_lk2509_h16"),
+    "fused_ce_fwd": ("large_t8184_v50265_d1024",),
+    "fused_ce_bwd": ("large_t8184_v50265_d1024",),
+    "decode_attention": ("beam_cross_b64_lk1024_valid1009",),
+    "decode_attention_q8": ("beam_cross_b64_lk1024_valid1009",),
+}
+LINE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the kernels each main path must launch
 SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
 EVAL_KERNELS = {  # eval_task's two runs
@@ -1509,7 +1576,12 @@ def cached_vs_parallel(torch, model, enc, ids):
 
 
 def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="cruller_base",
-                      device="cuda", profile=False):
+                      device="cuda", profile=False, phase="serve_model", token_l2=False):
+    """``phase``: the name the record and its failures carry (``large``
+    serves cruller_large through here). ``token_l2``: the flash encoder is
+    held to the plain one token by token, each token's L2 error within 5e-2
+    of its L2 norm, as ``serve_donut`` holds its deep bf16 encoder, instead
+    of element by element."""
     from pixparse_tpu_torch.models.config import get_model_config
     from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
     from pixparse_tpu_torch.ops.generation import generate
@@ -1520,20 +1592,27 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
     model = Cruller(vit_cfg, bart_cfg, attn_impl="flash").init_weights(gen)
     model = model.to(device, torch.bfloat16).eval()
     images = synthetic_pages(torch, B, *vit_cfg.img_size, gen).to(device)
+    on_card = torch.cuda.is_available()
 
     with torch.inference_mode():
         enc = model.encode(images)  # warm-up (cuBLAS handles, allocator)
         sync(torch)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         enc = model.encode(images)
         sync(torch)
         encode_ms = (time.perf_counter() - t0) * 1e3
         enc_launches = read_counts()
+        peak_enc = torch.cuda.max_memory_allocated() if on_card else 0
         model.attn_impl = "xla"
         enc_plain = model.encode(images)
         model.attn_impl = "flash"
         enc_err, enc_ok = close(enc, enc_plain, 5e-2, 5e-2)
+        if token_l2:
+            _, enc_row_err, enc_ok = rows_close(enc, enc_plain, 5e-2)
+        del enc_plain
 
         prompt = torch.zeros(B, 1, dtype=torch.long, device=device)  # <s>
         # eos disabled (-1): every page decodes the whole budget, so the
@@ -1541,31 +1620,39 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
         kwargs = dict(max_length=1 + new_tokens, eos_token_id=-1, pad_token_id=1)
         generate(model, enc, prompt, **dict(kwargs, max_length=9))  # warm-up
         sync(torch)
+        if on_card:  # the serving peak: the encode's or the decode's, not the plain check's
+            torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         res = generate(model, enc, prompt, **kwargs)
         sync(torch)
         gen_s = time.perf_counter() - t0
         dec_launches = read_counts()
+        peak_gb = max(peak_enc, torch.cuda.max_memory_allocated()) / 2 ** 30 if on_card else None
         dec_err, dec_ok = cached_vs_parallel(torch, model, enc, res.tokens[:, :16])
         if profile:
+            tag = "" if phase == "serve_model" else f"{phase}_"
             prof = {
-                "encode": device_profile(torch, lambda: model.encode(images), "encode", encode_ms),
+                "encode": device_profile(
+                    torch, lambda: model.encode(images), f"{tag}encode", encode_ms),
                 "generate": device_profile(
-                    torch, lambda: generate(model, enc, prompt, **kwargs), "generate", gen_s * 1e3),
+                    torch, lambda: generate(model, enc, prompt, **kwargs), f"{tag}generate",
+                    gen_s * 1e3),
             }
     steps = res.steps
     rec = {
-        "phase": "serve_model", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "phase": phase, "model": model_name, "batch": B, "dtype": "bfloat16",
         "vocab": bart_cfg.vocab_size, "encoder_tokens": vit_cfg.num_tokens,
         "new_tokens": new_tokens, "decode_steps": steps,
         "encode_launches": enc_launches, "generate_launches": dec_launches,
-        "encode_flash_vs_plain_max_abs_err": enc_err, "encode_tol": [5e-2, 5e-2],
+        "encode_flash_vs_plain_max_abs_err": enc_err,
+        **({"encode_flash_vs_plain_worst_token_rel_err": enc_row_err,
+            "encode_tol": ["token L2", 5e-2]} if token_l2 else {"encode_tol": [5e-2, 5e-2]}),
         "decode_cached_vs_parallel_max_abs_err": dec_err, "decode_tol": [5e-2, 5e-2],
         "encode_ms": encode_ms, "generate_ms": gen_s * 1e3,
         "decode_ms_per_step": gen_s * 1e3 / max(steps, 1),
         "pages_per_s": B / (encode_ms / 1e3 + gen_s),
-        "tokens_per_s": B * new_tokens / gen_s,
+        "tokens_per_s": B * new_tokens / gen_s, "peak_memory_gib": peak_gb,
         "tokens_shape": list(res.tokens.shape),
     }
     if profile:
@@ -1586,7 +1673,8 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
     if tuple(res.tokens.shape) != (B, 1 + new_tokens) or not bool((res.lengths == 1 + new_tokens).all()):
         problems.append(f"tokens {tuple(res.tokens.shape)} lengths {res.lengths.tolist()}")
     if problems:
-        raise SystemExit("serve_model failed: " + "; ".join(problems))
+        raise SystemExit(f"{phase} failed: " + "; ".join(problems))
+    rec["launches"] = {k: enc_launches[k] + dec_launches[k] for k in enc_launches}
     return rec
 
 
@@ -1883,11 +1971,14 @@ def build_train_model(torch, model_name, device, lr=3e-4, vocab=BART_VOCAB):
 
 
 def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base", device="cuda",
-                      profile=False):
+                      profile=False, remat=False, phase="train_model"):
+    """``remat``: the model's remat mode; ``phase``: the name the record
+    and its failures carry (``large`` trains cruller_large through here)."""
     from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
     from pixparse_tpu_torch.ops import loss as loss_ops
 
     model, optimizer, vit_cfg, bart_cfg = build_train_model(torch, model_name, device)
+    model.remat = remat
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     gen = torch.Generator().manual_seed(0)
     L = bart_cfg.max_position_embeddings
@@ -1945,7 +2036,7 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
 
     flops = cruller_train_flops(vit_cfg, bart_cfg, B, L - 1)
     rec = {
-        "phase": "train_model", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "phase": phase, "model": model_name, "batch": B, "dtype": "bfloat16", "remat": remat,
         "master_dtype": "float32", "vocab": BART_VOCAB, "text_len": L - 1,
         "encoder_tokens": vit_cfg.num_tokens, "steps": steps, "losses": losses,
         "grad_norms": grad_norms, "step_ms": times, "ms_per_step": ms_per_step,
@@ -1963,7 +2054,8 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
         def one_step():
             holder["state"], _ = step(holder["state"], batch)
 
-        rec["profile"] = device_profile(torch, one_step, "train_step", ms_per_step)
+        tag = "train_step" if phase == "train_model" else f"{phase}_train_step"
+        rec["profile"] = device_profile(torch, one_step, tag, ms_per_step)
     emit(rec)
     problems = []
     layers = vit_cfg.depth + 2 * bart_cfg.decoder_layers
@@ -1984,7 +2076,8 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
     if abs(k_gn - p_gn) > 5e-2 * abs(p_gn):
         problems.append(f"step-1 gradient norm: kernel path {k_gn} vs plain path {p_gn}")
     if problems:
-        raise SystemExit("train_model failed: " + "; ".join(problems))
+        raise SystemExit(f"{phase} failed: " + "; ".join(problems))
+    rec["launches"] = {k: sum(step[k] for step in per_step) for k in per_step[0]}
     return rec
 
 
@@ -2785,6 +2878,428 @@ def phase_finetune_tasks(torch, model_name="cruller_base", B=FINETUNE_B,
     return {f"finetune_tasks_{tag}": n for tag, n in launches.items()}
 
 
+# --------------------------------------------------------------------------
+# beam search, sampling, the naive oracle, cruller_large
+# --------------------------------------------------------------------------
+
+BEAM_RUNS = (  # tag, model, vocabulary, batch, new tokens, decode mode
+    ("cruller_base", "cruller_base", BART_VOCAB, 16, MODEL_NEW_TOKENS, "bf16"),
+    ("cruller_base_int8", "cruller_base", BART_VOCAB, 16, MODEL_NEW_TOKENS, "int8"),
+    ("donut_base", "donut_base", DONUT_VOCAB, 8, DONUT_NEW_TOKENS, "bf16"),
+)
+BEAM_SCORE_ATOL = 1e-2  # beam's summed log-prob >= greedy's less this (bf16 scoring pass)
+SAMPLE_T = 5.0  # generate()'s default temperature, as JAX's
+SAMPLE_DRAWS = 4096
+SAMPLE_BINS = 64  # chi-square bins of equal expected count (64 draws each)
+SAMPLE_P_MIN = 1e-3
+BF16_TIE = 0.0625  # naive: a top-2 logit margin under this is a bf16 tie
+
+
+class NoEos:
+    """A tokenizer as it is but for ``eos_token_id`` -1: every page decodes
+    the whole budget (EOS off, as in ``serve_model``), so the step count
+    and the time per step are fixed by construction."""
+
+    eos_token_id = -1
+
+    def __init__(self, tokenizer):
+        self._tokenizer = tokenizer
+
+    def __getattr__(self, name):
+        return getattr(self._tokenizer, name)
+
+
+def seeded_model(torch, model_name, device, vocab=BART_VOCAB, **kw):
+    """(model, encoder cfg, decoder cfg): the registered model from seed-0
+    weights, bf16 on ``device``, the kernels' attention."""
+    from pixparse_tpu_torch.models.config import get_model_config
+    from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
+
+    enc_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=vocab)
+    model = Cruller(enc_cfg, bart_cfg, attn_impl="flash", **kw)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model.to(device, torch.bfloat16).eval(), enc_cfg, bart_cfg
+
+
+def copy_cache(cache):
+    import dataclasses
+
+    lists = ("self_k", "self_v", "cross_k", "cross_v", "cross_k_scale", "cross_v_scale")
+    return dataclasses.replace(
+        cache, qkv=list(cache.qkv), **{f: [t.clone() for t in getattr(cache, f)] for f in lists},
+        cross_mask=None if cache.cross_mask is None else cache.cross_mask.clone())
+
+
+def reordered_step_vs_plain(torch, model, enc, prompt, K, pad, step=2):
+    """``generate_beam``'s decode step ``step`` (its caches reordered by the
+    beams' sources ``step`` times; the first reorder only copies beam 0)
+    through the decode kernels, against the same step with the plain decode
+    attention on a copy of those caches."""
+    import contextlib
+
+    from pixparse_tpu_torch.models import bart
+    from pixparse_tpu_torch.ops import decode_attention as da
+    from pixparse_tpu_torch.ops.generation import generate_beam
+
+    seen, sources = {}, []
+    decode, reorder = model.decode, bart.KVCache.reorder
+
+    def spy(ids, enc_, cache=None, *args, mode="decode", **kw):
+        if mode == "decode":
+            seen["n"] = seen.get("n", 0) + 1
+            if seen["n"] == step:
+                seen.update(cache=copy_cache(cache), ids=ids.clone(), kw=kw)
+                out = decode(ids, enc_, cache, *args, mode=mode, **kw)
+                seen["out"] = out.clone()
+                return out
+        return decode(ids, enc_, cache, *args, mode=mode, **kw)
+
+    def spy_reorder(cache, src):
+        sources.append(src.clone())
+        return reorder(cache, src)
+
+    @contextlib.contextmanager
+    def patched(obj, **attrs):
+        saved = {k: getattr(obj, k) for k in attrs}
+        for k, v in attrs.items():
+            setattr(obj, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(obj, k, v)
+
+    with torch.inference_mode():
+        with patched(model, decode=spy), patched(bart.KVCache, reorder=spy_reorder):
+            generate_beam(model, enc, prompt, num_beams=K, max_length=prompt.shape[1] + step + 1,
+                          eos_token_id=-1, pad_token_id=pad)
+        with patched(bart, decode_attention=da.decode_attention_plain,
+                     decode_attention_q8=da.decode_attention_q8_plain):
+            plain = decode(seen["ids"], enc, seen["cache"], mode="decode", **seen["kw"])
+    err, ok = close(seen["out"], plain, 5e-2, 5e-2)
+    src = sources[step - 1]
+    moved = int((src != torch.arange(len(src), device=src.device)).sum())
+    return {"step": step, "rows_from_another_beam": moved, "max_abs_err": err,
+            "tol": [5e-2, 5e-2], "ok": ok}
+
+
+def sequence_logprobs(torch, model, enc, tokens, pad):
+    """Each row's summed log-prob of its tokens after the first, by one
+    teacher-forced pass (pad positions masked and not counted)."""
+    with torch.inference_mode():
+        mask = tokens != pad
+        logits = model.decode(tokens, enc, mode="train",
+                              attention_mask=None if bool(mask.all()) else mask)
+        lp = torch.log_softmax(logits.float(), dim=-1)[:, :-1]
+        tok = lp.gather(-1, tokens[:, 1:, None])[..., 0]
+        return (tok * mask[:, 1:]).sum(dim=1)
+
+
+def phase_beam_eval(torch, runs=BEAM_RUNS, K=BEAM_K, device="cuda", profile=False):
+    """Beam search through the eval entry point,
+    ``TaskCrullerEvalOCR.generate_ids`` with ``num_beams = K``, at full
+    width from seed-0 weights in bf16, EOS off, beside greedy
+    (``num_beams = 1``) at the same batch; each run's counters zeroed
+    before and read after the beam call. Gates: ``num_beams=1`` of
+    ``generate_beam`` equals ``generate``'s tokens; at ``length_penalty=0``
+    the best beam's summed log-prob (one teacher-forced pass) is at least
+    the greedy sequence's less BEAM_SCORE_ATOL; a decode step on reordered
+    caches matches the plain decode attention within 5e-2; exact launch
+    counts. Also the reorder's device time per step at the mean prefix."""
+    import shutil
+    import tempfile
+
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.models.bart import KVCache
+    from pixparse_tpu_torch.models.swin import SwinCfg
+    from pixparse_tpu_torch.ops.generation import generate, generate_beam
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCRCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    on_card = torch.cuda.is_available()
+    rec = {"phase": "beam_eval", "task": "cruller_eval_ocr", "dtype": "bfloat16", "beams": K,
+           "eos": "off", "launch_unit": "wrapper calls", "runs": {}}
+    path_launches, problems = {}, []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_beam_")
+    try:
+        for tag, model_name, vocab, B, new_tokens, mode in runs:
+            tok_dir = saved_tokenizer(os.path.join(tmp, f"tok{vocab}"), vocab)
+            cfg = TaskCrullerEvalOCRCfg(
+                model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+                device=device, kv_cache_dtype=mode, lm_head_dtype=mode)
+            task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, DeviceEnv.initialize(device))
+            task.setup()  # seed-0 weights
+            task.tokenizer = NoEos(task.tokenizer)
+            model, enc_cfg, bart_cfg = task.model, task.vit_cfg, task.bart_cfg
+            pad = task.tokenizer.pad_token_id
+            gen = torch.Generator().manual_seed(2)
+            images = synthetic_pages(torch, B, *enc_cfg.img_size, gen)
+            images = images.expand(-1, -1, -1, enc_cfg.in_chans).contiguous()
+            prompt = task.prompt_ids(task.task_start_token, B)
+            Lp = prompt.shape[1]
+            max_length = Lp + new_tokens
+            steps = new_tokens - 1  # the last token's decode step is skipped
+
+            def timed(fn):
+                sync(torch)
+                t0 = time.perf_counter()
+                out = fn()
+                sync(torch)
+                return out, time.perf_counter() - t0
+
+            task.num_beams = K
+            task.generate_ids(images[:2], prompt[:2], max_length=Lp + 3)  # warm-up
+            _, encode_s = timed(lambda: task.encode_images(images))
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            beam_ids, beam_s = timed(lambda: task.generate_ids(images, prompt, max_length))
+            launches = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+            path_launches[f"beam_eval_{tag}"] = launches
+            task.num_beams = 1
+            greedy_ids, greedy_s = timed(lambda: task.generate_ids(images, prompt, max_length))
+            run = {
+                "model_name": model_name, "decode_mode": mode, "vocab": vocab, "batch": B,
+                "rows": B * K, "new_tokens": new_tokens, "decode_steps": steps,
+                "encode_ms": encode_s * 1e3,
+                "beam": {"seconds": beam_s, "pages_per_s": B / beam_s,
+                         "decode_ms_per_step": (beam_s - encode_s) * 1e3 / steps,
+                         "peak_memory_gib": peak_gb},
+                "greedy": {"seconds": greedy_s, "pages_per_s": B / greedy_s,
+                           "decode_ms_per_step": (greedy_s - encode_s) * 1e3 / steps},
+                "launches": launches,
+            }
+            run["beam_over_greedy_decode_step"] = (
+                run["beam"]["decode_ms_per_step"] / run["greedy"]["decode_ms_per_step"])
+            kw = dict(max_length=max_length, eos_token_id=-1, pad_token_id=pad)
+            enc = task.encode_images(images)
+            p = torch.as_tensor(prompt, device=enc.device)
+            if mode == "bf16":  # one beam is greedy (the int8 mode's greedy uses the int8 head)
+                one = generate_beam(model, enc, p, num_beams=1, **kw)
+                run["one_beam_equals_greedy"] = bool(torch.equal(
+                    one.tokens.cpu(), torch.as_tensor(greedy_ids)))
+                if not run["one_beam_equals_greedy"]:
+                    problems.append(f"{tag}: num_beams=1 tokens differ from greedy")
+            lp0 = generate_beam(model, enc, p, num_beams=K, length_penalty=0.0, **kw)
+            g = generate(model, enc, p, **kw)
+            both = sequence_logprobs(torch, model, torch.cat([enc, enc]),
+                                     torch.cat([lp0.tokens, g.tokens]), pad)
+            margin = (both[:B] - both[B:]).cpu()
+            run["score_dominance"] = {
+                "beam_minus_greedy_min": float(margin.min()),
+                "beam_minus_greedy_mean": float(margin.mean()), "atol": BEAM_SCORE_ATOL,
+                "beam_equals_greedy_rows": int((lp0.tokens == g.tokens).all(dim=1).sum())}
+            if float(margin.min()) < -BEAM_SCORE_ATOL:
+                problems.append(f"{tag}: best beam's log-prob below greedy's by {-float(margin.min())}")
+            run["reordered_step_vs_plain"] = reordered_step_vs_plain(torch, model, enc, p, K, pad)
+            if not run["reordered_step_vs_plain"]["ok"]:
+                problems.append(f"{tag}: reordered decode step vs plain {run['reordered_step_vs_plain']}")
+            # the reorder alone: every layer's self caches at B * K rows,
+            # gathered at the mean prefix length of the run
+            D, L = bart_cfg.d_model, bart_cfg.decoder_layers
+            cache = KVCache(max_len=max_length, index=Lp + new_tokens // 2)
+            len_pad = -(-max_length // 128) * 128
+            for buf in (cache.self_k, cache.self_v):
+                buf.extend(torch.randn(B * K, len_pad, D, device=enc.device, dtype=enc.dtype)
+                           for _ in range(L))
+            src = (torch.arange(B, device=enc.device)[:, None] * K
+                   + torch.randint(0, K, (B, K), device=enc.device)).reshape(-1)
+            if on_card:
+                reorder_ms = Timer(torch).median_ms(lambda: cache.reorder(src), busy=True)
+                run["reorder"] = {
+                    "device_ms_per_step": reorder_ms, "prefix": cache.index,
+                    "bytes": 2 * 2 * L * B * K * cache.index * D * enc.element_size(),
+                    "share_of_beam_decode_step": reorder_ms / run["beam"]["decode_ms_per_step"]}
+            del cache
+            if profile:
+                run["profile"] = device_profile(
+                    torch, lambda: generate_beam(model, enc, p, num_beams=K, **kw),
+                    f"beam_{tag}", (beam_s - encode_s) * 1e3)
+            # exact counts (on the card): the encode, then two decode
+            # launches a layer a step
+            if isinstance(enc_cfg, SwinCfg):
+                want = dict(window_attention=enc_cfg.depth)
+            else:
+                want = dict(flash_attention_fwd=enc_cfg.depth)
+            if mode == "int8":
+                want.update(decode_attention=steps * L, decode_attention_q8=steps * L)
+            else:
+                want.update(decode_attention=2 * steps * L)
+            want = dict({k: 0 for k in counters()}, **want) if on_card else read_counts()
+            if launches != want:
+                problems.append(f"{tag}: launched {launches}, want {want}")
+            if beam_ids.shape != (B, max_length) or (beam_ids == pad).any():
+                problems.append(f"{tag}: beam tokens {beam_ids.shape}, pad in them")
+            rec["runs"][tag] = run
+            del task, model, enc, lp0, g
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(rec)
+    if problems:
+        raise SystemExit("beam_eval failed: " + "; ".join(problems))
+    return path_launches
+
+
+def chi2_pvalue(draws, probs, bins=SAMPLE_BINS):
+    """Pearson's chi-square of integer ``draws`` against ``probs`` (fp64),
+    categories sorted by probability and cut into ``bins`` bins of equal
+    expected count (a 50k-entry vocabulary has under one expected draw per
+    entry)."""
+    import numpy as np
+    from scipy import stats
+
+    order = np.argsort(probs)
+    edges = np.searchsorted(np.cumsum(probs[order]), np.arange(1, bins) / bins)
+    bin_of = np.empty(len(probs), np.int64)
+    bin_of[order] = np.searchsorted(edges, np.arange(len(probs)), side="right")
+    expected = np.bincount(bin_of, weights=probs, minlength=bins) * len(draws)
+    observed = np.bincount(bin_of[draws], minlength=bins)
+    keep = expected > 0
+    return float(stats.chisquare(observed[keep], expected[keep] * observed.sum()
+                                 / expected[keep].sum()).pvalue)
+
+
+def phase_sample(torch, model_name="cruller_base", B=16, new_tokens=TASK_NEW_TOKENS,
+                 draws=SAMPLE_DRAWS, device="cuda"):
+    """``generate(sample=True)`` at full width, EOS off: the same generator
+    seed gives the same tokens, another seed others; one step's draws for
+    ``draws`` repeats of one row pass a chi-square test against
+    ``softmax(logits / 5.0)`` computed in fp64 on the host."""
+    import numpy as np
+
+    from pixparse_tpu_torch.models.bart import KVCache
+    from pixparse_tpu_torch.ops.generation import generate, select_next
+
+    model, vit_cfg, bart_cfg = seeded_model(torch, model_name, device)
+    images = synthetic_pages(torch, B, *vit_cfg.img_size, torch.Generator().manual_seed(3))
+    prompt = torch.zeros(B, 1, dtype=torch.long, device=device)
+    kw = dict(max_length=1 + new_tokens, eos_token_id=-1, pad_token_id=1)
+    with torch.inference_mode():
+        enc = model.encode(images.to(device))
+        seeded = lambda seed: generate(
+            model, enc, prompt, sample=True, temperature=SAMPLE_T,
+            generator=torch.Generator(device=device).manual_seed(seed), **kw)
+        seeded(0)  # warm-up
+        sync(torch)
+        reset_counts()
+        t0 = time.perf_counter()
+        a = seeded(5)
+        sync(torch)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        b, c = seeded(5), seeded(6)
+        greedy = generate(model, enc, prompt, **kw)
+        logits = model.decode(prompt[:1], enc[:1], KVCache(max_len=2), mode="prefill")[:, -1]
+        rows = logits.float().expand(draws, -1)
+        drawn = select_next(rows, True, SAMPLE_T,
+                            torch.Generator(device=device).manual_seed(0)).cpu().numpy()
+    x = logits[0].double().cpu().numpy()
+    softmax = lambda z: np.exp(z - z.max()) / np.exp(z - z.max()).sum()
+    p_t = chi2_pvalue(drawn, softmax(x / SAMPLE_T))
+    p_1 = chi2_pvalue(drawn, softmax(x))
+    steps = a.steps
+    rec = {
+        "phase": "sample", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "temperature": SAMPLE_T, "new_tokens": new_tokens, "decode_steps": steps,
+        "seconds": dt, "decode_ms_per_step": dt * 1e3 / max(steps, 1),
+        "same_seed_same_tokens": bool(torch.equal(a.tokens, b.tokens)),
+        "other_seed_differs": not torch.equal(a.tokens, c.tokens),
+        "differs_from_greedy": not torch.equal(a.tokens, greedy.tokens),
+        "distinct_tokens": len(set(a.tokens[:, 1:].flatten().tolist())),
+        "chi2": {"draws": draws, "bins": SAMPLE_BINS, "p_value": p_t, "p_min": SAMPLE_P_MIN,
+                 "p_value_against_temperature_1": p_1,
+                 "distinct_draws": int(len(np.unique(drawn)))},
+        "launches": launches,
+    }
+    emit(rec)
+    problems = []
+    if not rec["same_seed_same_tokens"] or not rec["other_seed_differs"]:
+        problems.append("the same seed must give the same tokens and another seed others")
+    if not p_t > SAMPLE_P_MIN:
+        problems.append(f"one-step draws against softmax(logits / {SAMPLE_T}): p = {p_t}")
+    want = dict({k: 0 for k in counters()}, decode_attention=2 * bart_cfg.decoder_layers * steps)
+    if (torch.cuda.is_available() and launches != want) or steps != new_tokens - 1:
+        problems.append(f"launched {launches} over {steps} steps, want {want}")
+    if problems:
+        raise SystemExit("sample failed: " + "; ".join(problems))
+    return {"sample": launches}
+
+
+def phase_naive(torch, model_name="cruller_base", B=4, new_tokens=32, device="cuda"):
+    """KV-cached ``generate`` against ``generate_naive`` (a cache-free
+    full-prefix pass per token, through the flash kernels): the tokens
+    agree up to the first disagreement, where the naive path's top-2 logit
+    margin must be under BF16_TIE (a bf16 near-tie)."""
+    from pixparse_tpu_torch.ops.generation import generate, generate_naive
+
+    model, vit_cfg, bart_cfg = seeded_model(torch, model_name, device)
+    images = synthetic_pages(torch, B, *vit_cfg.img_size, torch.Generator().manual_seed(4))
+    prompt = torch.zeros(B, 1, dtype=torch.long, device=device)
+    kw = dict(max_length=1 + new_tokens, eos_token_id=-1, pad_token_id=1)
+    with torch.inference_mode():
+        enc = model.encode(images.to(device))
+        cached = generate(model, enc, prompt, **kw).tokens
+        sync(torch)
+        reset_counts()
+        t0 = time.perf_counter()
+        naive = generate_naive(model, enc, prompt, **kw)
+        sync(torch)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        rows = []
+        for r in range(B):
+            diff = (cached[r] != naive[r]).nonzero()
+            if not len(diff):
+                continue
+            t = int(diff[0])
+            logits = model.decode(naive[r:r + 1, :t], enc[r:r + 1], mode="train")[0, -1].float()
+            top = logits.topk(2).values
+            rows.append({"row": r, "first_disagreement": t, "top2_margin": float(top[0] - top[1]),
+                         "cached": int(cached[r, t]), "naive": int(naive[r, t])})
+    passes = new_tokens
+    rec = {
+        "phase": "naive", "model": model_name, "batch": B, "dtype": "bfloat16",
+        "new_tokens": new_tokens, "passes": passes, "seconds": dt,
+        "equal_rows": B - len(rows), "disagreements": rows, "tie_margin": BF16_TIE,
+        "launches": launches,
+    }
+    emit(rec)
+    problems = [f"row {d['row']}: tokens differ at {d['first_disagreement']} with a top-2 margin "
+                f"of {d['top2_margin']}" for d in rows if not d["top2_margin"] < BF16_TIE]
+    want = dict({k: 0 for k in counters()},
+                flash_attention_fwd=passes * 2 * bart_cfg.decoder_layers)
+    if torch.cuda.is_available() and launches != want:
+        problems.append(f"launched {launches}, want {want}")
+    if problems:
+        raise SystemExit("naive failed: " + "; ".join(problems))
+    return {"naive": launches}
+
+
+def phase_large(torch, model_name="cruller_large", B=LARGE_B, new_tokens=TASK_NEW_TOKENS,
+                steps=DONUT_TRAIN_STEPS, device="cuda", profile=False):
+    """cruller_large at full width and depth: serve (``serve_model``'s run
+    and gates, always with the profile for the idle share; its 24 bf16
+    encoder layers held to the plain ones token by token) and train
+    (``train_model``'s run and gates, under the auto remat mode)."""
+    from pixparse_tpu_torch.models.config import get_model_config
+    from pixparse_tpu_torch.models.cruller import resolve_cruller_cfgs
+    from pixparse_tpu_torch.task.cruller_base import auto_remat
+
+    vit_cfg, _, _ = resolve_cruller_cfgs(get_model_config(model_name))
+    serve = phase_serve_model(torch, new_tokens=new_tokens, B=B, model_name=model_name,
+                              device=device, profile=torch.cuda.is_available(),
+                              phase="large_serve", token_l2=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    train = phase_train_model(torch, steps=steps, B=B, model_name=model_name, device=device,
+                              remat=auto_remat(vit_cfg), phase="large_train", profile=profile)
+    return {"large_serve": serve["launches"], "large_train": train["launches"]}
+
+
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
 # (the CE backward's products, by output tile width BN) lay it out
@@ -2882,9 +3397,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="serve_model, serve_donut, train_model, train_donut: also trace encode, "
-                         "generate and one train step with torch.profiler (device time by "
-                         "kernel, device idle share)")
+                    help="serve_model, serve_donut, train_model, train_donut, beam_eval, "
+                         "large: also trace encode, generate and one train step with "
+                         "torch.profiler (device time by kernel, device idle share)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2964,6 +3479,14 @@ def main(argv=None) -> int:
         path_launches.update(phase_pretrained_train(torch))
     if "finetune_tasks" in phases:
         path_launches.update(phase_finetune_tasks(torch))
+    if "beam_eval" in phases:
+        path_launches.update(phase_beam_eval(torch, profile=args.profile))
+    if "sample" in phases:
+        path_launches.update(phase_sample(torch))
+    if "naive" in phases:
+        path_launches.update(phase_naive(torch))
+    if "large" in phases:
+        path_launches.update(phase_large(torch, profile=args.profile))
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)
@@ -2979,12 +3502,15 @@ def main(argv=None) -> int:
                                 if p != "probes" or name in PROBE_OWN_KERNELS)
                 if path_launches else None,
                 "launches_by_path": {p: run[name] for p, run in path_launches.items()},
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                **{k: rec[k] for k in LINE_KEYS},
                 # the probe kernels, #9, #12 and #13: busy-timer time and shares
                 **({k: rec[k] for k in ("device_ms", "bound_share", "ratio_to_library")}
                    if name in PROBE_OWN_KERNELS + BUSY_TIMED else {}),
+                # beam_eval's and large's shapes, each against the plain version
+                **({"new_path_cases": [
+                    {"case": r["case"], **{k: r[k] for k in LINE_KEYS}}
+                    for r in results[name] if r["case"] in NEW_PATH_CASES[name]]}
+                   if name in NEW_PATH_CASES else {}),
             })
         emit({"kernels": line})
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 
 Flow: device -> TaskFactory -> seeded RNG -> logging and Monitor under
 ``--eval.output_dir`` -> the local ``.pt`` checkpoint -> metrics file name
-from the checkpoint path and dataset name -> one loader per
+from the checkpoint path and dataset name (``donut_eval_ocr``: no
+checkpoint, ``{task}-{dataset}-metrics.json``) -> one loader per
 ``--eval.datasets`` entry -> ``task.setup()`` -> ``evaluate`` -> the metrics
 JSON -> ``task.end()``::
 
@@ -21,8 +22,9 @@ SinglePageDocVQA`` from ``$PIXPARSE_DOCVQA_DIR`` with ``--data.eval.split
 val``, or a ``datasets.load_dataset`` source). One process on one device:
 ``--task.device`` (default ``cuda``; without a card that raises,
 ``--task.device cpu`` asks for the CPU). ``--eval.s3_bucket`` raises (the
-port reads local checkpoints only). ``donut_eval_ocr``, the HF baseline that
-needs published weights, is not registered.
+port reads local checkpoints only). ``donut_eval_ocr``, the HF Donut
+baseline, takes ``--task.model_name`` as a local model directory (or a name
+in the HF cache) and needs ``transformers``.
 """
 
 from __future__ import annotations
@@ -100,17 +102,19 @@ def main(argv=None) -> int:
         output_enabled=device_env.is_primary(),
     )
 
-    if eval_cfg.s3_bucket != "":
-        raise NotImplementedError(
-            "--eval.s3_bucket: loading checkpoints from S3 is not ported (it needs "
-            "network access); copy the checkpoint to a local path"
-        )
-    if not os.path.isfile(eval_cfg.checkpoint_path):
-        raise FileNotFoundError(f"Cannot find checkpoint {eval_cfg.checkpoint_path!r}")
-    task.resume_state_dict = load_torch_checkpoint(eval_cfg.checkpoint_path)
-    eval_cfg = replace(eval_cfg, metrics_file_path=os.path.join(
-        eval_cfg.output_dir, metrics_file_name(eval_cfg.checkpoint_path, eval_cfg.dataset_name),
-    ))
+    if eval_cfg.task_name == "donut_eval_ocr":  # the HF model brings its weights
+        file_name = f"{eval_cfg.task_name}-{eval_cfg.dataset_name}-metrics.json"
+    else:
+        if eval_cfg.s3_bucket != "":
+            raise NotImplementedError(
+                "--eval.s3_bucket: loading checkpoints from S3 is not ported (it needs "
+                "network access); copy the checkpoint to a local path"
+            )
+        if not os.path.isfile(eval_cfg.checkpoint_path):
+            raise FileNotFoundError(f"Cannot find checkpoint {eval_cfg.checkpoint_path!r}")
+        task.resume_state_dict = load_torch_checkpoint(eval_cfg.checkpoint_path)
+        file_name = metrics_file_name(eval_cfg.checkpoint_path, eval_cfg.dataset_name)
+    eval_cfg = replace(eval_cfg, metrics_file_path=os.path.join(eval_cfg.output_dir, file_name))
     _logger.info(task_cfg)
     _logger.info(eval_cfg)
 

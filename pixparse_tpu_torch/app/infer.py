@@ -14,8 +14,9 @@ parsed ``"json"``, by ``token2json``):
         --infer.output ./ocr.jsonl \\
         --task.model_name cruller_base --task.dtype bfloat16
 
-The final partial batch is padded (repeat-last) to the batch size, as in
-the JAX package. ``--infer.continuous true`` (continuous batching) is not
+Tasks: the Cruller eval tasks (``donut_eval_ocr`` runs in ``app.eval``
+only, as in the JAX package). The final partial batch is padded
+(repeat-last) to the batch size, as in the JAX package. ``--infer.continuous true`` (continuous batching) is not
 ported yet.
 """
 
@@ -31,7 +32,7 @@ from typing import List, Optional
 from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import random_seed, setup_logging
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
-from pixparse_tpu_torch.framework.task import TaskEval
+from pixparse_tpu_torch.task.cruller_base import BaseCrullerEvalTask
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY
 
 _logger = logging.getLogger("infer")
@@ -169,7 +170,9 @@ def main(argv=None) -> int:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     task_name = peek_flag(argv, "infer.task_name") or "cruller_eval_ocr"
-    eval_tasks = sorted(n for n, (cls, _) in TASK_CLASS_REGISTRY.items() if issubclass(cls, TaskEval))
+    eval_tasks = sorted(
+        n for n, (cls, _) in TASK_CLASS_REGISTRY.items() if issubclass(cls, BaseCrullerEvalTask)
+    )
     if task_name not in eval_tasks:
         raise SystemExit(f"--infer.task_name must be one of {eval_tasks}")
     _, task_cfg_cls = TASK_CLASS_REGISTRY[task_name]

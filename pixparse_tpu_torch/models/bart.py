@@ -105,6 +105,30 @@ class KVCache:
     qkv: List[Tuple[torch.Tensor, torch.Tensor]] = field(default_factory=list)
     cross_mask: Optional[torch.Tensor] = None
 
+    def repeat_rows(self, n: int) -> None:
+        """Each row's caches, scales and cross mask repeated ``n`` times in
+        its place (``repeat_interleave`` on dim 0): one prefill per sample
+        serves the sample's ``n`` beams. The fused q/k/v weights are
+        shared."""
+        for caches in (self.self_k, self.self_v, self.cross_k, self.cross_v,
+                       self.cross_k_scale, self.cross_v_scale):
+            caches[:] = [c.repeat_interleave(n, dim=0) for c in caches]
+        if self.cross_mask is not None:
+            self.cross_mask = self.cross_mask.repeat_interleave(n, dim=0)
+
+    def reorder(self, src: torch.Tensor) -> None:
+        """Beam reorder: row ``r`` of every layer's self caches takes row
+        ``src[r]``'s. Only the written prefix ``[:, :index]`` is gathered
+        (the rest is unwritten zeros) and written back into the same
+        buffers, which keep the contiguous ``(rows, len_pad, H*D)`` layout
+        the decode kernel requires. The cross caches, their scales and
+        ``cross_mask`` stay: beam search reorders rows only within a sample,
+        and every beam of a sample holds the same encoder rows."""
+        i = self.index
+        for caches in (self.self_k, self.self_v):
+            for c in caches:
+                c[:, :i] = c[:, :i].index_select(0, src)
+
 
 class _Projections(nn.Module):
     """q/k/v/out projections with HF BART names."""

@@ -12,7 +12,8 @@
 - :class:`BaseCrullerEvalTask`: the same vocabulary replay (a checkpoint
   from before the task's tokens gets its table resized), the model (ViT
   or Swin encoder, bf16 or int8 decode mode) on the task's device in the
-  compute dtype, and the KV-cached greedy decode.
+  compute dtype, and the KV-cached decode: greedy, or beam search when
+  ``num_beams > 1``.
 
 Concrete tasks supply tokens, collate and metrics. There is one device and no
 mesh, so batches go to the device as they are.
@@ -34,7 +35,7 @@ from pixparse_tpu_torch.framework.train_state import create_train_state, make_tr
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
 from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
-from pixparse_tpu_torch.ops.generation import generate
+from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import TokenizerCfg, create_tokenizer
@@ -458,17 +459,22 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         images = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
         return self.model.encode(images.to(self.compute_dtype))
 
+    num_beams: int = 1  # > 1 switches every eval decode to beam search
+
     def generate_ids(self, images, prompt_ids, max_length: Optional[int] = None) -> np.ndarray:
-        """Batched KV-cached greedy decode -> (B, max_length) ids."""
+        """Batched KV-cached decode -> (B, max_length) ids: greedy, or the
+        best beam when ``num_beams > 1``."""
         enc = self.encode_images(images)
-        result = generate(
-            self.model,
-            enc,
-            torch.as_tensor(np.asarray(prompt_ids), device=self.device),
+        kwargs = dict(
             max_length=max_length or self.max_generation_length,
             eos_token_id=self.tokenizer.eos_token_id,
             pad_token_id=self.tokenizer.pad_token_id,
         )
+        prompt_ids = torch.as_tensor(np.asarray(prompt_ids), device=self.device)
+        if self.num_beams > 1:
+            result = generate_beam(self.model, enc, prompt_ids, num_beams=self.num_beams, **kwargs)
+        else:
+            result = generate(self.model, enc, prompt_ids, **kwargs)
         return result.tokens.cpu().numpy()
 
     def generate_text(self, images, prompt_ids, max_length=None) -> List[str]:

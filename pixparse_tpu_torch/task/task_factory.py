@@ -1,8 +1,9 @@
 """Task registry and factory (counterpart of
 :mod:`pixparse_tpu.task.task_factory`): public task names ->
 ``(TaskClass, TaskCfg)``; ``create_task`` builds the cfg from parsed args and
-the task from ``(cfg, device_env, monitor)``. ``donut_eval_ocr`` and
-``pix2struct_pretrain`` are not ported yet (ROADMAP.md Queue 1)."""
+the task from ``(cfg, device_env, monitor)``. Ten of the JAX package's
+eleven tasks; ``pix2struct_pretrain`` is not ported yet (ROADMAP.md Queue
+1)."""
 
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from pixparse_tpu_torch.task.task_cruller_pretrain import (
     TaskCrullerPretrain,
     TaskCrullerPretrainCfg,
 )
+from pixparse_tpu_torch.task.task_donut_eval_ocr import TaskDonutEvalOCR, TaskDonutEvalOCRCfg
 
 TASK_CLASS_REGISTRY = {
     "cruller_eval_ocr": (TaskCrullerEvalOCR, TaskCrullerEvalOCRCfg),
@@ -53,6 +55,7 @@ TASK_CLASS_REGISTRY = {
     "cruller_finetune_cord": (TaskCrullerFinetuneCORD, TaskCrullerFinetuneCORDCfg),
     "cruller_finetune_docvqa": (TaskCrullerFinetuneDOCVQA, TaskCrullerFinetuneDOCVQACfg),
     "cruller_finetune_xent": (TaskCrullerFinetuneXent, TaskCrullerFinetuneXentCfg),
+    "donut_eval_ocr": (TaskDonutEvalOCR, TaskDonutEvalOCRCfg),
 }
 
 

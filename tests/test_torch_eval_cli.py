@@ -166,8 +166,8 @@ def test_donut_base_resolves_for_the_entry_points():
 
 def test_eval_cli_refusals(data, tmp_path):
     shard, ckpt = data
-    with pytest.raises(SystemExit, match="cruller_eval_ocr"):
-        eval_main(["--eval.task_name", "donut_eval_ocr"])
+    with pytest.raises(SystemExit, match="cruller_eval_ocr"):  # a task not ported yet
+        eval_main(["--eval.task_name", "pix2struct_pretrain"])
     flags = _flags(shard, ckpt, str(tmp_path / "o"), extra=["--task.device", "cpu"])
     with pytest.raises(NotImplementedError, match="s3"):
         eval_main(flags + ["--eval.s3_bucket", "bucket"])

@@ -140,3 +140,34 @@ def test_rvlcdip_unreadable_batch_reaches_step_through_the_ports_loader():
     metrics = evaluate(ttask, {"eval": LoaderBundle(loader=loader, num_batches=3, num_samples=5)})
     assert seen == [False, True, False]
     assert set(metrics["eval"]["average"]["classification"]) == {"accuracy"}
+
+
+def test_rvlcdip_eval_with_two_beams_equal_to_jax():
+    jtask, ttask = _pair("cruller_eval_rvlcdip", seed=2)
+    jtask.num_beams = ttask.num_beams = 2
+    items = [{"image": _page(i), "label": i} for i in range(6)]
+    batch = ttask.collate_fn(items)
+    prompt = ttask.prompt_ids(ttask.task_start_token, 6)
+    got = ttask.generate_ids(batch["image"], prompt, ttask.max_generation_length)
+    want = jtask.generate_ids(batch["image"], prompt, jtask.max_generation_length)
+    np.testing.assert_array_equal(got, want)
+    ttask.num_beams = 1
+    assert not np.array_equal(got, ttask.generate_ids(batch["image"], prompt, 6))  # not greedy
+    ttask.num_beams = 2
+    metrics = _same_steps(jtask, ttask, [batch])
+    assert set(metrics) == {"classification"}
+
+
+def test_docvqa_eval_with_two_beams_on_ragged_prompts_equal_to_jax():
+    jtask, ttask = _pair("cruller_eval_docvqa", seed=1)
+    jtask.num_beams = ttask.num_beams = 2
+    questions = ["what?", "what is the total amount due on this page?", "who signed it"]
+    items = [{"image": _page(i), "labels": {"question": q, "answers": [f"answer {i}", "x"]},
+              "question_id": i} for i, q in enumerate(questions)]
+    batch = ttask.collate_fn(items)
+    prompts = ttask.batch_prompts(batch["questions"])
+    got = ttask.generate_ids(batch["images"], prompts, 64)
+    want = jtask.generate_ids(batch["images"], prompts, 64)
+    np.testing.assert_array_equal(got, want)
+    metrics = _same_steps(jtask, ttask, [batch])
+    assert set(metrics) == {"ANLS"} and 0.0 <= metrics["ANLS"] <= 1.0

@@ -39,7 +39,8 @@ from pixparse_tpu_torch.models.interop import cruller_state_dict_from_jax
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY
 from pixparse_tpu_torch.tokenizers import TokenizerCfg
 
-TASKS = sorted(n for n in TASK_CLASS_REGISTRY if n not in ("cruller_pretrain", "cruller_eval_ocr"))
+TASKS = sorted(n for n in TASK_CLASS_REGISTRY  # the finetune and JSON eval tasks
+               if n.startswith("cruller_") and n not in ("cruller_pretrain", "cruller_eval_ocr"))
 
 
 def _cfg(registry, name, tok_cls, opt_cls, **kw):
@@ -97,8 +98,15 @@ def test_registry_and_vocabulary_like_jax(name):
 
 
 def test_registry_holds_nine_tasks_under_the_jax_names():
-    assert set(TASK_CLASS_REGISTRY) == set(JAX_REGISTRY) - {"donut_eval_ocr", "pix2struct_pretrain"}
-    assert len(TASK_CLASS_REGISTRY) == 9
+    """The nine Cruller tasks, under the JAX package's names."""
+    cruller = {n for n in TASK_CLASS_REGISTRY if n.startswith("cruller_")}
+    assert cruller == {n for n in JAX_REGISTRY if n.startswith("cruller_")}
+    assert len(cruller) == 9
+
+
+def test_registry_holds_every_jax_task_but_pix2struct():
+    assert set(TASK_CLASS_REGISTRY) == set(JAX_REGISTRY) - {"pix2struct_pretrain"}
+    assert len(TASK_CLASS_REGISTRY) == 10
 
 
 @pytest.mark.parametrize("name", ["cruller_finetune_cord", "cruller_eval_cord"])

@@ -101,7 +101,7 @@ def test_infer_defaults_to_cuda_and_refuses_continuous(pages):
             infer_main(flags)
     with pytest.raises(NotImplementedError, match="continuous"):
         infer_main(flags + ["--infer.continuous", "true", "--task.device", "cpu"])
-    with pytest.raises(SystemExit):  # a task the port does not register yet
+    with pytest.raises(SystemExit):  # not a Cruller eval task: app.eval only, as in JAX
         infer_main(["--infer.task_name", "donut_eval_ocr", "--infer.images", pages])
 
 

@@ -55,6 +55,8 @@ MODULES = (
     "task.task_cruller_eval_rvlcdip", "task.task_cruller_finetune_cord",
     "task.task_cruller_finetune_docvqa", "task.task_cruller_finetune_rvlcdip",
     "task.task_cruller_finetune_xent", "utils.json_utils", "utils.tree_edit",
+    # the HF Donut baseline eval task
+    "task.task_donut_eval_ocr",
 )
 
 
@@ -129,7 +131,7 @@ def test_optional_packages_are_imported_only_inside_functions():
     assert bad == []
     # and they are used somewhere, inside functions: the check above is not vacuous
     used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
-    assert {"PIL", "wandb", "safetensors", "timm", "datasets"} <= used
+    assert {"PIL", "wandb", "safetensors", "timm", "datasets", "transformers"} <= used
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
