@@ -210,10 +210,35 @@ stderr):
    profile's idle share) and ``train_model``'s at B=8, 3 steps under the
    auto remat mode (``mlp``), with the B=2 kernel-vs-plain step and the
    exact launch counts (the ``large_serve`` and ``large_train`` lines).
+   Both bf16 encoders (kernel path, plain path) are also measured against
+   an fp32 plain forward of the same weights (``encode_vs_fp32``: per-token
+   L2 error over norm, worst and mean; recorded, not gated).
    The kernels phase holds the flash kernels at its shapes (B=8, H=16:
    2509, causal 1023, 1023x2509) and the CE at T 8184, D 1024, V 50265; the
    decode kernels at 64 rows for ``beam_eval``: the kernels line carries
    them as ``new_path_cases``.
+16. ``pix2struct``: pix2struct_base at full width (2048 patches of 16x16
+   grayscale, 12 layers, width 768; the 4-layer bart-base decoder, text
+   1023, vocab 50265), bf16, seeded weights: 8 pages of four sizes
+   (600x800, 3508x2480, 4000x300, 1700x1300) patchified on the card by
+   ``ops/pix2struct.py::patchify_variable_batch``, so each page holds
+   another number of real patches (2028 / 2014 / 1980 / 1989). Train:
+   ``pix2struct_pretrain`` from ``TaskFactory`` (auto remat: none under
+   flash), 4 steps of ``train_step`` on the batch (losses finite and
+   falling; MFU from ``cruller_train_flops``; exactly 20 flash forward and
+   20 backward a step, 12 encoder sites and 4 cross sites with kv_lens, 4
+   causal; one CE forward and backward); the task's step-1 loss (2e-2) and
+   gradient norm (5e-2) on 2 pages, kernel path against plain path, and
+   each gradient leaf (5e-2 in L2, as finetune_tasks). Serve:
+   encode (12 flash launches), the kernel encoder against the plain one
+   token by token (5e-2) and both against fp32 (recorded), padding rows
+   exactly 0, greedy 64 tokens with ``encoder_pad_mask`` (8 decode
+   launches a step), cached decode logits against a parallel plain pass
+   with the same mask (5e-2/5e-2). The kernels phase holds flash forward
+   and backward at its three sites (B=8: 2048 with kv_lens, causal 1023,
+   1023x2048 with kv_lens), #8 on its (8, 2048, 768) cross cache with the
+   same lengths and on its self cache, and the CE at T 8184, D 768 (the
+   kernels line's ``new_path_cases``).
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -227,6 +252,7 @@ exits non-zero and prints no result. Every phase line is kept in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -234,11 +260,12 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
-          "finetune_tasks", "beam_eval", "sample", "naive", "large")
+          "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -254,6 +281,12 @@ FINETUNE_TEXT = 511  # the finetune collates' 512 tokens, shifted
 CORD_FINETUNE_VOCAB = BART_VOCAB + 57
 BEAM_K = 4  # beam_eval: beams per page
 LARGE_B = 8  # large: serving and training batch at cruller_large
+# pix2struct: page sizes (H, W), page i of the batch taking size i % 4; at
+# pix2struct_base's 2048 patches of 16 they give 2028 / 2014 / 1980 / 1989
+# real patches (variable_grid), so kv_lens is ragged and ends off a tile
+PIX2STRUCT_PAGES = ((600, 800), (3508, 2480), (4000, 300), (1700, 1300))
+PIX2STRUCT_B = 8  # pix2struct: train and serve batch
+PIX2STRUCT_STEPS = 4  # pix2struct: train steps on the repeated batch (the first one warms up)
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -326,6 +359,27 @@ class Timer:
         return statistics.median(times)
 
 
+@contextlib.contextmanager
+def nan_default_init(torch):
+    """PyTorch's default parameter init (``kaiming_uniform_``, ``uniform_``,
+    ``normal_`` of ``torch.nn.init``, which every ``nn.Linear``,
+    ``nn.Embedding`` and ``nn.Conv2d`` calls when it is built) fills NaN
+    instead of drawing. Every model of the port draws all of its parameters
+    again from a seeded generator (``init_weights``) or loads them, so the
+    weights are the same bits, a model builds in a fraction of the time
+    (cruller_large: ~5 s of draws on the host), and a parameter that
+    neither step reached stays NaN and fails the phase's gates."""
+    init = torch.nn.init
+    saved = {n: getattr(init, n) for n in ("kaiming_uniform_", "uniform_", "normal_")}
+    for n in saved:
+        setattr(init, n, lambda t, *args, **kwargs: init.constant_(t, math.nan))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(init, n, fn)
+
+
 def sync(torch):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -381,7 +435,23 @@ def flash_cases(torch):
         ("multi_tile_lk2509", 2, 2509, 2509, 12, 64, bf, False, None),
         ("test_width_d32", 3, 77, 77, 2, 32, bf, False, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, False, None),
-    ] + flash_new_cases(torch) + flash_finetune_cases(torch) + flash_large_cases(torch)
+    ] + flash_new_cases(torch) + flash_finetune_cases(torch) + flash_large_cases(torch) + (
+        flash_pix2struct_cases(torch))
+
+
+def flash_pix2struct_cases(torch):
+    """The pix2struct phase's train step: pix2struct_base's encoder (B=8,
+    2048 patches, 12 heads) with the batch's kv_lens, its decoder's causal
+    self-attention (1023 tokens) and its cross-attention over the encoder
+    with the same kv_lens."""
+    bf = torch.bfloat16
+    lens = pix2struct_lens()
+    # name, B, Lq, Lk, H, D, dtype, causal, kv_lens
+    return [
+        ("p2s_encode_b8_l2048_kv_lens", PIX2STRUCT_B, 2048, 2048, 12, 64, bf, False, lens),
+        ("p2s_self_causal_b8_l1023", PIX2STRUCT_B, 1023, 1023, 12, 64, bf, True, None),
+        ("p2s_cross_b8_lq1023_lk2048_kv_lens", PIX2STRUCT_B, 1023, 2048, 12, 64, bf, False, lens),
+    ]
 
 
 def flash_large_cases(torch):
@@ -438,7 +508,7 @@ def flash_finetune_cases(torch):
 def decode_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
     self_pad = -(-(1 + TASK_NEW_TOKENS) // 128) * 128  # the main path's self cache
-    # name, B, Lk, n_valid (None = ragged self-cache mask), H, D, dtype
+    # name, B, Lk, n_valid (None = ragged self-cache mask; a list: per row), H, D, dtype
     return [
         ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64, bf),
         (f"self_b16_lk{self_pad}_valid{self_pad // 2}", 16, self_pad, self_pad // 2, 12, 64, bf),
@@ -450,6 +520,10 @@ def decode_cases(torch):
         ("ragged_lk997_dead_row", 16, 997, None, 12, 64, bf),
         # beam_eval: B * K rows of the cruller_base cross cache
         ("beam_cross_b64_lk1024_valid1009", 16 * BEAM_K, 1024, 1009, 12, 64, bf),
+        # pix2struct: its cross cache, each row's real patches valid; its self cache
+        ("p2s_cross_b8_lk2048_kv_lens", PIX2STRUCT_B, 2048, pix2struct_lens(), 12, 64, bf),
+        (f"p2s_self_b8_lk{self_pad}_valid{self_pad // 2}", PIX2STRUCT_B, self_pad, self_pad // 2,
+         12, 64, bf),
     ]
 
 
@@ -593,7 +667,7 @@ def flash_bwd_cases(torch):
         ("test_width_d32", 3, 77, 77, 2, 32, bf, True, None),
         ("fp32_b2_l333", 2, 333, 333, 12, 64, f32, True, None),
     ] + flash_new_cases(torch, backward=True) + flash_finetune_cases(torch) + flash_large_cases(
-        torch)
+        torch) + flash_pix2struct_cases(torch)
 
 
 def ce_cases(torch):
@@ -614,6 +688,8 @@ def ce_cases(torch):
          bf, "collate"),
         # the large phase's train step: bart-large's width over its vocabulary
         ("large_t8184_v50265_d1024", LARGE_B * 1023, BART_VOCAB, 1024, bf, 0.3),
+        # the pix2struct phase's: bart-base's width
+        ("p2s_t8184_v50265_d768", PIX2STRUCT_B * 1023, BART_VOCAB, 768, bf, 0.3),
     ]
 
 
@@ -1201,6 +1277,14 @@ def phase_kernels(torch, F, card_name, timer):
                "decode_attention_q8": [], "window_attention_bwd": [], "layer_norm_fwd": [],
                "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": []}
     failed = []
+    last = [time.perf_counter()]
+
+    def note_case(kernel, rec):
+        """Progress record of one case, with ``wall_s``: the seconds since
+        the previous record (its inputs, checks and timings)."""
+        now = time.perf_counter()
+        rec["wall_s"], last[0] = now - last[0], now
+        note({"kernel": kernel, **rec})
 
     for name, B, Lq, Lk, H, D, dt, causal, lens in flash_cases(torch):
         # q/k/v as strided views of one fused projection, like the ViT's
@@ -1249,7 +1333,7 @@ def phase_kernels(torch, F, card_name, timer):
         rec["library_ms"] = timer.median_ms(lib)
         rec.update(speed_shares(rec))
         results["flash_attention_fwd"].append(rec)
-        note({"kernel": "flash_attention_fwd", **rec})
+        note_case("flash_attention_fwd", rec)
         if not rec["ok"]:
             failed.append(f"flash_attention_fwd/{name}")
         del qkv, q, k, v, o, lse, o_ref, lse_ref
@@ -1261,6 +1345,8 @@ def phase_kernels(torch, F, card_name, timer):
         v = torch.randn(B, Lk, HD, generator=gen).to("cuda", dt)
         if n_valid is None:
             mask = ragged_mask(torch, B, Lk, gen).cuda()
+        elif isinstance(n_valid, list):  # valid keys per row
+            mask = (torch.arange(Lk)[None] < torch.tensor(n_valid)[:, None]).cuda()
         else:
             mask = (torch.arange(Lk) < n_valid)[None].expand(B, Lk).contiguous().cuda()
         o = da.decode_attention(q, k, v, mask, num_heads=H)
@@ -1302,7 +1388,7 @@ def phase_kernels(torch, F, card_name, timer):
             lambda: da.decode_attention(q, k, v, mask, num_heads=H), busy=True)
         rec["library_device_ms"] = timer.median_ms(lib, busy=True)
         results["decode_attention"].append(rec)
-        note({"kernel": "decode_attention", **rec})
+        note_case("decode_attention", rec)
         if not rec["ok"]:
             failed.append(f"decode_attention/{name}")
         del q, k, v, o, o_ref
@@ -1310,7 +1396,7 @@ def phase_kernels(torch, F, card_name, timer):
     for case in flash_bwd_cases(torch):
         rec = check_flash_bwd(torch, F, fa, timer, peaks, gen, case)
         results["flash_attention_bwd"].append(rec)
-        note({"kernel": "flash_attention_bwd", **rec})
+        note_case("flash_attention_bwd", rec)
         if not rec["ok"]:
             failed.append(f"flash_attention_bwd/{case[0]}")
         torch.cuda.empty_cache()
@@ -1318,7 +1404,7 @@ def phase_kernels(torch, F, card_name, timer):
         fwd, bwd = check_fused_ce(torch, F, loss, timer, peaks, gen, case)
         for kname, rec in (("fused_ce_fwd", fwd), ("fused_ce_bwd", bwd)):
             results[kname].append(rec)
-            note({"kernel": kname, **rec})
+            note_case(kname, rec)
             if not rec["ok"]:
                 failed.append(f"{kname}/{case[0]}")
         torch.cuda.empty_cache()
@@ -1326,14 +1412,14 @@ def phase_kernels(torch, F, card_name, timer):
     for case in window_cases(torch):
         rec = check_window(torch, F, wa, timer, peaks, cuda_gen, case)
         results["window_attention"].append(rec)
-        note({"kernel": "window_attention", **rec})
+        note_case("window_attention", rec)
         if not rec["ok"]:
             failed.append(f"window_attention/{case[0]}")
         torch.cuda.empty_cache()
     for case in window_bwd_cases(torch):
         rec = check_window_bwd(torch, F, wa, timer, peaks, cuda_gen, case)
         results["window_attention_bwd"].append(rec)
-        note({"kernel": "window_attention_bwd", **rec})
+        note_case("window_attention_bwd", rec)
         if not rec["ok"]:
             failed.append(f"window_attention_bwd/{case[0]}")
         torch.cuda.empty_cache()
@@ -1341,7 +1427,7 @@ def phase_kernels(torch, F, card_name, timer):
         fwd, bwd = check_ln(torch, F, lnm, timer, peaks, cuda_gen, case)
         for kname, rec in (("layer_norm_fwd", fwd), ("layer_norm_bwd", bwd)):
             results[kname].append(rec)
-            note({"kernel": kname, **rec})
+            note_case(kname, rec)
             if not rec["ok"]:
                 failed.append(f"{kname}/{case[0]}")
         torch.cuda.empty_cache()
@@ -1357,20 +1443,20 @@ def phase_kernels(torch, F, card_name, timer):
     for case in q8_cases(torch):
         rec = check_q8(torch, F, da, timer, peaks, gen, case)
         results["decode_attention_q8"].append(rec)
-        note({"kernel": "decode_attention_q8", **rec})
+        note_case("decode_attention_q8", rec)
         if not rec["ok"]:
             failed.append(f"decode_attention_q8/{case[0]}")
     for case in mxu_cases():
         rec = check_mxu(torch, mp, timer, peaks, case)
         results["mxu_dots"].append(rec)
-        note({"kernel": "mxu_dots", **rec})
+        note_case("mxu_dots", rec)
         if not rec["ok"]:
             failed.append(f"mxu_dots/{case[0]}")
         torch.cuda.empty_cache()
     for case in band_cases():
         rec = check_band(torch, F, wb, wa, timer, peaks, cuda_gen, case)
         results["banded_attention"].append(rec)
-        note({"kernel": "banded_attention", **rec})
+        note_case("banded_attention", rec)
         if not rec["ok"]:
             failed.append(f"banded_attention/{case[0]}")
         torch.cuda.empty_cache()
@@ -1415,14 +1501,17 @@ KERNELS = [
      "tools/window_band_probe.py:39 (band_fwd_kernel)", "stage0_b4_320x240_c128_h4"),
 ]
 # the kernels line's records of the new paths' shapes, beside each main case
+P2S_FLASH_CASES = ("p2s_encode_b8_l2048_kv_lens", "p2s_self_causal_b8_l1023",
+                   "p2s_cross_b8_lq1023_lk2048_kv_lens")
 NEW_PATH_CASES = {
     "flash_attention_fwd": ("large_encode_b8_l2509_h16", "large_self_causal_b8_l1023_h16",
-                            "large_cross_b8_lq1023_lk2509_h16"),
+                            "large_cross_b8_lq1023_lk2509_h16") + P2S_FLASH_CASES,
     "flash_attention_bwd": ("large_encode_b8_l2509_h16", "large_self_causal_b8_l1023_h16",
-                            "large_cross_b8_lq1023_lk2509_h16"),
-    "fused_ce_fwd": ("large_t8184_v50265_d1024",),
-    "fused_ce_bwd": ("large_t8184_v50265_d1024",),
-    "decode_attention": ("beam_cross_b64_lk1024_valid1009",),
+                            "large_cross_b8_lq1023_lk2509_h16") + P2S_FLASH_CASES,
+    "fused_ce_fwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
+    "fused_ce_bwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
+    "decode_attention": ("beam_cross_b64_lk1024_valid1009", "p2s_cross_b8_lk2048_kv_lens",
+                         "p2s_self_b8_lk128_valid64"),
     "decode_attention_q8": ("beam_cross_b64_lk1024_valid1009",),
 }
 LINE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1559,20 +1648,57 @@ def device_profile(torch, fn, tag, wall_ms):
     }
 
 
-def cached_vs_parallel(torch, model, enc, ids):
+def cached_vs_parallel(torch, model, enc, ids, encoder_pad_mask=None):
     """Logits of a prefill plus single-token decode steps over ``ids`` (the
     decode-attention kernel on the card) against one teacher-forced parallel
-    pass over the same tokens with plain attention (no kernel)."""
+    pass over the same tokens with plain attention (no kernel); both with
+    the encoder's pad mask where one is given."""
     from pixparse_tpu_torch.models.bart import KVCache
 
+    kw = dict(encoder_pad_mask=encoder_pad_mask)
     cache = KVCache(max_len=ids.shape[1])
-    steps = [model.decode(ids[:, :1], enc, cache, mode="prefill")[:, -1]]
+    steps = [model.decode(ids[:, :1], enc, cache, mode="prefill", **kw)[:, -1]]
     for t in range(1, ids.shape[1]):
-        steps.append(model.decode(ids[:, t:t + 1], enc, cache, mode="decode")[:, -1])
+        steps.append(model.decode(ids[:, t:t + 1], enc, cache, mode="decode", **kw)[:, -1])
     model.attn_impl = "xla"
-    parallel = model.decode(ids, enc, mode="train")
+    parallel = model.decode(ids, enc, mode="train", **kw)
     model.attn_impl = "flash"
     return close(torch.stack(steps, 1), parallel, 5e-2, 5e-2)
+
+
+def encoder_vs_fp32(torch, model, image_input, encoded):
+    """Each of ``encoded``'s bf16 encoder outputs (e.g. the kernel path's and
+    the plain path's) against one fp32 plain forward of the same weights on
+    the same input: max abs error, and each token's L2 error over its L2
+    norm (worst and mean over tokens whose reference is not 0)."""
+    import copy
+
+    with torch.inference_mode(False), torch.no_grad():
+        ref = copy.deepcopy(model).float()
+        ref.attn_impl = "xla"
+        if isinstance(image_input, dict):
+            image_input = {k: v.float() if v.is_floating_point() else v
+                           for k, v in image_input.items()}
+        else:
+            image_input = image_input.float()
+        want = ref.encode(image_input)
+        del ref
+        out = {}
+        for name, got in encoded.items():
+            diff = got.float() - want
+            err, scale = torch_norm(diff), torch_norm(want)
+            live = scale > 0
+            rel = err[live] / scale[live]
+            out[name] = {"max_abs_err": float(diff.abs().max()),
+                         "worst_token_rel_err": float(rel.max()),
+                         "mean_token_rel_err": float(rel.mean()),
+                         "dead_tokens_nonzero": int((err[~live] > 0).sum())}
+        del want
+    names = list(encoded)
+    if len(names) == 2:
+        a, b = (out[n]["worst_token_rel_err"] for n in names)
+        out[f"{names[0]}_over_{names[1]}_worst"] = a / b if b else None
+    return out
 
 
 def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="cruller_base",
@@ -1581,7 +1707,8 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
     serves cruller_large through here). ``token_l2``: the flash encoder is
     held to the plain one token by token, each token's L2 error within 5e-2
     of its L2 norm, as ``serve_donut`` holds its deep bf16 encoder, instead
-    of element by element."""
+    of element by element; both encoders are then also measured against an
+    fp32 plain forward (``encode_vs_fp32``, recorded, not gated)."""
     from pixparse_tpu_torch.models.config import get_model_config
     from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
     from pixparse_tpu_torch.ops.generation import generate
@@ -1610,8 +1737,10 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
         enc_plain = model.encode(images)
         model.attn_impl = "flash"
         enc_err, enc_ok = close(enc, enc_plain, 5e-2, 5e-2)
+        vs_fp32 = None
         if token_l2:
             _, enc_row_err, enc_ok = rows_close(enc, enc_plain, 5e-2)
+            vs_fp32 = encoder_vs_fp32(torch, model, images, {"kernel": enc, "plain": enc_plain})
         del enc_plain
 
         prompt = torch.zeros(B, 1, dtype=torch.long, device=device)  # <s>
@@ -1647,7 +1776,8 @@ def phase_serve_model(torch, new_tokens=MODEL_NEW_TOKENS, B=16, model_name="crul
         "encode_launches": enc_launches, "generate_launches": dec_launches,
         "encode_flash_vs_plain_max_abs_err": enc_err,
         **({"encode_flash_vs_plain_worst_token_rel_err": enc_row_err,
-            "encode_tol": ["token L2", 5e-2]} if token_l2 else {"encode_tol": [5e-2, 5e-2]}),
+            "encode_tol": ["token L2", 5e-2], "encode_vs_fp32": vs_fp32}
+           if token_l2 else {"encode_tol": [5e-2, 5e-2]}),
         "decode_cached_vs_parallel_max_abs_err": dec_err, "decode_tol": [5e-2, 5e-2],
         "encode_ms": encode_ms, "generate_ms": gen_s * 1e3,
         "decode_ms_per_step": gen_s * 1e3 / max(steps, 1),
@@ -3287,17 +3417,250 @@ def phase_large(torch, model_name="cruller_large", B=LARGE_B, new_tokens=TASK_NE
     (``train_model``'s run and gates, under the auto remat mode)."""
     from pixparse_tpu_torch.models.config import get_model_config
     from pixparse_tpu_torch.models.cruller import resolve_cruller_cfgs
-    from pixparse_tpu_torch.task.cruller_base import auto_remat
+    from pixparse_tpu_torch.task.cruller_base import BaseCrullerTrainTask
 
     vit_cfg, _, _ = resolve_cruller_cfgs(get_model_config(model_name))
+    remat = BaseCrullerTrainTask.auto_remat(types.SimpleNamespace(vit_cfg=vit_cfg))
     serve = phase_serve_model(torch, new_tokens=new_tokens, B=B, model_name=model_name,
                               device=device, profile=torch.cuda.is_available(),
                               phase="large_serve", token_l2=True)
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     train = phase_train_model(torch, steps=steps, B=B, model_name=model_name, device=device,
-                              remat=auto_remat(vit_cfg), phase="large_train", profile=profile)
+                              remat=remat, phase="large_train", profile=profile)
     return {"large_serve": serve["launches"], "large_train": train["launches"]}
+
+
+def pix2struct_batch(torch, B, pages, max_patches, patch_size, gen, device):
+    """B synthetic pages patchified on ``device`` by the port's
+    ``patchify_variable_batch`` (one call per page size), page i of size
+    ``pages[i % len(pages)]``: the dict ``{patches, rows, cols, mask}``."""
+    from pixparse_tpu_torch.ops.pix2struct import patchify_variable_batch
+
+    per_size = -(-B // len(pages))
+    made = {hw: patchify_variable_batch(synthetic_pages(torch, per_size, *hw, gen).to(device),
+                                        patch_size, max_patches) for hw in pages}
+    order = [(pages[i % len(pages)], i // len(pages)) for i in range(B)]
+    return {k: torch.stack([made[hw][k][j] for hw, j in order])
+            for k in ("patches", "rows", "cols", "mask")}
+
+
+def pix2struct_lens(max_patches=2048, patch_size=16, pages=PIX2STRUCT_PAGES, B=PIX2STRUCT_B):
+    """The pix2struct batch's real patches per page (its ``kv_lens``)."""
+    from pixparse_tpu_torch.ops.pix2struct import variable_grid
+
+    grids = [variable_grid(h, w, patch_size, max_patches) for h, w in pages]
+    return [math.prod(grids[i % len(pages)]) for i in range(B)]
+
+
+def phase_pix2struct(torch, model_name="pix2struct_base", B=PIX2STRUCT_B, steps=PIX2STRUCT_STEPS,
+                     new_tokens=TASK_NEW_TOKENS, pages=PIX2STRUCT_PAGES, vocab=BART_VOCAB,
+                     device="cuda", profile=False):
+    """pix2struct_base at full width: 8 pages of four sizes patchified on the
+    card (ragged real-patch counts), bf16, seeded weights, EOS off.
+
+    Train: ``pix2struct_pretrain`` from ``TaskFactory`` (a saved byte-level
+    tokenizer padded to ``vocab``), auto remat (none under flash), ``steps``
+    steps of ``task.train_step`` on one batch: losses finite and falling;
+    exact launches a step (depth + 2 x decoder layers flash forward and
+    backward, with kv_lens at the encoder and cross sites; one CE forward
+    and backward); on 2 of its pages, the task's step-1 loss (2e-2) and
+    gradient norm (5e-2) on the kernel path against the plain path, and
+    ``step1_kernel_vs_plain``'s own verdict (loss 1e-3, each leaf's gradient
+    5e-2 in L2), as finetune_tasks gates it.
+    Serve: the encode (depth flash launches), its kernel path against the
+    plain path token by token (5e-2 of each token's norm) and both against
+    an fp32 plain forward (recorded); padding rows exactly 0; greedy
+    ``generate`` with ``encoder_pad_mask`` (2 x decoder layers decode
+    launches a step, no flash); cached decode logits against a parallel
+    plain pass with the same mask (5e-2/5e-2)."""
+    import shutil
+    import tempfile
+
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.profiling import cruller_train_flops, mfu
+    from pixparse_tpu_torch.models.cruller import create_cruller
+    from pixparse_tpu_torch.ops.generation import generate
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.task.task_pix2struct_pretrain import (
+        TaskPix2StructPretrain,
+        TaskPix2StructPretrainCfg,
+    )
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    on_card = torch.cuda.is_available()
+    env = DeviceEnv.initialize(device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pix2struct_")
+    try:
+        cfg = TaskPix2StructPretrainCfg(
+            model_name=model_name,
+            tokenizer=TokenizerCfg(name=saved_tokenizer(os.path.join(tmp, "tok"), vocab)),
+            dtype="bfloat16", device=device, num_intervals=1, num_warmup_intervals=0,
+            opt=OptimizationCfg(learning_rate=3e-4),
+        )
+        task, _ = TaskFactory.create_task("pix2struct_pretrain", cfg, env, monitor=None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if type(task) is not TaskPix2StructPretrain or task.vocab_size != vocab:
+        raise SystemExit(f"pix2struct: got {type(task).__name__}, vocab {task.vocab_size}")
+    enc_cfg, bart_cfg = task.vit_cfg, task.bart_cfg
+    gen = torch.Generator().manual_seed(0)
+    image = pix2struct_batch(torch, B, pages, enc_cfg.max_patches, enc_cfg.patch_size, gen, device)
+    lens = image["mask"].sum(-1).tolist()
+    L = task.max_position_embeddings
+    text, target = synthetic_tokens(torch, B, L, vocab, gen)
+    # the task's input, as a loader hands it over: numpy, unshifted tokens
+    sample = ({k: v.cpu().numpy() for k, v in image.items()}, text.numpy(), target.numpy())
+    task.train_setup(num_batches_per_interval=steps, seed=0)
+    remat = task.model.remat
+
+    # step 1 on 2 pages of different sizes: kernel path against plain path
+    # (plain attention keeps (2, 12, 2048, 2048) fp32 scores per layer)
+    first = {k: ({n: a[:2] for n, a in v.items()} if isinstance(v, dict) else v[:2])
+             for k, v in task._to_device(task.normalize_batch(sample)).items()}
+    reset_counts()
+    step1 = step1_kernel_vs_plain(torch, task, first, task.model.attn_impl)
+    step1["launches"] = read_counts()
+    del first
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for _ in range(steps):
+        reset_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        out = task.train_step(sample)
+        losses.append(float(out["loss"]))
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_counts())
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    ms_per_step = statistics.median(times[1:]) if steps > 1 else times[0]
+    flops = cruller_train_flops(enc_cfg, bart_cfg, B, L - 1)
+    train = {
+        "task": "pix2struct_pretrain", "remat": remat, "master_dtype": "float32",
+        "text_len": L - 1, "steps": steps, "losses": losses, "step_ms": times,
+        "ms_per_step": ms_per_step, "samples_per_s": B / (ms_per_step / 1e3),
+        "peak_memory_gib": train_peak, "model_flops_per_step": flops,
+        "mfu": mfu(flops, ms_per_step / 1e3, device=device), "launches_per_step": per_step[-1],
+        "step1_kernel_vs_plain_b2": step1,
+    }
+    if profile:
+        train["profile"] = device_profile(torch, lambda: task.train_step(sample),
+                                          "pix2struct_train_step", ms_per_step)
+    del task
+    if on_card:
+        torch.cuda.empty_cache()
+
+    model = create_cruller(enc_cfg, bart_cfg, attn_impl="flash")
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(device, torch.bfloat16).eval()
+    mask = image["mask"]
+    with torch.inference_mode():
+        model.encode(image)  # warm-up
+        sync(torch)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = model.encode(image)
+        sync(torch)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = read_counts()
+        peak_enc = torch.cuda.max_memory_allocated() if on_card else 0
+        model.attn_impl = "xla"
+        enc_plain = model.encode(image)
+        model.attn_impl = "flash"
+        enc_err, enc_row_err, enc_ok = rows_close(enc, enc_plain, 5e-2)
+        pad_zero = all(bool((enc[b, n:] == 0).all()) for b, n in enumerate(lens))
+        vs_fp32 = encoder_vs_fp32(torch, model, image, {"kernel": enc, "plain": enc_plain})
+        del enc_plain
+        prompt = torch.zeros(B, 1, dtype=torch.long, device=device)  # <s>
+        kwargs = dict(max_length=1 + new_tokens, eos_token_id=-1, pad_token_id=1,
+                      encoder_pad_mask=mask)
+        generate(model, enc, prompt, **dict(kwargs, max_length=9))  # warm-up
+        sync(torch)
+        if on_card:  # the serving peak: the encode's or the decode's, not the checks'
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = generate(model, enc, prompt, **kwargs)
+        sync(torch)
+        gen_s = time.perf_counter() - t0
+        dec_launches = read_counts()
+        serve_peak = (max(peak_enc, torch.cuda.max_memory_allocated()) / 2 ** 30
+                      if on_card else None)
+        dec_err, dec_ok = cached_vs_parallel(torch, model, enc, res.tokens[:, :16],
+                                             encoder_pad_mask=mask)
+        prof = None
+        if profile:
+            prof = {
+                "encode": device_profile(torch, lambda: model.encode(image),
+                                         "pix2struct_encode", encode_ms),
+                "generate": device_profile(torch, lambda: generate(model, enc, prompt, **kwargs),
+                                           "pix2struct_generate", gen_s * 1e3),
+            }
+    dsteps = res.steps
+    serve = {
+        "encode_ms": encode_ms, "generate_ms": gen_s * 1e3,
+        "decode_ms_per_step": gen_s * 1e3 / max(dsteps, 1), "decode_steps": dsteps,
+        "pages_per_s": B / (encode_ms / 1e3 + gen_s), "peak_memory_gib": serve_peak,
+        "encode_launches": enc_launches, "generate_launches": dec_launches,
+        "encode_flash_vs_plain_max_abs_err": enc_err,
+        "encode_flash_vs_plain_worst_token_rel_err": enc_row_err,
+        "encode_tol": ["token L2", 5e-2], "encode_vs_fp32": vs_fp32, "padding_rows_zero": pad_zero,
+        "decode_cached_vs_parallel_max_abs_err": dec_err, "decode_tol": [5e-2, 5e-2],
+    }
+    if prof:
+        serve["profile"] = prof
+    rec = {"phase": "pix2struct", "model": model_name, "batch": B, "dtype": "bfloat16",
+           "vocab": vocab, "pages": [list(pages[i % len(pages)]) for i in range(B)],
+           "kv_lens": lens, "max_patches": enc_cfg.max_patches, "new_tokens": new_tokens,
+           "train": train, "serve": serve, "launch_unit": "wrapper calls"}
+    emit(rec)
+
+    problems = []
+    layers = enc_cfg.depth + 2 * bart_cfg.decoder_layers
+    want = dict({k: 0 for k in counters()}, flash_attention_fwd=layers,
+                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1)
+    for i, got in enumerate(per_step):
+        if on_card and got != want:
+            problems.append(f"step {i} launched {got}, want {want}")
+            break
+    if remat is not False:
+        problems.append(f"auto remat gave {remat!r}, want none under flash")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        problems.append(f"non-finite loss: {losses}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall on the repeated batch: {losses}")
+    k_loss, p_loss = step1["loss"]["kernel"], step1["loss"]["plain"]
+    k_gn, p_gn = step1["grad_norm"]["kernel"], step1["grad_norm"]["plain"]
+    if abs(k_loss - p_loss) > 2e-2 * abs(p_loss):
+        problems.append(f"step-1 loss: kernel path {k_loss} vs plain path {p_loss}")
+    if abs(k_gn - p_gn) > 5e-2 * abs(p_gn):
+        problems.append(f"step-1 gradient norm: kernel path {k_gn} vs plain path {p_gn}")
+    if not step1["ok"]:
+        problems.append(f"step 1, kernel path vs plain path, leaf by leaf: {step1}")
+    if on_card and enc_launches != dict({k: 0 for k in counters()},
+                                        flash_attention_fwd=enc_cfg.depth):
+        problems.append(f"encode launched {enc_launches}, want {enc_cfg.depth} flash")
+    want_dec = dict({k: 0 for k in counters()},
+                    decode_attention=2 * bart_cfg.decoder_layers * dsteps)
+    if (on_card and dec_launches != want_dec) or dsteps != new_tokens - 1:
+        problems.append(f"generate launched {dec_launches} over {dsteps} steps, want {want_dec}")
+    if not enc_ok:
+        problems.append(f"flash encoder differs from plain encoder: worst token {enc_row_err}")
+    if not pad_zero:
+        problems.append("encoder padding rows are not 0")
+    if not dec_ok:
+        problems.append(f"cached decode logits differ from the parallel pass by {dec_err}")
+    if tuple(res.tokens.shape) != (B, 1 + new_tokens):
+        problems.append(f"tokens {tuple(res.tokens.shape)}")
+    if problems:
+        raise SystemExit("pix2struct failed: " + "; ".join(problems))
+    return {"pix2struct_train": {k: sum(st[k] for st in per_step) for k in per_step[0]},
+            "pix2struct_serve": {k: enc_launches[k] + dec_launches[k] for k in enc_launches}}
 
 
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
@@ -3398,9 +3761,10 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="serve_model, serve_donut, train_model, train_donut, beam_eval, "
-                         "large: also trace encode, generate and one train step with "
+                         "large, pix2struct: also trace encode, generate and one train step with "
                          "torch.profiler (device time by kernel, device idle share)")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -3455,38 +3819,34 @@ def main(argv=None) -> int:
           "window_ptxas": window_ptxas})
 
     timer = Timer(torch)
-    results = {}
-    if "kernels" in phases:
-        results = phase_kernels(torch, F, smi, timer)
-    path_launches = {}
-    if "probes" in phases:
-        path_launches["probes"] = phase_probes(torch)
-    if "serve_model" in phases:
-        phase_serve_model(torch, profile=args.profile)
-    if "serve_task" in phases:
-        path_launches["serve_task"] = phase_serve_task(torch)
-    if "serve_donut" in phases:
-        phase_serve_donut(torch, profile=args.profile)
-    if "eval_task" in phases:
-        path_launches.update(phase_eval_task(torch))
-    if "train_model" in phases:
-        phase_train_model(torch, profile=args.profile)
-    if "train_donut" in phases:
-        path_launches.update(phase_train_donut(torch, profile=args.profile))
-    if "train_task" in phases:
-        path_launches.update(phase_train_task(torch))
-    if "pretrained_train" in phases:
-        path_launches.update(phase_pretrained_train(torch))
-    if "finetune_tasks" in phases:
-        path_launches.update(phase_finetune_tasks(torch))
-    if "beam_eval" in phases:
-        path_launches.update(phase_beam_eval(torch, profile=args.profile))
-    if "sample" in phases:
-        path_launches.update(phase_sample(torch))
-    if "naive" in phases:
-        path_launches.update(phase_naive(torch))
-    if "large" in phases:
-        path_launches.update(phase_large(torch, profile=args.profile))
+    results, path_launches = {}, {}
+    prof = args.profile
+    runs = {  # in PHASES order; each adds the launch counts of the paths it drives
+        "kernels": lambda: results.update(phase_kernels(torch, F, smi, timer)),
+        "probes": lambda: path_launches.update(probes=phase_probes(torch)),
+        "serve_model": lambda: phase_serve_model(torch, profile=prof),
+        "serve_task": lambda: path_launches.update(serve_task=phase_serve_task(torch)),
+        "serve_donut": lambda: phase_serve_donut(torch, profile=prof),
+        "eval_task": lambda: path_launches.update(phase_eval_task(torch)),
+        "train_model": lambda: phase_train_model(torch, profile=prof),
+        "train_donut": lambda: path_launches.update(phase_train_donut(torch, profile=prof)),
+        "train_task": lambda: path_launches.update(phase_train_task(torch)),
+        "pretrained_train": lambda: path_launches.update(phase_pretrained_train(torch)),
+        "finetune_tasks": lambda: path_launches.update(phase_finetune_tasks(torch)),
+        "beam_eval": lambda: path_launches.update(phase_beam_eval(torch, profile=prof)),
+        "sample": lambda: path_launches.update(phase_sample(torch)),
+        "naive": lambda: path_launches.update(phase_naive(torch)),
+        "large": lambda: path_launches.update(phase_large(torch, profile=prof)),
+        "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
+    }
+    seconds = {"build": build_s}
+    with nan_default_init(torch):
+        for name, run in runs.items():
+            if name in phases:
+                t0 = time.perf_counter()
+                run()
+                seconds[name] = time.perf_counter() - t0
+    emit({"phase": "seconds", **seconds, "main": time.perf_counter() - t_main})
 
     with open(os.path.join(OUT_DIR, "kernel_cases.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -8,7 +8,7 @@ the optimizer state and the base dropout seed. :func:`make_train_step` builds
 
 - loss and gradients (summed over micro-batches and averaged when
   ``grad_accum_steps > 1``: the batch is then STACKED, every leaf shaped
-  ``(accum, micro_B, ...)``, and one update follows);
+  ``(accum, micro_B, ...)``, nested dicts included, and one update follows);
 - ``grad_norm`` (global L2 norm), the optimizer update, the new parameters;
 - the non-finite skip: when the loss or the gradient norm is not finite the
   parameters and the optimizer state stay as they were, the step still
@@ -59,6 +59,14 @@ def dropout_seed(seed: int, step: int, micro_idx: int = 0) -> int:
     return x & ((1 << 63) - 1)
 
 
+def _index_tree(tree, idx: int):
+    """Entry ``idx`` of every tensor leaf, over nested dicts (a stacked
+    batch -> one micro-batch)."""
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, idx) for k, v in tree.items()}
+    return tree[idx]
+
+
 def _where_tree(ok: torch.Tensor, new, old):
     """``new`` where ``ok`` else ``old``, leaf by leaf over nested dicts."""
     if isinstance(new, dict):
@@ -91,7 +99,7 @@ def make_train_step(
         if grad_accum_steps > 1:
             loss, grads, aux = None, None, {}
             for idx in range(grad_accum_steps):
-                micro = {k: v[idx] for k, v in batch.items()}
+                micro = _index_tree(batch, idx)
                 l, aux, g = grads_of(params, micro, dropout_seed(state.seed, state.step, idx))
                 if grads is None:
                     loss, grads = l, list(g)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixparse_tpu_torch.models.remat import block_mode, checkpoint_region, mlp_mode
-from pixparse_tpu_torch.ops.attention import NEG_MIN, dot_product_attention
+from pixparse_tpu_torch.ops.attention import NEG_MIN, dot_product_attention, mask_lens
 from pixparse_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_q8,
@@ -209,7 +209,10 @@ class CachedCrossAttention(_Projections):
             out.append((x * scale).to(dtype).reshape(B, Lk, D))
         return out
 
-    def forward(self, x, enc, mode, attn_impl, bias=None, valid=None, cache=None, layer=0):
+    def forward(self, x, enc, mode, attn_impl, kv_lens=None, valid=None, cache=None, layer=0):
+        """``kv_lens``: ``(B,)`` leading real encoder keys per sample (train,
+        prefill and multi-token steps; the flash kernel takes them in train
+        mode); ``valid``: the decode kernel's boolean key mask."""
         B, L, D = x.shape
         H = self.num_heads
         Lk = enc.shape[1]
@@ -249,7 +252,7 @@ class CachedCrossAttention(_Projections):
                     cache.cross_v.append(F.pad(v, pad))
         out = dot_product_attention(
             qf.view(B, L, H, D // H), k.reshape(B, Lk, H, D // H), v.reshape(B, Lk, H, D // H),
-            bias=bias, dtype=x.dtype, impl=attn_impl if mode == "train" else "xla",
+            dtype=x.dtype, impl=attn_impl if mode == "train" else "xla", kv_lens=kv_lens,
         )
         return self.out_proj(out.reshape(B, L, D))
 
@@ -300,14 +303,14 @@ class BartDecoderLayer(nn.Module):
         return self._layer(x, enc, mode, attn_impl, masks, cache, layer, generator, remat)
 
     def _layer(self, x, enc, mode, attn_impl, masks, cache, layer, generator, remat):
-        self_bias, self_valid, cross_bias, cross_valid = masks
+        self_bias, self_valid, cross_lens, cross_valid = masks
         live = self.training and mode == "train"
         drop = lambda h: dropout(h, self.dropout, live, generator)
         self_attn = lambda h: drop(self.self_attn(
             h, mode, attn_impl, self_bias, self_valid, cache, layer
         ))
         cross_attn = lambda h: drop(self.encoder_attn(
-            h, enc, mode, attn_impl, cross_bias, cross_valid, cache, layer
+            h, enc, mode, attn_impl, cross_lens, cross_valid, cache, layer
         ))
 
         def ffn(h):
@@ -389,16 +392,17 @@ class BartCausalDecoder(nn.Module):
 
     def _masks(self, mode, B, L, start, cache, device, attention_mask,
                key_pad_mask, encoder_pad_mask, Lk):
-        """(self bias, self valid, cross bias, cross valid) for this call,
-        built once and shared by every layer."""
-        cross_bias = None
-        if encoder_pad_mask is not None:
-            cross_bias = _bias(encoder_pad_mask[:, None, None, :].bool())
+        """(self bias, self valid, cross kv_lens, cross valid) for this call,
+        built once and shared by every layer. ``encoder_pad_mask`` reaches
+        the cross-attention as per-sample lengths (no bias, so train mode
+        keeps the flash kernel) and, from prefill on, as the decode kernel's
+        ``cache.cross_mask``."""
+        cross_lens = mask_lens(encoder_pad_mask)
         if mode == "train":
             self_bias = None
             if attention_mask is not None:
                 self_bias = _bias(attention_mask[:, None, None, :].bool())
-            return self_bias, None, cross_bias, None
+            return self_bias, None, cross_lens, None
         if mode == "prefill" or L > 1:
             T = cache.max_len
             col = torch.arange(T, device=device)
@@ -413,7 +417,7 @@ class BartCausalDecoder(nn.Module):
                 else:
                     cross = (torch.arange(Lk_pad, device=device) < Lk).expand(B, Lk_pad)
                 cache.cross_mask = cross.contiguous()
-            return _bias(valid), None, cross_bias, None
+            return _bias(valid), None, cross_lens, None
         # single-token decode: boolean key masks for the decode kernel
         len_pad = _pad128(cache.max_len)
         valid = (torch.arange(len_pad, device=device) <= start)[None, :]
@@ -431,7 +435,7 @@ class BartCausalDecoder(nn.Module):
         cache: Optional[KVCache] = None,
         return_hidden: bool = False,
         positions: Optional[torch.Tensor] = None,  # (B, L) explicit positions
-        encoder_pad_mask: Optional[torch.Tensor] = None,  # (B, Lk) True = real key
+        encoder_pad_mask: Optional[torch.Tensor] = None,  # (B, Lk) True = real key, real first
     ) -> torch.Tensor:
         """Logits ``(B, L, V)`` in fp32 (or the pre-head hidden states)."""
         cfg = self.cfg

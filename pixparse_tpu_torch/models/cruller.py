@@ -28,17 +28,26 @@ from pixparse_tpu_torch.models.vit import ViT, ViTCfg, resolve_vit_cfg
 
 
 def resolve_image_encoder_cfg(name: str, image_size, in_chans: int):
-    """Encoder name -> ``(cfg, stats)``: the ViT or the Swin family. The
-    pix2struct encoder is not ported."""
+    """Encoder name -> ``(cfg, stats)``: the ViT, Swin or pix2struct family
+    (for pix2struct, ``image_size`` is ``(max_patches, patch_size)``)."""
     base = name.split(".")[0]
     if base.startswith(("swin", "donut_swin")):
         return resolve_swin_cfg(name, tuple(image_size), in_chans)
     if base.startswith("pix2struct"):
-        raise NotImplementedError(
-            f"image encoder {name!r}: the pix2struct encoder is not ported yet "
-            "(ROADMAP.md Queue 1)"
-        )
+        from pixparse_tpu_torch.models.pix2struct import resolve_pix2struct_cfg
+
+        return resolve_pix2struct_cfg(name, image_size, in_chans)
     return resolve_vit_cfg(name, tuple(image_size), in_chans)
+
+
+def create_cruller(vit_cfg, bart_cfg, **kwargs) -> "Cruller":
+    """The model for an encoder cfg: :class:`~pixparse_tpu_torch.models.
+    pix2struct.Pix2StructCruller` for a ``Pix2StructCfg``, else
+    :class:`Cruller`; ``kwargs`` go to the constructor."""
+    from pixparse_tpu_torch.models.pix2struct import Pix2StructCfg, Pix2StructCruller
+
+    cls = Pix2StructCruller if isinstance(vit_cfg, Pix2StructCfg) else Cruller
+    return cls(vit_cfg, bart_cfg, **kwargs)
 
 
 def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
@@ -88,14 +97,18 @@ class Cruller(nn.Module):
         self.vit_cfg = vit_cfg
         self.bart_cfg = bart_cfg
         self.lm_head_dtype = lm_head_dtype
-        encoder_cls = Swin if isinstance(vit_cfg, SwinCfg) else ViT
         self.image_encoder = nn.ModuleDict(
-            {"trunk": encoder_cls(vit_cfg, attn_impl, compute_dtype)}
+            {"trunk": self.make_encoder(vit_cfg, attn_impl, compute_dtype)}
         )
         self.text_decoder = nn.ModuleDict(
             {"trunk": BartCausalDecoder(bart_cfg, attn_impl, kv_cache_dtype, compute_dtype)}
         )
         self.remat = remat
+
+    @staticmethod
+    def make_encoder(cfg, attn_impl, compute_dtype):
+        encoder_cls = Swin if isinstance(cfg, SwinCfg) else ViT
+        return encoder_cls(cfg, attn_impl, compute_dtype)
 
     @property
     def remat(self):
@@ -130,11 +143,19 @@ class Cruller(nn.Module):
 
     def forward(self, image_input, text_input, attention_mask=None) -> torch.Tensor:
         """Teacher-forced logits ``(B, L, V)`` fp32."""
-        return self.decoder(text_input, self.encode(image_input), attention_mask=attention_mask)
+        return self.decoder(
+            text_input, self.encode(image_input), attention_mask=attention_mask,
+            encoder_pad_mask=self.encoder_pad_mask(image_input),
+        )
 
     def encode(self, image_input: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) normalized images -> (B, N, D) in the compute dtype."""
         return self.encoder(image_input)
+
+    def encoder_pad_mask(self, image_input) -> Optional[torch.Tensor]:
+        """``(B, N)`` True at the encoder's real tokens, real ones first;
+        None when every token is real (ViT, Swin)."""
+        return None
 
     def forward_hidden(self, image_input, text_input, attention_mask=None) -> torch.Tensor:
         """Training fast path: the full forward returning the decoder's
@@ -143,7 +164,7 @@ class Cruller(nn.Module):
         is in training mode."""
         return self.decoder(
             text_input, self.encode(image_input), attention_mask=attention_mask,
-            return_hidden=True,
+            return_hidden=True, encoder_pad_mask=self.encoder_pad_mask(image_input),
         )
 
     @property

@@ -11,7 +11,9 @@ transposed to ``nn.Linear``'s ``(out, in)``, the patch kernel
 ``(p*p*C, D)`` (pixel order ``(p_h, p_w, C)``) becomes the conv weight
 ``(D, C, p, p)``, and LayerNorm ``scale`` becomes ``weight``. Swin
 encoders map as the JAX package's ``swin_params_to_torch`` does (timm names;
-the relative-position index is a fixed buffer, not a parameter).
+the relative-position index is a fixed buffer, not a parameter); the
+pix2struct encoder's ``patch_embed`` is a dense layer and its row and column
+tables are embeddings, its blocks named as the ViT's.
 
 What a checkpoint of another shape needs before it loads, as the JAX
 package does it: :func:`resize_token_embeddings` (the vocab-resize replay:
@@ -29,6 +31,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from pixparse_tpu_torch.models.pix2struct import Pix2StructCfg
 from pixparse_tpu_torch.models.swin import SwinCfg
 
 ENC_PREFIX = "image_encoder.trunk."
@@ -182,13 +185,7 @@ def _patch_embed(sd, p, cfg, prefix: str):
     sd[prefix + "patch_embed.proj.bias"] = np.asarray(p["bias"])
 
 
-def _vit_from_jax(sd, p, cfg, prefix: str):
-    _patch_embed(sd, p["patch_embed"], cfg, prefix)
-    if cfg.use_cls_token:
-        sd[prefix + "cls_token"] = np.asarray(p["cls_token"])
-    sd[prefix + "pos_embed"] = np.asarray(p["pos_embed"])
-    if "norm_pre" in p:
-        _norm(sd, prefix + "norm_pre", p["norm_pre"])
+def _vit_blocks_from_jax(sd, p, cfg, prefix: str):
     for i in range(cfg.depth):
         blk, b = p[f"blocks_{i}"], f"{prefix}blocks.{i}."
         _norm(sd, b + "norm1", blk["norm1"])
@@ -198,6 +195,23 @@ def _vit_from_jax(sd, p, cfg, prefix: str):
         _linear(sd, b + "mlp.fc1", blk["mlp"]["fc1"])
         _linear(sd, b + "mlp.fc2", blk["mlp"]["fc2"])
     _norm(sd, prefix + "norm", p["norm"])
+
+
+def _vit_from_jax(sd, p, cfg, prefix: str):
+    _patch_embed(sd, p["patch_embed"], cfg, prefix)
+    if cfg.use_cls_token:
+        sd[prefix + "cls_token"] = np.asarray(p["cls_token"])
+    sd[prefix + "pos_embed"] = np.asarray(p["pos_embed"])
+    if "norm_pre" in p:
+        _norm(sd, prefix + "norm_pre", p["norm_pre"])
+    _vit_blocks_from_jax(sd, p, cfg, prefix)
+
+
+def _pix2struct_from_jax(sd, p, cfg, prefix: str):
+    _linear(sd, prefix + "patch_embed", p["patch_embed"])
+    sd[prefix + "row_embed.weight"] = np.asarray(p["row_embed"]["embedding"])
+    sd[prefix + "col_embed.weight"] = np.asarray(p["col_embed"]["embedding"])
+    _vit_blocks_from_jax(sd, p, cfg, prefix)
 
 
 def _swin_from_jax(sd, p, cfg, prefix: str):
@@ -244,13 +258,17 @@ def _bart_from_jax(sd, p, cfg, prefix: str):
 def cruller_state_dict_from_jax(
     params: Mapping[str, Any], vit_cfg, bart_cfg, tied_head: bool = True
 ) -> Dict[str, torch.Tensor]:
-    """The JAX package's Cruller param tree (``{"image_encoder": ...,
-    "text_decoder": ...}``, leaves as numpy arrays) -> the port's state dict
+    """The JAX package's Cruller or Pix2StructCruller param tree
+    (``{"image_encoder": ..., "text_decoder": ...}``, leaves as numpy
+    arrays) -> the port's state dict
     (fp32 CPU tensors), tied head included. A gradient tree has the same
     structure: with ``tied_head=False`` the result is keyed like the port's
     ``named_parameters()`` (the tied table once, under ``embed_tokens``)."""
     sd: Dict[str, np.ndarray] = {}
-    encoder_from_jax = _swin_from_jax if isinstance(vit_cfg, SwinCfg) else _vit_from_jax
+    encoder_from_jax = (
+        _swin_from_jax if isinstance(vit_cfg, SwinCfg)
+        else _pix2struct_from_jax if isinstance(vit_cfg, Pix2StructCfg) else _vit_from_jax
+    )
     encoder_from_jax(sd, params["image_encoder"], vit_cfg, ENC_PREFIX)
     _bart_from_jax(sd, params["text_decoder"], bart_cfg, DEC_PREFIX)
     if tied_head:

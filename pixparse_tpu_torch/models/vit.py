@@ -81,13 +81,15 @@ class Attention(nn.Module):
         self.qkv = Linear(cfg.embed_dim, 3 * cfg.embed_dim)
         self.proj = Linear(cfg.embed_dim, cfg.embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_lens=None) -> torch.Tensor:
+        """``kv_lens``: ``(B,)`` leading valid keys per sample (the
+        pix2struct encoder's padded patches), or None."""
         B, L, D = x.shape
         H = self.num_heads
         # q/k/v stay strided views of the fused projection: the flash kernel
         # reads them in place (no head-split copy)
         q, k, v = self.qkv(x).view(B, L, 3, H, D // H).unbind(2)
-        out = dot_product_attention(q, k, v, impl=self.attn_impl, dtype=x.dtype)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl, dtype=x.dtype, kv_lens=kv_lens)
         return self.proj(out.reshape(B, L, D))
 
 
@@ -129,15 +131,15 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_eps)
         self.mlp = Mlp(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio))
 
-    def _block(self, x):
-        x = x + self.attn(self.norm1(x))
+    def _block(self, x, kv_lens=None):
+        x = x + self.attn(self.norm1(x), kv_lens)
         return x + self.mlp(self.norm2(x))
 
-    def forward(self, x):
+    def forward(self, x, kv_lens=None):
         cut = block_mode(self.remat_mode)
         if cut:
-            return checkpoint_region(self._block, x, dots=cut == "dots")
-        return self._block(x)
+            return checkpoint_region(self._block, x, kv_lens, dots=cut == "dots")
+        return self._block(x, kv_lens)
 
 
 class ViT(nn.Module):

@@ -18,6 +18,13 @@ _logger = logging.getLogger(__name__)
 NEG_MIN = torch.finfo(torch.float32).min
 
 
+def mask_lens(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Key validity mask ``(B, N)`` whose real keys come first (the
+    pix2struct patchifier packs them so) -> ``(B,)`` int32 valid counts,
+    the ``kv_lens`` of :func:`dot_product_attention`."""
+    return None if mask is None else mask.sum(-1, dtype=torch.int32)
+
+
 def dot_product_attention(
     q: torch.Tensor,  # (B, Lq, H, D)
     k: torch.Tensor,  # (B, Lk, H, D)

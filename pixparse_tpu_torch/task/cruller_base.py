@@ -1,13 +1,15 @@
 """Shared Cruller task machinery (counterpart of
 :mod:`pixparse_tpu.task.cruller_base`).
 
-- :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay,
-  model construction (ViT or Swin encoder, fp32 master weights, forward in
+- :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay
+  (an HF tokenizer wrapped per loader thread), model construction (ViT,
+  Swin or pix2struct encoder: ``create_cruller``; fp32 master weights, forward in
   the compute dtype, the remat mode: ``resolve_remat``, ``auto_remat``;
   a resume checkpoint, else the pretrained backbones the cfg asks for:
   ``models/pretrained.py``),
   the train state and the train step, in-step shift of the pretrain
-  sequences, the gradient-accumulation buffer, counters, logging with rate
+  sequences, the gradient-accumulation buffer (images as arrays or, for
+  pix2struct, dicts of arrays), counters, logging with rate
   and MFU, and a reference-``.pt``-compatible ``state_dict``.
 - :class:`BaseCrullerEvalTask`: the same vocabulary replay (a checkpoint
   from before the task's tokens gets its table resized), the model (ViT
@@ -32,13 +34,14 @@ from pixparse_tpu_torch.data.transforms import create_transforms
 from pixparse_tpu_torch.framework.optimization import create_optimizer
 from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
-from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
+from pixparse_tpu_torch.models.cruller import Cruller, create_cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
 from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
-from pixparse_tpu_torch.tokenizers import TokenizerCfg, create_tokenizer
+from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg, create_tokenizer
+from pixparse_tpu_torch.tokenizers.thread_safe import ThreadLocalTokenizer
 
 _logger = logging.getLogger(__name__)
 
@@ -74,10 +77,20 @@ def resolve_remat(flag, auto):
     return bool(flag)
 
 
-def auto_remat(vit_cfg):
-    """The task's automatic remat mode: ``'mlp'`` when encoder tokens times
-    encoder depth exceed 20000 (cruller_large, donut_base), else none."""
-    return "mlp" if vit_cfg.num_tokens * vit_cfg.depth > 20000 else False
+def batch_size(image) -> int:
+    """Rows of a batch's image: an array, or a dict of arrays (pix2struct)."""
+    return (next(iter(image.values())) if isinstance(image, dict) else image).shape[0]
+
+
+def stack_batches(batches: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Micro-batches -> one batch whose every array leaf is stacked on a new
+    leading axis (dict-valued images leaf by leaf)."""
+    first = batches[0]
+    return {
+        k: {n: np.stack([b[k][n] for b in batches]) for n in v} if isinstance(v, dict)
+        else np.stack([b[k] for b in batches])
+        for k, v in first.items()
+    }
 
 
 class CrullerVocabMixin:
@@ -91,7 +104,9 @@ class CrullerVocabMixin:
     ):
         """Replay the reference's token-addition history: base (pretrain)
         tokens first, then optional finetune tokens, so token ids and
-        embedding shapes match reference checkpoints."""
+        embedding shapes match reference checkpoints. An HF tokenizer is
+        then wrapped so each loader thread calls its own copy; the
+        byte-level tokenizer holds no mutable state and stays bare."""
         tokenizer = create_tokenizer(tokenizer_cfg)
         add_special_tokens(tokenizer, base_special_tokens)
         self.vocab_size_base = len(tokenizer)
@@ -100,6 +115,8 @@ class CrullerVocabMixin:
             if finetune_special_tokens else 0
         )
         self.vocab_size = len(tokenizer)
+        if not isinstance(tokenizer, ByteLevelTokenizer):
+            tokenizer = ThreadLocalTokenizer(tokenizer)
         self.tokenizer = tokenizer
 
 
@@ -163,6 +180,21 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             img = img.convert("L" if self.num_image_chs == 1 else "RGB")
         return self.image_preprocess_train(img)
 
+    @property
+    def attn_impl(self) -> str:
+        """``--task.attn_impl`` with ``auto`` resolved: the kernels on the
+        card, the plain path elsewhere."""
+        impl = getattr(self.cfg, "attn_impl", "auto")
+        if impl == "auto":
+            impl = "flash" if self.device.type == "cuda" else "xla"
+        return impl
+
+    def auto_remat(self):
+        """The remat mode ``--task.remat auto`` gives: ``'mlp'`` when encoder
+        tokens times encoder depth exceed 20000 (cruller_large, donut_base),
+        else none."""
+        return "mlp" if self.vit_cfg.num_tokens * self.vit_cfg.depth > 20000 else False
+
     # ------------------------------------------------------------------
     def train_setup(self, num_batches_per_interval: int, **kwargs):
         cfg = self.cfg
@@ -180,13 +212,10 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             encoder_depth=self.vit_cfg.depth,
             decoder_layers=self.bart_cfg.decoder_layers,
         )
-        attn_impl = getattr(cfg, "attn_impl", "auto")
-        if attn_impl == "auto":
-            attn_impl = "flash" if self.device.type == "cuda" else "xla"
-        remat = resolve_remat(getattr(cfg, "remat", None), auto_remat(self.vit_cfg))
+        remat = resolve_remat(getattr(cfg, "remat", None), self.auto_remat())
         seed = kwargs.get("seed", 0)
-        model = Cruller(
-            self.vit_cfg, self.bart_cfg, attn_impl=attn_impl, compute_dtype=self.compute_dtype,
+        model = create_cruller(
+            self.vit_cfg, self.bart_cfg, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype,
             remat=remat,
         )
         if self.resume_state_dict is not None:
@@ -268,13 +297,18 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             "target": target.astype(np.int32),
         }
 
-    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Numpy batch -> tensors on the device: token arrays as int64, the
+        image (an array, or pix2struct's dict of arrays) as it is."""
+        def put(v):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
+
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k != "image":
-                t = t.long()
-            out[k] = t.to(self.device, non_blocking=True)
+            if k == "image":
+                out[k] = {n: put(a) for n, a in v.items()} if isinstance(v, dict) else put(v)
+            else:
+                out[k] = put(v).long()
         return out
 
     def train_step(self, sample) -> Dict[str, Any]:
@@ -288,9 +322,9 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                 self.step_idx += 1
                 self.batch_idx += 1
                 self.interval_batch_idx += 1
-                self._samples_since_log += batch["image"].shape[0]
+                self._samples_since_log += batch_size(batch["image"])
                 return {"loss": self._last_loss_dev}
-            stacked = {k: np.stack([mb[k] for mb in self._accum_buffer]) for k in batch}
+            stacked = stack_batches(self._accum_buffer)
             self._accum_buffer = []
             device_batch = self._to_device(stacked)
         else:
@@ -304,7 +338,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         if (self.eval_frequency and self.monitor and "text" in batch
                 and self.step_idx % self.eval_frequency == 0):
             self._log_train_reconstruction(batch)
-        self._samples_since_log += batch["image"].shape[0]
+        self._samples_since_log += batch_size(batch["image"])
 
         if self.monitor and self.interval_batch_idx % self.log_frequency == 0:
             loss = float(metrics["loss"])  # the one host read, at log time
@@ -442,7 +476,7 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         attn_impl = self.cfg.attn_impl
         if attn_impl == "auto":
             attn_impl = "flash" if self.device.type == "cuda" else "xla"
-        model = Cruller(
+        model = create_cruller(
             self.vit_cfg, self.bart_cfg, attn_impl=attn_impl,
             kv_cache_dtype=self.cfg.kv_cache_dtype, lm_head_dtype=self.cfg.lm_head_dtype,
         )

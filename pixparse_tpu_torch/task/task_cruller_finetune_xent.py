@@ -110,11 +110,10 @@ class TaskCrullerFinetuneXent(BaseCrullerTrainTask):
             encoder_depth=self.vit_cfg.depth,
             decoder_layers=0,
         )
-        attn_impl = getattr(cfg, "attn_impl", "auto")
-        if attn_impl == "auto":
-            attn_impl = "flash" if self.device.type == "cuda" else "xla"
         seed = kwargs.get("seed", 0)
-        model = CrullerClassifier(self.vit_cfg, attn_impl=attn_impl, compute_dtype=self.compute_dtype)
+        model = CrullerClassifier(
+            self.vit_cfg, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype
+        )
         model.init_weights(torch.Generator().manual_seed(seed))
         if self.resume_state_dict is not None:
             load_encoder_from_cruller(model, self.resume_state_dict)

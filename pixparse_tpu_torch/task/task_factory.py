@@ -1,9 +1,8 @@
 """Task registry and factory (counterpart of
 :mod:`pixparse_tpu.task.task_factory`): public task names ->
 ``(TaskClass, TaskCfg)``; ``create_task`` builds the cfg from parsed args and
-the task from ``(cfg, device_env, monitor)``. Ten of the JAX package's
-eleven tasks; ``pix2struct_pretrain`` is not ported yet (ROADMAP.md Queue
-1)."""
+the task from ``(cfg, device_env, monitor)``. All eleven of the JAX
+package's tasks, under its names."""
 
 from __future__ import annotations
 
@@ -44,6 +43,10 @@ from pixparse_tpu_torch.task.task_cruller_pretrain import (
     TaskCrullerPretrainCfg,
 )
 from pixparse_tpu_torch.task.task_donut_eval_ocr import TaskDonutEvalOCR, TaskDonutEvalOCRCfg
+from pixparse_tpu_torch.task.task_pix2struct_pretrain import (
+    TaskPix2StructPretrain,
+    TaskPix2StructPretrainCfg,
+)
 
 TASK_CLASS_REGISTRY = {
     "cruller_eval_ocr": (TaskCrullerEvalOCR, TaskCrullerEvalOCRCfg),
@@ -56,6 +59,7 @@ TASK_CLASS_REGISTRY = {
     "cruller_finetune_docvqa": (TaskCrullerFinetuneDOCVQA, TaskCrullerFinetuneDOCVQACfg),
     "cruller_finetune_xent": (TaskCrullerFinetuneXent, TaskCrullerFinetuneXentCfg),
     "donut_eval_ocr": (TaskDonutEvalOCR, TaskDonutEvalOCRCfg),
+    "pix2struct_pretrain": (TaskPix2StructPretrain, TaskPix2StructPretrainCfg),
 }
 
 

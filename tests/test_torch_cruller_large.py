@@ -13,6 +13,7 @@
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -29,9 +30,14 @@ from pixparse_tpu_torch.models.config import get_model_config
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict_from_jax, load_cruller_state_dict
 from pixparse_tpu_torch.ops.generation import generate
-from pixparse_tpu_torch.task.cruller_base import auto_remat
+from pixparse_tpu_torch.task.cruller_base import BaseCrullerTrainTask
 
 SCALES = {"kernel": 0.05, "bias": 0.02, "embedding": 0.5, "pos_embed": 0.1, "cls_token": 0.5}
+
+
+def auto_remat(vit_cfg):
+    """The train task's automatic remat rule (``auto_remat``) for an encoder cfg."""
+    return BaseCrullerTrainTask.auto_remat(SimpleNamespace(vit_cfg=vit_cfg))
 
 
 @pytest.mark.parametrize("name,layers", [("cruller_large", 10), ("cruller_large_6layers", 6)])

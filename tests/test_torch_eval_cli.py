@@ -166,8 +166,10 @@ def test_donut_base_resolves_for_the_entry_points():
 
 def test_eval_cli_refusals(data, tmp_path):
     shard, ckpt = data
-    with pytest.raises(SystemExit, match="cruller_eval_ocr"):  # a task not ported yet
+    # a train task: app.eval refuses it and lists its eval tasks
+    with pytest.raises(SystemExit, match=r"--eval.task_name must be one of \[.*cruller_eval_ocr") as e:
         eval_main(["--eval.task_name", "pix2struct_pretrain"])
+    assert "pix2struct" not in str(e.value)
     flags = _flags(shard, ckpt, str(tmp_path / "o"), extra=["--task.device", "cpu"])
     with pytest.raises(NotImplementedError, match="s3"):
         eval_main(flags + ["--eval.s3_bucket", "bucket"])

@@ -13,6 +13,7 @@ no-remat and against the JAX package's, on the CPU in fp32.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -30,13 +31,18 @@ from pixparse_tpu_torch.models.config import get_model_config
 from pixparse_tpu_torch.models.cruller import Cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict_from_jax, load_cruller_state_dict
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
-from pixparse_tpu_torch.task.cruller_base import auto_remat, resolve_remat
+from pixparse_tpu_torch.task.cruller_base import BaseCrullerTrainTask, resolve_remat
 
 VOCAB = 200
 MODES = (False, "gelu", "mlp", "dots", True)  # True = 'full'
 NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
 FLAGS = (None, "auto", "none", "False", "0", "off", "true", "FULL", "1", "on", "dots", "mlp",
          "Gelu", True, False, 0, 1)
+
+
+def auto_remat(vit_cfg):
+    """The train task's automatic remat rule (``auto_remat``) for an encoder cfg."""
+    return BaseCrullerTrainTask.auto_remat(SimpleNamespace(vit_cfg=vit_cfg))
 
 
 @pytest.mark.parametrize("auto", [False, "mlp"])

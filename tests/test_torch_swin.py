@@ -164,8 +164,9 @@ def test_pt_exports_load_both_ways(pair, tmp_path):
 
 def test_swin_training_is_refused_and_pix2struct_is_not_ported():
     """A Swin Cruller's train setup builds the Swin model under the task's
-    automatic remat mode (none at this size); the pix2struct encoder is not
-    ported and raises."""
+    automatic remat mode (none at this size); the pix2struct encoder name
+    resolves to its own cfg, ``image_size`` read as (max_patches,
+    patch_size)."""
     from pixparse_tpu_torch.device import DeviceEnv
     from pixparse_tpu_torch.task.task_cruller_pretrain import (
         TaskCrullerPretrain,
@@ -184,5 +185,10 @@ def test_swin_training_is_refused_and_pix2struct_is_not_ported():
     assert isinstance(v, swin.SwinCfg)
     from pixparse_tpu_torch.models.cruller import resolve_image_encoder_cfg
 
-    with pytest.raises(NotImplementedError, match="pix2struct"):
-        resolve_image_encoder_cfg("pix2struct_base", (64, 64), 1)
+    from pixparse_tpu_torch.models.pix2struct import Pix2StructCfg
+
+    cfg, stats = resolve_image_encoder_cfg("pix2struct_base", (64, 16), 1)
+    assert isinstance(cfg, Pix2StructCfg)
+    assert (cfg.max_patches, cfg.patch_size, cfg.embed_dim, cfg.depth, cfg.max_rows) == (
+        64, 16, 768, 12, 2048)
+    assert stats == {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5)}
