@@ -12,7 +12,8 @@ stderr):
 2. ``kernels``: every kernel of the port checked against its plain PyTorch
    version on the card at the serving path's shapes plus edge cases
    (causal, ``kv_lens`` with an empty row, a multi-tile key length, ragged
-   and fully masked decode rows, fp32), and timed with CUDA events (median
+   and fully masked decode rows, band masks of live keys after dead ones,
+   fp32), and timed with CUDA events (median
    of 25 launches, L2 flushed before each) beside its plain version, one
    ``torch.nn.functional.scaled_dot_product_attention`` call on the same
    inputs (a yardstick only; the port never calls it) and its bound.
@@ -239,6 +240,30 @@ stderr):
    1023x2048 with kv_lens), #8 on its (8, 2048, 768) cross cache with the
    same lengths and on its self cache, and the CE at T 8184, D 768 (the
    kernels line's ``new_path_cases``).
+17. ``serve_stream``: cruller_base, bf16, seed-0 weights, the byte-level
+   tokenizer padded to 50265, EOS off. (a) 16 seeded uint8 canvases through
+   the registered ``cruller_eval_ocr`` task's ``encode_images`` with
+   ``device_preprocess`` on (uint8 to the card, normalized there) and off:
+   the encoder's input bit-equal, its output bit-equal (or, were the encode
+   not to repeat its own bits, within ``serve_model``'s 5e-2/5e-2); the
+   bytes and time of each host-to-device copy. (b) one ``cruller_pretrain``
+   train step at B=8 with the flag on and off from the same weights and
+   batch: losses finite and within 1e-3 relative (bit equality recorded).
+   (c) 64 pages with per-page budgets drawn uniformly from 64-256 (numpy,
+   seed 17), max_length 257, through ``ops/serving.py::ContinuousBatcher``
+   (16 slots, refill 16, pools of 32) and through ``generate`` in 4 batches
+   of 16 with the same budgets, in the bf16 and the int8 decode mode: for
+   each path pages/s, decode steps, ms a step, tokens a step, first-result
+   latency, the device idle share (``device_profile``), launches; the
+   batcher's refills and compactions. Gates: every page once; each page's
+   tokens equal the batched path's up to the first disagreement, where the
+   batched path's own top-2 logit margin (``generate`` replayed on its
+   output) is under 0.0625; exact launches (12 flash per encode; per decode
+   step 8 of #8, or 4 of #8 and 4 of #9 in int8) and no plain decode
+   attention called. The kernels phase holds #8 on the slots' self cache
+   ``(16, 640, 768)`` with band masks (a band from mid-split, one with two
+   dead leading splits, single keys, a dead row), each against its plain
+   version and its own bits.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -265,7 +290,8 @@ import types
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
-          "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct")
+          "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
+          "serve_stream")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -287,6 +313,15 @@ LARGE_B = 8  # large: serving and training batch at cruller_large
 PIX2STRUCT_PAGES = ((600, 800), (3508, 2480), (4000, 300), (1700, 1300))
 PIX2STRUCT_B = 8  # pix2struct: train and serve batch
 PIX2STRUCT_STEPS = 4  # pix2struct: train steps on the repeated batch (the first one warms up)
+# serve_stream: continuous batching against batched decode at cruller_base
+STREAM_PAGES = 64
+STREAM_SLOTS = 16
+STREAM_MAX_LENGTH = 257  # prompt 1 + 256
+STREAM_BUDGETS = (64, 256)  # per-page budgets, uniform (inclusive)
+# the slots' self-cache columns at STREAM_MAX_LENGTH, by the batcher's rule:
+# max(2 * 257, 257 + 32 * 2) = 514, rounded up to 128
+STREAM_C = 640
+STREAM_TRAIN_B = 8  # serve_stream (b): the train step's batch
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -505,10 +540,27 @@ def flash_finetune_cases(torch):
     ]
 
 
+def stream_bands(kind, B=STREAM_SLOTS):
+    """``serve_stream``'s self-cache masks: each row's live keys a band
+    ``[lo, hi)`` of the ``STREAM_C`` columns (where its slot was refilled, up
+    to the shared column), as (lo, hi) per row. With 16 rows of 768 bf16
+    (``decode_plan``: splits of 40 keys) a band that starts at 85 leaves two
+    leading splits of its row dead and a third live from mid-split."""
+    if kind == "mid_split":
+        return tuple((40 * (b % 8) + 20, 40 * (b % 8) + 20 + 37 * (b + 1)) for b in range(B))
+    if kind == "two_dead_splits":
+        return tuple((85 + 3 * b, STREAM_C - 40 * (b % 4)) for b in range(B))
+    if kind == "one_key":
+        return tuple((k, k + 1) for k in (40 * b + (7 * b) % 40 for b in range(B)))
+    # a row fully dead (a slot with no page), the rest bands to the column
+    return tuple((0, 0) if b == 3 else (17 * b, 600) for b in range(B))
+
+
 def decode_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
     self_pad = -(-(1 + TASK_NEW_TOKENS) // 128) * 128  # the main path's self cache
-    # name, B, Lk, n_valid (None = ragged self-cache mask; a list: per row), H, D, dtype
+    # name, B, Lk, n_valid (None = ragged self-cache mask; a list: per row; a
+    # tuple: a band (lo, hi) per row), H, D, dtype
     return [
         ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64, bf),
         (f"self_b16_lk{self_pad}_valid{self_pad // 2}", 16, self_pad, self_pad // 2, 12, 64, bf),
@@ -524,6 +576,10 @@ def decode_cases(torch):
         ("p2s_cross_b8_lk2048_kv_lens", PIX2STRUCT_B, 2048, pix2struct_lens(), 12, 64, bf),
         (f"p2s_self_b8_lk{self_pad}_valid{self_pad // 2}", PIX2STRUCT_B, self_pad, self_pad // 2,
          12, 64, bf),
+    ] + [  # serve_stream: the slots' self cache, band masks
+        (f"stream_self_b16_lk{STREAM_C}_band_{kind}", STREAM_SLOTS, STREAM_C, stream_bands(kind),
+         12, 64, bf)
+        for kind in ("mid_split", "two_dead_splits", "one_key", "dead_row")
     ]
 
 
@@ -1338,13 +1394,19 @@ def phase_kernels(torch, F, card_name, timer):
             failed.append(f"flash_attention_fwd/{name}")
         del qkv, q, k, v, o, lse, o_ref, lse_ref
 
+    band_gen = torch.Generator().manual_seed(17)  # the band cases' own draws
     for name, B, Lk, n_valid, H, D, dt in decode_cases(torch):
         HD = H * D
-        q = torch.randn(B, 1, HD, generator=gen).to("cuda", dt)
-        k = torch.randn(B, Lk, HD, generator=gen).to("cuda", dt)
-        v = torch.randn(B, Lk, HD, generator=gen).to("cuda", dt)
+        g = band_gen if isinstance(n_valid, tuple) else gen
+        q = torch.randn(B, 1, HD, generator=g).to("cuda", dt)
+        k = torch.randn(B, Lk, HD, generator=g).to("cuda", dt)
+        v = torch.randn(B, Lk, HD, generator=g).to("cuda", dt)
         if n_valid is None:
             mask = ragged_mask(torch, B, Lk, gen).cuda()
+        elif isinstance(n_valid, tuple):  # a band of live keys per row
+            lo, hi = (torch.tensor(x)[:, None] for x in zip(*n_valid))
+            cols = torch.arange(Lk)[None]
+            mask = ((cols >= lo) & (cols < hi)).cuda()
         elif isinstance(n_valid, list):  # valid keys per row
             mask = (torch.arange(Lk)[None] < torch.tensor(n_valid)[:, None]).cuda()
         else:
@@ -1511,7 +1573,9 @@ NEW_PATH_CASES = {
     "fused_ce_fwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
     "fused_ce_bwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
     "decode_attention": ("beam_cross_b64_lk1024_valid1009", "p2s_cross_b8_lk2048_kv_lens",
-                         "p2s_self_b8_lk128_valid64"),
+                         "p2s_self_b8_lk128_valid64", "stream_self_b16_lk640_band_mid_split",
+                         "stream_self_b16_lk640_band_two_dead_splits",
+                         "stream_self_b16_lk640_band_one_key", "stream_self_b16_lk640_band_dead_row"),
     "decode_attention_q8": ("beam_cross_b64_lk1024_valid1009",),
 }
 LINE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1623,15 +1687,18 @@ def synthetic_pages(torch, B, H, W, gen):
     return img * 2.0 - 1.0
 
 
-def device_profile(torch, fn, tag, wall_ms):
+def device_profile(torch, fn, tag, wall_ms, cpu=True):
     """``torch.profiler`` over one call of ``fn``: device time by kernel
     (table in ``OUT_DIR/profile_<tag>.txt``), and the device's idle share of
-    ``wall_ms``, the same call's time measured without the profiler."""
+    ``wall_ms``, the same call's time measured without the profiler.
+    ``cpu=False`` traces the card's activity only: a run of ~100k launches
+    then costs seconds to trace instead of a minute or more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync(torch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         sync(torch)
     events = prof.key_averages()
@@ -3663,6 +3730,370 @@ def phase_pix2struct(torch, model_name="pix2struct_base", B=PIX2STRUCT_B, steps=
             "pix2struct_serve": {k: enc_launches[k] + dec_launches[k] for k in enc_launches}}
 
 
+# --------------------------------------------------------------------------
+# serve_stream: device preprocessing and continuous batching
+# --------------------------------------------------------------------------
+
+STREAM_SEED = 17  # the per-page budgets' numpy generator
+
+
+def stream_task(torch, model_name, tok_dir, device, mode="bf16", device_preprocess=True):
+    """The registered ``cruller_eval_ocr`` task, bf16, seed-0 weights."""
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCRCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    cfg = TaskCrullerEvalOCRCfg(
+        model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+        device=device, kv_cache_dtype=mode, lm_head_dtype=mode,
+        device_preprocess=device_preprocess,
+    )
+    task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, DeviceEnv.initialize(device))
+    task.setup()
+    return task
+
+
+def uint8_canvases(torch, B, H, W, seed):
+    """Seeded page-like uint8 canvases ``(B, H, W)`` at the model's size (the
+    host transform passes them through without a resize: no PIL)."""
+    pages = synthetic_pages(torch, B, H, W, torch.Generator().manual_seed(seed))
+    return ((pages + 1.0) * 127.5).round().to(torch.uint8)[..., 0].numpy()
+
+
+@contextlib.contextmanager
+def plain_decode_calls():
+    """Counts calls of the two plain decode attentions while it is open."""
+    from pixparse_tpu_torch.ops import decode_attention as da
+
+    calls = {"decode_attention_plain": 0, "decode_attention_q8_plain": 0}
+    saved = {n: getattr(da, n) for n in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(da, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(da, name, fn)
+
+
+def stream_preprocess(torch, on, off, canvases, device):
+    """(a): one batch through ``encode_images`` with ``device_preprocess``
+    on (uint8 over, normalized on the card) and off (normalized on the
+    host, float32 over)."""
+    import numpy as np
+
+    from pixparse_tpu_torch.ops.preprocess import normalize_images
+
+    x_on = np.stack([on.prepare_image(c) for c in canvases])
+    x_off = np.stack([off.prepare_image(c) for c in canvases])
+    with torch.inference_mode():
+        enc_in = {"on": normalize_images(torch.from_numpy(x_on).to(device), on.img_mean,
+                                         on.img_std),
+                  "off": torch.from_numpy(x_off).to(device)}
+        out = {"on": on.encode_images(x_on), "off": off.encode_images(x_off)}
+        out_again = off.encode_images(x_off)
+        rec = {"dtypes": [str(x_on.dtype), str(x_off.dtype)], "batch": len(canvases),
+               "input_bit_equal": bool(torch.equal(enc_in["on"], enc_in["off"])),
+               "output_bit_equal": bool(torch.equal(out["on"], out["off"])),
+               "encode_repeats_its_bits": bool(torch.equal(out["off"], out_again))}
+        rec["output_max_abs_err"], rec["output_within_serve_model_gate"] = close(
+            out["on"], out["off"], 5e-2, 5e-2)
+        for name, x, task in (("uint8", x_on, on), ("float32", x_off, off)):
+            copies, encodes = [], []
+            for _ in range(5):
+                sync(torch)
+                t0 = time.perf_counter()
+                torch.from_numpy(x).to(device)
+                sync(torch)
+                t1 = time.perf_counter()
+                task.encode_images(x)
+                sync(torch)
+                copies.append((t1 - t0) * 1e3)
+                encodes.append((time.perf_counter() - t1) * 1e3)
+            rec[f"h2d_{name}"] = {"bytes": int(x.nbytes), "ms": statistics.median(copies),
+                                  "encode_images_ms": statistics.median(encodes)}
+    rec["ok"] = rec["input_bit_equal"] and (
+        rec["output_bit_equal"]
+        or (not rec["encode_repeats_its_bits"] and rec["output_within_serve_model_gate"]))
+    return rec
+
+
+def stream_train(torch, model_name, tok_dir, B, vocab, device):
+    """(b): one ``cruller_pretrain`` train step with ``device_preprocess``
+    on (a uint8 batch) and off (the same batch normalized on the host), from
+    the same seed-0 weights."""
+    import numpy as np
+
+    from pixparse_tpu_torch.data.transforms import _as_float_normalized
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    losses = {}
+    for flag in (True, False):
+        cfg = TaskCrullerPretrainCfg(
+            model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+            device=device, num_intervals=2, num_warmup_intervals=0,
+            opt=OptimizationCfg(learning_rate=3e-4), device_preprocess=flag)
+        task, _ = TaskFactory.create_task("cruller_pretrain", cfg, DeviceEnv.initialize(device))
+        task.train_setup(num_batches_per_interval=2, seed=0)
+        img8 = uint8_canvases(torch, B, *task.vit_cfg.img_size, seed=5)[..., None]
+        text, target = synthetic_tokens(torch, B, task.max_position_embeddings, vocab,
+                                        torch.Generator().manual_seed(6))
+        image = img8 if flag else np.stack(
+            [_as_float_normalized(im, task.img_mean, task.img_std) for im in img8])
+        batch = {"image": image, "text": text.numpy(), "target": target.numpy()}
+        sync(torch)
+        t0 = time.perf_counter()
+        losses["on" if flag else "off"] = float(task.train_step(batch)["loss"])
+        sync(torch)
+        losses[f"{'on' if flag else 'off'}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        del task
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    a, b = losses["on"], losses["off"]
+    return {**losses, "batch": B, "bit_equal": a == b, "rel_diff": abs(a - b) / abs(b),
+            "ok": math.isfinite(a) and math.isfinite(b) and abs(a - b) <= 1e-3 * abs(b)}
+
+
+def batched_margins(torch, model, enc, tokens, prompt_len, pad, upto):
+    """``generate``'s steps replayed on its own output ``tokens`` ``(B, L)``
+    (same batch, same caches, same kernels, so the same logits): the top-2
+    margin of the logits that chose each column below ``upto``."""
+    from pixparse_tpu_torch.models.bart import KVCache
+    from pixparse_tpu_torch.ops.generation import _left_align_prompts, q8_logits, quantize_head
+
+    B, L = tokens.shape
+    head = quantize_head(model.tied_embedding) if model.lm_head_dtype == "int8" else None
+    aligned, positions, valid = _left_align_prompts(tokens[:, :prompt_len], pad)
+    buffer = torch.full_like(tokens, pad)
+    buffer[:, :prompt_len] = aligned
+    cache = KVCache(max_len=L)
+    logits = model.decode(aligned, enc, cache, key_pad_mask=buffer != pad, mode="prefill",
+                          positions=positions)[:, -1]
+    margins = torch.full((B, L), math.nan, device=tokens.device)
+    for cur in range(prompt_len, min(upto, L)):
+        top = logits.topk(2, dim=-1).values
+        margins[:, cur] = top[:, 0] - top[:, 1]
+        buffer[:, cur] = tokens[:, cur]
+        out = model.decode(tokens[:, cur:cur + 1], enc, cache, key_pad_mask=buffer != pad,
+                           mode="decode", positions=(valid + (cur - prompt_len))[:, None],
+                           return_hidden=head is not None)
+        logits = (out if head is None else q8_logits(out, *head))[:, -1]
+    return margins.cpu()
+
+
+def stream_run(torch, task, canvases, budgets, slots, max_length, device, profile, tag):
+    """(c) in one decode mode: the pages through ``ContinuousBatcher`` at
+    ``slots`` slots (the task's ``encode_images`` staging pools of 2 x
+    slots pages, ``slots`` at a time) and through ``generate`` in batches of
+    ``slots`` with the same per-page budgets; EOS off. Returns the record and
+    the continuous path's launches."""
+    import numpy as np
+
+    from pixparse_tpu_torch.ops.generation import generate
+    from pixparse_tpu_torch.ops.serving import ContinuousBatcher
+
+    pad = task.tokenizer.pad_token_id
+    prompt = task.prompt_ids(task.task_start_token, 1)[0]
+    Lp = len(prompt)
+    pages = [task.prepare_image(c) for c in canvases]
+    n = len(pages)
+    bud = lambda p: int(budgets[p])
+
+    def continuous(ids):
+        batcher = ContinuousBatcher(task.model, slots=slots, max_length=max_length,
+                                    prompt_ids=prompt, eos_token_id=-1, pad_token_id=pad,
+                                    refill_size=slots)
+        out, first = [], None
+        t0 = time.perf_counter()
+        for r in batcher.run(((p, pages[p]) for p in ids), task.encode_images, max_new_tokens=bud):
+            first = first or time.perf_counter() - t0
+            out.append(r)
+        sync(torch)
+        return out, batcher, first, time.perf_counter() - t0
+
+    def batched(ids):
+        toks, encs, steps, first, gen_s = {}, [], 0, None, 0.0
+        t0 = time.perf_counter()
+        for lo in range(0, len(ids), slots):
+            rows = ids[lo:lo + slots]
+            with torch.inference_mode():
+                enc = task.encode_images(np.stack([pages[p] for p in rows]))
+                t1 = time.perf_counter()
+                res = generate(task.model, enc, torch.as_tensor(
+                    task.prompt_ids(task.task_start_token, len(rows)), device=device),
+                    max_length=max_length, eos_token_id=-1, pad_token_id=pad,
+                    max_new_tokens=torch.as_tensor([bud(p) for p in rows], device=device))
+            tokens, lengths = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
+            gen_s += time.perf_counter() - t1
+            first = first or time.perf_counter() - t0
+            encs.append((rows, enc, res.tokens))
+            steps += res.steps
+            for i, p in enumerate(rows):
+                toks[p] = tokens[i, :lengths[i]]
+        sync(torch)
+        return toks, encs, steps, first, time.perf_counter() - t0, gen_s
+
+    continuous(list(range(min(n, 4))))  # warm-up: both paths on a few pages
+    batched(list(range(min(n, 2))))
+    ids = list(range(n))
+    useful = int(sum(bud(p) for p in ids))
+    reset_counts()
+    with plain_decode_calls() as plain_cont:
+        results, batcher, first_c, wall_c = continuous(ids)
+    launches_c = read_counts()
+    reset_counts()
+    with plain_decode_calls() as plain_b:
+        toks_b, encs, steps_b, first_b, wall_b, gen_b = batched(ids)
+    launches_b = read_counts()
+    paths = {
+        "continuous": {
+            "pages_per_s": n / wall_c, "wall_ms": wall_c * 1e3, "decode_steps": batcher.steps,
+            "ms_per_step": wall_c * 1e3 / batcher.steps, "first_result_ms": first_c * 1e3,
+            "tokens_per_step": useful / batcher.steps, "launches": launches_c,
+            "plain_decode_calls": plain_cont, "refills": batcher.refills,
+            "compactions": batcher.compactions, "cache_columns": batcher.C,
+            "pool_pages": batcher.G, "max_refill_per_step": batcher.Rm},
+        "batched": {
+            "pages_per_s": n / wall_b, "wall_ms": wall_b * 1e3, "decode_steps": steps_b,
+            "ms_per_step": wall_b * 1e3 / steps_b, "generate_ms_per_step": gen_b * 1e3 / steps_b,
+            "first_result_ms": first_b * 1e3, "tokens_per_step": useful / steps_b,
+            "launches": launches_b, "plain_decode_calls": plain_b},
+    }
+    if profile:
+        for name, fn, wall in (("continuous", continuous, wall_c), ("batched", batched, wall_b)):
+            t0 = time.perf_counter()
+            paths[name]["profile"] = device_profile(
+                torch, lambda: fn(ids), f"stream_{tag}_{name}", wall * 1e3, cpu=False)
+            paths[name]["profile"]["seconds"] = time.perf_counter() - t0
+
+    # each page once; its tokens against the batched path's, to the first
+    # disagreement, where the batched path's own top-2 margin must be a bf16 tie
+    seen = [r.page_id for r in results]
+    got = {r.page_id: r.tokens for r in results}
+    first_diff = {}
+    for p in ids:
+        a, b = got.get(p, np.zeros(0, np.int64)), toks_b[p]
+        m = min(len(a), len(b))
+        diff = np.flatnonzero(a[:m] != b[:m])
+        if len(diff):
+            first_diff[p] = int(diff[0])
+        elif len(a) != len(b):
+            first_diff[p] = m
+    disagreements = []
+    with torch.inference_mode():
+        for rows, enc, tokens in encs:
+            at = {p: t for p, t in first_diff.items() if p in rows}
+            if not at:
+                continue
+            margins = batched_margins(torch, task.model, enc, tokens, Lp, pad, max(at.values()) + 1)
+            for p, t in at.items():
+                i = rows.index(p)
+                disagreements.append({"page": p, "first_disagreement": t,
+                                      "top2_margin": float(margins[i, t]),
+                                      "continuous": int(got[p][t]) if t < len(got[p]) else None,
+                                      "batched": int(toks_b[p][t]) if t < len(toks_b[p]) else None})
+    rec = {"mode": task.cfg.kv_cache_dtype, "pages": n, "slots": slots, "max_length": max_length,
+           "budgets": [int(b) for b in budgets], "generated_tokens": useful, **paths,
+           "completion_order": seen, "equal_pages": n - len(first_diff),
+           "disagreements": disagreements, "tie_margin": BF16_TIE}
+    problems = []
+    if sorted(seen) != ids:
+        problems.append(f"pages out {sorted(seen)}, want each of {n} once")
+    problems += [f"page {d['page']}: differs at {d['first_disagreement']} with a top-2 margin of "
+                 f"{d['top2_margin']}" for d in disagreements if not d["top2_margin"] < BF16_TIE]
+    lengths = {p: len(got[p]) for p in got}
+    if any(lengths[p] != 1 + bud(p) for p in lengths):
+        problems.append("a page's length is not its prompt plus its budget (EOS is off)")
+    if device == "cuda":
+        layers = task.bart_cfg.decoder_layers
+        for name, path in paths.items():
+            want = dict({k: 0 for k in counters()},
+                        flash_attention_fwd=task.vit_cfg.depth * -(-n // slots))
+            steps = path["decode_steps"]
+            if rec["mode"] == "int8":
+                want.update(decode_attention=layers * steps, decode_attention_q8=layers * steps)
+            else:
+                want.update(decode_attention=2 * layers * steps)
+            if path["launches"] != want:
+                problems.append(f"{name}: launched {path['launches']}, want {want}")
+            if any(path["plain_decode_calls"].values()):
+                problems.append(f"{name}: plain decode called {path['plain_decode_calls']}")
+    return rec, problems, launches_c
+
+
+def phase_serve_stream(torch, model_name="cruller_base", pages=STREAM_PAGES, slots=STREAM_SLOTS,
+                       max_length=STREAM_MAX_LENGTH, budgets=STREAM_BUDGETS,
+                       train_B=STREAM_TRAIN_B, vocab=BART_VOCAB, modes=("bf16", "int8"),
+                       device="cuda"):
+    """(a) device preprocessing in the eval encode, (b) in a train step,
+    (c) continuous batching against batched decode in each decode mode."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    rec = {"phase": "serve_stream", "model": model_name, "dtype": "bfloat16", "vocab": vocab}
+    problems, path_launches = [], {}
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name], last[0] = now - last[0], now
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_stream_")
+    try:
+        tok_dir = saved_tokenizer(os.path.join(tmp, f"tok{vocab}"), vocab)
+        on = stream_task(torch, model_name, tok_dir, device)
+        off = stream_task(torch, model_name, tok_dir, device, device_preprocess=False)
+        lap("tasks")
+        H, W = on.vit_cfg.img_size
+        rec["preprocess"] = stream_preprocess(torch, on, off, uint8_canvases(torch, slots, H, W, 3),
+                                              device)
+        if not rec["preprocess"]["ok"]:
+            problems.append(f"(a) device preprocessing: {rec['preprocess']}")
+        del off
+        lap("a")
+        rec["train"] = stream_train(torch, model_name, tok_dir, train_B, vocab, device)
+        if not rec["train"]["ok"]:
+            problems.append(f"(b) train losses {rec['train']}")
+        lap("b")
+        canvases = uint8_canvases(torch, pages, H, W, 4)
+        draws = np.random.default_rng(STREAM_SEED).integers(budgets[0], budgets[1] + 1, pages)
+        rec["runs"] = {}
+        for mode in modes:
+            task = on if mode == "bf16" else stream_task(torch, model_name, tok_dir, device, mode)
+            run, bad, launches = stream_run(torch, task, canvases, draws, slots, max_length,
+                                            device, torch.cuda.is_available(), mode)
+            rec["runs"][mode] = run
+            problems += [f"(c) {mode}: {b}" for b in bad]
+            path_launches[f"serve_stream_{mode}"] = launches
+            if max_length == STREAM_MAX_LENGTH and run["continuous"]["cache_columns"] != STREAM_C:
+                problems.append(f"(c) {mode}: {run['continuous']['cache_columns']} cache columns, "
+                                f"the kernels phase holds {STREAM_C}")
+            del task
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            lap(f"c_{mode}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = seconds
+    emit(rec)
+    if problems:
+        raise SystemExit("serve_stream failed: " + "; ".join(problems))
+    return path_launches
+
+
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
 # (the CE backward's products, by output tile width BN) lay it out
@@ -3838,6 +4269,7 @@ def main(argv=None) -> int:
         "naive": lambda: path_launches.update(phase_naive(torch)),
         "large": lambda: path_launches.update(phase_large(torch, profile=prof)),
         "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
+        "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
     }
     seconds = {"build": build_s}
     with nan_default_init(torch):

@@ -16,8 +16,13 @@ parsed ``"json"``, by ``token2json``):
 
 Tasks: the Cruller eval tasks (``donut_eval_ocr`` runs in ``app.eval``
 only, as in the JAX package). The final partial batch is padded
-(repeat-last) to the batch size, as in the JAX package. ``--infer.continuous true`` (continuous batching) is not
-ported yet.
+(repeat-last) to the batch size, as in the JAX package.
+
+``--infer.continuous true`` decodes through ``batch_size`` persistent slots
+instead (``ops/serving.py``): a slot whose page finished takes the next
+page, so no page waits for its batch's slowest one; the JSONL is still in
+input order. With ``--task.device_preprocess true`` the pages go to the card
+as uint8 canvases and are normalized there.
 """
 
 from __future__ import annotations
@@ -50,11 +55,13 @@ class InferCfg:
     max_new_tokens: int = 0  # 0 = task default generation length
     prompt: str = ""  # override the task prompt token/text
     seed: int = 42
-    # continuous batching and its knobs: flags kept, not ported yet
+    # continuous batching (ops/serving.py): finished decode slots take the
+    # next page mid-stream instead of waiting for the batch's slowest page
     continuous: bool = False
-    refill_size: int = 0
+    refill_size: int = 0  # pages per encode when staging a pool (0 = batch_size)
+    # accepted for compatibility, inert: refill is per step, as in JAX
     chunk_steps: int = 16
-    pool_pages: int = 0
+    pool_pages: int = 0  # pages staged per pool group (0 = 2 * batch_size)
 
 
 def _list_images(spec: str) -> List[str]:
@@ -84,11 +91,6 @@ def _maybe_json(text: str) -> Optional[dict]:
 
 
 def infer(infer_cfg: InferCfg, task_cfg) -> int:
-    if infer_cfg.continuous:
-        raise NotImplementedError(
-            "--infer.continuous: continuous batching (ops/serving.py) is not "
-            "ported yet (ROADMAP.md Queue 1)"
-        )
     import torch
 
     env = DeviceEnv.initialize(task_cfg.device)
@@ -127,7 +129,10 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
                 rec["json"] = parsed
         return rec
 
-    records = _infer_batched(infer_cfg, task, files, prompt, bs, _record)
+    if infer_cfg.continuous:
+        records = _infer_continuous(infer_cfg, task, files, prompt, bs, _record)
+    else:
+        records = _infer_batched(infer_cfg, task, files, prompt, bs, _record)
     lines = [json.dumps(r, ensure_ascii=False) for r in records]
     out = infer_cfg.output
     if env.is_primary():
@@ -163,6 +168,25 @@ def _infer_batched(infer_cfg, task, files, prompt, bs, _record):
         records.extend(_record(f, text) for f, text in zip(chunk, texts))
         _logger.info("%d/%d pages done", min(lo + bs, len(files)), len(files))
     return records
+
+
+def _infer_continuous(infer_cfg, task, files, prompt, bs, _record):
+    from PIL import Image
+
+    pages = ((f, task.prepare_image(Image.open(f))) for f in files)
+    stream = task.generate_text_stream(
+        pages, prompt, slots=bs,
+        max_new_tokens=infer_cfg.max_new_tokens or None,
+        refill_size=infer_cfg.refill_size or bs,
+        chunk_steps=infer_cfg.chunk_steps,
+        pool_pages=infer_cfg.pool_pages or None,
+    )
+    by_file = {}
+    for i, (f, text) in enumerate(stream, 1):
+        by_file[f] = _record(f, text)
+        if i % bs == 0 or i == len(files):
+            _logger.info("%d/%d pages done", i, len(files))
+    return [by_file[f] for f in files]  # input order in the JSONL
 
 
 def main(argv=None) -> int:

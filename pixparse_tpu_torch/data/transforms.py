@@ -1,8 +1,11 @@
 """Document image transforms (counterpart of
 :mod:`pixparse_tpu.data.transforms`). Only ``legacy`` is ported, whose train
 and eval branches are the same deterministic pipeline: a bicubic resize to
-``image_size`` and a normalize, giving float32 numpy ``(H, W, C)``. The
-augmenting pipelines ``better`` and ``nougat`` raise. PIL is imported only
+``image_size`` and a normalize, giving float32 numpy ``(H, W, C)``; with
+``normalize=False`` the resized uint8 ``(H, W, C)`` canvas, the host half of
+the ``device_preprocess`` split (``ops/preprocess.py::normalize_images``
+finishes it on the device). The augmenting pipelines ``better`` and
+``nougat`` raise. PIL is imported only
 when an image needs a resize; an array already at ``image_size`` passes
 through as it is (PIL's resize to the same size is a copy)."""
 
@@ -33,10 +36,12 @@ def _as_float_normalized(img: np.ndarray, mean, std) -> np.ndarray:
 
 
 class LegacyTransform:
-    """PIL image or uint8 array -> normalized float32 (H, W, C)."""
+    """PIL image or uint8 array -> normalized float32 (H, W, C), or the
+    uint8 (H, W, C) canvas when ``normalize`` is False."""
 
-    def __init__(self, image_size, image_mean, image_std):
+    def __init__(self, image_size, image_mean, image_std, normalize: bool = True):
         self.image_size = tuple(image_size)
+        self.normalize = normalize
         self.mean = image_mean if isinstance(image_mean, (tuple, list)) else (image_mean,)
         self.std = image_std if isinstance(image_std, (tuple, list)) else (image_std,)
 
@@ -45,6 +50,8 @@ class LegacyTransform:
         if x.ndim == 3 and x.shape[2] == 1:
             x = x[:, :, 0]
         x = _resize(x, self.image_size)
+        if not self.normalize:
+            return np.array(x[:, :, None] if x.ndim == 2 else x, dtype=np.uint8)  # writable
         return _as_float_normalized(x, self.mean, self.std)
 
 
@@ -54,6 +61,7 @@ def create_transforms(
     training: bool = False,
     image_mean: Union[float, Sequence[float]] = 0.5,
     image_std: Union[float, Sequence[float]] = 0.5,
+    normalize: bool = True,
 ) -> LegacyTransform:
     if name not in ("legacy", "better", "nougat"):
         raise ValueError(f"unknown transform set {name!r}")
@@ -63,4 +71,4 @@ def create_transforms(
             "(ROADMAP.md Queue 1)"
         )
     # legacy has no train-time augmentation: `training` selects nothing
-    return LegacyTransform(image_size, image_mean, image_std)
+    return LegacyTransform(image_size, image_mean, image_std, normalize)

@@ -44,7 +44,9 @@ class TaskTrainCfg:
     # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
     # 'cuda' raises instead of falling back to the CPU
     device: str = "cuda"
-    device_preprocess: bool = False  # not ported yet (raises when set)
+    # ship uint8 images host -> device (a quarter of the bytes) and
+    # normalize them on the device in the loss (ops/preprocess.py)
+    device_preprocess: bool = False
     # train-time augmentation pipeline; only 'legacy' (the task default) is
     # ported, 'better' and 'nougat' raise
     transforms: Optional[str] = None
@@ -59,6 +61,9 @@ class TaskEvalCfg:
     # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
     # 'cuda' raises instead of falling back to the CPU
     device: str = "cuda"
+    # ship uint8 canvases host -> device (a quarter of the bytes) and
+    # normalize them on the device before the encoder (ops/preprocess.py)
+    device_preprocess: bool = False
     # 'int8': quantized cross-attention decode caches (int8 decode kernel)
     kv_cache_dtype: str = "bf16"
     # 'int8': generate() applies the tied head as an exact int8 product

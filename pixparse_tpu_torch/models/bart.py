@@ -129,6 +129,42 @@ class KVCache:
             for c in caches:
                 c[:, :i] = c[:, :i].index_select(0, src)
 
+    # continuous batching (ops/serving.py): a persistent cache of slot rows
+    # takes staged pages' rows; each buffer is written in place, so it keeps
+    # the contiguous layout the decode kernels require
+
+    def splice_rows(self, rows: torch.Tensor, pool: "KVCache", src: torch.Tensor) -> None:
+        """Rows ``rows`` of every layer's cross caches, their int8 scales
+        and ``cross_mask`` take ``pool``'s rows ``src``."""
+        for mine, theirs in ((self.cross_k, pool.cross_k), (self.cross_v, pool.cross_v),
+                             (self.cross_k_scale, pool.cross_k_scale),
+                             (self.cross_v_scale, pool.cross_v_scale)):
+            for c, p in zip(mine, theirs):
+                c[rows] = p[src]
+        self.cross_mask[rows] = pool.cross_mask[src]
+
+    def splice_prompt(self, rows: torch.Tensor, pool: "KVCache", src: torch.Tensor,
+                      col: int, n: int) -> None:
+        """Rows ``rows`` of every layer's self K/V take ``pool``'s rows
+        ``src``' columns ``[0, n)`` (a prefilled prompt block) at the shared
+        columns ``[col, col + n)``."""
+        for mine, theirs in ((self.self_k, pool.self_k), (self.self_v, pool.self_v)):
+            for c, p in zip(mine, theirs):
+                c[rows, col:col + n] = p[src, :n]
+
+    def compact(self, mask: torch.Tensor) -> torch.Tensor:
+        """Each row's self K/V columns where ``mask`` ``(rows, C)`` is True
+        gathered to the left of every layer's buffers, in order (an exact
+        copy: masked keys have zero weight wherever they sit). Returns the
+        new mask, each row's first ``mask.sum()`` columns."""
+        C = mask.shape[1]
+        order = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices
+        for caches in (self.self_k, self.self_v):
+            for c in caches:
+                idx = order[:, :, None].expand(-1, -1, c.shape[2])
+                c[:, :C] = torch.gather(c[:, :C], 1, idx)
+        return torch.arange(C, device=mask.device)[None, :] < mask.sum(dim=1, keepdim=True)
+
 
 class _Projections(nn.Module):
     """q/k/v/out projections with HF BART names."""

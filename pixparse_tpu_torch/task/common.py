@@ -81,9 +81,20 @@ def fold_image_stats(mean, std, image_fmt: str):
     return tuple(mean), tuple(std)
 
 
+def batch_images(images) -> np.ndarray:
+    """An NHWC image batch as the model takes it from the host: uint8
+    canvases (``device_preprocess``: normalized on the device) stay uint8,
+    anything else becomes float32. The JAX package casts every batch to
+    float32, so its ``device_preprocess`` canvases reach the encoder
+    unnormalized in the eval and finetune tasks."""
+    images = np.asarray(images)
+    return images if images.dtype == np.uint8 else images.astype(np.float32)
+
+
 def stack_images(images: List[np.ndarray]) -> np.ndarray:
-    """Stack transformed (H, W, C) float32 images into an NHWC batch."""
-    return np.stack([np.asarray(im, np.float32) for im in images], axis=0)
+    """Stack transformed (H, W, C) images into an NHWC batch
+    (:func:`batch_images`' dtype)."""
+    return batch_images(np.stack([np.asarray(im) for im in images], axis=0))
 
 
 def tokenize_batch(tokenizer, texts: List[str], max_length: int) -> np.ndarray:

@@ -15,7 +15,13 @@
   from before the task's tokens gets its table resized), the model (ViT
   or Swin encoder, bf16 or int8 decode mode) on the task's device in the
   compute dtype, and the KV-cached decode: greedy, or beam search when
-  ``num_beams > 1``.
+  ``num_beams > 1``, or continuous batching over a page stream
+  (:meth:`~BaseCrullerEvalTask.generate_text_stream`).
+
+``device_preprocess`` (both halves): the host transform stops at the
+resized uint8 canvas, which goes to the device as it is (a quarter of the
+float32 bytes) and is normalized there in fp32
+(``ops/preprocess.py::normalize_images``, the host path's bits).
 
 Concrete tasks supply tokens, collate and metrics. There is one device and no
 mesh, so batches go to the device as they are.
@@ -39,6 +45,7 @@ from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_s
 from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
+from pixparse_tpu_torch.ops.preprocess import normalize_images
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg, create_tokenizer
 from pixparse_tpu_torch.tokenizers.thread_safe import ThreadLocalTokenizer
@@ -156,14 +163,12 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         self.img_mean, self.img_std = fold_image_stats(
             stats["mean"], stats["std"], cfg.model.image_encoder.image_fmt
         )
-        if getattr(cfg, "device_preprocess", False):
-            raise NotImplementedError(
-                "device_preprocess is not ported yet (ROADMAP.md Queue 1)"
-            )
+        self.device_preprocess = bool(getattr(cfg, "device_preprocess", False))
         self.image_preprocess_train = create_transforms(
             getattr(cfg, "transforms", None) or "legacy",
             image_size=self.vit_cfg.img_size, training=True,
             image_mean=self.img_mean, image_std=self.img_std,
+            normalize=not self.device_preprocess,
         )
         self.resume_state_dict = None
         self.model: Optional[Cruller] = None
@@ -175,10 +180,19 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         self._accum_buffer: List[Dict[str, np.ndarray]] = []
 
     def prepare_image(self, img) -> np.ndarray:
-        """PIL image or uint8 array -> normalized float32 (H, W, C)."""
+        """PIL image or uint8 array -> normalized float32 (H, W, C), or the
+        uint8 canvas under ``device_preprocess``."""
         if hasattr(img, "convert"):  # PIL image: coerce the channel count
             img = img.convert("L" if self.num_image_chs == 1 else "RGB")
         return self.image_preprocess_train(img)
+
+    def device_images(self, image):
+        """The encoder's input from a device batch's image: a uint8 batch
+        (``device_preprocess``) normalized on the device in fp32; anything
+        else (float, pix2struct's dict) as it is."""
+        if isinstance(image, torch.Tensor) and image.dtype == torch.uint8:
+            return normalize_images(image, self.img_mean, self.img_std)
+        return image
 
     @property
     def attn_impl(self) -> str:
@@ -236,7 +250,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         self.state = create_train_state(self.model, self.optimizer, seed=seed)
 
         def loss_fn(batch):
-            hidden = self.model.forward_hidden(batch["image"], batch["text"])
+            hidden = self.model.forward_hidden(self.device_images(batch["image"]), batch["text"])
             loss, _ = cross_entropy_from_hidden(
                 hidden, self.model.tied_embedding.to(hidden.dtype), batch["target"]
             )
@@ -283,7 +297,9 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         if isinstance(sample, (tuple, list)):
             image, text, target = sample[:3]
             sample = {"image": image, "text": text, "target": target}
-        image = np.asarray(sample["image"]).astype(np.float32)
+        image = np.asarray(sample["image"])
+        if not (self.device_preprocess and image.dtype == np.uint8):
+            image = image.astype(np.float32)
         text = np.asarray(sample.get("text", sample.get("label")), np.int64)
         target = np.asarray(sample.get("target", sample.get("text_target")), np.int64)
         if text.ndim == 3:  # (B, 1, L) page dimension from the OCR anno preproc
@@ -299,7 +315,8 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Numpy batch -> tensors on the device: token arrays as int64, the
-        image (an array, or pix2struct's dict of arrays) as it is."""
+        image (an array, uint8 under ``device_preprocess``, or pix2struct's
+        dict of arrays) as it is."""
         def put(v):
             return torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
 
@@ -384,6 +401,10 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
 
         n = min(4, batch["image"].shape[0])  # small slice: monitoring only
         images = batch["image"][:n]
+        if images.dtype == np.uint8:  # device_preprocess batches
+            mean = np.asarray(self.img_mean, np.float32).reshape(1, 1, 1, -1)
+            std = np.asarray(self.img_std, np.float32).reshape(1, 1, 1, -1)
+            images = (images.astype(np.float32) / 255.0 - mean) / std
         text = restore_ignored(batch["text"][:n], self.tokenizer.pad_token_id)
         max_len = max_target_length(text, self.tokenizer.pad_token_id, 256)
         prompt = np.asarray(
@@ -456,15 +477,18 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         self.img_mean, self.img_std = fold_image_stats(
             stats["mean"], stats["std"], cfg.model.image_encoder.image_fmt
         )
+        self.device_preprocess = bool(getattr(cfg, "device_preprocess", False))
         self.image_preprocess_eval = create_transforms(
             "legacy", image_size=self.vit_cfg.img_size, training=False,
             image_mean=self.img_mean, image_std=self.img_std,
+            normalize=not self.device_preprocess,
         )
         self.resume_state_dict = None
         self.model: Optional[Cruller] = None
 
     def prepare_image(self, img) -> np.ndarray:
-        """PIL image or uint8 array -> normalized float32 (H, W, C)."""
+        """PIL image or uint8 array -> normalized float32 (H, W, C), or the
+        uint8 canvas under ``device_preprocess``."""
         if hasattr(img, "convert"):  # PIL image: coerce the channel count
             img = img.convert("L" if self.num_image_chs == 1 else "RGB")
         return self.image_preprocess_eval(img)
@@ -489,9 +513,16 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
 
     @torch.inference_mode()
     def encode_images(self, images) -> torch.Tensor:
-        """(B, H, W, C) normalized float images -> encoder output on device."""
-        images = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
-        return self.model.encode(images.to(self.compute_dtype))
+        """(B, H, W, C) images -> encoder output on the device. Under
+        ``device_preprocess`` a uint8 batch goes over as uint8 and is
+        normalized there in fp32; any other batch goes over as float32."""
+        images = np.asarray(images)
+        if self.device_preprocess and images.dtype == np.uint8:
+            x = normalize_images(
+                torch.from_numpy(images).to(self.device), self.img_mean, self.img_std)
+        else:
+            x = torch.as_tensor(images.astype(np.float32, copy=False), device=self.device)
+        return self.model.encode(x.to(self.compute_dtype))
 
     num_beams: int = 1  # > 1 switches every eval decode to beam search
 
@@ -518,6 +549,36 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         # padding (incl. left-alignment pads of variable-length prompts)
         # never carries content
         return [t.replace(pad, "") for t in texts]
+
+    def generate_text_stream(
+        self,
+        pages,  # iterable of (page_id, prepared image array)
+        prompt: str,
+        *,
+        slots: int = 16,
+        max_length: Optional[int] = None,
+        max_new_tokens: Optional[int] = None,
+        refill_size: int = 8,
+        chunk_steps: int = 16,
+        pool_pages: Optional[int] = None,
+    ):
+        """Continuous-batching greedy decode over a page stream
+        (``ops/serving.py``): yields ``(page_id, text)`` in completion order,
+        pad tokens stripped. A finished slot takes the next page, so no page
+        waits for a batch's slowest one."""
+        from pixparse_tpu_torch.ops.serving import ContinuousBatcher
+
+        batcher = ContinuousBatcher(
+            self.model, slots=slots, max_length=max_length or self.max_generation_length,
+            prompt_ids=self.prompt_ids(prompt, 1)[0],
+            eos_token_id=self.tokenizer.eos_token_id, pad_token_id=self.tokenizer.pad_token_id,
+            refill_size=refill_size, chunk_steps=chunk_steps, pool_pages=pool_pages,
+        )
+        budget = (lambda page_id: max_new_tokens) if max_new_tokens else None
+        pad = self.tokenizer.pad_token
+        for res in batcher.run(pages, self.encode_images, max_new_tokens=budget):
+            text = self.tokenizer.decode(res.tokens.tolist(), skip_special_tokens=False)
+            yield res.page_id, text.replace(pad, "")
 
     def prompt_ids(self, prompt: str, batch_size: int) -> np.ndarray:
         ids = np.asarray(self.tokenizer.encode(prompt, add_special_tokens=False), np.int32)

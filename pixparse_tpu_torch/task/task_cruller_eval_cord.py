@@ -17,6 +17,7 @@ from pixparse_tpu_torch.models.config import ModelCfg
 from pixparse_tpu_torch.task.common import (
     CORD_FINETUNE_TOKENS,
     SPECIAL_TOKENS_FROM_PRETRAIN,
+    batch_images,
     resolve_model_name,
 )
 from pixparse_tpu_torch.task.cruller_base import BaseCrullerEvalTask
@@ -56,7 +57,7 @@ class TaskCrullerEvalCORD(BaseCrullerEvalTask):
         return {name: loader for name, loader in loaders.items() if "eval" in name}
 
     def step(self, batch) -> Dict[str, Any]:
-        images = np.asarray(batch["image"], np.float32)
+        images = batch_images(batch["image"])
         labels = np.asarray(batch["label"])
         prompt = self.prompt_ids(self.task_start_token, images.shape[0])
         generated = self.generate_text(images, prompt, self.max_generation_length)

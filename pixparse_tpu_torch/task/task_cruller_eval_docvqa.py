@@ -21,6 +21,7 @@ from pixparse_tpu_torch.models.config import ModelCfg
 from pixparse_tpu_torch.task.common import (
     DOCVQA_FINETUNE_TOKENS,
     SPECIAL_TOKENS_FROM_PRETRAIN,
+    batch_images,
     resolve_model_name,
     stack_images,
 )
@@ -85,7 +86,7 @@ class TaskCrullerEvalDOCVQA(BaseCrullerEvalTask):
         return out
 
     def step(self, batch) -> Dict[str, Any]:
-        images = np.asarray(batch["images"], np.float32)
+        images = batch_images(batch["images"])
         prompts = self.batch_prompts(batch["questions"])
         generated = self.generate_text(images, prompts, self.max_generation_length)
         for text, answers in zip(generated, batch["ground_truth_answers"]):

@@ -18,7 +18,12 @@ import numpy as np
 from pixparse_tpu_torch.data.preprocess import preprocess_ocr_anno
 from pixparse_tpu_torch.framework.config import TaskEvalCfg
 from pixparse_tpu_torch.models.config import ModelCfg
-from pixparse_tpu_torch.task.common import PRETRAIN_TASK_START, SEP_TOKEN, resolve_model_name
+from pixparse_tpu_torch.task.common import (
+    PRETRAIN_TASK_START,
+    SEP_TOKEN,
+    batch_images,
+    resolve_model_name,
+)
 from pixparse_tpu_torch.task.cruller_base import BaseCrullerEvalTask
 from pixparse_tpu_torch.tokenizers import TokenizerCfg
 from pixparse_tpu_torch.utils.ocr_eval import (
@@ -68,7 +73,7 @@ class TaskCrullerEvalOCR(BaseCrullerEvalTask):
         if isinstance(sample, (tuple, list)):
             image, text, _target = sample[:3]
             sample = {"image": image, "text": text}
-        images = np.asarray(sample["image"], np.float32)
+        images = batch_images(sample["image"])
         text = np.asarray(sample["text"])
         if text.ndim == 3:
             text = text[:, 0]

@@ -20,6 +20,7 @@ from pixparse_tpu_torch.task.common import (
     RVLCDIP_FINETUNE_TOKENS,
     RVLCDIP_INT2STR,
     SPECIAL_TOKENS_FROM_PRETRAIN,
+    batch_images,
     resolve_model_name,
     stack_images,
 )
@@ -66,7 +67,7 @@ class TaskCrullerEvalRVLCDIP(BaseCrullerEvalTask):
     def step(self, sample) -> Dict[str, Any]:
         if sample is None:
             return {"classification": {"correct_samples": 0, "n_valid_samples": 0}}
-        images = np.asarray(sample["image"], np.float32)
+        images = batch_images(sample["image"])
         labels = [self.int2str[int(x)] for x in sample["label"]]
         prompt = self.prompt_ids(self.task_start_token, images.shape[0])
         generated = self.generate_text(images, prompt, self.max_generation_length)

@@ -123,7 +123,7 @@ class TaskCrullerFinetuneXent(BaseCrullerTrainTask):
         self.state = create_train_state(self.model, self.optimizer, seed=seed)
 
         def loss_fn(batch):
-            logits = self.model(batch["image"])
+            logits = self.model(self.device_images(batch["image"]))
             labels = batch["label"]
             true_logit = logits.gather(-1, labels[:, None])[:, 0]
             loss = (torch.logsumexp(logits, dim=-1) - true_logit).mean()
@@ -137,10 +137,13 @@ class TaskCrullerFinetuneXent(BaseCrullerTrainTask):
         self._flops_per_sample_step = None
 
     def normalize_batch(self, sample) -> Dict[str, np.ndarray]:
-        return {
-            "image": np.asarray(sample["image"], np.float32),
-            "label": np.asarray(sample["label"], np.int32),
-        }
+        """Under ``device_preprocess`` the uint8 canvases stay uint8 and the
+        loss normalizes them on the device (the JAX task casts them to
+        float32 and trains on unnormalized pixels)."""
+        image = np.asarray(sample["image"])
+        if not (self.device_preprocess and image.dtype == np.uint8):
+            image = image.astype(np.float32)
+        return {"image": image, "label": np.asarray(sample["label"], np.int32)}
 
     def state_dict(self) -> Dict[str, Any]:
         """``encoder.trunk.*`` and ``final_fc.{weight,bias}``, fp32 CPU."""

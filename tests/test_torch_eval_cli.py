@@ -9,6 +9,9 @@ varied bytes, so CER/WER exist):
   ``pixparse_tpu.app.eval`` write the same metrics file name and the same
   CER/WER at ``cruller_test`` fp32, in the bf16 mode and with the int8
   flags (``--task.kv-cache-dtype int8 --task.lm-head-dtype int8``);
+- with ``--task.device_preprocess true`` (uint8 canvases, normalized on
+  the device) the port writes the same metrics file as without the flag,
+  which is the JAX CLI's without it;
 - an RGB shard at ``cruller_swin_test`` runs through the port's
   ``app.eval`` and ``app.infer``;
 - unregistered tasks, S3 and a missing checkpoint are refused.
@@ -117,6 +120,19 @@ def test_eval_metrics_equal_to_jax(data, tmp_path, mode):
     assert name == ref_name == ckpt.replace("/", "_").replace(".pt", "") + "-FUNSD-metrics.json"
     assert set(got) == {"eval"} and set(got["eval"]["average"]) == {"cer", "wer"}
     assert got == ref
+
+
+def test_eval_device_preprocess_writes_the_same_metrics(data, tmp_path):
+    shard, ckpt = data
+    ref_dir = str(tmp_path / "jax")
+    assert jax_eval_main(_flags(shard, ckpt, ref_dir)) == 0
+    got = {}
+    for flag in ("false", "true"):
+        out_dir = str(tmp_path / flag)
+        assert eval_main(_flags(shard, ckpt, out_dir, extra=[
+            "--task.device", "cpu", "--task.device_preprocess", flag])) == 0
+        got[flag] = _metrics(out_dir)
+    assert got["true"] == got["false"] == _metrics(ref_dir)
 
 
 def test_swin_rgb_shard_through_eval_and_infer(tmp_path):

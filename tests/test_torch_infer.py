@@ -93,16 +93,47 @@ def test_infer_jsonl_identical_to_jax(pages, checkpoint, tmp_path):
     assert got == ref
 
 
-def test_infer_defaults_to_cuda_and_refuses_continuous(pages):
+def test_infer_defaults_to_cuda_and_runs_continuous_on_the_cpu(pages, tmp_path):
     flags = ["--infer.images", pages, "--task.model_name", "cruller_test",
              "--task.tokenizer.name", "pixparse_bytelevel"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             infer_main(flags)
-    with pytest.raises(NotImplementedError, match="continuous"):
-        infer_main(flags + ["--infer.continuous", "true", "--task.device", "cpu"])
+    out = str(tmp_path / "continuous.jsonl")
+    assert infer_main(flags + ["--infer.continuous", "true", "--task.device", "cpu",
+                               "--infer.max_new_tokens", "4", "--infer.output", out]) == 0
+    assert len(open(out, encoding="utf-8").read().strip().splitlines()) == 5
     with pytest.raises(SystemExit):  # not a Cruller eval task: app.eval only, as in JAX
         infer_main(["--infer.task_name", "donut_eval_ocr", "--infer.images", pages])
+
+
+@pytest.mark.parametrize("device_preprocess", ["false", "true"])
+def test_infer_continuous_equals_batched_and_jax(pages, checkpoint, tmp_path, device_preprocess):
+    """The counterpart of the JAX package's
+    ``test_infer_cli_continuous_matches_batched``: ``--infer.continuous``
+    (2 slots, pools encoded 2 pages at a time) and the batched path write the
+    same record for every file, and both equal the JAX CLI's batched JSONL;
+    the same with the pages normalized on the device."""
+    flags = [
+        "--infer.task_name", "cruller_eval_ocr",
+        "--infer.images", pages,
+        "--infer.checkpoint_path", checkpoint,
+        "--infer.batch_size", "2",
+        "--infer.max_new_tokens", "8",
+        "--task.model_name", "cruller_test",
+        "--task.tokenizer.name", "pixparse_bytelevel",
+        "--task.dtype", "float32",
+    ]
+    port = flags + ["--task.device", "cpu", "--task.device_preprocess", device_preprocess]
+    outs = {k: str(tmp_path / f"{k}.jsonl") for k in ("jax", "batched", "continuous")}
+    assert jax_infer_main(flags + ["--infer.output", outs["jax"]]) == 0
+    assert infer_main(port + ["--infer.output", outs["batched"]]) == 0
+    assert infer_main(port + ["--infer.output", outs["continuous"], "--infer.continuous", "true",
+                              "--infer.refill_size", "2", "--infer.chunk_steps", "3"]) == 0
+    texts = {k: open(v, encoding="utf-8").read() for k, v in outs.items()}
+    assert len(texts["jax"].strip().splitlines()) == 5
+    assert len(set(texts["jax"].splitlines())) > 1  # pages differ
+    assert texts["continuous"] == texts["batched"] == texts["jax"]
 
 
 def _tokenizer_pair():

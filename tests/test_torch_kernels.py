@@ -246,6 +246,29 @@ def test_decode_kernel_ragged_masks_and_partial_tiles(cuda_device, D, H, whole_t
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(20, 300), (85, 640), (333, 334), (0, 0)])
+def test_decode_kernel_band_masks(cuda_device, lo, hi):
+    """Continuous batching's self-cache masks: each row's live keys a band
+    of hi - lo keys from lo + row, of 640 columns (16 rows of 768: splits
+    of 40 keys), so whole leading splits of a row can be dead while later
+    ones are live; an empty band is a dead row."""
+    B, Lk, H, D = 16, 640, 12, 64
+    gen = torch.Generator().manual_seed(lo)
+    q, k, v = (torch.randn(B, n, H * D, generator=gen).to(cuda_device, torch.bfloat16)
+               for n in (1, Lk, Lk))
+    cols = torch.arange(Lk)[None]
+    start = lo + torch.arange(B)[:, None]
+    mask = ((cols >= start) & (cols < start + (hi - lo))).to(cuda_device)
+    o = decode_attention(q, k, v, mask, num_heads=H)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q, k, v, mask, num_heads=H)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.isfinite(o.float()).all()
+    assert torch.equal(decode_attention(q, k, v, mask, num_heads=H), o)
+
+
+@pytest.mark.cuda
 def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(2, 1, 96, device=cuda_device, dtype=torch.bfloat16)
     k = torch.zeros(2, 16, 96, device=cuda_device, dtype=torch.bfloat16)
