@@ -147,7 +147,7 @@ stderr):
 9. ``train_task``: the training entry points, ``TaskFactory`` ->
    ``TaskCrullerPretrain`` on the card -> ``train_setup`` ->
    ``train_one_interval`` over an in-memory loader of seeded collated batches
-   (the card machine has no PIL, so no tar of PNGs), at cruller_base with the
+   (the tar path is the ``loader`` phase's), at cruller_base with the
    byte-level tokenizer padded with filler tokens to bart-base's 50265
    entries (saved to a directory, whose path is the task's tokenizer name:
    the repository holds no bart tokenizer files), with gradient accumulation
@@ -264,6 +264,37 @@ stderr):
    ``(16, 640, 768)`` with band masks (a band from mid-split, one with two
    dead leading splits, single keys, a dead row), each against its plain
    version and its own bits.
+18. ``loader``: the tar-shard train path at cruller_base, from encoded
+   pages to the optimizer step. The port's native library
+   (``pixparse_tpu_torch/native``: libjpeg, libpng, the PIL-exact resize)
+   is built with g++ from ``native/pixparse_native.cpp``; where the
+   machine lacks a libjpeg / libpng / zlib header or library, the phase
+   prints one line naming it with ``"skipped"`` and nothing else runs (any
+   other build, load or decode failure fails the phase; nothing falls back
+   to PIL). One tar of 64 pages, each with a seeded ``cruller_pretrain``
+   annotation: 32 PNG pages of 2200x1700 grayscale drawn from seeds
+   (``tools/make_page_fixtures.py::synthetic_page``) and written with
+   ``zlib`` and ``struct``, and the 4 JPEG fixtures of
+   ``pixparse_tpu_torch/tools/page_fixtures/`` 8 times each. (a) Host ms a
+   page: native decode of the PNGs, of the JPEGs at full size and
+   DCT-scaled for 576x448 (1/2), the legacy transform (native bicubic
+   resize) with ``normalize`` true and false, decode plus transform, the
+   annotation's tokenization; gates: each PNG decodes to the array that
+   was written, bit for bit, and the native decode and resize counters
+   equal the page count. (b) The port's ``WdsLoader`` alone at B=16 with
+   1, 4 and 8 worker threads: pages decoded a second (also after the
+   shuffle buffer has filled) and batches, beside ``os.cpu_count()``. (c)
+   ``app.train.main`` (``cruller_pretrain``, cruller_base, bf16, the
+   byte-level tokenizer padded to 50265, B=16, 6 steps, 8 loader threads)
+   from the shard, with ``--task.device_preprocess`` false and true, then
+   ``cruller_pretrain`` through ``train_one_interval`` on seeded in-memory
+   batches (train_task's path) in the same call: ms a step and ms waiting
+   on the loader (medians of steps 2-6; each step's loss read), the
+   device's idle share over steps 2-6 (``torch.profiler``, the card only),
+   peak memory. Gates: every page the runs decoded came from the native
+   decoder; the flash and CE launches a step equal the in-memory run's;
+   each run's step-1 loss finite and within 1e-3 relative of the loss of
+   the same batch fed as arrays to a freshly built model of the same seed.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -291,7 +322,7 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
           "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
-          "serve_stream")
+          "serve_stream", "loader")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -4094,6 +4125,421 @@ def phase_serve_stream(torch, model_name="cruller_base", pages=STREAM_PAGES, slo
     return path_launches
 
 
+# loader: the tar-shard train path, encoded pages to the optimizer step
+LOADER_B = 16  # the train batch
+LOADER_STEPS = 6  # app.train steps a run (the first one fills the shuffle buffer)
+LOADER_PNG = 32  # PNG pages drawn from seeds and written with zlib
+LOADER_JPEG_REPEATS = 8  # each of the 4 JPEG fixtures this many times
+LOADER_THREADS = (1, 4, 8)  # (b): the loader's worker threads
+LOADER_BATCHES = 8  # (b): batches read at each thread count
+LOADER_WORKERS = 8  # (c): the train loader's worker threads
+
+
+def png_bytes(page):
+    """A grayscale uint8 (H, W) array as PNG bytes (no filter, zlib), written
+    with the standard library only: the card machine has no image encoder."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = page.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), page], axis=1)  # filter byte 0 a row
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def ocr_annotation(seed, lines=40):
+    """A ``cruller_pretrain`` annotation of seeded words: one page of lines."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"))
+    text = [" ".join("".join(rng.choice(letters, rng.randint(1, 11)))
+                     for _ in range(rng.randint(4, 12))) for _ in range(lines)]
+    return {"pages": [{"text": text}]}
+
+
+def write_loader_shard(path, page_size, n_png, jpeg_repeats):
+    """One tar: ``n_png`` PNG pages of ``page_size`` from seeds, then each JPEG
+    fixture ``jpeg_repeats`` times, each with a seeded OCR annotation.
+    Returns (the PNG pages' arrays, the JPEG pages' bytes, bytes by kind)."""
+    import io
+    import tarfile
+
+    from pixparse_tpu_torch.tools.make_page_fixtures import FIXTURE_DIR, N_PAGES, synthetic_page
+
+    pngs = [synthetic_page(100 + i, *page_size) for i in range(n_png)]
+    jpegs = [(FIXTURE_DIR / f"page_{i}.jpg").read_bytes() for i in range(N_PAGES)] * jpeg_repeats
+    sizes = {"png": 0, "jpg": 0}
+    with tarfile.open(path, "w") as tf:
+        samples = [("png", png_bytes(p)) for p in pngs] + [("jpg", b) for b in jpegs]
+        for i, (ext, data) in enumerate(samples):
+            sizes[ext] += len(data)
+            for name, blob in ((f"{i:05d}.{ext}", data),
+                               (f"{i:05d}.json", json.dumps(ocr_annotation(i)).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(blob)
+                tf.addfile(info, io.BytesIO(blob))
+    return pngs, jpegs, sizes
+
+
+def ms_per_item(fn, items):
+    """Mean host ms of ``fn`` over ``items`` (one pass, after one warm call)."""
+    fn(items[0])
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    return (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+@contextlib.contextmanager
+def recorded_train_steps(torch, task_cls, profile_from=None, profile_to=None):
+    """Wraps ``task_cls.train_step`` (the class attribute, so the tasks an
+    entry point builds inside itself are caught) for the duration. Each
+    step's loss is read (so the step has ended) and its entry and exit times,
+    and a copy of the first step's batch, land in the yielded record. With
+    ``profile_from``, ``torch.profiler`` traces the card from the exit of
+    that step to the exit of step ``profile_to`` (1-based)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {"enter": [], "exit": [], "losses": [], "first_batch": None, "prof": None}
+    own = task_cls.__dict__.get("train_step")
+    step = task_cls.train_step
+
+    def recorded(self, sample):
+        rec["enter"].append(time.perf_counter())
+        if rec["first_batch"] is None:
+            rec["first_batch"] = copy.deepcopy(sample)
+        out = step(self, sample)
+        rec["losses"].append(float(out["loss"]))
+        sync(torch)
+        rec["exit"].append(time.perf_counter())
+        n = len(rec["exit"])
+        if n == profile_from:
+            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            rec["prof"].start()
+        elif n == profile_to and rec["prof"] is not None:
+            rec["prof"].stop()
+        return out
+
+    task_cls.train_step = recorded
+    try:
+        yield rec
+    finally:
+        if own is None:
+            del task_cls.train_step
+        else:
+            task_cls.train_step = own
+
+
+def step_summary(torch, rec, steps, tag, on_card):
+    """ms a step (exit to exit) and loader wait (the previous step's exit to
+    this step's entry) of steps 2..``steps``, their medians, and, on the
+    card, the device's busy ms and idle share over that window."""
+    enter, exit_ = rec["enter"], rec["exit"]
+    step_ms = [(exit_[i] - exit_[i - 1]) * 1e3 for i in range(1, len(exit_))]
+    wait_ms = [(enter[i] - exit_[i - 1]) * 1e3 for i in range(1, len(exit_))]
+    out = {"steps": len(exit_), "losses": rec["losses"], "step_ms": step_ms, "wait_ms": wait_ms,
+           "ms_per_step": statistics.median(step_ms) if step_ms else None,
+           "wait_ms_per_step": statistics.median(wait_ms) if wait_ms else None}
+    if on_card and rec["prof"] is not None:
+        from torch.autograd import DeviceType
+
+        events = rec["prof"].key_averages()
+        with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as fh:
+            fh.write(events.table(sort_by="self_device_time_total", row_limit=30))
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        wall = (exit_[-1] - exit_[0]) * 1e3
+        out.update(device_ms=busy, window_wall_ms=wall, idle_share=1.0 - busy / wall)
+    return out
+
+
+def loader_task_cfg(model_name, tok_dir, device, flag):
+    """The ``cruller_pretrain`` config the ``loader`` phase's app.train
+    arguments give (bf16, one interval, no warm-up)."""
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    return TaskCrullerPretrainCfg(
+        model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+        device=device, num_intervals=1, num_warmup_intervals=0, device_preprocess=flag)
+
+
+def native_skip_reason(err):
+    """The missing header or library a failed native build names, if that is
+    why it failed."""
+    import re
+
+    m = (re.search(r"fatal error: ([\w./+-]+): No such file", err)
+         or re.search(r"cannot find (-l[\w+-]+)", err))
+    return m.group(1) if m else None
+
+
+def phase_loader(torch, model_name="cruller_base", B=LOADER_B, steps=LOADER_STEPS,
+                 page_size=None, n_png=LOADER_PNG, jpeg_repeats=LOADER_JPEG_REPEATS,
+                 threads=LOADER_THREADS, loader_batches=LOADER_BATCHES,
+                 workers=LOADER_WORKERS, vocab=BART_VOCAB, device="cuda"):
+    """The tar-shard train path: (a) native decode and the legacy transform,
+    (b) the loader alone by worker threads, (c) ``app.train`` from the shard
+    with ``device_preprocess`` off and on, beside ``cruller_pretrain`` on
+    seeded in-memory batches (train_task's path). Returns the launch counts
+    of the three train runs."""
+    import gc
+    import importlib.util
+    import logging
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from pixparse_tpu_torch import native
+    from pixparse_tpu_torch.app import train as app_train
+    from pixparse_tpu_torch.data import wds
+    from pixparse_tpu_torch.data.transforms import create_transforms
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework.train import train_one_interval
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrain
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tools.make_page_fixtures import PAGE_SIZE
+
+    on_card = torch.cuda.is_available() and device != "cpu"
+    window = (1, steps) if on_card else ()  # the profiled steps: 2..steps
+    page_size = tuple(page_size or PAGE_SIZE)
+    rec = {"phase": "loader", "nvidia_smi": nvidia_smi() if on_card else None,
+           "cpu_count": os.cpu_count(), "model": model_name, "batch": B,
+           # whether PIL and cv2 are installed here (none of the phase's paths uses them)
+           "importable": {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}}
+    seconds = {}
+    t_lap = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        seconds[name] = now - t_lap
+        t_lap = now
+
+    if native.load_native() is None:
+        err = native.build_error() or ""
+        missing = native_skip_reason(err)
+        if missing is None:
+            raise SystemExit(f"loader: the native library failed to build or load:\n{err}")
+        emit({**rec, "skipped": f"the native library cannot build here: {missing} is missing"})
+        return {}
+    lap("native_build")
+    problems, path_launches = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    try:
+        shard = os.path.join(tmp, "shard-00000.tar")
+        pngs, jpegs, sizes = write_loader_shard(shard, page_size, n_png, jpeg_repeats)
+        n_pages = len(pngs) + len(jpegs)
+        rec["shard"] = {"pages": n_pages, "png_pages": len(pngs), "jpeg_pages": len(jpegs),
+                        "page_size": page_size, "bytes": os.path.getsize(shard),
+                        "png_bytes": sizes["png"], "jpeg_bytes": sizes["jpg"]}
+        lap("shard")
+        tok_dir = saved_tokenizer(os.path.join(tmp, f"tokenizer{vocab}"), vocab)
+        env = DeviceEnv.initialize(device)
+        task, _ = TaskFactory.create_task(
+            "cruller_pretrain", loader_task_cfg(model_name, tok_dir, device, False), env)
+        img_size = tuple(task.vit_cfg.img_size)
+
+        # (a) decode, transform and tokenization, ms a page on the host
+        png_data = [png_bytes(p) for p in pngs]
+        decoded = [native.decode_image(d, gray=True) for d in png_data]
+        exact = sum(bool(out is not None and np.array_equal(out[:, :, 0], p))
+                    for out, p in zip(decoded, pngs))
+        if exact != len(pngs):
+            problems.append(f"(a) {len(pngs) - exact} PNG pages did not decode to their arrays")
+        scaled = native.decode_image(jpegs[0], gray=True, target_size=img_size)
+        per_page = [("png", d) for d in png_data] + [("jpg", d) for d in jpegs]
+        transforms = {norm: create_transforms("legacy", img_size, training=True,
+                                              image_mean=task.img_mean, image_std=task.img_std,
+                                              normalize=norm) for norm in (True, False)}
+        arrays = [wds.decode_image_bytes(d, ext, "L", target_size=img_size) for ext, d in per_page]
+        native.reset_calls()
+        for ext, d in per_page:
+            transforms[True](wds.decode_image_bytes(d, ext, "L", target_size=img_size))
+        calls = {"decode_image": native.decode_image.calls,
+                 "resize_filter": native.resize_filter.calls}
+        if calls != {"decode_image": n_pages, "resize_filter": n_pages}:
+            problems.append(f"(a) native calls {calls} over {n_pages} pages")
+        anno = [json.dumps(ocr_annotation(i)).encode() for i in range(n_pages)]
+        rec["decode"] = {
+            "png_ms": ms_per_item(lambda d: native.decode_image(d, gray=True), png_data),
+            "jpeg_full_ms": ms_per_item(lambda d: native.decode_image(d, gray=True), jpegs),
+            "jpeg_scaled_ms": ms_per_item(
+                lambda d: native.decode_image(d, gray=True, target_size=img_size), jpegs),
+            "jpeg_scaled_shape": list(scaled.shape) if scaled is not None else None,
+            "jpeg_full_shape": list(native.decode_image(jpegs[0], gray=True).shape),
+            **{f"legacy_{'float' if norm else 'uint8'}_ms": ms_per_item(tf, arrays)
+               for norm, tf in transforms.items()},
+            **{f"decode_legacy_{'float' if norm else 'uint8'}_ms": ms_per_item(
+                lambda p, tf=tf: tf(wds.decode_image_bytes(p[1], p[0], "L", target_size=img_size)),
+                per_page) for norm, tf in transforms.items()},
+            "annotation_ms": ms_per_item(
+                lambda a: task.anno_preprocess_train(json.loads(a)), anno),
+            "native_calls": calls, "png_exact": exact,
+        }
+        del decoded, arrays
+        lap("decode")
+
+        # (b) the loader alone: decoded pages and batches a second by threads
+        rec["loader"] = {}
+        count_lock = threading.Lock()  # the counters below are bumped by loader threads
+        for n in threads:
+            count = {"pages": 0}
+            pipe = wds.create_doc_anno_pipe(task.image_preprocess_train,
+                                            task.anno_preprocess_train, image_fmt="L")
+
+            def counted(sample, pipe=pipe, count=count):
+                out = pipe(sample)
+                with count_lock:
+                    count["pages"] += out is not None
+                return out
+
+            bundle = wds.create_wds_loader(shard, counted, is_train=True,
+                                           num_samples=B * loader_batches, workers=n,
+                                           batch_size=B, collate_fn=task.collate_fn)
+            t0 = time.perf_counter()
+            got, t_first, at_first = 0, None, 0
+            for batch in bundle.loader:
+                got += 1
+                if got == 1:  # the shuffle buffer is full from here on
+                    t_first, at_first = time.perf_counter() - t0, count["pages"]
+            dt = time.perf_counter() - t0
+            pages = count["pages"]
+            rec["loader"][str(n)] = {
+                "batches": got, "seconds": dt, "first_batch_s": t_first, "pages_decoded": pages,
+                "decoded_per_s": pages / dt, "samples_per_s": got * B / dt,
+                "after_first_decoded_per_s": (pages - at_first) / (dt - t_first)
+                if got > 1 else None}
+            if got != loader_batches:
+                problems.append(f"(b) {n} threads: {got} batches, want {loader_batches}")
+        lap("loader")
+        del task
+
+        # (c) app.train from the shard, device_preprocess off and on, then
+        # cruller_pretrain on seeded in-memory batches
+        rec["train"] = {}
+        first_batches = {}
+        for flag in (False, True):
+            tag = f"app_train_dp{int(flag)}"
+            counts = {"native": 0, "other": 0}
+            decode_bytes = wds.decode_image_bytes
+
+            def counted_decode(*args, **kwargs):
+                out = decode_bytes(*args, **kwargs)
+                with count_lock:
+                    counts["native" if isinstance(out, np.ndarray) else "other"] += 1
+                return out
+
+            argv = ["--train.task_name", "cruller_pretrain", "--train.experiment", tag,
+                    "--train.output_dir", os.path.join(tmp, "out"), "--train.seed", "42",
+                    "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
+                    "--task.dtype", "bfloat16", "--task.device", device,
+                    "--task.num_intervals", "1", "--task.num_warmup_intervals", "0",
+                    "--task.device_preprocess", str(flag).lower(),
+                    "--data.train.source", shard, "--data.train.split", "train",
+                    "--data.train.num_samples", str(B * steps),
+                    "--data.train.batch_size", str(B), "--data.train.num_workers", str(workers)]
+            root = logging.getLogger()
+            handlers, level = root.handlers[:], root.level
+            wds.decode_image_bytes = counted_decode
+            reset_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                with recorded_train_steps(torch, TaskCrullerPretrain, *window) as steps_rec:
+                    rc = app_train.main(argv)
+            finally:
+                wds.decode_image_bytes = decode_bytes
+                root.handlers[:] = handlers
+                root.setLevel(level)
+            run = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts(),
+                   "pages_decoded": dict(counts),
+                   **step_summary(torch, steps_rec, steps, f"loader_{tag}", on_card)}
+            if on_card:
+                run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            first_batches[flag] = steps_rec["first_batch"]
+            path_launches[f"loader_{tag}"] = run["launches"]
+            rec["train"][tag] = run
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            lap(tag)
+
+        # the same seeded model on each run's first batch, fed as arrays
+        for flag in (False, True):
+            run = rec["train"][f"app_train_dp{int(flag)}"]
+            ref, _ = TaskFactory.create_task(
+                "cruller_pretrain", loader_task_cfg(model_name, tok_dir, device, flag), env)
+            ref.train_setup(num_batches_per_interval=steps, seed=42)
+            loss = float(ref.train_step(first_batches[flag])["loss"])
+            step1 = run["losses"][0] if run["losses"] else math.nan
+            run["step1_vs_arrays"] = {"loader": step1, "arrays": loss,
+                                      "rel_diff": abs(step1 - loss) / abs(loss)}
+            if not (math.isfinite(step1) and abs(step1 - loss) <= 1e-3 * abs(loss)):
+                problems.append(f"(c) dp{int(flag)}: step-1 loss {step1} against {loss} "
+                                "from the same batch as arrays")
+            del ref
+            gc.collect()
+        lap("step1_reference")
+
+        task, _ = TaskFactory.create_task(
+            "cruller_pretrain", loader_task_cfg(model_name, tok_dir, device, False), env)
+        loader = SeededLoader(torch, steps, B, img_size, task.max_position_embeddings, seed=18,
+                              in_chans=task.vit_cfg.in_chans, vocab=vocab)
+        task.train_setup(num_batches_per_interval=steps, seed=42)
+        reset_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_train_steps(torch, TaskCrullerPretrain, *window) as steps_rec:
+            train_one_interval(task, loader)
+        synth = {"seconds": time.perf_counter() - t0, "launches": read_counts(),
+                 **step_summary(torch, steps_rec, steps, "loader_synthetic", on_card)}
+        if on_card:
+            synth["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["train"]["synthetic"] = synth
+        path_launches["loader_synthetic"] = synth["launches"]
+        del task
+        lap("synthetic")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want = {k: n / steps for k, n in rec["train"]["synthetic"]["launches"].items()}
+    for tag in ("app_train_dp0", "app_train_dp1"):
+        run = rec["train"][tag]
+        if run["rc"] != 0 or run["steps"] != steps:
+            problems.append(f"(c) {tag}: exit {run['rc']}, {run['steps']} steps, want {steps}")
+        if run["pages_decoded"]["other"] or not run["pages_decoded"]["native"]:
+            problems.append(f"(c) {tag}: pages decoded {run['pages_decoded']}, all native wanted")
+        per_step = {k: n / max(1, run["steps"]) for k, n in run["launches"].items()}
+        if per_step != want:
+            problems.append(f"(c) {tag}: launches a step {per_step}, train_task's {want}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            problems.append(f"(c) {tag}: losses {run['losses']}")
+    if on_card:
+        missing = [k for k in TRAIN_KERNELS["cruller_base"] if want.get(k, 0) <= 0]
+        if missing:
+            problems.append(f"(c) the train path never launched {missing}")
+    rec["seconds"] = seconds
+    emit(rec)
+    if problems:
+        raise SystemExit("loader failed: " + "; ".join(problems))
+    return path_launches
+
+
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
 # (the CE backward's products, by output tile width BN) lay it out
@@ -4270,6 +4716,7 @@ def main(argv=None) -> int:
         "large": lambda: path_launches.update(phase_large(torch, profile=prof)),
         "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
         "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
+        "loader": lambda: path_launches.update(phase_loader(torch)),
     }
     seconds = {"build": build_s}
     with nan_default_init(torch):

@@ -13,8 +13,9 @@
 - decode and preprocess run in a small thread pool feeding a bounded queue,
   which overlaps host-side preprocessing with device steps.
 
-Images are decoded with PIL, imported inside the function that decodes. The
-JAX package's native C decoder is not ported yet.
+JPEG and PNG pages are decoded by the native library
+(:mod:`pixparse_tpu_torch.native`); other formats by PIL, imported inside
+the function that decodes.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List
 
 import numpy as np
+
+from pixparse_tpu_torch.native import choose_jpeg_scale, decode_image
 
 _logger = logging.getLogger(__name__)
 
@@ -201,22 +204,22 @@ def iter_tar_samples(url: str) -> Iterator[Dict[str, Any]]:
 DEFAULT_IMAGE_KEY = "pdf;tif;tiff;png;jpg;jpeg"
 
 
-def _jpeg_scale(full_h: int, full_w: int, target_h: int, target_w: int) -> int:
-    """Largest JPEG DCT scale denominator in {1, 2, 4, 8} keeping the
-    decoded image at least the target size."""
-    for d in (8, 4, 2):
-        if full_h // d >= target_h and full_w // d >= target_w:
-            return d
-    return 1
-
-
 def decode_image_bytes(
     data: bytes, ext: str, image_fmt: str = "L", page_index: int = 0, target_size=None
 ):
-    """Bytes -> PIL image in ``image_fmt``. With ``target_size`` (h, w) a
-    JPEG decodes DCT-scaled (1/2..1/8, never below the target; PIL's
-    ``draft``). Multi-page TIFF seeks ``page_index``; PDF rendering needs
-    pypdfium2."""
+    """Bytes -> (H, W, C) uint8 array or PIL image in ``image_fmt``.
+
+    JPEG and PNG in ``L`` / ``RGB`` take the native decoder
+    (:mod:`pixparse_tpu_torch.native`) when its library builds; with
+    ``target_size`` (h, w) a JPEG decodes DCT-scaled (1/2..1/8, never below
+    the target). PIL is imported only on the paths that still need it: TIFF
+    (multi-page TIFF seeks ``page_index``) and other formats, other modes,
+    or no native library (then a JPEG's DCT scale goes through PIL's
+    ``draft``). PDF rendering needs pypdfium2."""
+    if ext in ("jpg", "jpeg", "png") and image_fmt in ("L", "RGB"):
+        arr = decode_image(data, gray=image_fmt == "L", target_size=target_size)
+        if arr is not None:
+            return arr
     from PIL import Image
 
     if ext == "pdf":
@@ -234,7 +237,7 @@ def decode_image_bytes(
     img = Image.open(io.BytesIO(data))
     if target_size is not None and img.format == "JPEG":
         w, h = img.size
-        d = _jpeg_scale(h, w, *target_size)
+        d = choose_jpeg_scale(h, w, *target_size)
         if d > 1:
             img.draft(image_fmt, (w // d, h // d))
     n_frames = getattr(img, "n_frames", 1)

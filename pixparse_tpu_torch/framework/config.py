@@ -47,8 +47,8 @@ class TaskTrainCfg:
     # ship uint8 images host -> device (a quarter of the bytes) and
     # normalize them on the device in the loss (ops/preprocess.py)
     device_preprocess: bool = False
-    # train-time augmentation pipeline; only 'legacy' (the task default) is
-    # ported, 'better' and 'nougat' raise
+    # train-time augmentation pipeline: 'legacy' (the task default) |
+    # 'better' | 'nougat' (data/transforms.py; both need cv2 to train)
     transforms: Optional[str] = None
 
 

@@ -9,7 +9,7 @@ import json
 import logging
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from pixparse_tpu_torch.utils.name_utils import natural_key
 
@@ -64,6 +64,10 @@ def _scan_model_configs() -> dict:
 
 
 _MODEL_CONFIGS = _scan_model_configs()
+
+
+def list_models() -> List[str]:
+    return list(_MODEL_CONFIGS.keys())
 
 
 def get_model_config(model_name: str) -> Optional[ModelCfg]:

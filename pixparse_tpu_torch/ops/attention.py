@@ -70,3 +70,16 @@ def dot_product_attention(
     weights = torch.softmax(scores, dim=-1).to(out_dtype)
     ct = torch.promote_types(out_dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(ct), v.to(ct))
+
+
+def make_attention_bias(
+    pad_mask: Optional[torch.Tensor],  # (B, Lk) True = attend
+    dtype: torch.dtype = torch.float32,
+) -> Optional[torch.Tensor]:
+    """Additive key-padding bias ``(B, 1, 1, Lk)``: 0 where ``pad_mask`` is
+    True, ``finfo(float32).min`` elsewhere, cast to ``dtype``."""
+    if pad_mask is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=pad_mask.device)
+    neg = torch.full((), NEG_MIN, dtype=torch.float32, device=pad_mask.device)
+    return torch.where(pad_mask[:, None, None, :], zero, neg).to(dtype)

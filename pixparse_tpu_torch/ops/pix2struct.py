@@ -8,7 +8,9 @@ float patches, int32 rows and cols, and a validity mask, real patches first
 and pad rows zero.
 
 - :func:`patchify_variable`: the host (numpy) path the loaders run on each
-  page, resized with PIL's bilinear filter;
+  page, resized by the native library's bilinear resize
+  (:func:`pixparse_tpu_torch.native.resize_bilinear`, within 1 grey level of
+  PIL's), or PIL's bilinear filter without the library;
 - :func:`patchify_variable_batch`: the device path for a batch of pages of
   one size, resized with ``F.interpolate(mode="bilinear", antialias=True)``,
   which computes what ``jax.image.resize(method="bilinear")`` does (a
@@ -26,6 +28,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pixparse_tpu_torch.native import resize_bilinear
 
 
 def variable_grid(h: int, w: int, patch_size: int, max_patches: int) -> Tuple[int, int]:
@@ -60,13 +64,15 @@ def patchify_variable(
     rows, cols = variable_grid(h, w, patch_size, max_patches)
     th, tw = rows * patch_size, cols * patch_size
 
-    from PIL import Image
-
     image = image.astype(np.uint8)
-    pil = Image.fromarray(image[:, :, 0] if c == 1 else image, "L" if c == 1 else "RGB")
-    resized = np.asarray(pil.resize((tw, th), Image.BILINEAR))
-    if resized.ndim == 2:
-        resized = resized[:, :, None]
+    resized = resize_bilinear(image, (th, tw))
+    if resized is None:  # no native library: PIL's bilinear filter
+        from PIL import Image
+
+        pil = Image.fromarray(image[:, :, 0] if c == 1 else image, "L" if c == 1 else "RGB")
+        resized = np.asarray(pil.resize((tw, th), Image.BILINEAR))
+        if resized.ndim == 2:
+            resized = resized[:, :, None]
 
     x = resized.astype(np.float32) / 255.0
     mean_a = np.asarray(mean, np.float32).reshape(1, 1, -1)

@@ -3,7 +3,7 @@
 aspect-preserving resize, pad to the canvas, normalize and patchify, batched.
 
 The host half of the ``device_preprocess`` split
-(``data/transforms.py::LegacyTransform(normalize=False)``) ships uint8
+(``data/transforms.py::create_transforms(..., normalize=False)``) ships uint8
 canvases, a quarter of the float32 bytes; :func:`normalize_images` turns
 them into the encoder's fp32 input on the device, with the same bits as the
 host's ``_as_float_normalized``: every step is one IEEE-rounded fp32 op, and

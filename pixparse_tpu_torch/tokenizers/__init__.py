@@ -7,7 +7,19 @@ from pixparse_tpu_torch.tokenizers.bytelevel import (
     BYTELEVEL_VOCAB_FILE,
     ByteLevelTokenizer,
 )
-from pixparse_tpu_torch.tokenizers.config import TokenizerCfg
+from pixparse_tpu_torch.tokenizers.config import (
+    TokenizerCfg,
+    get_tokenizer_config,
+    list_tokenizers,
+)
+
+# the JAX package's names for the offline byte-level tokenizer, which there is
+# an HF fast tokenizer built in memory and here the pure-Python one
+LOCAL_TOKENIZER_NAME = BYTELEVEL_TOKENIZER_NAME
+
+
+def create_bytelevel_tokenizer() -> ByteLevelTokenizer:
+    return ByteLevelTokenizer()
 
 
 def create_tokenizer(cfg: TokenizerCfg):
@@ -24,3 +36,10 @@ def create_tokenizer(cfg: TokenizerCfg):
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(cfg.name)
+
+
+class TokenizerHF:
+    """The tokenizer :func:`create_tokenizer` gives, held as ``trunk``."""
+
+    def __init__(self, cfg: TokenizerCfg):
+        self.trunk = create_tokenizer(cfg)

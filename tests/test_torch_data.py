@@ -114,8 +114,11 @@ def test_legacy_train_transform_matches_jax(size):
         out = got(img)
         assert out.shape == (64, 48, 1) and out.dtype == np.float32
         np.testing.assert_allclose(out, want(img), atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="legacy"):
-        create_transforms("better", **kw)
+    # the augmenting 'better' pipeline builds too and gives JAX's arrays
+    better, jax_better = (f("better", seed=5, **kw) for f in (create_transforms, jax_create_transforms))
+    for _ in range(20):
+        np.testing.assert_array_equal(better(arr), jax_better(arr))
+    assert better.op_counts == jax_better.op_counts
     with pytest.raises(ValueError, match="unknown"):
         create_transforms("best", **kw)
 
@@ -185,23 +188,26 @@ def test_create_loader_formats(tmp_path, monkeypatch):
 
 def test_jpeg_decodes_dct_scaled_to_the_transform_size():
     """With a target size a JPEG decodes at the largest 1/2..1/8 scale that
-    stays at least that size (the JAX package's native decoder's rule, by
-    PIL's ``draft``); other formats and no target decode at full size."""
+    stays at least that size (the rule of ``native.choose_jpeg_scale``, the
+    one definition, equal to the JAX package's); other formats and no target
+    decode at full size. The native decoder gives (H, W, C) arrays."""
     from pixparse_tpu.native import choose_jpeg_scale
+    from pixparse_tpu_torch import native
 
+    assert twds.choose_jpeg_scale is native.choose_jpeg_scale
     for full in ((400, 300), (401, 299), (64, 48), (2560, 1920)):
         for target in ((90, 70), (120, 70), (50, 40), (320, 240), (17, 900)):
-            assert twds._jpeg_scale(*full, *target) == choose_jpeg_scale(*full, *target)
+            assert twds.choose_jpeg_scale(*full, *target) == choose_jpeg_scale(*full, *target)
     rng = np.random.RandomState(0)
     pixels = rng.randint(0, 255, (400, 300, 3), np.uint8)
     jpeg, png = io.BytesIO(), io.BytesIO()
     Image.fromarray(pixels).save(jpeg, format="JPEG")
     Image.fromarray(pixels).save(png, format="PNG")
     decode = twds.decode_image_bytes
-    assert decode(jpeg.getvalue(), "jpg", "L", target_size=(90, 70)).size == (75, 100)
-    assert decode(jpeg.getvalue(), "jpg", "RGB", target_size=(120, 70)).size == (150, 200)
-    assert decode(jpeg.getvalue(), "jpg", "L").size == (300, 400)
-    assert decode(png.getvalue(), "png", "L", target_size=(90, 70)).size == (300, 400)
+    assert decode(jpeg.getvalue(), "jpg", "L", target_size=(90, 70)).shape == (100, 75, 1)
+    assert decode(jpeg.getvalue(), "jpg", "RGB", target_size=(120, 70)).shape == (200, 150, 3)
+    assert decode(jpeg.getvalue(), "jpg", "L").shape == (400, 300, 1)
+    assert decode(png.getvalue(), "png", "L", target_size=(90, 70)).shape == (400, 300, 1)
     transform = create_transforms("legacy", image_size=(90, 70))
     assert twds._decode_target_size(transform) == (90, 70)
     assert twds._decode_target_size(None) is None

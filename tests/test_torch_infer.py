@@ -203,5 +203,6 @@ def test_legacy_eval_transform_matches_jax(shape):
         out = port(x)
         assert out.shape == (64, 48, 1) and out.dtype == np.float32
         np.testing.assert_array_equal(out, ref(x))
-    with pytest.raises(NotImplementedError):
-        create_transforms("better", (64, 48))
+    # 'better' builds too: its eval branch keeps the aspect and pads, as JAX's
+    better = create_transforms("better", (64, 48), training=False)
+    np.testing.assert_array_equal(better(img), jax_create_transforms("better", (64, 48))(img))

@@ -3,8 +3,8 @@
 - importing every module of the port (the list below names them, so a module
   that goes missing is noticed) loads no JAX, flax,
   optax, orbax or ``pixparse_tpu``, and no PIL, transformers, tokenizers,
-  wandb, tensorboard, safetensors, timm or datasets either (those are imported inside
-  the functions that need them);
+  wandb, tensorboard, safetensors, timm, datasets or cv2 either (those are
+  imported inside the functions that need them);
 - no source file of the port, nor ``chip_smoke.py``, imports the former
   anywhere or the latter at module level;
 - entry points default to the CUDA device and raise without it;
@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pixparse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
 LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard", "safetensors", "timm",
-        "datasets")
+        "datasets", "cv2")
 MODULES = (
     # serving
     "app.infer", "data.transforms", "device", "framework.cli", "framework.config",
@@ -57,6 +57,8 @@ MODULES = (
     "task.task_cruller_finetune_xent", "utils.json_utils", "utils.tree_edit",
     # the HF Donut baseline eval task
     "task.task_donut_eval_ocr",
+    # the native decoder and resizer, the re-exported building blocks, the page fixtures
+    "native", "layers", "tools.make_page_fixtures",
 )
 
 
@@ -118,9 +120,9 @@ def _module_level_imports(path: Path):
 
 
 def test_optional_packages_are_imported_only_inside_functions():
-    """PIL, transformers, tokenizers, wandb, tensorboard, safetensors and
-    timm: a module of the port may use them, but only inside the function
-    that needs them."""
+    """PIL, transformers, tokenizers, wandb, tensorboard, safetensors,
+    timm, datasets and cv2: a module of the port may use them, but only
+    inside the function that needs them."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [
         (str(f.relative_to(ROOT)), name)
@@ -131,7 +133,7 @@ def test_optional_packages_are_imported_only_inside_functions():
     assert bad == []
     # and they are used somewhere, inside functions: the check above is not vacuous
     used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
-    assert {"PIL", "wandb", "safetensors", "timm", "datasets", "transformers"} <= used
+    assert {"PIL", "wandb", "safetensors", "timm", "datasets", "transformers", "cv2"} <= used
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

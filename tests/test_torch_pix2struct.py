@@ -85,11 +85,14 @@ def test_variable_grid_equals_jax(hw, budget):
     ((64, 48, 3), np.float64),
 ])
 def test_host_patchify_is_bit_for_bit_jax(monkeypatch, shape, dtype):
-    """Both sides on PIL's bilinear resize: the JAX one's native resizer is
-    made to report itself unavailable for the test."""
+    """Both sides on PIL's bilinear resize: the JAX one's native resizer and
+    the port's are made to report themselves unavailable for the test (with
+    both libraries built, both take the same native resize:
+    tests/test_torch_native.py)."""
     import pixparse_tpu.native as native
 
     monkeypatch.setattr(native, "resize_bilinear", lambda *a, **k: None)
+    monkeypatch.setattr(tops, "resize_bilinear", lambda *a, **k: None)
     rng = np.random.RandomState(sum(shape))
     img = rng.randint(0, 255, shape).astype(dtype)
     if dtype != np.uint8 and shape[0] == 120:
