@@ -296,6 +296,25 @@ stderr):
    each run's step-1 loss finite and within 1e-3 relative of the loss of
    the same batch fed as arrays to a freshly built model of the same seed.
 
+19. ``distributed``: the device mesh (``parallel/mesh.py``) in a child
+   started by ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` (its NCCL group ends with the phase; a child that
+   fails fails the phase). There ``MeshEnv.initialize`` makes a world of
+   one and the mesh (data=1, fsdp=1, model=1), and ``cruller_pretrain`` at
+   cruller_base as ``train_task`` builds it (B=16, bf16, the 50265-entry
+   tokenizer, seeded in-memory batches) takes 6 steps through the task's
+   ``train_step`` FSDP2-wrapped, beside 6 steps of the same task as a
+   process alone from the same seed and batch. Gates: step 1's loss within
+   1e-3 relative of the process alone's and its gradient norm within 1e-2;
+   flash and CE launches a step equal (and non-zero); the mesh run wrapped,
+   the other not. Then ``evaluate`` over ``cruller_eval_ocr`` (2 batches of
+   16, ``eval_task``'s byte-level setup) through ``app.eval``'s merge in
+   each: equal metrics, finite CER/WER, flash and decode launched. The
+   record: ms/step (median of steps 2-6), samples/s and peak memory of
+   both, and with ``--profile`` each step's device time, idle share and
+   the device time of kernels named ``nccl`` (``nccl_ms``; CPU-time tables
+   too).
+
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero before
@@ -322,7 +341,7 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
           "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
-          "serve_stream", "loader")
+          "serve_stream", "loader", "distributed")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -1718,12 +1737,15 @@ def synthetic_pages(torch, B, H, W, gen):
     return img * 2.0 - 1.0
 
 
-def device_profile(torch, fn, tag, wall_ms, cpu=True):
+def device_profile(torch, fn, tag, wall_ms, cpu=True, match=None, cpu_table=False):
     """``torch.profiler`` over one call of ``fn``: device time by kernel
     (table in ``OUT_DIR/profile_<tag>.txt``), and the device's idle share of
     ``wall_ms``, the same call's time measured without the profiler.
     ``cpu=False`` traces the card's activity only: a run of ~100k launches
-    then costs seconds to trace instead of a minute or more."""
+    then costs seconds to trace instead of a minute or more. ``match``: also
+    the device time of the kernels whose name holds that word
+    (``<match>_ms``, case ignored). ``cpu_table``: also the table by host
+    time (``OUT_DIR/profile_<tag>_cpu.txt``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1735,15 +1757,21 @@ def device_profile(torch, fn, tag, wall_ms, cpu=True):
     events = prof.key_averages()
     with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as fh:
         fh.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    if cpu_table:
+        with open(os.path.join(OUT_DIR, f"profile_{tag}_cpu.txt"), "w") as fh:
+            fh.write(events.table(sort_by="self_cpu_time_total", row_limit=60))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_ms = lambda e: e.self_device_time_total / 1e3
     busy = sum(dev_ms(e) for e in kernels)
     top = sorted(kernels, key=dev_ms, reverse=True)[:8]
-    return {
+    out = {
         "wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
         "device_launches": sum(e.count for e in kernels),
         "top": [[e.key[:60], dev_ms(e), e.count] for e in top],
     }
+    if match:
+        out[f"{match}_ms"] = sum(dev_ms(e) for e in kernels if match in e.key.lower())
+    return out
 
 
 def cached_vs_parallel(torch, model, enc, ids, encoder_pad_mask=None):
@@ -2063,11 +2091,12 @@ def saved_tokenizer(path, vocab, specials=True):
     return path
 
 
-def eval_task_setup(torch, model_name, mode, tok_dir, device):
+def eval_task_setup(torch, model_name, mode, tok_dir, device, env=None):
     """The registered ``cruller_eval_ocr`` task on ``device`` in bf16, set
     up, with every row of its tied table but the byte tokens' zeroed: with
     random weights the prompt token's own row would win every greedy step,
-    and the fillers and tags clean to empty text, leaving no CER/WER."""
+    and the fillers and tags clean to empty text, leaving no CER/WER.
+    ``env``: the task's environment (default: one process on ``device``)."""
     from pixparse_tpu_torch.device import DeviceEnv
     from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCRCfg
     from pixparse_tpu_torch.task.task_factory import TaskFactory
@@ -2077,7 +2106,7 @@ def eval_task_setup(torch, model_name, mode, tok_dir, device):
         model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
         device=device, kv_cache_dtype=mode, lm_head_dtype=mode,
     )
-    task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, DeviceEnv.initialize(device))
+    task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, env or DeviceEnv.initialize(device))
     task.setup()
     with torch.no_grad():
         table = task.model.tied_embedding
@@ -4632,15 +4661,243 @@ def ptxas_summary(log, kernels=WGMMA_FLASH, ce_products=CE_PRODUCTS[:3]):
     return out
 
 
+# --------------------------------------------------------------------------
+# distributed: the mesh path in a torchrun child of one rank
+# --------------------------------------------------------------------------
+
+DIST_B = 16  # the train batch
+DIST_STEPS = 6  # train steps of each run (the first one warms up)
+DIST_EVAL = (16, 2, 48)  # evaluate: batch, batches, reference length
+DIST_LOSS_RTOL = 1e-3  # step 1: the mesh step's loss against the process alone
+DIST_NORM_RTOL = 1e-2  # step 1: its gradient norm
+DIST_CHILD_TIMEOUT_S = 300  # the child's limit; the phase takes well under 90 s
+DIST_STEP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
+DIST_EVAL_KERNELS = ("flash_attention_fwd", "decode_attention")
+
+
+def phase_distributed(torch, model_name="cruller_base", B=DIST_B, steps=DIST_STEPS,
+                      vocab=BART_VOCAB, eval_run=DIST_EVAL, device="cuda", profile=False):
+    """The mesh path, in a child started by ``torch.distributed.run
+    --standalone --nproc_per_node 1`` so that its process group (NCCL on
+    the card) ends with the phase: :func:`distributed_child` does the work
+    and writes its record; a child that fails fails the phase. Returns the
+    mesh runs' launch counts."""
+    out = os.path.abspath(os.path.join(OUT_DIR, "distributed.json"))
+    log_path = os.path.abspath(os.path.join(OUT_DIR, "distributed_child.log"))
+    if os.path.exists(out):
+        os.remove(out)
+    spec = {"model_name": model_name, "B": B, "steps": steps, "vocab": vocab,
+            "eval_run": list(eval_run), "device": device, "profile": profile, "out": out,
+            "out_dir": os.path.abspath(OUT_DIR)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()  # the child shares the card
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           os.path.abspath(__file__), "--distributed-child", json.dumps(spec)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        # a session of its own: on a timeout the launcher and its worker go together
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=DIST_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            raise SystemExit(f"distributed: the torchrun child ran past {DIST_CHILD_TIMEOUT_S} s "
+                             f"and was killed (its log: {log_path})")
+    wall_s = time.perf_counter() - t0
+    with open(log_path) as fh:
+        tail = fh.read()[-4000:]
+    if proc.returncode != 0 or not os.path.exists(out):
+        print(tail, file=sys.stderr)
+        raise SystemExit(f"distributed: the torchrun child exited {proc.returncode} "
+                         f"(its log: {log_path})")
+    with open(out) as fh:
+        rec = json.load(fh)
+    rec["wall_s"] = wall_s
+    emit(rec)
+    if rec["problems"]:
+        raise SystemExit("distributed failed: " + "; ".join(rec["problems"]))
+    mesh = rec["runs"]["mesh"]
+    return {"distributed": {k: mesh["launches"][k] + rec["eval"]["mesh"]["launches"][k]
+                            for k in mesh["launches"]}}
+
+
+def distributed_child(spec) -> int:
+    """One rank of ``torch.distributed.run``: ``MeshEnv.initialize`` makes
+    the world of one (NCCL on the card, gloo on the CPU) and its mesh
+    (data=1, fsdp=1, model=1). ``cruller_pretrain`` as ``train_task`` builds
+    it, once in that mesh (FSDP2-wrapped) and once as a process alone, from
+    the same seed and batch: ``steps`` steps each through the task's
+    ``train_step``; then ``evaluate`` over ``cruller_eval_ocr`` in each,
+    merged through ``app.eval``. Writes the record to ``spec['out']``; exits
+    1 when a check failed."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pixparse_tpu_torch.parallel.mesh import MeshEnv
+
+    global OUT_DIR
+    OUT_DIR = spec["out_dir"]
+    if spec["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    env = MeshEnv.initialize(data=1, fsdp=1, model=1, device=spec["device"])
+    try:
+        with nan_default_init(torch):
+            rec = distributed_runs(torch, env, spec)
+    finally:
+        env.close()
+    with open(spec["out"], "w") as fh:
+        json.dump(rec, fh)
+    return 1 if rec["problems"] else 0
+
+
+def distributed_runs(torch, env, spec):
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pixparse_tpu_torch.app.eval import EvalCfg, eval as eval_app
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.parallel.mesh import MeshEnv, is_sharded
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    model_name, B, steps, vocab, device = (spec[k] for k in ("model_name", "B", "steps", "vocab",
+                                                             "device"))
+    on_card = device == "cuda"
+    envs = (("alone", MeshEnv(device=env.device)), ("mesh", env))  # no mesh: a process alone
+    rec = {"phase": "distributed", "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(), "env": str(env), "task": "cruller_pretrain",
+           "model_name": model_name, "batch": B, "steps": steps, "vocab": vocab,
+           "dtype": "bfloat16", "runs": {}, "eval": {}, "problems": []}
+    problems = rec["problems"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    try:
+        tok_dir = saved_tokenizer(os.path.join(tmp, f"tokenizer{vocab}"), vocab)
+        cfg = TaskCrullerPretrainCfg(
+            model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+            device=device, num_intervals=2, num_warmup_intervals=0,
+            opt=OptimizationCfg(learning_rate=3e-4),
+        )
+        for tag, task_env in envs:
+            task, _ = TaskFactory.create_task("cruller_pretrain", cfg, task_env, monitor=None)
+            enc = task.vit_cfg
+            loader = SeededLoader(torch, 1, B, enc.img_size, task.max_position_embeddings,
+                                  seed=0, in_chans=enc.in_chans, vocab=vocab)
+            task.train_setup(num_batches_per_interval=steps, seed=0)
+            step_fn, seen = task.train_step_fn, []
+
+            def recording(state, batch, step_fn=step_fn, seen=seen):
+                state, metrics = step_fn(state, batch)
+                seen.append(metrics)
+                return state, metrics
+
+            task.train_step_fn = recording
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync(torch)
+            reset_counts()
+            ms = []
+            for _ in range(steps):  # the task's entry point, as train_one_interval calls it
+                t0 = time.perf_counter()
+                task.train_step(loader.batches[0])
+                float(task._last_loss_dev)
+                sync(torch)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts()
+            step_ms = statistics.median(ms[1:])
+            run = {
+                "fsdp2_wrapped": any(is_sharded(p) for p in task.state.params.values()),
+                "model_class": type(task.model).__name__,
+                "losses": [float(m["loss"]) for m in seen],
+                "grad_norms": [float(m["grad_norm"]) for m in seen],
+                "ms_per_step": step_ms, "ms_by_step": ms, "samples_per_s": B / step_ms * 1e3,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                "launches": launches,
+                "launches_per_step": {k: launches[k] / steps for k in DIST_STEP_KERNELS},
+            }
+            if spec["profile"] and on_card:
+                batch = task._to_device(task.normalize_batch(loader.batches[0]))
+                run["profile"] = device_profile(
+                    torch, lambda: task.train_step_fn(task.state, batch),
+                    f"distributed_{tag}_step", step_ms, match="nccl", cpu_table=True)
+            rec["runs"][tag] = run
+            del task, recording, step_fn
+            gc.collect()  # the task and its step close a cycle: free it before the next run
+            if on_card:
+                torch.cuda.empty_cache()
+
+        alone, mesh = rec["runs"]["alone"], rec["runs"]["mesh"]
+        if not mesh["fsdp2_wrapped"] or alone["fsdp2_wrapped"]:
+            problems.append(f"wrapped: mesh {mesh['fsdp2_wrapped']}, alone {alone['fsdp2_wrapped']}")
+        for tag, run in rec["runs"].items():
+            if not all(np.isfinite(run["losses"])):
+                problems.append(f"{tag}: losses not finite: {run['losses']}")
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+        rec["step1"] = {"loss_rel": rel(mesh["losses"][0], alone["losses"][0]),
+                        "grad_norm_rel": rel(mesh["grad_norms"][0], alone["grad_norms"][0])}
+        if not rec["step1"]["loss_rel"] <= DIST_LOSS_RTOL:
+            problems.append(f"step-1 loss: mesh {mesh['losses'][0]} vs alone {alone['losses'][0]}")
+        if not rec["step1"]["grad_norm_rel"] <= DIST_NORM_RTOL:
+            problems.append(f"step-1 grad norm: mesh {mesh['grad_norms'][0]} vs alone "
+                            f"{alone['grad_norms'][0]}")
+        if mesh["launches_per_step"] != alone["launches_per_step"]:
+            problems.append(f"launches a step: mesh {mesh['launches_per_step']} vs alone "
+                            f"{alone['launches_per_step']}")
+        if on_card and not all(n > 0 for n in mesh["launches_per_step"].values()):
+            problems.append(f"the mesh step never launched some kernels: {mesh['launches_per_step']}")
+
+        EB, n_batches, length = spec["eval_run"]
+        for tag, task_env in envs:
+            task = eval_task_setup(torch, model_name, "bf16", tok_dir, device, env=task_env)
+            enc = task.vit_cfg
+            loader = SeededLoader(torch, n_batches, EB, enc.img_size, length, vocab, enc.in_chans,
+                                  BYTE_IDS[1])
+            eval_cfg = EvalCfg(metrics_file_path=os.path.join(tmp, f"{tag}-metrics.json"))
+            sync(torch)
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = eval_app(eval_cfg, task, {"eval": loader})
+            sync(torch)
+            dt = time.perf_counter() - t0
+            rec["eval"][tag] = {"metrics": metrics, "seconds": dt,
+                                "pages_per_s": EB * n_batches / dt, "launches": read_counts()}
+            del task
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        got, want = rec["eval"]["mesh"]["metrics"], rec["eval"]["alone"]["metrics"]
+        avg = want.get("eval", {}).get("average", {})
+        if got != want or not all(k in avg and np.isfinite(avg[k]) for k in ("cer", "wer")):
+            problems.append(f"eval metrics: mesh {got} vs alone {want}")
+        eval_launches = rec["eval"]["mesh"]["launches"]
+        if on_card and not all(eval_launches[k] > 0 for k in DIST_EVAL_KERNELS):
+            problems.append(f"the mesh eval never launched some kernels: {eval_launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="serve_model, serve_donut, train_model, train_donut, beam_eval, "
-                         "large, pix2struct: also trace encode, generate and one train step with "
+                         "large, pix2struct, distributed: also trace encode, generate and one train step with "
                          "torch.profiler (device time by kernel, device idle share)")
+    ap.add_argument("--distributed-child", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.distributed_child:  # one rank of the distributed phase's torchrun
+        return distributed_child(json.loads(args.distributed_child))
     t_main = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4717,6 +4974,7 @@ def main(argv=None) -> int:
         "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
         "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
         "loader": lambda: path_launches.update(phase_loader(torch)),
+        "distributed": lambda: path_launches.update(phase_distributed(torch, profile=prof)),
     }
     seconds = {"build": build_s}
     with nan_default_init(torch):

@@ -19,9 +19,12 @@ JSON -> ``task.end()``::
 Tasks: ``cruller_eval_ocr`` and ``cruller_eval_{cord,docvqa,rvlcdip}``
 (those three read ``--data.eval.format hf_dataset``: ``--data.eval.source
 SinglePageDocVQA`` from ``$PIXPARSE_DOCVQA_DIR`` with ``--data.eval.split
-val``, or a ``datasets.load_dataset`` source). One process on one device:
+val``, or a ``datasets.load_dataset`` source). One device per process:
 ``--task.device`` (default ``cuda``; without a card that raises,
-``--task.device cpu`` asks for the CPU). ``--eval.s3_bucket`` raises (the
+``--task.device cpu`` asks for the CPU). Under ``torchrun`` each rank holds
+the whole model, evaluates its own shards of the data, and rank 0 merges
+the ranks' metric trees (:func:`_merge_metric_trees`) into the one metrics
+file. ``--eval.s3_bucket`` raises (the
 port reads local checkpoints only). ``donut_eval_ocr``, the HF Donut
 baseline, takes ``--task.model_name`` as a local model directory (or a name
 in the HF cache) and needs ``transformers``.
@@ -37,11 +40,11 @@ from typing import List
 
 from pixparse_tpu_torch.data import DataCfg, create_loader
 from pixparse_tpu_torch.data.wds import create_image_text_pipe
-from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import Monitor, evaluate, random_seed, setup_logging
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
 from pixparse_tpu_torch.framework.task import TaskEval
 from pixparse_tpu_torch.models.interop import load_torch_checkpoint
+from pixparse_tpu_torch.parallel.mesh import MeshEnv
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY, TaskFactory
 
 _logger = logging.getLogger("eval")
@@ -59,6 +62,44 @@ class EvalCfg:
     task_name: str = ""
     datasets: List[str] = field(default_factory=lambda: ["eval"])
     seed: int = 42
+
+
+_SUM_KEY_HINTS = ("samples", "count", "num", "correct", "total")
+
+
+def _merge_metric_trees(trees, key: str = ""):
+    """Merge per-host metric trees (hosts evaluate disjoint data shards):
+    count-like leaves (name contains samples/count/num/correct/total) are
+    SUMMED, other numeric leaves averaged. The average is unweighted across
+    hosts, as in the JAX package: with uneven shard sizes a ratio metric
+    carries a small bias; tasks exposing counts merge exactly."""
+    if len(trees) == 1:
+        return trees[0]
+    first = trees[0]
+    if isinstance(first, dict):
+        return {
+            k: _merge_metric_trees([t[k] for t in trees if k in t], k)
+            for k in first
+        }
+    if isinstance(first, (int, float)):
+        vals = [t for t in trees if isinstance(t, (int, float))]
+        if any(h in key.lower() for h in _SUM_KEY_HINTS):
+            return sum(vals)
+        return sum(vals) / max(1, len(vals))
+    return first
+
+
+def eval(cfg: "EvalCfg", task, eval_loaders: dict):
+    """``evaluate`` on this rank's data; with more than one rank the ranks'
+    trees are gathered and merged, and rank 0 writes the one metrics file."""
+    metrics = evaluate(task, eval_loaders)
+    device_env = task.device_env
+    if device_env.process_count > 1:
+        metrics = _merge_metric_trees(device_env.all_gather_object(metrics))
+    if device_env.is_primary():
+        with open(cfg.metrics_file_path, "w") as fh:
+            json.dump(metrics, fh)
+    return metrics
 
 
 def metrics_file_name(checkpoint_path: str, dataset_name: str) -> str:
@@ -87,16 +128,27 @@ def main(argv=None) -> int:
     eval_cfg: EvalCfg = args.eval
     data_cfg: DataCfg = args.data
 
-    # raises when CUDA is asked for (the default) and there is none
-    device_env = DeviceEnv.initialize(args.task.device)
+    # first: joins the process group under torchrun; raises when CUDA is
+    # asked for (the default) and there is none
+    mesh_cfg = args.task.mesh
+    device_env = MeshEnv.initialize(
+        data=mesh_cfg.data, fsdp=mesh_cfg.fsdp, model=mesh_cfg.model, device=args.task.device)
+    try:
+        return _main(eval_cfg, args.task, data_cfg, device_env)
+    finally:
+        device_env.close()
+
+
+def _main(eval_cfg: EvalCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv) -> int:
     task, task_cfg = TaskFactory.create_task(
-        task_name=eval_cfg.task_name, task_args=args.task, device_env=device_env, monitor=None,
+        task_name=eval_cfg.task_name, task_args=task_args, device_env=device_env, monitor=None,
     )
     random_seed(eval_cfg.seed, rank=device_env.global_rank)
     _logger.info(f"Device env is {device_env}")
 
     os.makedirs(eval_cfg.output_dir, exist_ok=True)
-    setup_logging(os.path.join(eval_cfg.output_dir, eval_cfg.log_filename))
+    if device_env.is_primary():
+        setup_logging(os.path.join(eval_cfg.output_dir, eval_cfg.log_filename))
     task.monitor = Monitor(
         eval_cfg.experiment, output_dir=eval_cfg.output_dir,
         output_enabled=device_env.is_primary(),
@@ -138,10 +190,7 @@ def main(argv=None) -> int:
     }
 
     task.setup()
-    metrics = evaluate(task, loaders)
-    if device_env.is_primary():
-        with open(eval_cfg.metrics_file_path, "w") as fh:
-            json.dump(metrics, fh)
+    metrics = eval(eval_cfg, task, loaders)
     _logger.info("eval metrics: %s", metrics)
     task.end()
     return 0

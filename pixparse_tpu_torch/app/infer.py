@@ -23,6 +23,10 @@ instead (``ops/serving.py``): a slot whose page finished takes the next
 page, so no page waits for its batch's slowest one; the JSONL is still in
 input order. With ``--task.device_preprocess true`` the pages go to the card
 as uint8 canvases and are normalized there.
+
+Under ``torchrun`` each rank holds the whole model and decodes every
+``world``-th page (``files[rank::world]``); rank 0 gathers the records and
+writes the one JSONL, in input order, as one process writes it.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import os
 from dataclasses import dataclass, replace
 from typing import List, Optional
 
-from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import random_seed, setup_logging
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
+from pixparse_tpu_torch.parallel.mesh import MeshEnv
 from pixparse_tpu_torch.task.cruller_base import BaseCrullerEvalTask
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY
 
@@ -91,9 +95,18 @@ def _maybe_json(text: str) -> Optional[dict]:
 
 
 def infer(infer_cfg: InferCfg, task_cfg) -> int:
+    mesh_cfg = task_cfg.mesh
+    env = MeshEnv.initialize(
+        data=mesh_cfg.data, fsdp=mesh_cfg.fsdp, model=mesh_cfg.model, device=task_cfg.device)
+    try:
+        return _infer(infer_cfg, task_cfg, env)
+    finally:
+        env.close()
+
+
+def _infer(infer_cfg: InferCfg, task_cfg, env: MeshEnv) -> int:
     import torch
 
-    env = DeviceEnv.initialize(task_cfg.device)
     random_seed(infer_cfg.seed, env.global_rank)
     task_cls, _ = TASK_CLASS_REGISTRY[infer_cfg.task_name]
     task = task_cls(task_cfg, env, None)
@@ -108,8 +121,9 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
         _logger.warning("no --infer.checkpoint_path: running random weights")
     task.setup()
 
-    files = _list_images(infer_cfg.images)
-    _logger.info("%d images on %s", len(files), env)
+    all_files = _list_images(infer_cfg.images)
+    files = all_files[env.global_rank::env.world_size]  # this rank's pages
+    _logger.info("%d of %d images on %s", len(files), len(all_files), env)
     bs = max(1, infer_cfg.batch_size)
     prompt = infer_cfg.prompt or task.task_start_token
     emit_json = infer_cfg.task_name != "cruller_eval_ocr"
@@ -129,10 +143,16 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
                 rec["json"] = parsed
         return rec
 
-    if infer_cfg.continuous:
+    if not files:
+        records = []
+    elif infer_cfg.continuous:
         records = _infer_continuous(infer_cfg, task, files, prompt, bs, _record)
     else:
         records = _infer_batched(infer_cfg, task, files, prompt, bs, _record)
+    if env.world_size > 1:  # rank r decoded files[r::world]: interleave back
+        gathered = env.all_gather_object(records)
+        by_file = {rec["file"]: rec for part in gathered for rec in part}
+        records = [by_file[f] for f in all_files]
     lines = [json.dumps(r, ensure_ascii=False) for r in records]
     out = infer_cfg.output
     if env.is_primary():

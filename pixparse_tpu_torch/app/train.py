@@ -31,8 +31,18 @@ the encoder of a Cruller checkpoint and writes ``encoder.trunk.*`` +
         --data.train.split train --data.train.num_samples 800 --data.train.batch_size 8
 
 The task runs on ``--task.device`` (default ``cuda``; without a card that
-raises, ``--task.device cpu`` asks for the CPU). The mesh flags of the JAX
-package have no counterpart, and the S3 resume branch raises.
+raises, ``--task.device cpu`` asks for the CPU), one device per process.
+Under ``torchrun`` the processes form a mesh (``--task.mesh.data/fsdp``,
+:mod:`pixparse_tpu_torch.parallel.mesh`): NCCL on the cards, gloo on the
+CPU; the train state is FSDP2-sharded, each rank reads its own shards of the
+data, rank 0 names the experiment and alone writes logs, summaries and the
+``.pt``, and every rank takes part in each checkpoint save::
+
+    torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.train \
+        ... --task.device cpu --task.mesh.fsdp 2
+
+``--task.mesh.model > 1`` raises (not ported), and the S3 resume branch
+raises.
 """
 
 from __future__ import annotations
@@ -44,7 +54,6 @@ from datetime import datetime
 from typing import Dict, Optional
 
 from pixparse_tpu_torch.data import DataCfg, create_loader
-from pixparse_tpu_torch.device import DeviceEnv
 from pixparse_tpu_torch.framework import (
     Monitor,
     random_seed,
@@ -61,6 +70,7 @@ from pixparse_tpu_torch.framework.checkpoint import (
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
 from pixparse_tpu_torch.framework.task import StopTraining, TaskTrain
 from pixparse_tpu_torch.models.interop import load_torch_checkpoint, save_torch_checkpoint
+from pixparse_tpu_torch.parallel.mesh import MeshEnv
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY, TaskFactory
 from pixparse_tpu_torch.utils.name_utils import clean_name
 
@@ -90,19 +100,21 @@ def _save_interval_checkpoints(cfg: TrainCfg, task, interval: int, completed: bo
     """``completed=False`` (a stop mid-interval): the weights snapshot is
     written under this interval's name, but the metadata records the previous
     interval as the last complete one, so a resume re-runs this interval from
-    its start instead of skipping its remaining batches."""
+    its start instead of skipping its remaining batches. Under a mesh both
+    the gather of the ``.pt`` weights and the sharded save are collectives:
+    every rank calls this, and rank 0 alone writes the ``.pt``."""
+    device_env = task.device_env
     checkpoint_dir = os.path.join(cfg.output_checkpoint_dir, cfg.experiment)
-    if task.device_env.is_primary():
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        save_torch_checkpoint(
-            os.path.join(checkpoint_dir, f"checkpoint-{interval}.pt"), task.state_dict()
-        )
-        last_complete = interval if completed else interval - 1
-        save_checkpoint(
-            native_checkpoint_path(checkpoint_dir, interval),
-            task.state,
-            metadata={"interval": last_complete, "step": int(task.state.step)},
-        )
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    weights = task.state_dict()
+    if device_env.is_primary():
+        save_torch_checkpoint(os.path.join(checkpoint_dir, f"checkpoint-{interval}.pt"), weights)
+    last_complete = interval if completed else interval - 1
+    save_checkpoint(
+        native_checkpoint_path(checkpoint_dir, interval),
+        task.state,
+        metadata={"interval": last_complete, "step": int(task.state.step)},
+    )
 
 
 def train(cfg: TrainCfg, task, loaders: Dict[str, object]):
@@ -177,10 +189,20 @@ def main(argv=None):
     train_cfg: TrainCfg = args.train
     data_cfg: DataCfg = args.data
 
-    # raises when CUDA is asked for (the default) and there is none
-    device_env = DeviceEnv.initialize(args.task.device)
+    # first: joins the process group under torchrun; raises when CUDA is
+    # asked for (the default) and there is none
+    mesh_cfg = args.task.mesh
+    device_env = MeshEnv.initialize(
+        data=mesh_cfg.data, fsdp=mesh_cfg.fsdp, model=mesh_cfg.model, device=args.task.device)
+    try:
+        return _main(train_cfg, args.task, data_cfg, device_env)
+    finally:
+        device_env.close()
+
+
+def _main(train_cfg: TrainCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv) -> int:
     task, task_cfg = TaskFactory.create_task(
-        task_name=train_cfg.task_name, task_args=args.task, device_env=device_env, monitor=None,
+        task_name=train_cfg.task_name, task_args=task_args, device_env=device_env, monitor=None,
     )
     random_seed(train_cfg.seed, rank=device_env.global_rank)
     _logger.info(f"Device env is {device_env}")
@@ -188,6 +210,7 @@ def main(argv=None):
     if train_cfg.experiment is None:
         model_name_safe = clean_name(task_cfg.model_name)
         date_str = datetime.now().strftime("%Y%m%d-%H%M%S")
+        date_str = device_env.broadcast_object(date_str)  # one name for every rank
         experiment = "-".join(
             [
                 date_str,
@@ -200,9 +223,14 @@ def main(argv=None):
         train_cfg = replace(train_cfg, experiment=experiment)
 
     experiment_path = os.path.join(train_cfg.output_dir, train_cfg.experiment)
-    os.makedirs(experiment_path, exist_ok=True)
-    log_path = os.path.join(experiment_path, train_cfg.log_filename)
-    if os.path.exists(log_path) and not train_cfg.resume:
+    log_path = None
+    should_abort = False
+    if device_env.is_primary():
+        os.makedirs(experiment_path, exist_ok=True)
+        log_path = os.path.join(experiment_path, train_cfg.log_filename)
+        should_abort = os.path.exists(log_path) and not train_cfg.resume
+    # every rank takes the same branch, or the others wait in collectives
+    if device_env.broadcast_object(should_abort):
         _logger.error(
             "Error. Experiment already exists. Use --train.experiment to "
             "specify a new experiment."

@@ -1,15 +1,18 @@
 """Device resolution (counterpart of the single-device part of
 :mod:`pixparse_tpu.parallel.mesh`).
 
-The port runs on one CUDA card unless the caller asks for the CPU
+A process runs on one CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do). There is no silent fallback: asking
-for CUDA on a machine without it raises.
+for CUDA on a machine without it raises. Several processes, one device
+each, form a mesh in :mod:`pixparse_tpu_torch.parallel.mesh`, which
+resolves each rank's device here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -27,13 +30,31 @@ def resolve_device(name: str = "cuda") -> torch.device:
     return device
 
 
+def batch_to_device(batch, device: torch.device):
+    """A nested dict of numpy arrays or tensors -> the same dict of tensors
+    on ``device`` (dtypes kept; host copies are asynchronous)."""
+    if isinstance(batch, dict):
+        return {k: batch_to_device(v, device) for k, v in batch.items()}
+    if not isinstance(batch, torch.Tensor):
+        batch = torch.from_numpy(np.ascontiguousarray(batch))
+    return batch.to(device, non_blocking=True)
+
+
 @dataclass
 class DeviceEnv:
-    """One process on one device (multi-GPU arrives with torch.distributed)."""
+    """One process on one device, alone: no mesh, nothing sharded
+    (:class:`pixparse_tpu_torch.parallel.mesh.MeshEnv` is the entry points'
+    environment, and the same as this one without a distributed
+    environment)."""
 
     device: torch.device
     world_size: int = 1
     global_rank: int = 0
+    mesh = None  # class attribute: a process alone has no mesh
+
+    def shard_batch(self, batch, stacked: bool = False):
+        """The batch on the device (one process holds the whole batch)."""
+        return batch_to_device(batch, self.device)
 
     @classmethod
     def initialize(cls, device: str = "cuda") -> "DeviceEnv":

@@ -8,6 +8,13 @@ name, optimizer state, dropout seed) and ``metadata.json`` the small
 metadata dict (interval and step counters), in place of the JAX package's
 orbax tree. Saves are synchronous; :func:`wait_for_saves` is kept so callers
 read the same as there.
+
+A state sharded over a mesh (FSDP2 ``DTensor`` parameters and moments) is
+saved by every rank with ``torch.distributed.checkpoint`` into the same
+directory (its ``.metadata`` and one ``.distcp`` file per rank, beside
+``metadata.json``, which rank 0 writes). A restore reshards onto the
+template, as orbax does: a sharded save loads at another mesh or in one
+process, and a one-process ``state.pt`` loads into a sharded template.
 """
 
 from __future__ import annotations
@@ -51,12 +58,35 @@ def wait_for_saves():
     """Saves are synchronous: nothing is ever in flight."""
 
 
+def _is_sharded_state(state: TrainState) -> bool:
+    from pixparse_tpu_torch.parallel.mesh import is_sharded
+
+    return any(is_sharded(p) for p in state.params.values())
+
+
+def _dcp_tree(state: TrainState) -> dict:
+    return {"params": state.params, "opt_state": state.opt_state,
+            "step": state.step, "seed": state.seed}
+
+
 def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = None):
     """Write the train state (and a small metadata dict) to the directory
     ``path``. The state file is written under a temporary name and renamed,
-    so a directory never holds half a state."""
+    so a directory never holds half a state. A sharded state: every rank
+    must call this (a collective save)."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
+    if _is_sharded_state(state):
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(_dcp_tree(state), checkpoint_id=path)
+        if dist.get_rank() == 0:
+            with open(os.path.join(path, METADATA_FILE), "w") as fh:
+                json.dump(dict(metadata or {}), fh)
+        dist.barrier()
+        _logger.info("saved sharded checkpoint %s", path)
+        return
     payload = {
         "step": state.step,
         "seed": state.seed,
@@ -83,19 +113,36 @@ def _load_into(template, saved, what: str):
         return {k: _load_into(v, saved[k], f"{what}.{k}") for k, v in template.items()}
     if template.shape != saved.shape:
         raise ValueError(f"checkpoint {what}: shape {tuple(saved.shape)} != {tuple(template.shape)}")
+    from pixparse_tpu_torch.parallel.mesh import is_sharded, local_shard
+
     with torch.no_grad():
-        template.copy_(saved)
+        if is_sharded(template):  # this rank's rows of the whole saved tensor
+            template.to_local().copy_(local_shard(template, saved))
+        else:
+            template.copy_(saved)
     return template
 
 
 def restore_train_state(path: str, state_template: TrainState) -> Tuple[TrainState, dict]:
     """Restore onto an existing state: the template supplies device and dtype
     for every tensor, and its parameter tensors (the model's own) are filled
-    in place. Returns ``(state, metadata)``."""
+    in place. Returns ``(state, metadata)``. Either format loads into either
+    template: a ``state.pt`` or a sharded save, into a state of one process
+    or one sharded over any mesh (every rank of a mesh calls this)."""
     path = os.path.abspath(path)
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-    params = _load_into(state_template.params, saved["params"], "params")
-    opt_state = _load_into(state_template.opt_state, saved["opt_state"], "opt_state")
+    if os.path.exists(os.path.join(path, STATE_FILE)):
+        saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+        params = _load_into(state_template.params, saved["params"], "params")
+        opt_state = _load_into(state_template.opt_state, saved["opt_state"], "opt_state")
+    else:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        if not os.path.exists(os.path.join(path, ".metadata")):
+            raise FileNotFoundError(f"{path} holds neither {STATE_FILE} nor a sharded save")
+        saved = _dcp_tree(state_template)
+        dcp.load(saved, checkpoint_id=path, no_dist=not dist.is_initialized())
+        params, opt_state = saved["params"], saved["opt_state"]
     metadata = {}
     meta_path = os.path.join(path, METADATA_FILE)
     if os.path.exists(meta_path):

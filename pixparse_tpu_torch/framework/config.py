@@ -1,6 +1,8 @@
 """Shared train/eval config dataclasses (counterpart of
-:mod:`pixparse_tpu.framework.config`). The mesh flags of the JAX package are
-left out: the port runs on one device, named by ``device``."""
+:mod:`pixparse_tpu.framework.config`). A process runs on the one device
+named by ``device``; under ``torchrun`` the processes form the mesh that
+``mesh`` (``--task.mesh.data/fsdp/model``) sizes
+(:mod:`pixparse_tpu_torch.parallel.mesh`)."""
 
 from __future__ import annotations
 
@@ -28,6 +30,17 @@ class OptimizationCfg:
 
 
 @dataclass
+class MeshCfg:
+    """Mesh axis sizes, in processes (one device each). ``data = 0`` absorbs
+    the ranks that ``fsdp * model`` leaves; ``model > 1`` raises (not
+    ported)."""
+
+    data: int = 0
+    fsdp: int = 1
+    model: int = 1
+
+
+@dataclass
 class TaskTrainCfg:
     num_intervals: int = 100
     num_warmup_intervals: int = 5
@@ -44,6 +57,7 @@ class TaskTrainCfg:
     # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
     # 'cuda' raises instead of falling back to the CPU
     device: str = "cuda"
+    mesh: MeshCfg = field(default_factory=MeshCfg)
     # ship uint8 images host -> device (a quarter of the bytes) and
     # normalize them on the device in the loss (ops/preprocess.py)
     device_preprocess: bool = False
@@ -61,6 +75,7 @@ class TaskEvalCfg:
     # the port's explicit device: 'cuda', 'cuda:N' or 'cpu'; without CUDA,
     # 'cuda' raises instead of falling back to the CPU
     device: str = "cuda"
+    mesh: MeshCfg = field(default_factory=MeshCfg)
     # ship uint8 canvases host -> device (a quarter of the bytes) and
     # normalize them on the device before the encoder (ops/preprocess.py)
     device_preprocess: bool = False

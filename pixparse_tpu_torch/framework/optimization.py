@@ -17,6 +17,13 @@ changes neither its arguments nor the parameters, so the train step can drop
 a non-finite step without a host sync. The update count lives on the
 parameters' device for the same reason; the schedule is evaluated on it
 there.
+
+Under a mesh the chain runs on each rank's local shards of the FSDP2
+parameters and gradients. What must be a quantity of the whole gradient or
+parameter (the global norm, the adaptive clip's unit norms, LAMB's trust
+ratio) takes a :class:`~pixparse_tpu_torch.parallel.mesh.ShardedParams`
+(``shards``): partial sums are added over the shards, the adaptive clip
+works on the gathered whole tensors.
 """
 
 from __future__ import annotations
@@ -214,16 +221,19 @@ def default_weight_decay_mask(params: Params) -> Dict[str, bool]:
 # clipping
 # --------------------------------------------------------------------------
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, fp32, on their device."""
+def global_norm(tensors: List[torch.Tensor], shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32, on their device;
+    with ``shards``, over the whole tensors whose local shards these are."""
     if not tensors:
         return torch.zeros(())
     norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
+    if shards is not None:
+        return shards.sum(torch.stack(norms).square().sum()).sqrt()
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    g_norm = global_norm(grads)
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, shards=None) -> List[torch.Tensor]:
+    g_norm = global_norm(grads, shards)
     # optax: unchanged below the threshold, else (g / norm) * max_norm
     factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm), max_norm / g_norm)
     return torch._foreach_mul(grads, factor)
@@ -257,14 +267,19 @@ def _unitwise_norm(x: torch.Tensor) -> torch.Tensor:
     return sq.sqrt().expand_as(x)
 
 
-def _adaptive_grad_clip(names, grads, params, clipping: float, eps: float = 1e-3):
+def _adaptive_grad_clip(names, grads, params, clipping: float, eps: float = 1e-3, shards=None):
+    """With ``shards``: each gradient and parameter gathered whole, clipped
+    as one process clips it, and this rank's rows taken back."""
     out = []
     for name, g, p in zip(names, grads, params):
+        if shards is not None:
+            g, p = shards.whole(name, g), shards.whole(name, p)
         (gv, back), (pv, _) = _jax_layout(name, g), _jax_layout(name, p)
         g_norm, p_norm = _unitwise_norm(gv), _unitwise_norm(pv)
         max_norm = clipping * p_norm.clamp_min(eps)
         clipped = gv * (max_norm / g_norm.clamp_min(1e-6))
-        out.append(back(torch.where(g_norm < max_norm, gv, clipped)).contiguous())
+        g = back(torch.where(g_norm < max_norm, gv, clipped)).contiguous()
+        out.append(shards.shard(name, g) if shards is not None else g)
     return out
 
 
@@ -324,8 +339,10 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Params, state: Dict, params: Params) -> Tuple[Params, Dict]:
-        """``(updates, new_state)``; the new parameters are ``p + update``."""
+    def update(self, grads: Params, state: Dict, params: Params,
+               shards=None) -> Tuple[Params, Dict]:
+        """``(updates, new_state)``; the new parameters are ``p + update``.
+        ``shards``: the tensors are local shards of the parameters it holds."""
         cfg = self.cfg
         names = list(params)
         g = [grads[n] for n in names]
@@ -333,11 +350,11 @@ class Optimizer:
         new_state: Dict = {}
 
         if self.clip_mode == "norm":
-            g = _clip_by_global_norm(g, cfg.clip_grad_value)
+            g = _clip_by_global_norm(g, cfg.clip_grad_value, shards)
         elif self.clip_mode == "value":
             g = [t.clamp(-cfg.clip_grad_value, cfg.clip_grad_value) for t in g]
         elif self.clip_mode == "agc":
-            g = _adaptive_grad_clip(names, g, p, cfg.clip_grad_value)
+            g = _adaptive_grad_clip(names, g, p, cfg.clip_grad_value, shards=shards)
 
         count = state["count"] + 1
         new_state["count"] = count
@@ -373,9 +390,14 @@ class Optimizer:
             u = [ui + decay * pi if mask[n] else ui for n, ui, pi in zip(names, u, p)]
 
         if self.name == "lamb":
+            if shards is not None:  # one sum over the shards for every norm
+                sq = shards.sum(torch.stack([t.float().square().sum() for t in p + u]))
+                norms = list(zip(sq[:len(p)].sqrt(), sq[len(p):].sqrt()))
+            else:
+                norms = [(torch.linalg.vector_norm(pi), torch.linalg.vector_norm(ui))
+                         for ui, pi in zip(u, p)]
             scaled = []
-            for ui, pi in zip(u, p):
-                p_norm, u_norm = torch.linalg.vector_norm(pi), torch.linalg.vector_norm(ui)
+            for ui, (p_norm, u_norm) in zip(u, norms):
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(p_norm), p_norm / u_norm)
                 scaled.append(ui * ratio)

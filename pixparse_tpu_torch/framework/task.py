@@ -3,13 +3,18 @@
 The lifecycle surface the apps drive: ``train_setup`` /
 ``train_interval_start`` / ``train_step`` / ``train_interval_end`` /
 ``state_dict`` for training, ``setup`` / ``prepare_for_evaluation`` /
-``step`` / ``end`` for eval."""
+``step`` / ``end`` for eval. A task runs in a
+:class:`~pixparse_tpu_torch.parallel.mesh.MeshEnv` (the entry points') or a
+:class:`~pixparse_tpu_torch.device.DeviceEnv` (one process alone)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from pixparse_tpu_torch.device import DeviceEnv
+from pixparse_tpu_torch.parallel.mesh import MeshEnv
+
+Env = Union[MeshEnv, DeviceEnv]
 
 
 class StopTraining(Exception):
@@ -17,7 +22,7 @@ class StopTraining(Exception):
 
 
 class Task:
-    def __init__(self, cfg, device_env: DeviceEnv, monitor=None):
+    def __init__(self, cfg, device_env: Env, monitor=None):
         self.cfg = cfg
         self.device_env = device_env
         self.monitor = monitor
@@ -41,7 +46,7 @@ class TaskEval(Task):
 
 
 class TaskTrain(Task):
-    def __init__(self, cfg, device_env: DeviceEnv, monitor=None):
+    def __init__(self, cfg, device_env: Env, monitor=None):
         super().__init__(cfg, device_env, monitor)
         self.num_intervals = cfg.num_intervals
         self.num_warmup_intervals = cfg.num_warmup_intervals

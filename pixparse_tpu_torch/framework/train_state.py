@@ -1,5 +1,6 @@
 """Train state and the train step (counterpart of
-:mod:`pixparse_tpu.framework.train_state`, its one-device part: no mesh).
+:mod:`pixparse_tpu.framework.train_state`), for one process alone or over a
+mesh of processes (:mod:`pixparse_tpu_torch.parallel.mesh`).
 
 :class:`TrainState` holds the step counter, the model's parameters by name
 (the very tensors the model computes with; the step updates them in place),
@@ -18,6 +19,25 @@ the optimizer state and the base dropout seed. :func:`make_train_step` builds
   they are logged;
 - a dropout stream per ``(seed, step, micro-batch index)``: a restart at the
   same step repeats the masks.
+
+Under a mesh (``create_train_state(..., mesh=)``) the model is FSDP2-wrapped
+and ``state.params`` are its ``DTensor`` shards:
+
+- the step runs ``loss.backward()`` and reads the reduced ``p.grad`` (FSDP2
+  hands ``torch.autograd.grad`` nothing for a sharded parameter); a
+  parameter that needs a gradient and has none raises;
+- accumulation syncs gradients on the last micro-batch only
+  (``set_requires_gradient_sync``), then divides their sum: the mean over
+  micro-batches, as in one process;
+- a rank's loss is its share of the global one: their mean over the
+  ``(data, fsdp)`` ranks, which is the mean FSDP2 takes of the gradients, is
+  the global loss (a token-mean loss divides its local sum by the global
+  count over the ranks: ``BaseCrullerTrainTask``). ``metrics`` hold those
+  means, the same on every rank;
+- the optimizer runs on the local shards, whole-tensor norms summed over the
+  shards; the non-finite skip reads the global loss and gradient norm, so
+  every rank decides alike;
+- each rank draws its own dropout stream: the rank joins the seed's mix.
 """
 
 from __future__ import annotations
@@ -42,16 +62,26 @@ class TrainState:
         return float(schedule(self.step // max(1, grad_accum_steps)))
 
 
-def create_train_state(model: torch.nn.Module, optimizer: Optimizer, seed: int = 0) -> TrainState:
-    """State over ``model``'s named parameters (shared parameters once)."""
+def create_train_state(model: torch.nn.Module, optimizer: Optimizer, seed: int = 0,
+                       mesh=None) -> TrainState:
+    """State over ``model``'s named parameters (shared parameters once).
+    With a ``mesh`` the model is first FSDP2-wrapped over its ``(data,
+    fsdp)`` axes (:func:`~pixparse_tpu_torch.parallel.mesh.shard_model`),
+    and the parameters and optimizer moments are ``DTensor`` shards."""
+    if mesh is not None:
+        from pixparse_tpu_torch.parallel.mesh import shard_model
+
+        shard_model(model, mesh)
     params = dict(model.named_parameters())
     return TrainState(step=0, params=params, opt_state=optimizer.init(params), seed=seed + 1)
 
 
-def dropout_seed(seed: int, step: int, micro_idx: int = 0) -> int:
-    """Seed of the dropout stream of one micro-batch of one step: a fixed
-    mix of its three coordinates (splitmix-style), below 2**63."""
-    x = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + micro_idx * 0x94D049BB133111EB)
+def dropout_seed(seed: int, step: int, micro_idx: int = 0, rank: int = 0) -> int:
+    """Seed of the dropout stream of one micro-batch of one step on one rank:
+    a fixed mix of its four coordinates (splitmix-style), below 2**63. Rank 0
+    draws what a process alone draws."""
+    x = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + micro_idx * 0x94D049BB133111EB
+         + rank * 0xD1B54A32D192ED03)
     x &= (1 << 64) - 1
     x ^= x >> 31
     x = (x * 0xD6E8FEB86659FD93) & ((1 << 64) - 1)
@@ -74,16 +104,39 @@ def _where_tree(ok: torch.Tensor, new, old):
     return torch.where(ok, new, old)
 
 
+def _apply_update(optimizer, params, grads, opt_state, loss, skip_nonfinite, shards=None):
+    """The gradient norm, the optimizer update, the non-finite skip, and the
+    parameters moved in place; ``(new_opt_state, metrics)``. ``shards``:
+    the tensors are local shards (:class:`~pixparse_tpu_torch.parallel.mesh.ShardedParams`)."""
+    grad_norm = global_norm(grads, shards)
+    updates, new_opt_state = optimizer.update(
+        dict(zip(params, grads)), opt_state, params, shards=shards)
+    metrics = dict(loss=loss, grad_norm=grad_norm)
+    updates = list(updates.values())
+    if skip_nonfinite:
+        ok = torch.isfinite(grad_norm) & torch.isfinite(loss)
+        updates = [torch.where(ok, u, 0.0) for u in updates]
+        new_opt_state = _where_tree(ok, new_opt_state, opt_state)
+        metrics["nonfinite"] = (~ok).to(torch.int32)
+    torch._foreach_add_(list(params.values()), updates)
+    return new_opt_state, metrics
+
+
 def make_train_step(
     loss_fn: Callable,  # (batch) -> (loss, aux_dict), through the model that owns the params
     optimizer: Optimizer,
     reseed: Optional[Callable[[int], None]] = None,  # points the dropout stream at a seed
     skip_nonfinite: bool = True,
     grad_accum_steps: int = 1,
+    mesh=None,  # the DeviceMesh the state was created on
+    module: Optional[torch.nn.Module] = None,  # with a mesh: the FSDP2 root
 ) -> Callable:
     """Build ``train_step(state, batch) -> (state, metrics)``; see the module
     docstring. ``state.params`` are updated in place and the returned state
     shares them."""
+    if mesh is not None:
+        return _make_sharded_train_step(
+            loss_fn, optimizer, reseed, skip_nonfinite, grad_accum_steps, mesh, module)
 
     def grads_of(params, batch, seed):
         if reseed is not None:
@@ -112,20 +165,95 @@ def make_train_step(
             loss, aux, grads = grads_of(params, batch, dropout_seed(state.seed, state.step))
 
         with torch.no_grad():
-            grad_norm = global_norm(grads)
-            updates, new_opt_state = optimizer.update(
-                dict(zip(params, grads)), state.opt_state, params
-            )
-            metrics = dict(loss=loss, grad_norm=grad_norm)
-            updates = list(updates.values())
-            if skip_nonfinite:
-                ok = torch.isfinite(grad_norm) & torch.isfinite(loss)
-                updates = [torch.where(ok, u, 0.0) for u in updates]
-                new_opt_state = _where_tree(ok, new_opt_state, state.opt_state)
-                metrics["nonfinite"] = (~ok).to(torch.int32)
-            torch._foreach_add_(list(params.values()), updates)
+            new_opt_state, metrics = _apply_update(
+                optimizer, params, grads, state.opt_state, loss, skip_nonfinite)
         metrics.update(aux)
         new_state = dataclasses.replace(state, step=state.step + 1, opt_state=new_opt_state)
         return new_state, metrics
 
     return train_step
+
+
+def _local_tree(tree):
+    """Every ``DTensor`` leaf of nested dicts -> its local tensor."""
+    from pixparse_tpu_torch.parallel.mesh import local
+
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    return local(tree)
+
+
+def _store_tree(old, new):
+    """``new`` (local tensors) written into the ``DTensor`` leaves of ``old``
+    in place; other leaves replaced. Returns the tree to keep."""
+    from pixparse_tpu_torch.parallel.mesh import is_sharded
+
+    if isinstance(old, dict):
+        return {k: _store_tree(v, new[k]) for k, v in old.items()}
+    if is_sharded(old):
+        old.to_local().copy_(new)
+        return old
+    return new
+
+
+def _make_sharded_train_step(loss_fn, optimizer, reseed, skip_nonfinite, grad_accum_steps,
+                             mesh, module):
+    """The train step over a mesh (FSDP2 parameters); see the module
+    docstring."""
+    import torch.distributed as dist
+
+    from pixparse_tpu_torch.parallel.mesh import ShardedParams, mean_over_ranks
+
+    if module is None or not hasattr(module, "set_requires_gradient_sync"):
+        raise ValueError("a train step over a mesh needs the FSDP2-wrapped model (module=)")
+    rank = dist.get_rank()
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        loss, aux = None, {}
+        for idx in range(grad_accum_steps):
+            micro = _index_tree(batch, idx) if grad_accum_steps > 1 else batch
+            module.set_requires_gradient_sync(idx == grad_accum_steps - 1)
+            if reseed is not None:
+                reseed(dropout_seed(state.seed, state.step, idx, rank))
+            l, aux = loss_fn(micro)
+            l.backward()
+            loss = l.detach() if loss is None else loss + l.detach()
+        missing = [n for n, p in params.items() if p.requires_grad and p.grad is None]
+        if missing:
+            raise RuntimeError(
+                f"{len(missing)} parameters that need a gradient got none in the sharded "
+                f"train step (first: {missing[:3]}); a mesh step never fills them with zeros"
+            )
+        with torch.no_grad():
+            grads = [p.grad.to_local() for p in params.values()]
+            if grad_accum_steps > 1:
+                loss = loss / grad_accum_steps
+                torch._foreach_div_(grads, float(grad_accum_steps))
+            loss = mean_over_ranks(mesh, loss)
+            aux = {k: mean_over_ranks(mesh, v) if isinstance(v, torch.Tensor) else v
+                   for k, v in aux.items()}
+            new_opt, metrics = _apply_update(
+                optimizer, _local_tree(params), grads, _local_tree(state.opt_state), loss,
+                skip_nonfinite, ShardedParams(params, mesh))
+            opt_state = _store_tree(state.opt_state, new_opt)
+            for p in params.values():
+                p.grad = None
+        metrics.update(aux)
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_eval_step(apply_fn: Callable, mesh=None) -> Callable:
+    """``eval_step(batch) -> out``: ``apply_fn`` on the rank's local batch
+    without gradients (eval keeps whole parameters on every rank, so there
+    is nothing to gather; ``mesh`` is kept for the JAX package's signature)."""
+
+    def eval_step(batch):
+        with torch.no_grad():
+            return apply_fn(batch)
+
+    return eval_step

@@ -9,7 +9,7 @@ keys (see :mod:`pixparse_tpu_torch.models.interop`).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -166,6 +166,16 @@ class Cruller(nn.Module):
             text_input, self.encode(image_input), attention_mask=attention_mask,
             return_hidden=True, encoder_pad_mask=self.encoder_pad_mask(image_input),
         )
+
+    # methods that run FSDP2's forward hooks of the root, as forward does
+    # (parallel/mesh.py::shard_model)
+    fsdp_forward_methods = ("forward_hidden_head",)
+
+    def forward_hidden_head(self, image_input, text_input) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward_hidden` and the tied table, read in one call: under
+        FSDP2 the table is a whole tensor only inside the model's forward
+        (its root keeps it whole until the backward)."""
+        return self.forward_hidden(image_input, text_input), self.tied_embedding
 
     @property
     def tied_embedding(self) -> torch.Tensor:

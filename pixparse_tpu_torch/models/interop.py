@@ -280,8 +280,12 @@ def cruller_state_dict(model) -> Dict[str, torch.Tensor]:
     """The model's weights under the reference ``.pt`` names, as fp32 CPU
     tensors: what the train app writes as ``checkpoint-{i}.pt`` and what the
     JAX package's ``load_torch_checkpoint`` + ``cruller_params_from_torch``
-    read."""
-    return {k: v.detach().to("cpu", torch.float32).clone() for k, v in model.state_dict().items()}
+    read. An FSDP2-sharded model's tensors are gathered whole first (a
+    collective: every rank of the mesh must call this)."""
+    from pixparse_tpu_torch.parallel.mesh import is_sharded
+
+    return {k: (v.full_tensor() if is_sharded(v) else v).detach().to("cpu", torch.float32).clone()
+            for k, v in model.state_dict().items()}
 
 
 def save_torch_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:

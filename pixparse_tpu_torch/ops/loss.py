@@ -77,10 +77,12 @@ def chunked_cross_entropy_from_hidden(
     targets: torch.Tensor,  # (B, L) int ids with IGNORE_ID masked out
     ignore_id: int = IGNORE_ID,
     chunk_size: int = 128,
+    denominator: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Memory-frugal tied-head CE: the logits of one sequence chunk at a time,
     recomputed in the backward pass (``torch.utils.checkpoint``), so the
-    ``(B, L, V)`` logits never exist at once."""
+    ``(B, L, V)`` logits never exist at once. ``denominator`` as
+    :func:`fused_cross_entropy_from_hidden`'s."""
     L = hidden.shape[1]
     nll_sum = hidden.new_zeros((), dtype=torch.float32)
     for lo in range(0, L, chunk_size):
@@ -93,7 +95,9 @@ def chunked_cross_entropy_from_hidden(
         else:
             nll_sum = nll_sum + _chunk_nll(h, embedding, t, ignore_id)
     n_valid = (targets != ignore_id).sum()
-    return nll_sum / n_valid.clamp_min(1), n_valid
+    if denominator is None:
+        denominator = n_valid.clamp_min(1)
+    return nll_sum / denominator, n_valid
 
 
 # ---------------------------------------------------------------------------
@@ -304,17 +308,22 @@ def fused_cross_entropy_from_hidden(
     embedding: torch.Tensor,  # (V, D) tied LM-head table, in hidden's dtype
     targets: torch.Tensor,  # (B, L) int ids with IGNORE_ID masked out
     ignore_id: int = IGNORE_ID,
+    denominator: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused tied-head CE. Returns ``(loss, num_valid)`` like
     :func:`cross_entropy_loss`; on a CUDA device the logits never reach
-    device memory."""
+    device memory. The loss is the nll sum over ``denominator`` when one is
+    given (a rank's share of a mean over the ranks' tokens), else over the
+    valid count."""
     D = hidden.shape[-1]
     t = targets.reshape(-1)
     valid = t != ignore_id
     safe = torch.where(valid, t, -1)  # ignored rows match no vocab column
     nll = _FusedCETokens.apply(hidden.reshape(-1, D), embedding, safe)
     n_valid = valid.sum()
-    return nll.sum() / n_valid.clamp_min(1), n_valid
+    if denominator is None:
+        denominator = n_valid.clamp_min(1)
+    return nll.sum() / denominator, n_valid
 
 
 def cross_entropy_from_hidden(
@@ -322,8 +331,9 @@ def cross_entropy_from_hidden(
     embedding: torch.Tensor,
     targets: torch.Tensor,
     ignore_id: int = IGNORE_ID,
+    denominator: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tied-head CE from hidden states, as the train tasks call it: the fused
     kernels on a CUDA tensor (or an error), their plain versions on a CPU
     tensor."""
-    return fused_cross_entropy_from_hidden(hidden, embedding, targets, ignore_id)
+    return fused_cross_entropy_from_hidden(hidden, embedding, targets, ignore_id, denominator)

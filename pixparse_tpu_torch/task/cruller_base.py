@@ -23,8 +23,12 @@ resized uint8 canvas, which goes to the device as it is (a quarter of the
 float32 bytes) and is normalized there in fp32
 (``ops/preprocess.py::normalize_images``, the host path's bits).
 
-Concrete tasks supply tokens, collate and metrics. There is one device and no
-mesh, so batches go to the device as they are.
+Concrete tasks supply tokens, collate and metrics. Each process holds its
+own slice of the global batch (the loaders split by rank) and moves it to
+its device (``device_env.shard_batch``). Under a mesh the train state is
+FSDP2-sharded over ``(data, fsdp)`` and the CE is a mean over the global
+batch's valid tokens; eval keeps whole parameters on every rank, as the
+JAX package replicates them, and each rank decodes its own pages.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from pixparse_tpu_torch.models.cruller import Cruller, create_cruller, resolve_c
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
 from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
-from pixparse_tpu_torch.ops.loss import cross_entropy_from_hidden
+from pixparse_tpu_torch.ops.loss import IGNORE_ID, cross_entropy_from_hidden
 from pixparse_tpu_torch.ops.preprocess import normalize_images
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg, create_tokenizer
@@ -247,12 +251,17 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         # fp32 master weights on the device; the forward casts at use
         self.model = model.to(device=self.device, dtype=torch.float32).train()
         self.model.decoder.dropout_generator = torch.Generator(device=self.device)
-        self.state = create_train_state(self.model, self.optimizer, seed=seed)
+        mesh = self.device_env.mesh
+        self.state = create_train_state(self.model, self.optimizer, seed=seed, mesh=mesh)
 
         def loss_fn(batch):
-            hidden = self.model.forward_hidden(self.device_images(batch["image"]), batch["text"])
+            # the tied table is read inside the model's call: under FSDP2 it
+            # is a whole tensor only there
+            hidden, table = self.model.forward_hidden_head(
+                self.device_images(batch["image"]), batch["text"])
             loss, _ = cross_entropy_from_hidden(
-                hidden, self.model.tied_embedding.to(hidden.dtype), batch["target"]
+                hidden, table.to(hidden.dtype), batch["target"],
+                denominator=self.ce_denominator(batch["target"]),
             )
             return loss, {}
 
@@ -261,6 +270,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             loss_fn, self.optimizer,
             reseed=self.model.decoder.dropout_generator.manual_seed,
             grad_accum_steps=self.grad_accum_steps,
+            mesh=mesh, module=self.model if mesh is not None else None,
         )
         self.step_idx = 0
         self.interval_batch_idx = 0
@@ -313,20 +323,26 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             "target": target.astype(np.int32),
         }
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """Numpy batch -> tensors on the device: token arrays as int64, the
-        image (an array, uint8 under ``device_preprocess``, or pix2struct's
-        dict of arrays) as it is."""
-        def put(v):
-            return torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
+    def ce_denominator(self, target: torch.Tensor) -> Optional[torch.Tensor]:
+        """What the CE divides its nll sum by. One process: ``None`` (its own
+        valid count). Under a mesh: the global valid count over the ranks'
+        mean, so the mean of the ranks' losses (and of their gradients, as
+        FSDP2 takes it) is the global token mean of the JAX package's step."""
+        mesh = self.device_env.mesh
+        if mesh is None:
+            return None
+        from pixparse_tpu_torch.parallel.mesh import data_parallel_size, sum_over_ranks
 
-        out = {}
-        for k, v in batch.items():
-            if k == "image":
-                out[k] = {n: put(a) for n, a in v.items()} if isinstance(v, dict) else put(v)
-            else:
-                out[k] = put(v).long()
-        return out
+        n_valid = sum_over_ranks(mesh, (target != IGNORE_ID).sum().float())
+        return n_valid.clamp_min(1) / data_parallel_size(mesh)
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Numpy batch -> tensors on the device (``device_env.shard_batch``:
+        this rank's slice): token arrays as int64, the image (an array, uint8
+        under ``device_preprocess``, or pix2struct's dict of arrays) as it
+        is."""
+        out = self.device_env.shard_batch(batch)
+        return {k: v if k == "image" else v.long() for k, v in out.items()}
 
     def train_step(self, sample) -> Dict[str, Any]:
         if self._stop_requested:
@@ -339,7 +355,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                 self.step_idx += 1
                 self.batch_idx += 1
                 self.interval_batch_idx += 1
-                self._samples_since_log += batch_size(batch["image"])
+                self._samples_since_log += batch_size(batch["image"]) * self.device_env.world_size
                 return {"loss": self._last_loss_dev}
             stacked = stack_batches(self._accum_buffer)
             self._accum_buffer = []
@@ -355,7 +371,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         if (self.eval_frequency and self.monitor and "text" in batch
                 and self.step_idx % self.eval_frequency == 0):
             self._log_train_reconstruction(batch)
-        self._samples_since_log += batch_size(batch["image"])
+        self._samples_since_log += batch_size(batch["image"]) * self.device_env.world_size
 
         if self.monitor and self.interval_batch_idx % self.log_frequency == 0:
             loss = float(metrics["loss"])  # the one host read, at log time
@@ -369,7 +385,9 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                     self._flops_per_sample_step = cruller_train_flops(
                         self.vit_cfg, self.bart_cfg, 1, batch["text"].shape[1]
                     )
-                util = mfu(self._flops_per_sample_step * rate, 1.0, device=self.device)
+                # rate counts every rank's samples: flops/s across the devices
+                util = mfu(self._flops_per_sample_step * rate, 1.0,
+                           n_devices=self.device_env.world_size, device=self.device)
                 if util is not None:
                     extra["mfu"] = round(util, 4)
             self._time_last = now
@@ -399,6 +417,9 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             restore_ignored,
         )
 
+        model = self._reconstruction_model()
+        if model is None:
+            return
         n = min(4, batch["image"].shape[0])  # small slice: monitoring only
         images = batch["image"][:n]
         if images.dtype == np.uint8:  # device_preprocess batches
@@ -411,18 +432,18 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             self.tokenizer.encode(self.task_start_token, add_special_tokens=False), np.int64
         )
         prompt = np.tile(prompt[None, :], (n, 1))
-        self.model.eval()
+        model.eval()
         try:
             with torch.no_grad():
-                enc = self.model.encode(torch.from_numpy(images).to(self.device))
+                enc = model.encode(torch.from_numpy(images).to(self.device))
                 result = generate(
-                    self.model, enc, torch.from_numpy(prompt).to(self.device),
+                    model, enc, torch.from_numpy(prompt).to(self.device),
                     max_length=max(max_len, prompt.shape[1] + 2),
                     eos_token_id=self.tokenizer.eos_token_id,
                     pad_token_id=self.tokenizer.pad_token_id,
                 )
         finally:
-            self.model.train()
+            model.train()
         tokens = result.tokens.cpu().numpy().tolist()
         try:
             preds = self.tokenizer.batch_decode(tokens)
@@ -443,9 +464,26 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         except Exception as e:  # text metrics and logging only
             _logger.warning("train-time OCR reconstruction failed: %s", e)
 
+    def _reconstruction_model(self) -> Optional[Cruller]:
+        """The model the reconstruction decodes with: the training model in
+        one process. Under a mesh every rank gathers the whole weights (a
+        collective) and rank 0 alone decodes with a plain copy (None on the
+        others): a decode's length depends on its pages, so decoding through
+        the FSDP2 units would leave the ranks' collectives out of step."""
+        if self.device_env.mesh is None:
+            return self.model
+        weights = cruller_state_dict(self.model)
+        if not self.device_env.is_primary():
+            return None
+        model = create_cruller(self.vit_cfg, self.bart_cfg, attn_impl=self.attn_impl,
+                               compute_dtype=self.compute_dtype)
+        load_cruller_state_dict(model, weights)
+        return model.to(self.device)
+
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        """The model weights under the reference ``.pt`` names."""
+        """The model weights under the reference ``.pt`` names (under a mesh
+        gathered whole: every rank must call it)."""
         return cruller_state_dict(self.model)
 
 
@@ -496,7 +534,9 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
     def setup(self):
         """Build the model, load ``resume_state_dict`` (or seeded random
         weights) and place it on the task's device in the compute dtype
-        (eval holds no fp32 master weights)."""
+        (eval holds no fp32 master weights). Under a mesh every rank holds
+        the whole model, as the JAX package replicates eval parameters, and
+        evaluates its own share of the data."""
         attn_impl = self.cfg.attn_impl
         if attn_impl == "auto":
             attn_impl = "flash" if self.device.type == "cuda" else "xla"

@@ -120,9 +120,12 @@ class TaskCrullerFinetuneXent(BaseCrullerTrainTask):
             self.resume_state_dict = None
             _logger.info("imported encoder weights from a Cruller checkpoint")
         self.model = model.to(device=self.device, dtype=torch.float32).train()
-        self.state = create_train_state(self.model, self.optimizer, seed=seed)
+        mesh = self.device_env.mesh
+        self.state = create_train_state(self.model, self.optimizer, seed=seed, mesh=mesh)
 
         def loss_fn(batch):
+            # a mean over the rank's rows: under a mesh the ranks hold equal
+            # batches, so the mean over the ranks is the global mean
             logits = self.model(self.device_images(batch["image"]))
             labels = batch["label"]
             true_logit = logits.gather(-1, labels[:, None])[:, 0]
@@ -131,7 +134,9 @@ class TaskCrullerFinetuneXent(BaseCrullerTrainTask):
             return loss, {"accuracy": accuracy.detach()}
 
         self.loss_fn = loss_fn
-        self.train_step_fn = make_train_step(loss_fn, self.optimizer, grad_accum_steps=accum)
+        self.train_step_fn = make_train_step(
+            loss_fn, self.optimizer, grad_accum_steps=accum,
+            mesh=mesh, module=self.model if mesh is not None else None)
         self.step_idx = 0
         self.interval_batch_idx = 0
         self._flops_per_sample_step = None

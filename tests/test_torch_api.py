@@ -20,10 +20,13 @@ JAX_PKG = ROOT / "pixparse_tpu"
 # every exported name the port does not have, each with its reason: the one
 # place they are listed ("parallel.*": the whole package)
 NOT_PORTED = {
-    "framework.MeshCfg": "the device mesh config: multi-GPU is ROADMAP Queue 1 item 5",
-    "framework.MeshEnv": "the device mesh: multi-GPU is ROADMAP Queue 1 item 5",
     "framework.jax_key": "a JAX PRNG key; the port seeds torch.Generator objects",
-    "parallel.*": "jax.sharding meshes and rules: multi-GPU is ROADMAP Queue 1 item 5",
+    "parallel.DEFAULT_LOGICAL_RULES": "XLA layout rules: FSDP2 shards every parameter on dim 0 "
+    "(the numbers do not depend on the dim); the model axis (ROADMAP Queue 1 item 7) owns "
+    "the rules of its tensor-parallel plan",
+    "parallel.logical_sharding": "XLA layout rules: FSDP2 shards every parameter on dim 0 "
+    "(the numbers do not depend on the dim); the model axis (ROADMAP Queue 1 item 7) owns "
+    "the rules of its tensor-parallel plan",
 }
 
 
