@@ -314,6 +314,28 @@ stderr):
    both, and with ``--profile`` each step's device time, idle share and
    the device time of kernels named ``nccl`` (``nccl_ms``; CPU-time tables
    too).
+20. ``tensor_parallel``: the mesh's ``model`` axis
+   (``parallel/tensor_parallel.py``). (a) Every kernel of the
+   model-parallel train step at the shard shapes of model 2 and 4, each
+   rank's call on its part of the same full tensors: flash forward and
+   backward at cruller_base's three sites (B=16, 6 / 3 of 12 heads, q/k/v
+   from the rank's own fused projection), the fused CE forward and
+   backward on each vocabulary shard (50265 rows -> 25133 / 12567, the
+   last shorter) with targets shifted to it, the window kernels at
+   donut_base's four stages (B=2, shifted, 2 / 1 to 16 / 8 heads); each
+   rank against its plain version (the usual tolerances; a target outside
+   a CE shard must give logit 0), the results merged (heads concatenated,
+   lse by max and sum, dh summed, dE concatenated, dbias by heads) against
+   the unsharded kernel's; rank 0's shard timed beside its plain version,
+   the library call and its bound. (b) A child started by
+   ``torch.distributed.run --nproc_per_node 2`` whose two ranks share the
+   card over gloo (NCCL refuses two ranks on one device): rank 0 trains
+   ``cruller_pretrain`` at cruller_base (B=16, bf16, dropout 0: a model
+   rank draws FFN masks at its shard's shape) alone for 3 steps, then both
+   at mesh (1,1,2). Gates: step 1's loss within 1e-3 relative
+   and its gradient norm within 1e-2 of the process alone's, the same
+   losses on both ranks, each rank's flash and CE launches a step equal to
+   the process alone's and non-zero.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -328,6 +350,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -341,7 +364,7 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
           "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
-          "serve_stream", "loader", "distributed")
+          "serve_stream", "loader", "distributed", "tensor_parallel")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -2914,12 +2937,11 @@ def step1_kernel_vs_plain(torch, task, batch, kernel_impl):
 
     model = task.model
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    fused = base.cross_entropy_from_hidden
+    fused, plain_ce = base.cross_entropy_from_hidden, loss_ops.chunked_cross_entropy_from_hidden
     losses, grads = {}, {}
     model.eval()
     try:
-        for path, impl, ce in (("kernel", kernel_impl, fused),
-                               ("plain", "xla", loss_ops.chunked_cross_entropy_from_hidden)):
+        for path, impl, ce in (("kernel", kernel_impl, fused), ("plain", "xla", plain_ce)):
             model.attn_impl, base.cross_entropy_from_hidden = impl, ce
             loss, _ = task.loss_fn(batch)
             got = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
@@ -4671,6 +4693,7 @@ DIST_EVAL = (16, 2, 48)  # evaluate: batch, batches, reference length
 DIST_LOSS_RTOL = 1e-3  # step 1: the mesh step's loss against the process alone
 DIST_NORM_RTOL = 1e-2  # step 1: its gradient norm
 DIST_CHILD_TIMEOUT_S = 300  # the child's limit; the phase takes well under 90 s
+CPU_CHILD_THREADS = 2  # a CPU child's intra-op threads (the CPU tests' gloo ranks take as many)
 DIST_STEP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 DIST_EVAL_KERNELS = ("flash_attention_fwd", "decode_attention")
 
@@ -4691,6 +4714,8 @@ def phase_distributed(torch, model_name="cruller_base", B=DIST_B, steps=DIST_STE
             "out_dir": os.path.abspath(OUT_DIR)}
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if device == "cpu":  # beside other busy processes: no more threads than it needs
+        env["OMP_NUM_THREADS"] = str(CPU_CHILD_THREADS)
     if torch.cuda.is_available():
         torch.cuda.empty_cache()  # the child shares the card
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
@@ -4744,6 +4769,8 @@ def distributed_child(spec) -> int:
     if spec["device"] == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(CPU_CHILD_THREADS)
     env = MeshEnv.initialize(data=1, fsdp=1, model=1, device=spec["device"])
     try:
         with nan_default_init(torch):
@@ -4886,6 +4913,519 @@ def distributed_runs(torch, env, spec):
     return rec
 
 
+# --------------------------------------------------------------------------
+# tensor_parallel: the model axis' kernel shapes, then two ranks on one card
+# --------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)  # the model axis' sizes whose shard shapes (a) checks
+TP_B = 16  # (b): the train batch
+TP_STEPS = 3  # (b): train steps of the model-parallel run
+TP_CHILD_TIMEOUT_S = 600  # (b)'s torchrun child; it takes ~2 min on the card
+TP_FLASH = (  # cruller_base's train step: name, B, Lq, Lk, H, D, causal
+    ("encoder_b16_l1009", 16, 1009, 1009, 12, 64, False),
+    ("decoder_self_causal_b16_l1023", 16, 1023, 1023, 12, 64, True),
+    ("decoder_cross_b16_lq1023_lk1009", 16, 1023, 1009, 12, 64, False),
+)
+TP_CE = ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, 0.3)  # name, T, V, D, ignored
+TP_WINDOW_STAGES = ((128, 4), (256, 8), (512, 16), (1024, 32))  # donut_base: C, H by stage
+# the combined (merged) results against the unsharded kernel's: the shards
+# run the same kernels on the same rows, so only the CE's merge and dh's
+# sum over the shards reorder sums
+TP_COMBINED_TOL = TOL["bfloat16"]
+
+
+def tp_timing(torch, timer, rec, kernel, plain, library, flops, nbytes, peaks):
+    """Times one shard's kernel call beside its plain version and the
+    library call; its bound from this shard's work."""
+    peak_bf16, _, bw = peaks
+    t_ops, t_mem = flops / peak_bf16, nbytes / bw
+    rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops >= t_mem else "bytes")
+    rec["ms"] = timer.median_ms(kernel, n=10)
+    rec["plain_ms"] = timer.median_ms(plain, n=3, warmup=1)
+    rec["library_ms"] = timer.median_ms(library, n=10) if library is not None else None
+    rec.update(speed_shares(rec) if library is not None else {})
+    return rec
+
+
+def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
+    """Flash forward and backward on each rank's heads of the same full
+    q/k/v (each rank's own fused projection: its heads of q, k and v,
+    contiguous), against the plain version per rank and, heads
+    concatenated, against the unsharded kernel. Returns (forward record,
+    backward record); the timings are rank 0's shard."""
+    name, B, Lq, Lk, H, D, causal = case
+    dt = torch.bfloat16
+    Hl = H // size
+    if Lq == Lk:
+        qkv = torch.randn(B, Lq, 3, H, D, generator=gen).to("cuda", dt)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = torch.randn(B, Lq, H, D, generator=gen).to("cuda", dt)
+        kv = torch.randn(B, Lk, 2, H, D, generator=gen).to("cuda", dt)
+        k, v = kv.unbind(2)
+    do = torch.randn(B, Lq, H, D, generator=gen).to("cuda", dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    atol, rtol = TOL["bfloat16"]
+    brtol = BWD_ROW_RTOL["bfloat16"]
+    fwd_errs, bwd_errs, shards, ok_f, ok_b = [], [], [], True, True
+    for r in range(size):
+        hs = slice(r * Hl, (r + 1) * Hl)
+        if Lq == Lk:
+            qr, kr, vr = qkv[:, :, :, hs].contiguous().unbind(2)
+        else:
+            qr = q[:, :, hs].contiguous()
+            kr, vr = kv[:, :, :, hs].contiguous().unbind(2)
+        dor = do[:, :, hs].contiguous()
+        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_plain(qr, kr, vr, causal=causal)
+        e_o, k_o = close(o_r, o_ref, atol, rtol)
+        e_l, k_l = close(lse_r, lse_ref, *LSE_TOL)
+        fwd_errs.append(max(e_o, e_l))
+        ok_f = ok_f and k_o and k_l
+        delta_r = (dor.float() * o_r.float()).sum(-1).permute(0, 2, 1).contiguous()
+        args = (qr, kr, vr, dor, lse_r, delta_r)
+        g_r = fa.flash_attention_bwd(*args, causal=causal)
+        g_ref = fa.flash_attention_bwd_plain(*args, causal=causal)
+        errs = [rows_close(a, b, brtol, BWD_ROW_FLOOR) for a, b in zip(g_r, g_ref)]
+        bwd_errs.append(max(e[0] for e in errs))
+        ok_b = ok_b and all(e[2] for e in errs)
+        shards.append((o_r, lse_r, g_r, args))
+        del o_ref, lse_ref, g_ref
+    comb_o, ok_co = close(torch.cat([s[0] for s in shards], 2), o, *TP_COMBINED_TOL)
+    comb_l, ok_cl = close(torch.cat([s[1] for s in shards], 1), lse, *LSE_TOL)
+    comb_g = [rows_close(torch.cat([s[2][i] for s in shards], 2), grads[i], brtol,
+                         BWD_ROW_FLOOR) for i in range(3)]
+    common = dict(case=name, model=size, full_shape=[B, Lq, Lk, H, D],
+                  shard_shape=[B, Lq, Lk, Hl, D], causal=causal, dtype=str(dt))
+    fwd = dict(common, max_abs_err=max(fwd_errs), rank_max_abs_err=fwd_errs,
+               combined_max_abs_err=max(comb_o, comb_l), tol=[atol, rtol, "lse", *LSE_TOL],
+               ok=ok_f and ok_co and ok_cl)
+    bwd = dict(common, max_abs_err=max(bwd_errs), rank_max_abs_err=bwd_errs,
+               combined_max_abs_err=max(g[0] for g in comb_g),
+               combined_worst_row_rel_err=max(g[1] for g in comb_g),
+               tol=["row L2", brtol, "floor", BWD_ROW_FLOOR],
+               ok=ok_b and all(g[2] for g in comb_g))
+    qr, kr, vr = shards[0][3][:3]
+    pairs, kl = visible_pairs(B, Lq, Lk, causal, None)
+    elt = 2
+    qt, kt, vt = qr.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2)
+    if causal and Lq != Lk:
+        am = torch.arange(Lk, device="cuda")[None, :] <= (
+            torch.arange(Lq, device="cuda")[:, None] + (Lk - Lq))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    tp_timing(torch, timer, fwd, lambda: fa.flash_attention_fwd(qr, kr, vr, causal=causal),
+              lambda: fa.flash_attention_plain(qr, kr, vr, causal=causal), lib,
+              4.0 * Hl * D * pairs, elt * Hl * D * (2 * B * Lq + 2 * sum(kl)) + 4 * B * Hl * Lq,
+              peaks)
+    args = shards[0][3]
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in args[:3]]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal) if not (causal and Lq != Lk) \
+        else F.scaled_dot_product_attention(*leaves, attn_mask=am)
+    dot = args[3].transpose(1, 2)
+    tp_timing(torch, timer, bwd, lambda: fa.flash_attention_bwd(*args, causal=causal),
+              lambda: fa.flash_attention_bwd_plain(*args, causal=causal),
+              lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True),
+              10.0 * Hl * D * pairs,
+              elt * Hl * D * (3 * B * Lq + 2 * sum(kl) + 2 * B * Lk) + 8 * B * Hl * Lq, peaks)
+    return fwd, bwd
+
+
+def tp_ce(torch, F, loss, timer, peaks, gen, size):
+    """The fused CE on each rank's vocabulary rows (``ceil(V / size)``, the
+    last fewer) with targets shifted to them, against the plain version per
+    rank (a target outside the shard: logit 0), and merged (lse by max and
+    sum, tgt summed, dh summed, dE concatenated) against the unsharded
+    kernel. Returns (forward record, backward record); the timings are rank
+    0's shard."""
+    from pixparse_tpu_torch.parallel.tensor_parallel import TPLayout
+
+    name, T, V, D, ignored = TP_CE
+    dt = torch.bfloat16
+    h = (torch.randn(T, D, generator=gen) * 0.5).to("cuda", dt)
+    e = (torch.randn(V, D, generator=gen) * 0.2).to("cuda", dt)
+    target = torch.randint(0, V, (T,), generator=gen)
+    target[torch.rand(T, generator=gen) < ignored] = -1
+    target = target.cuda()
+    n_valid = int((target >= 0).sum())
+    coef = torch.where(target >= 0, 1.0 / max(n_valid, 1), 0.0).float()
+    lse, tgt = loss.fused_ce_fwd(h, e, target)
+    dh, de = loss.fused_ce_bwd(h, e, target, lse, coef)
+    layout = TPLayout(0, V)
+    shards, fwd_errs, ok_f, outside_zero = [], [], True, True
+    for r in range(size):
+        off, e_r = layout.offset(r, size), layout.take(e, r, size)
+        t_r = loss.shard_targets(target, off)
+        lse_r, tgt_r = loss.fused_ce_fwd(h, e_r, t_r)
+        lse_ref, tgt_ref = loss.fused_ce_fwd_plain(h, e_r, t_r)
+        e1, k1 = close(lse_r, lse_ref, *LSE_TOL)
+        e2, k2 = close(tgt_r, tgt_ref, *LSE_TOL)
+        outside = (t_r < 0) | (t_r >= e_r.shape[0])
+        outside_zero = outside_zero and bool((tgt_r[outside] == 0).all())
+        fwd_errs.append(max(e1, e2))
+        ok_f = ok_f and k1 and k2
+        shards.append((off, e_r, t_r, lse_r, tgt_r))
+        del lse_ref, tgt_ref
+    m_lse, m_tgt = loss.merge_vocab_shards(torch.stack([s[3] for s in shards]),
+                                           torch.stack([s[4] for s in shards]))
+    c1, ok_c1 = close(m_lse, lse, *LSE_TOL)
+    c2, ok_c2 = close(m_tgt, tgt, *LSE_TOL)
+    bwd_errs, ok_b, dhs, des = [], True, [], []
+    for off, e_r, t_r, _, _ in shards:
+        dh_r, de_r = loss.fused_ce_bwd(h, e_r, t_r, m_lse, coef)
+        dh_ref, de_ref = loss.fused_ce_bwd_plain(h, e_r, t_r, m_lse, coef)
+        a, b = rows_close(dh_r, dh_ref, CE_ROW_RTOL), rows_close(de_r, de_ref, CE_ROW_RTOL)
+        bwd_errs.append(max(a[0], b[0]))
+        ok_b = ok_b and a[2] and b[2]
+        dhs.append(dh_r.float())
+        des.append(de_r)
+        del dh_ref, de_ref
+    cdh = rows_close(torch.stack(dhs).sum(0), dh, CE_ROW_RTOL)
+    cde = rows_close(torch.cat(des), de, CE_ROW_RTOL)
+    rows = [s[1].shape[0] for s in shards]
+    common = dict(case=name, model=size, full_shape=[T, V, D], shard_rows=rows,
+                  offsets=[s[0] for s in shards], dtype=str(dt), n_valid=n_valid)
+    fwd = dict(common, max_abs_err=max(fwd_errs), rank_max_abs_err=fwd_errs,
+               combined_max_abs_err=max(c1, c2), outside_target_logit_zero=outside_zero,
+               tol=list(LSE_TOL), ok=ok_f and ok_c1 and ok_c2 and outside_zero)
+    bwd = dict(common, max_abs_err=max(bwd_errs), rank_max_abs_err=bwd_errs,
+               combined_max_abs_err=max(cdh[0], cde[0]),
+               combined_worst_row_rel_err=max(cdh[1], cde[1]), tol=["row L2", CE_ROW_RTOL],
+               ok=ok_b and cdh[2] and cde[2])
+    off, e_r, t_r, _, _ = shards[0]
+    Vr, elt = e_r.shape[0], 2
+    lib = lambda: torch.logsumexp(F.linear(h, e_r).float(), -1)  # the shard's lse
+    tp_timing(torch, timer, fwd, lambda: loss.fused_ce_fwd(h, e_r, t_r),
+              lambda: loss.fused_ce_fwd_plain(h, e_r, t_r), lib, 2.0 * T * Vr * D,
+              elt * D * (T + Vr) + 12 * T, peaks)
+    hl, el = h.detach().requires_grad_(), e_r.detach().requires_grad_()
+    lib_loss = (torch.logsumexp(F.linear(hl, el).float(), -1) * coef).sum()
+    tp_timing(torch, timer, bwd, lambda: loss.fused_ce_bwd(h, e_r, t_r, m_lse, coef),
+              lambda: loss.fused_ce_bwd_plain(h, e_r, t_r, m_lse, coef),
+              lambda: torch.autograd.grad(lib_loss, (hl, el), retain_graph=True),
+              6.0 * T * Vr * D, 2 * elt * D * (T + Vr) + 12 * T, peaks)
+    return fwd, bwd
+
+
+def tp_window(torch, F, wa, timer, peaks, gen, stage, size):
+    """Window attention forward and backward at donut_base's stage
+    ``stage`` (B=2, 2560x1920, shifted) on each rank's heads (its own
+    fused q/k/v columns and bias rows), against the plain version per rank
+    and, concatenated (dbias by heads), against the unsharded kernel.
+    Returns (forward record, backward record); the timings are rank 0's
+    shard."""
+    from pixparse_tpu_torch.models.swin import _shift_attn_mask
+
+    C, H = TP_WINDOW_STAGES[stage]
+    n_img, window = 2, 10
+    mh, mw = 640 >> stage, 480 >> stage
+    N, nW = window * window, (mh // window) * (mw // window)
+    nB, Cl, Hl = n_img * nW, C // size, H // size
+    dt = torch.bfloat16
+    qkv = torch.randn(nB, N, 3 * C, generator=gen).to("cuda", dt)
+    q, k, v = qkv.split(C, dim=-1)
+    do = torch.randn(nB, N, C, generator=gen).to("cuda", dt)
+    bias = (torch.randn(H, N, N, generator=gen) * 0.5).cuda()
+    mask = torch.from_numpy(_shift_attn_mask(mh, mw, window, window // 2)).cuda()
+    o = wa.window_attention(q, k, v, bias, mask)
+    grads = wa.window_attention_bwd(q, k, v, do, bias, mask)
+    atol, rtol = TOL["bfloat16"]
+    brtol = BWD_ROW_RTOL["bfloat16"]
+    heads = lambda t, h: t.reshape(nB, N, h, -1)
+    shards, fwd_errs, bwd_errs, ok_f, ok_b = [], [], [], True, True
+    for r in range(size):
+        cs, hs = slice(r * Cl, (r + 1) * Cl), slice(r * Hl, (r + 1) * Hl)
+        qkv_r = torch.cat([q[..., cs], k[..., cs], v[..., cs]], -1).contiguous()
+        qr, kr, vr = qkv_r.split(Cl, dim=-1)
+        args = (qr, kr, vr, do[..., cs].contiguous(), bias[hs].contiguous(), mask)
+        o_r = wa.window_attention(qr, kr, vr, args[4], mask)
+        e_o, k_o = close(o_r, wa.window_attention_plain(qr, kr, vr, args[4], mask), atol, rtol)
+        fwd_errs.append(e_o)
+        ok_f = ok_f and k_o
+        g_r = wa.window_attention_bwd(*args)
+        g_ref = wa.window_attention_bwd_plain(*args)
+        errs = [rows_close(heads(a, Hl) if i < 3 else a, heads(b, Hl) if i < 3 else b, brtol,
+                           BWD_ROW_FLOOR) for i, (a, b) in enumerate(zip(g_r, g_ref))]
+        bwd_errs.append(max(e[0] for e in errs))
+        ok_b = ok_b and all(e[2] for e in errs)
+        shards.append((o_r, g_r, args))
+        del g_ref
+    comb_o, ok_co = close(torch.cat([s[0] for s in shards], -1), o, *TP_COMBINED_TOL)
+    comb_g = [rows_close(heads(torch.cat([s[1][i] for s in shards], -1), H), heads(grads[i], H),
+                         brtol, BWD_ROW_FLOOR) for i in range(3)]
+    comb_g.append(rows_close(torch.cat([s[1][3] for s in shards], 0), grads[3], brtol,
+                             BWD_ROW_FLOOR))
+    name = f"stage{stage}_b2_n100_c{C}_h{H}_shifted"
+    common = dict(case=name, model=size, full_shape=[nB, N, C, H], shard_shape=[nB, N, Cl, Hl],
+                  mask_period=nW, dtype=str(dt))
+    fwd = dict(common, max_abs_err=max(fwd_errs), rank_max_abs_err=fwd_errs,
+               combined_max_abs_err=comb_o, tol=[atol, rtol], ok=ok_f and ok_co)
+    bwd = dict(common, max_abs_err=max(bwd_errs), rank_max_abs_err=bwd_errs,
+               combined_max_abs_err=max(g[0] for g in comb_g),
+               tol=["row L2", brtol, "floor", BWD_ROW_FLOOR],
+               ok=ok_b and all(g[2] for g in comb_g))
+    qr, kr, vr, dor, br, _ = shards[0][2]
+    split = lambda t: t.reshape(nB, N, Hl, Cl // Hl).transpose(1, 2)
+    am = (br[None] + mask.repeat(n_img, 1, 1)[:, None]).to(dt)
+    lib = lambda: F.scaled_dot_product_attention(split(qr), split(kr), split(vr), attn_mask=am)
+    elt = 2
+    tp_timing(torch, timer, fwd, lambda: wa.window_attention(qr, kr, vr, br, mask),
+              lambda: wa.window_attention_plain(qr, kr, vr, br, mask), lib,
+              4.0 * nB * N * N * Cl, 4 * elt * nB * N * Cl + 4 * Hl * N * N + 4 * nW * N * N,
+              peaks)
+    leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
+    out = F.scaled_dot_product_attention(*(split(t) for t in leaves), attn_mask=am)
+    args = shards[0][2]
+    tp_timing(torch, timer, bwd, lambda: wa.window_attention_bwd(*args),
+              lambda: wa.window_attention_bwd_plain(*args),
+              lambda: torch.autograd.grad(out, leaves, split(dor), retain_graph=True),
+              10.0 * nB * N * N * Cl, 7 * elt * nB * N * Cl + 8 * Hl * N * N + 4 * nW * N * N,
+              peaks)
+    return fwd, bwd
+
+
+def tp_kernel_cases(torch, F, card_name, timer):
+    """(a): every kernel of the model-parallel train step at the shard
+    shapes of model 2 and 4. Returns ``{kernel: [records]}``; a mismatch
+    fails the phase."""
+    from pixparse_tpu_torch.ops import flash_attention as fa
+    from pixparse_tpu_torch.ops import loss
+    from pixparse_tpu_torch.ops import window_attention as wa
+
+    peaks = peaks_for(card_name)
+    gen = torch.Generator().manual_seed(20)
+    out = {k: [] for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
+                           "fused_ce_bwd", "window_attention", "window_attention_bwd")}
+
+    def add(fwd_name, bwd_name, pair):
+        for kernel, rec in zip((fwd_name, bwd_name), pair):
+            out[kernel].append(rec)
+            note({"phase": "tensor_parallel", "kernel": kernel, **rec})
+        torch.cuda.empty_cache()
+
+    for size in TP_SIZES:
+        for case in TP_FLASH:
+            add("flash_attention_fwd", "flash_attention_bwd",
+                tp_flash(torch, F, fa, timer, peaks, gen, case, size))
+        add("fused_ce_fwd", "fused_ce_bwd", tp_ce(torch, F, loss, timer, peaks, gen, size))
+        for stage in range(len(TP_WINDOW_STAGES)):
+            add("window_attention", "window_attention_bwd",
+                tp_window(torch, F, wa, timer, peaks, gen, stage, size))
+    return out
+
+
+def phase_tensor_parallel(torch, F=None, card_name=None, timer=None, model_name="cruller_base",
+                          B=TP_B, steps=TP_STEPS, vocab=BART_VOCAB, device="cuda"):
+    """(a) on the card: :func:`tp_kernel_cases`. (b) a child started by
+    ``torch.distributed.run --nproc_per_node 2`` whose two ranks share the
+    one device (gloo carries their collectives, CUDA tensors included;
+    NCCL refuses two ranks on one device): :func:`tp_child` trains
+    ``cruller_pretrain`` at mesh (1,1,2) beside the process alone. Returns
+    the model-parallel run's launch counts, summed over its ranks."""
+    rec = {"phase": "tensor_parallel", "model_name": model_name, "batch": B, "steps": steps,
+           "problems": []}
+    if device == "cuda":
+        cases = tp_kernel_cases(torch, F, card_name, timer)
+        rec["kernels"] = cases
+        rec["problems"] += [f"{k}/{r['case']}/model={r['model']}" for k, recs in cases.items()
+                            for r in recs if not r["ok"]]
+    out = os.path.abspath(os.path.join(OUT_DIR, "tensor_parallel.json"))
+    log_path = os.path.abspath(os.path.join(OUT_DIR, "tensor_parallel_child.log"))
+    if os.path.exists(out):
+        os.remove(out)
+    spec = {"model_name": model_name, "B": B, "steps": steps, "vocab": vocab, "device": device,
+            "out": out, "out_dir": os.path.abspath(OUT_DIR)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = str(CPU_CHILD_THREADS)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()  # the child's ranks share the card
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           os.path.abspath(__file__), "--tp-child", json.dumps(spec)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=TP_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            raise SystemExit(f"tensor_parallel: the torchrun child ran past {TP_CHILD_TIMEOUT_S} "
+                             f"s and was killed (its log: {log_path})")
+    with open(log_path) as fh:
+        tail = fh.read()[-4000:]
+    if proc.returncode != 0 or not os.path.exists(out):
+        print(tail, file=sys.stderr)
+        raise SystemExit(f"tensor_parallel: the torchrun child exited {proc.returncode} "
+                         f"(its log: {log_path})")
+    with open(out) as fh:
+        child = json.load(fh)
+    child["wall_s"] = time.perf_counter() - t0
+    rec["two_rank_step"] = child
+    rec["problems"] += child["problems"]
+    emit(rec)
+    if rec["problems"]:
+        raise SystemExit("tensor_parallel failed: " + "; ".join(rec["problems"]))
+    by_rank = child["runs"]["model_parallel"]["launches_by_rank"]
+    return {"tensor_parallel": {k: sum(r[k] for r in by_rank) for k in by_rank[0]}}
+
+
+def tp_child(spec) -> int:
+    """One of the two ranks of (b): a gloo process group over both (on the
+    card both take ``cuda:0``), ``MeshEnv.initialize`` at (1,1,2), then
+    :func:`tp_runs`. Rank 0 writes the record to ``spec['out']``; exits 1
+    when a check failed."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pixparse_tpu_torch.parallel.mesh import PROCESS_GROUP_TIMEOUT, MeshEnv
+
+    global OUT_DIR
+    OUT_DIR = spec["out_dir"]
+    if spec["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(CPU_CHILD_THREADS)
+    dist.init_process_group("gloo", timeout=PROCESS_GROUP_TIMEOUT)
+    env = MeshEnv.initialize(data=1, fsdp=1, model=2, device=spec["device"])
+    try:
+        with nan_default_init(torch):
+            rec = tp_runs(torch, env, spec)
+    finally:
+        env.close()
+    if rec is not None:
+        with open(spec["out"], "w") as fh:
+            json.dump(rec, fh)
+        return 1 if rec["problems"] else 0
+    return 0
+
+
+def tp_runs(torch, env, spec):
+    """``cruller_pretrain`` as ``train_task`` builds it, from one seed and
+    batch: on rank 0 alone as a process alone (rank 1 waits), then on both
+    ranks at mesh (1,1,2), ``steps`` steps each through the task's
+    ``train_step``. Rank 0 returns the record (None on rank 1)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.parallel.mesh import MeshEnv
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    model_name, B, steps, vocab, device = (spec[k] for k in ("model_name", "B", "steps", "vocab",
+                                                             "device"))
+    on_card = device == "cuda"
+    rank = env.global_rank
+    rec = {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "env": str(env),
+           "task": "cruller_pretrain", "model_name": model_name, "batch": B, "steps": steps,
+           "vocab": vocab, "dtype": "bfloat16", "runs": {}, "problems": []}
+    problems = rec["problems"]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_tp{rank}_")
+    try:
+        tok_dir = saved_tokenizer(os.path.join(tmp, f"tokenizer{vocab}"), vocab)
+        cfg = TaskCrullerPretrainCfg(
+            model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+            device=device, num_intervals=2, num_warmup_intervals=0,
+            opt=OptimizationCfg(learning_rate=3e-4),
+        )
+        for tag, task_env in (("alone", MeshEnv(device=env.device)), ("model_parallel", env)):
+            if tag == "alone" and rank != 0:
+                dist.barrier()  # rank 0's run alone
+                continue
+            task, _ = TaskFactory.create_task("cruller_pretrain", cfg, task_env, monitor=None)
+            # dropout 0: a model rank draws its FFN masks at the shard's shape,
+            # so no mask could equal the process alone's
+            task.bart_cfg = dataclasses.replace(
+                task.bart_cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+            enc = task.vit_cfg
+            loader = SeededLoader(torch, 1, B, enc.img_size, task.max_position_embeddings,
+                                  seed=0, in_chans=enc.in_chans, vocab=vocab)
+            task.train_setup(num_batches_per_interval=steps, seed=0)
+            step_fn, seen = task.train_step_fn, []
+
+            def recording(state, batch, step_fn=step_fn, seen=seen):
+                state, metrics = step_fn(state, batch)
+                seen.append(metrics)
+                return state, metrics
+
+            task.train_step_fn = recording
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync(torch)
+            reset_counts()
+            ms = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                task.train_step(loader.batches[0])
+                float(task._last_loss_dev)
+                sync(torch)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts()
+            run = {"losses": [float(m["loss"]) for m in seen],
+                   "grad_norms": [float(m["grad_norm"]) for m in seen],
+                   "ms_by_step": ms, "peak_mem_bytes":
+                       torch.cuda.max_memory_allocated() if on_card else None,
+                   "split_params": len(task.state.tp_layouts)}
+            if tag == "model_parallel":
+                run["launches_by_rank"] = env.all_gather_object(launches)
+                run["losses_by_rank"] = env.all_gather_object(run["losses"])
+            else:
+                run["launches"] = launches
+            rec["runs"][tag] = run
+            del task, recording, step_fn
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            if tag == "alone":
+                dist.barrier()
+        if rank != 0:
+            return None
+        alone, mp = rec["runs"]["alone"], rec["runs"]["model_parallel"]
+        for tag, run in rec["runs"].items():
+            if not all(np.isfinite(run["losses"])):
+                problems.append(f"{tag}: losses not finite: {run['losses']}")
+        if mp["losses_by_rank"][0] != mp["losses_by_rank"][1]:
+            problems.append(f"the ranks' losses differ: {mp['losses_by_rank']}")
+        if mp["split_params"] == 0 or alone["split_params"] != 0:
+            problems.append(f"split parameters: model-parallel {mp['split_params']}, alone "
+                            f"{alone['split_params']}")
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+        rec["step1"] = {"loss_rel": rel(mp["losses"][0], alone["losses"][0]),
+                        "grad_norm_rel": rel(mp["grad_norms"][0], alone["grad_norms"][0])}
+        if not rec["step1"]["loss_rel"] <= DIST_LOSS_RTOL:
+            problems.append(f"step-1 loss: model-parallel {mp['losses'][0]} vs alone "
+                            f"{alone['losses'][0]}")
+        if not rec["step1"]["grad_norm_rel"] <= DIST_NORM_RTOL:
+            problems.append(f"step-1 grad norm: model-parallel {mp['grad_norms'][0]} vs alone "
+                            f"{alone['grad_norms'][0]}")
+        for r, launches in enumerate(mp["launches_by_rank"]):
+            per_step = {k: launches[k] / steps for k in DIST_STEP_KERNELS}
+            if per_step != {k: alone["launches"][k] / steps for k in DIST_STEP_KERNELS}:
+                problems.append(f"rank {r}'s launches a step {per_step} differ from the process "
+                                f"alone's")
+            if on_card and not all(n > 0 for n in per_step.values()):
+                problems.append(f"rank {r} never launched some kernels: {per_step}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4895,9 +5435,12 @@ def main(argv=None) -> int:
                          "large, pix2struct, distributed: also trace encode, generate and one train step with "
                          "torch.profiler (device time by kernel, device idle share)")
     ap.add_argument("--distributed-child", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-child", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.distributed_child:  # one rank of the distributed phase's torchrun
         return distributed_child(json.loads(args.distributed_child))
+    if args.tp_child:  # one rank of the tensor_parallel phase's torchrun
+        return tp_child(json.loads(args.tp_child))
     t_main = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4975,6 +5518,8 @@ def main(argv=None) -> int:
         "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
         "loader": lambda: path_launches.update(phase_loader(torch)),
         "distributed": lambda: path_launches.update(phase_distributed(torch, profile=prof)),
+        "tensor_parallel": lambda: path_launches.update(
+            phase_tensor_parallel(torch, F, smi, timer)),
     }
     seconds = {"build": build_s}
     with nan_default_init(torch):

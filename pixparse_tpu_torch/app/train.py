@@ -32,17 +32,22 @@ the encoder of a Cruller checkpoint and writes ``encoder.trunk.*`` +
 
 The task runs on ``--task.device`` (default ``cuda``; without a card that
 raises, ``--task.device cpu`` asks for the CPU), one device per process.
-Under ``torchrun`` the processes form a mesh (``--task.mesh.data/fsdp``,
+Under ``torchrun`` the processes form a mesh (``--task.mesh.data/fsdp/model``,
 :mod:`pixparse_tpu_torch.parallel.mesh`): NCCL on the cards, gloo on the
-CPU; the train state is FSDP2-sharded, each rank reads its own shards of the
-data, rank 0 names the experiment and alone writes logs, summaries and the
-``.pt``, and every rank takes part in each checkpoint save::
+CPU; the train state is FSDP2-sharded over ``(data, fsdp)`` and, with
+``--task.mesh.model > 1``, split over ``model`` first (tensor parallelism:
+heads, MLP and vocabulary, :mod:`pixparse_tpu_torch.parallel.tensor_parallel`);
+each ``(data, fsdp)`` rank reads its own shards of the data (the ranks of a
+model group read the same), rank 0 names the experiment and alone writes
+logs, summaries and the ``.pt``, and every rank takes part in each
+checkpoint save::
 
     torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.train \
         ... --task.device cpu --task.mesh.fsdp 2
+    torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.train \
+        ... --task.device cpu --task.mesh.model 2
 
-``--task.mesh.model > 1`` raises (not ported), and the S3 resume branch
-raises.
+The S3 resume branch raises.
 """
 
 from __future__ import annotations
@@ -204,7 +209,8 @@ def _main(train_cfg: TrainCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv
     task, task_cfg = TaskFactory.create_task(
         task_name=train_cfg.task_name, task_args=task_args, device_env=device_env, monitor=None,
     )
-    random_seed(train_cfg.seed, rank=device_env.global_rank)
+    # the ranks of a model group draw and read alike: one stream per data rank
+    random_seed(train_cfg.seed, rank=device_env.data_rank)
     _logger.info(f"Device env is {device_env}")
 
     if train_cfg.experiment is None:
@@ -296,8 +302,8 @@ def _main(train_cfg: TrainCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv
             anno_preprocess=getattr(task, "anno_preprocess_train", None),
             image_fmt=task_cfg.model.image_encoder.image_fmt,
             seed=train_cfg.seed,
-            world_size=device_env.world_size,
-            global_rank=device_env.global_rank,
+            world_size=device_env.data_size,
+            global_rank=device_env.data_rank,
         )
     }
     task.train_setup(num_batches_per_interval=loaders["train"].num_batches, seed=train_cfg.seed)

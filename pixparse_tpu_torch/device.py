@@ -52,6 +52,11 @@ class DeviceEnv:
     global_rank: int = 0
     mesh = None  # class attribute: a process alone has no mesh
 
+    @property
+    def data_size(self) -> int:
+        """Processes that read different data (as ``MeshEnv.data_size``)."""
+        return self.world_size
+
     def shard_batch(self, batch, stacked: bool = False):
         """The batch on the device (one process holds the whole batch)."""
         return batch_to_device(batch, self.device)

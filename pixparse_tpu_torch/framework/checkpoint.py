@@ -15,6 +15,15 @@ directory (its ``.metadata`` and one ``.distcp`` file per rank, beside
 ``metadata.json``, which rank 0 writes). A restore reshards onto the
 template, as orbax does: a sharded save loads at another mesh or in one
 process, and a one-process ``state.pt`` loads into a sharded template.
+
+Under tensor parallelism (``state.tp``) the save holds whole tensors under
+the reference names and shapes, laid out over the ``model`` axis: a split
+parameter (and its moments) as a ``DTensor`` sharded over the model ranks
+(its ``(data, fsdp)`` shards gathered first), a fused q/k/v one, whose
+shard is three runs, gathered whole, the rest replicated. So a
+tensor-parallel save loads in one process or at any other mesh, and any
+save loads at ``model > 1`` (read whole on each rank, this rank's part
+taken).
 """
 
 from __future__ import annotations
@@ -69,6 +78,56 @@ def _dcp_tree(state: TrainState) -> dict:
             "step": state.step, "seed": state.seed}
 
 
+def _by_param(state: TrainState, fn) -> dict:
+    """``_dcp_tree`` with ``fn(name, tensor)`` on every parameter and every
+    per-parameter optimizer tensor (the moments), in a fixed order."""
+    def moments(v):
+        return {n: fn(n, t) for n, t in v.items()} if isinstance(v, dict) else v
+
+    return {"params": {n: fn(n, t) for n, t in state.params.items()},
+            "opt_state": {k: moments(v) for k, v in state.opt_state.items()},
+            "step": state.step, "seed": state.seed}
+
+
+def _tp_save_tree(state: TrainState) -> dict:
+    """The tensor-parallel save's tree (see the module docstring): a
+    collective over the mesh."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from pixparse_tpu_torch.parallel.mesh import is_sharded
+    from pixparse_tpu_torch.parallel.tensor_parallel import gather_whole
+
+    tp = state.tp
+
+    def laid_out(name, t):
+        t = (t.full_tensor() if is_sharded(t) else t).detach()
+        layout = state.tp_layouts.get(name)
+        if layout is None:
+            return t
+        if layout.groups > 1:
+            return gather_whole(t, layout, tp)
+        shape = list(t.shape)
+        shape[layout.dim] = layout.n
+        return DTensor.from_local(t.contiguous(), tp.mesh, [Shard(layout.dim)], run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    return _by_param(state, laid_out)
+
+
+def _whole_template(state: TrainState) -> dict:
+    """CPU tensors of the whole shapes of a tensor-parallel state's
+    tensors, for a load that reads every tensor whole."""
+    def whole(name, t):
+        shape = list(t.shape)
+        layout = state.tp_layouts.get(name)
+        if layout is not None:
+            shape[layout.dim] = layout.n
+        return torch.empty(shape, dtype=t.dtype)
+
+    return _by_param(state, whole)
+
+
 def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = None):
     """Write the train state (and a small metadata dict) to the directory
     ``path``. The state file is written under a temporary name and renamed,
@@ -80,7 +139,8 @@ def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = Non
         import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
 
-        dcp.save(_dcp_tree(state), checkpoint_id=path)
+        dcp.save(_tp_save_tree(state) if state.tp is not None else _dcp_tree(state),
+                 checkpoint_id=path)
         if dist.get_rank() == 0:
             with open(os.path.join(path, METADATA_FILE), "w") as fh:
                 json.dump(dict(metadata or {}), fh)
@@ -101,16 +161,20 @@ def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = Non
     _logger.info("saved checkpoint %s", path)
 
 
-def _load_into(template, saved, what: str):
+def _load_into(template, saved, what: str, state: Optional[TrainState] = None, name=None):
     """Copy ``saved`` into the tensors of ``template`` (same nesting), so
-    the restored state lives where the template's does."""
+    the restored state lives where the template's does. With a
+    tensor-parallel ``state`` each split tensor of ``saved`` is whole and
+    this rank's part of it is taken."""
     if isinstance(template, dict):
         if set(template) != set(saved):
             raise ValueError(
                 f"checkpoint {what} keys differ: missing {sorted(set(template) - set(saved))}, "
                 f"unexpected {sorted(set(saved) - set(template))}"
             )
-        return {k: _load_into(v, saved[k], f"{what}.{k}") for k, v in template.items()}
+        return {k: _load_into(v, saved[k], f"{what}.{k}", state, k) for k, v in template.items()}
+    if state is not None and state.tp is not None and name in state.tp_layouts:
+        saved = state.tp_layouts[name].take(saved, state.tp.rank, state.tp.size)
     if template.shape != saved.shape:
         raise ValueError(f"checkpoint {what}: shape {tuple(saved.shape)} != {tuple(template.shape)}")
     from pixparse_tpu_torch.parallel.mesh import is_sharded, local_shard
@@ -132,17 +196,24 @@ def restore_train_state(path: str, state_template: TrainState) -> Tuple[TrainSta
     path = os.path.abspath(path)
     if os.path.exists(os.path.join(path, STATE_FILE)):
         saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-        params = _load_into(state_template.params, saved["params"], "params")
-        opt_state = _load_into(state_template.opt_state, saved["opt_state"], "opt_state")
     else:
         import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
 
         if not os.path.exists(os.path.join(path, ".metadata")):
             raise FileNotFoundError(f"{path} holds neither {STATE_FILE} nor a sharded save")
-        saved = _dcp_tree(state_template)
-        dcp.load(saved, checkpoint_id=path, no_dist=not dist.is_initialized())
+        if state_template.tp is None:
+            saved = _dcp_tree(state_template)
+            dcp.load(saved, checkpoint_id=path, no_dist=not dist.is_initialized())
+        else:
+            saved = _whole_template(state_template)
+            dcp.load(saved, checkpoint_id=path)
+    if saved["params"] is state_template.params:  # loaded in place
         params, opt_state = saved["params"], saved["opt_state"]
+    else:
+        params = _load_into(state_template.params, saved["params"], "params", state_template)
+        opt_state = _load_into(state_template.opt_state, saved["opt_state"], "opt_state",
+                               state_template)
     metadata = {}
     meta_path = os.path.join(path, METADATA_FILE)
     if os.path.exists(meta_path):
@@ -153,6 +224,7 @@ def restore_train_state(path: str, state_template: TrainState) -> Tuple[TrainSta
             "no metadata in %s: interval and step counters restart from 0", path
         )
     state = TrainState(
-        step=int(saved["step"]), params=params, opt_state=opt_state, seed=int(saved["seed"])
+        step=int(saved["step"]), params=params, opt_state=opt_state, seed=int(saved["seed"]),
+        tp=state_template.tp, tp_layouts=state_template.tp_layouts,
     )
     return state, metadata

@@ -22,8 +22,10 @@ Under a mesh the chain runs on each rank's local shards of the FSDP2
 parameters and gradients. What must be a quantity of the whole gradient or
 parameter (the global norm, the adaptive clip's unit norms, LAMB's trust
 ratio) takes a :class:`~pixparse_tpu_torch.parallel.mesh.ShardedParams`
-(``shards``): partial sums are added over the shards, the adaptive clip
-works on the gathered whole tensors.
+(``shards``): partial sums are added over the shards (over the ``model``
+ranks only for the parameters split there: a replicated one counts once),
+the adaptive clip works on the gathered whole tensors (so a row-parallel
+weight's unit norms cover its whole input dim).
 """
 
 from __future__ import annotations
@@ -228,7 +230,7 @@ def global_norm(tensors: List[torch.Tensor], shards=None) -> torch.Tensor:
         return torch.zeros(())
     norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
     if shards is not None:
-        return shards.sum(torch.stack(norms).square().sum()).sqrt()
+        return shards.sum(torch.stack(norms).square()).sum().sqrt()
     return torch.linalg.vector_norm(torch.stack(norms))
 
 

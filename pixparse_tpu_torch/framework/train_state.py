@@ -37,7 +37,18 @@ and ``state.params`` are its ``DTensor`` shards:
 - the optimizer runs on the local shards, whole-tensor norms summed over the
   shards; the non-finite skip reads the global loss and gradient norm, so
   every rank decides alike;
-- each rank draws its own dropout stream: the rank joins the seed's mix.
+- each ``(data, fsdp)`` rank draws its own dropout stream: that rank
+  joins the seed's mix. The ranks of one ``model`` group share it, so the
+  masks on replicated activations (residual, embedding, attention and FFN
+  outputs after their all-reduce) are equal across the group and its
+  replicated streams stay equal; a mask inside a rank's own FFN columns
+  comes from a second stream that also mixes in the model rank
+  (``reseed`` seeds both: ``BartCausalDecoder.reseed_dropout``), so the
+  group's shards draw different masks.
+
+Under tensor parallelism (``model > 1``) ``state.tp`` and
+``state.tp_layouts`` say how each split parameter's shard sits in the
+whole one (:mod:`pixparse_tpu_torch.parallel.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -56,6 +67,8 @@ class TrainState:
     params: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
     seed: int  # base dropout seed; the stream of a step is dropout_seed(seed, step, idx)
+    tp: Any = None  # TPGroup of a model split over the mesh's model axis
+    tp_layouts: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def lr(self, schedule, grad_accum_steps: int = 1) -> float:
         """Current learning rate (host side, for logging)."""
@@ -73,13 +86,16 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer, seed: int =
 
         shard_model(model, mesh)
     params = dict(model.named_parameters())
-    return TrainState(step=0, params=params, opt_state=optimizer.init(params), seed=seed + 1)
+    return TrainState(step=0, params=params, opt_state=optimizer.init(params), seed=seed + 1,
+                      tp=getattr(model, "tp", None),
+                      tp_layouts=dict(getattr(model, "tp_layouts", {})))
 
 
 def dropout_seed(seed: int, step: int, micro_idx: int = 0, rank: int = 0) -> int:
-    """Seed of the dropout stream of one micro-batch of one step on one rank:
-    a fixed mix of its four coordinates (splitmix-style), below 2**63. Rank 0
-    draws what a process alone draws."""
+    """Seed of the dropout stream of one micro-batch of one step on one
+    ``(data, fsdp)`` rank: a fixed mix of its four coordinates
+    (splitmix-style), below 2**63. Rank 0 draws what a process alone
+    draws."""
     x = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + micro_idx * 0x94D049BB133111EB
          + rank * 0xD1B54A32D192ED03)
     x &= (1 << 64) - 1
@@ -200,13 +216,15 @@ def _make_sharded_train_step(loss_fn, optimizer, reseed, skip_nonfinite, grad_ac
                              mesh, module):
     """The train step over a mesh (FSDP2 parameters); see the module
     docstring."""
-    import torch.distributed as dist
-
-    from pixparse_tpu_torch.parallel.mesh import ShardedParams, mean_over_ranks
+    from pixparse_tpu_torch.parallel.mesh import (
+        ShardedParams,
+        data_parallel_rank,
+        mean_over_ranks,
+    )
 
     if module is None or not hasattr(module, "set_requires_gradient_sync"):
         raise ValueError("a train step over a mesh needs the FSDP2-wrapped model (module=)")
-    rank = dist.get_rank()
+    rank = data_parallel_rank(mesh)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         params = state.params
@@ -237,7 +255,7 @@ def _make_sharded_train_step(loss_fn, optimizer, reseed, skip_nonfinite, grad_ac
                    for k, v in aux.items()}
             new_opt, metrics = _apply_update(
                 optimizer, _local_tree(params), grads, _local_tree(state.opt_state), loss,
-                skip_nonfinite, ShardedParams(params, mesh))
+                skip_nonfinite, ShardedParams(params, mesh, state.tp, state.tp_layouts))
             opt_state = _store_tree(state.opt_state, new_opt)
             for p in params.values():
                 p.grad = None

@@ -47,6 +47,11 @@ from pixparse_tpu_torch.ops.decode_attention import (
 )
 from pixparse_tpu_torch.ops.dense import Linear, dropout
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
+from pixparse_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    shard_seed,
+    vocab_parallel_embedding,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +172,18 @@ class KVCache:
 
 
 class _Projections(nn.Module):
-    """q/k/v/out projections with HF BART names."""
+    """q/k/v/out projections with HF BART names. Under tensor parallelism
+    (``tp``, train mode only) q/k/v are column-parallel (this rank's heads,
+    their count read off the weight) and ``out_proj`` row-parallel."""
+
+    tp = None  # TPGroup (parallel/tensor_parallel.py)
+
+    def _local_heads(self, D: int, mode: str) -> int:
+        if self.tp is not None and mode != "train":
+            raise NotImplementedError(
+                "tensor-parallel decoding (decode attention's heads over the model axis) is "
+                "not ported: eval and infer keep the whole model on every rank")
+        return self.q_proj.weight.shape[0] // (D // self.num_heads)
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -189,13 +205,16 @@ class CachedSelfAttention(_Projections):
         B, L, D = x.shape
         H = self.num_heads
         if mode == "train":
-            q = self.q_proj(x).view(B, L, H, D // H)
-            k = self.k_proj(x).view(B, L, H, D // H)
-            v = self.v_proj(x).view(B, L, H, D // H)
+            Hl, Dh = self._local_heads(D, mode), D // H
+            x = copy_to_model(x, self.tp)
+            q = self.q_proj(x).view(B, L, Hl, Dh)
+            k = self.k_proj(x).view(B, L, Hl, Dh)
+            v = self.v_proj(x).view(B, L, Hl, Dh)
             out = dot_product_attention(
                 q, k, v, bias=bias, causal=True, dtype=x.dtype, impl=attn_impl
             )
-            return self.out_proj(out.reshape(B, L, D))
+            return self.out_proj(out.reshape(B, L, Hl * Dh))
+        self._local_heads(D, mode)
 
         if mode == "prefill":
             cache.qkv.append((
@@ -250,9 +269,11 @@ class CachedCrossAttention(_Projections):
         prefill and multi-token steps; the flash kernel takes them in train
         mode); ``valid``: the decode kernel's boolean key mask."""
         B, L, D = x.shape
-        H = self.num_heads
         Lk = enc.shape[1]
         q8 = self.kv_cache_dtype == "int8"
+        H = self._local_heads(D, mode)
+        if self.tp is not None:
+            x, enc = copy_to_model(x, self.tp), copy_to_model(enc, self.tp)
         qf = self.q_proj(x)
         if mode == "decode" and L == 1:
             if q8:
@@ -286,11 +307,12 @@ class CachedCrossAttention(_Projections):
                 else:
                     cache.cross_k.append(F.pad(k, pad))
                     cache.cross_v.append(F.pad(v, pad))
+        Dh = D // self.num_heads
         out = dot_product_attention(
-            qf.view(B, L, H, D // H), k.reshape(B, Lk, H, D // H), v.reshape(B, Lk, H, D // H),
+            qf.view(B, L, H, Dh), k.reshape(B, Lk, H, Dh), v.reshape(B, Lk, H, Dh),
             dtype=x.dtype, impl=attn_impl if mode == "train" else "xla", kv_lens=kv_lens,
         )
-        return self.out_proj(out.reshape(B, L, D))
+        return self.out_proj(out.reshape(B, L, H * Dh))
 
 
 class BartDecoderLayer(nn.Module):
@@ -298,9 +320,12 @@ class BartDecoderLayer(nn.Module):
     with gradients on it follows the remat mode (``models/remat.py``): the
     FFN checkpointed under ``'mlp'`` (fc1, GELU, activation dropout, fc2) or
     ``'gelu'`` (all but fc1), the whole layer under ``'full'``/``'dots'``; the
-    dropout generator is replayed in the recompute."""
+    dropout generators are replayed in the recompute. The activation dropout
+    (inside fc1's columns, split under tensor parallelism) draws from
+    ``shard_generator``, every other dropout from ``generator``."""
 
     remat_mode = False
+    tp = None  # TPGroup: fc1 column-, fc2 row-parallel
 
     def __init__(self, cfg: BartDecoderCfg, kv_cache_dtype: str = "bf16"):
         super().__init__()
@@ -324,21 +349,29 @@ class BartDecoderLayer(nn.Module):
     def _ffn(self, h, live, generator):
         return self._ffn_tail(self.fc1(h), live, generator)
 
-    def forward(self, x, enc, mode, attn_impl, masks, cache=None, layer=0, generator=None):
-        """``generator`` feeds the dropout masks; dropout is live only when
-        the module is in training mode and ``mode == 'train'``."""
+    def forward(self, x, enc, mode, attn_impl, masks, cache=None, layer=0, generator=None,
+                shard_generator=None):
+        """``generator`` and ``shard_generator`` (default: ``generator``)
+        feed the dropout masks; dropout is live only when the module is in
+        training mode and ``mode == 'train'``."""
         live = self.training and mode == "train"
         remat = self.remat_mode if mode == "train" else False
-        replay = generator if live else None  # dropout draws inside a checkpointed region
+        if shard_generator is None:
+            shard_generator = generator
+        # the streams dropout draws from inside a checkpointed region
+        streams = (generator,) if shard_generator is generator else (generator, shard_generator)
+        replay = streams if live and generator is not None else None
         cut = block_mode(remat)
         if cut:
             return checkpoint_region(
-                self._layer, x, enc, mode, attn_impl, masks, cache, layer, generator, remat,
-                dots=cut == "dots", generator=replay,
+                self._layer, x, enc, mode, attn_impl, masks, cache, layer, generator,
+                shard_generator, remat, dots=cut == "dots", generator=replay,
             )
-        return self._layer(x, enc, mode, attn_impl, masks, cache, layer, generator, remat)
+        return self._layer(x, enc, mode, attn_impl, masks, cache, layer, generator,
+                           shard_generator, remat)
 
-    def _layer(self, x, enc, mode, attn_impl, masks, cache, layer, generator, remat):
+    def _layer(self, x, enc, mode, attn_impl, masks, cache, layer, generator, shard_generator,
+               remat):
         self_bias, self_valid, cross_lens, cross_valid = masks
         live = self.training and mode == "train"
         drop = lambda h: dropout(h, self.dropout, live, generator)
@@ -350,14 +383,16 @@ class BartDecoderLayer(nn.Module):
         ))
 
         def ffn(h):
+            h = copy_to_model(h, self.tp)
             cut = mlp_mode(remat)
-            replay = generator if live and self.activation_dropout else None
+            replay = shard_generator if live and self.activation_dropout else None
             if cut == "gelu":
                 return drop(checkpoint_region(
-                    self._ffn_tail, self.fc1(h), live, generator, generator=replay))
+                    self._ffn_tail, self.fc1(h), live, shard_generator, generator=replay))
             if cut == "mlp":
-                return drop(checkpoint_region(self._ffn, h, live, generator, generator=replay))
-            return drop(self._ffn(h, live, generator))
+                return drop(checkpoint_region(self._ffn, h, live, shard_generator,
+                                              generator=replay))
+            return drop(self._ffn(h, live, shard_generator))
 
         if self.pre_norm:
             x = x + self_attn(self.self_attn_layer_norm(x))
@@ -405,6 +440,13 @@ class BartCausalDecoder(nn.Module):
         # source of the dropout masks in training mode (None = torch's default
         # generator); the train step reseeds it per (seed, step, micro-batch)
         self.dropout_generator: Optional[torch.Generator] = None
+        # tensor parallelism (parallel/tensor_parallel.py): the rank holds
+        # the tied table's rows [vocab_offset, vocab_offset + its rows);
+        # the masks inside its own FFN columns come from
+        # shard_dropout_generator (None: from dropout_generator)
+        self.tp = None
+        self.shard_dropout_generator: Optional[torch.Generator] = None
+        self.vocab_offset = 0
         self.model = nn.ModuleDict({"decoder": BartDecoder(cfg, kv_cache_dtype)})
         self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.decoder.embed_tokens.weight  # tied
@@ -412,6 +454,18 @@ class BartCausalDecoder(nn.Module):
     @property
     def decoder(self) -> BartDecoder:
         return self.model["decoder"]
+
+    def reseed_dropout(self, seed: int) -> None:
+        """Point the dropout streams at ``seed`` (the train step's reseed):
+        ``dropout_generator`` at it, under tensor parallelism a
+        ``shard_dropout_generator`` on its device at the model rank's
+        :func:`shard_seed` of it."""
+        self.dropout_generator.manual_seed(seed)
+        if self.tp is not None:
+            if self.shard_dropout_generator is None:
+                self.shard_dropout_generator = torch.Generator(
+                    device=self.dropout_generator.device)
+            self.shard_dropout_generator.manual_seed(shard_seed(seed, self.tp.rank))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -488,7 +542,12 @@ class BartCausalDecoder(nn.Module):
             positions = start + torch.arange(L, device=input_ids.device)[None, :]
 
         dt = self.compute_dtype or dec.embed_tokens.weight.dtype
-        x = dec.embed_tokens(input_ids).to(dt)
+        if self.tp is not None and not return_hidden:
+            raise NotImplementedError(
+                "under tensor parallelism the decoder returns hidden states only (the loss "
+                "takes the vocabulary shard)")
+        x = vocab_parallel_embedding(input_ids, dec.embed_tokens.weight, self.tp,
+                                     self.vocab_offset).to(dt)
         if cfg.scale_embedding:
             x = x * (cfg.d_model ** 0.5)
         x = x + dec.embed_positions(positions + cfg.pos_offset).to(dt)
@@ -503,7 +562,8 @@ class BartCausalDecoder(nn.Module):
         )
         enc = encoder_hidden_states.to(x.dtype)
         for i, layer in enumerate(dec.layers):
-            x = layer(x, enc, mode, self.attn_impl, masks, cache, i, gen)
+            x = layer(x, enc, mode, self.attn_impl, masks, cache, i, gen,
+                      self.shard_dropout_generator)
         if mode != "train":
             cache.index += L
         if cfg.add_final_layer_norm:

@@ -9,7 +9,7 @@ keys (see :mod:`pixparse_tpu_torch.models.interop`).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -171,11 +171,16 @@ class Cruller(nn.Module):
     # (parallel/mesh.py::shard_model)
     fsdp_forward_methods = ("forward_hidden_head",)
 
-    def forward_hidden_head(self, image_input, text_input) -> Tuple[torch.Tensor, torch.Tensor]:
-        """:meth:`forward_hidden` and the tied table, read in one call: under
-        FSDP2 the table is a whole tensor only inside the model's forward
-        (its root keeps it whole until the backward)."""
-        return self.forward_hidden(image_input, text_input), self.tied_embedding
+    def forward_hidden_head(self, image_input, text_input):
+        """:meth:`forward_hidden`, the tied table and its vocabulary shard,
+        read in one call: under FSDP2 the table is a whole tensor only
+        inside the model's forward (its root keeps it whole until the
+        backward). The shard is ``(TPGroup, row offset)`` when the table's
+        rows are split over the ``model`` axis (the table is then this
+        rank's rows), else None."""
+        dec = self.decoder
+        shard = None if dec.tp is None else (dec.tp, dec.vocab_offset)
+        return self.forward_hidden(image_input, text_input), self.tied_embedding, shard
 
     @property
     def tied_embedding(self) -> torch.Tensor:

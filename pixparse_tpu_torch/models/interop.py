@@ -280,12 +280,19 @@ def cruller_state_dict(model) -> Dict[str, torch.Tensor]:
     """The model's weights under the reference ``.pt`` names, as fp32 CPU
     tensors: what the train app writes as ``checkpoint-{i}.pt`` and what the
     JAX package's ``load_torch_checkpoint`` + ``cruller_params_from_torch``
-    read. An FSDP2-sharded model's tensors are gathered whole first (a
-    collective: every rank of the mesh must call this)."""
+    read. An FSDP2-sharded or tensor-parallel model's tensors are gathered
+    whole first (a collective: every rank of the mesh must call this)."""
     from pixparse_tpu_torch.parallel.mesh import is_sharded
+    from pixparse_tpu_torch.parallel.tensor_parallel import gather_whole
 
-    return {k: (v.full_tensor() if is_sharded(v) else v).detach().to("cpu", torch.float32).clone()
-            for k, v in model.state_dict().items()}
+    tp, layouts = getattr(model, "tp", None), getattr(model, "tp_layouts", {})
+    out = {}
+    for k, v in model.state_dict().items():
+        v = (v.full_tensor() if is_sharded(v) else v).detach()
+        if tp is not None and k in layouts:
+            v = gather_whole(v, layouts[k], tp)
+        out[k] = v.to("cpu", torch.float32).clone()
+    return out
 
 
 def save_torch_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:

@@ -18,10 +18,11 @@ Modes, as ``task/cruller_base.py::resolve_remat`` gives them:
   ``dots_with_no_batch_dims_saveable``.
 
 Dropout under recompute: ``torch.utils.checkpoint`` restores only the default
-CPU and CUDA generators, but the port draws its dropout masks from an explicit
-:class:`torch.Generator`. :func:`checkpoint_region` takes that generator's
-state before the region runs and sets it again for the recompute (restoring
-the state it found afterwards), so the recompute draws the forward's masks.
+CPU and CUDA generators, but the port draws its dropout masks from explicit
+:class:`torch.Generator` objects. :func:`checkpoint_region` takes those
+generators' states before the region runs and sets them again for the
+recompute (restoring the states it found afterwards), so the recompute draws
+the forward's masks.
 
 The CUDA kernels launch through ctypes, which torch's dispatcher does not
 see: a selective policy can neither save nor replay them. Under ``'full'``
@@ -32,7 +33,7 @@ count it.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import (
@@ -74,38 +75,41 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _replaying(fn: Callable, generator: torch.Generator) -> Callable:
+def _replaying(fn: Callable, generators: Sequence[torch.Generator]) -> Callable:
     """``fn`` whose second and later calls (the recompute) start from the
-    generator state of the first call, and leave the generator as they found
-    it."""
-    state = generator.get_state()
+    generators' states of the first call, and leave the generators as they
+    found them."""
+    states = [g.get_state() for g in generators]
     calls = [0]
 
     def run(*args):
         calls[0] += 1
         if calls[0] == 1:
             return fn(*args)
-        found = generator.get_state()
-        generator.set_state(state)
+        found = [g.get_state() for g in generators]
+        for g, s in zip(generators, states):
+            g.set_state(s)
         try:
             return fn(*args)
         finally:
-            generator.set_state(found)
+            for g, s in zip(generators, found):
+                g.set_state(s)
 
     return run
 
 
 def checkpoint_region(fn: Callable, *args, dots: bool = False,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Union[None, torch.Generator, Sequence[torch.Generator]] = None):
     """``fn(*args)`` with its activations recomputed in the backward (the
     plain call when gradients are off). ``dots``: keep the Linear layers'
     outputs (the ``'dots'`` policy). ``generator``: the dropout generator
-    ``fn`` draws from, replayed in the recompute."""
+    (or generators) ``fn`` draws from, replayed in the recompute."""
     if not torch.is_grad_enabled():
         return fn(*args)
     kwargs = {}
     if dots:
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
     if generator is not None:
-        fn = _replaying(fn, generator)
+        fn = _replaying(fn, (generator,) if isinstance(generator, torch.Generator)
+                        else tuple(generator))
     return checkpoint(fn, *args, use_reentrant=False, **kwargs)

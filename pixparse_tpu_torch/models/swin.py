@@ -41,6 +41,7 @@ from pixparse_tpu_torch.models.vit import Mlp, PatchEmbed
 from pixparse_tpu_torch.ops.dense import Linear
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
 from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+from pixparse_tpu_torch.parallel.tensor_parallel import copy_to_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +123,12 @@ def _window_reverse(x: torch.Tensor, window: int, B: int, H: int, W: int) -> tor
 
 
 class WindowAttention(nn.Module):
+    """Fused q/k/v window attention with the relative-position bias. Under
+    tensor parallelism (``tp``) the rank holds q, k and v of its own heads
+    and their columns of the bias table (the head count read off it)."""
+
+    tp = None  # TPGroup (parallel/tensor_parallel.py)
+
     def __init__(self, dim: int, num_heads: int, window: int, attn_impl: str = "xla"):
         super().__init__()
         self.num_heads = num_heads
@@ -136,11 +143,12 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         """x: (nB, ww, C); mask: (nW, ww, ww) fp32 or None."""
-        _, N, C = x.shape
-        qkv = self.qkv(x)
+        N = x.shape[1]
+        qkv = self.qkv(copy_to_model(x, self.tp))
+        C = qkv.shape[-1] // 3  # this rank's heads' channels
         # head-major gather: bias[h, i, j] for (query i, key j)
         table = self.relative_position_bias_table.float().t()
-        bias = table[:, self.relative_position_index].reshape(self.num_heads, N, N)
+        bias = table[:, self.relative_position_index].reshape(table.shape[0], N, N)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
         attend = window_attention if self.attn_impl == "flash" else window_attention_plain
         return self.proj(attend(q, k, v, bias, mask))

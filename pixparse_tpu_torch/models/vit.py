@@ -25,6 +25,7 @@ from pixparse_tpu_torch.models.remat import block_mode, checkpoint_region, mlp_m
 from pixparse_tpu_torch.ops.attention import dot_product_attention
 from pixparse_tpu_torch.ops.dense import Linear
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
+from pixparse_tpu_torch.parallel.tensor_parallel import copy_to_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,12 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
+    """Fused q/k/v self-attention. Under tensor parallelism (``tp``) the
+    rank holds q, k and v of its own heads (their count read off the
+    weight) and ``proj`` sums the heads' outputs over the ranks."""
+
+    tp = None  # TPGroup (parallel/tensor_parallel.py)
+
     def __init__(self, cfg: ViTCfg, attn_impl: str = "xla"):
         super().__init__()
         self.num_heads = cfg.num_heads
@@ -85,19 +92,23 @@ class Attention(nn.Module):
         """``kv_lens``: ``(B,)`` leading valid keys per sample (the
         pix2struct encoder's padded patches), or None."""
         B, L, D = x.shape
-        H = self.num_heads
+        Dh = D // self.num_heads
+        qkv = self.qkv(copy_to_model(x, self.tp))
+        H = qkv.shape[-1] // (3 * Dh)  # this rank's heads
         # q/k/v stay strided views of the fused projection: the flash kernel
         # reads them in place (no head-split copy)
-        q, k, v = self.qkv(x).view(B, L, 3, H, D // H).unbind(2)
+        q, k, v = qkv.view(B, L, 3, H, Dh).unbind(2)
         out = dot_product_attention(q, k, v, impl=self.attn_impl, dtype=x.dtype, kv_lens=kv_lens)
-        return self.proj(out.reshape(B, L, D))
+        return self.proj(out.reshape(B, L, H * Dh))
 
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2; under remat ``'mlp'`` the whole MLP is
-    checkpointed, under ``'gelu'`` GELU + fc2 (``models/remat.py``)."""
+    checkpointed, under ``'gelu'`` GELU + fc2 (``models/remat.py``). Under
+    tensor parallelism (``tp``) fc1 is column- and fc2 row-parallel."""
 
     remat_mode = False
+    tp = None
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -111,6 +122,7 @@ class Mlp(nn.Module):
         return self._tail(self.fc1(x))
 
     def forward(self, x):
+        x = copy_to_model(x, self.tp)
         cut = mlp_mode(self.remat_mode)
         if cut == "gelu":
             return checkpoint_region(self._tail, self.fc1(x))

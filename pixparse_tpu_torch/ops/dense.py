@@ -21,14 +21,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixparse_tpu_torch.parallel.tensor_parallel import reduce_from_model
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` (same parameter names) with weight and bias cast to the
-    input's dtype at use."""
+    input's dtype at use. A row-parallel layer (``tp_reduce``, set by
+    :func:`~pixparse_tpu_torch.parallel.tensor_parallel.parallelize`) sums
+    its partial output over the ``model`` ranks, then adds the bias."""
+
+    tp_reduce = None  # TPGroup of a row-parallel layer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        if self.tp_reduce is None:
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.tp_reduce)
+        return y if bias is None else y + bias
 
 
 def dropout(

@@ -19,6 +19,13 @@ from the decoder's hidden states:
   dtype, into a (T, chunk) workspace, and two more take ``dE = g^T h`` and
   ``dh += g E`` from it.
 
+Under tensor parallelism the table's rows are split over the ``model``
+axis (``ceil(V / model)`` a rank, the last fewer): each rank runs the same
+kernels on its rows with targets shifted to them (``vocab_shard`` of
+:func:`fused_cross_entropy_from_hidden`); the ranks' ``(lse, tgt)``
+combine by a max and two sums, ``dh`` is summed over the ranks and ``dE``
+stays each rank's own.
+
 Beside the kernels stand :func:`fused_ce_fwd_plain` and
 :func:`fused_ce_bwd_plain`, plain PyTorch with the same rounding points; a
 CPU tensor takes them, a CUDA tensor launches the kernels or raises.
@@ -31,9 +38,11 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from pixparse_tpu_torch.ops import _build
+from pixparse_tpu_torch.parallel.tensor_parallel import all_reduce_model
 
 IGNORE_ID = -100
 DEAD_LSE = -1e30
@@ -78,11 +87,16 @@ def chunked_cross_entropy_from_hidden(
     ignore_id: int = IGNORE_ID,
     chunk_size: int = 128,
     denominator: Optional[torch.Tensor] = None,
+    vocab_shard=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Memory-frugal tied-head CE: the logits of one sequence chunk at a time,
     recomputed in the backward pass (``torch.utils.checkpoint``), so the
     ``(B, L, V)`` logits never exist at once. ``denominator`` as
-    :func:`fused_cross_entropy_from_hidden`'s."""
+    :func:`fused_cross_entropy_from_hidden`'s; ``vocab_shard`` must be None
+    (this CE takes the whole table)."""
+    if vocab_shard is not None:
+        raise ValueError("chunked_cross_entropy_from_hidden takes a whole table, "
+                         "not a vocab shard")
     L = hidden.shape[1]
     nll_sum = hidden.new_zeros((), dtype=torch.float32)
     for lo in range(0, L, chunk_size):
@@ -285,22 +299,60 @@ def fused_ce_bwd(h, e, target, lse, coef):
 fused_ce_bwd.launches = 0
 
 
+def shard_targets(target: torch.Tensor, offset: int) -> torch.Tensor:
+    """Safe targets (-1 where ignored) shifted to a vocabulary shard whose
+    first row is ``offset``: ignored rows stay -1, a target outside the
+    shard lands below 0 or at or past its rows, where it matches no column
+    (the kernels' target logit is 0 there)."""
+    return torch.where(target >= 0, target - offset, target)
+
+
+def merge_vocab_shards(lse: torch.Tensor, tgt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole vocabulary's ``(lse, tgt)`` ``(T,)`` from the shards'
+    ``(S, T)`` stacks, in shard order: ``lse = m + log sum_s exp(lse_s -
+    m)`` with ``m`` their max (a dead shard row, lse at or below
+    ``DEAD_LSE / 2``, adds nothing), ``tgt`` their sum (one shard holds
+    the target)."""
+    m = lse.max(dim=0).values
+    contrib = torch.where(lse > 0.5 * DEAD_LSE, torch.exp(lse - m), 0.0)
+    return m + torch.log(contrib.sum(dim=0)), tgt.sum(dim=0)
+
+
 class _FusedCETokens(torch.autograd.Function):
     """Per-token nll ``(T,)`` fp32 from ``h (T, D)``, ``e (V, D)`` and safe
-    targets (-1 where ignored; those rows give nll 0)."""
+    targets (-1 where ignored; those rows give nll 0).
+
+    ``vocab_shard``: None, or ``(TPGroup, offset)`` when ``e`` is this
+    rank's rows of a table split over the ``model`` axis, from ``offset``
+    on (the JAX package's vocab-parallel fused CE). The same kernels then
+    run on the rank's rows with shifted targets (:func:`shard_targets`);
+    the ranks' ``(lse, tgt)`` are gathered and merged
+    (:func:`merge_vocab_shards`), ``dh`` is summed over ``model`` and
+    ``dE`` stays the rank's own."""
 
     @staticmethod
-    def forward(ctx, h, e, target):
-        lse, tgt = fused_ce_fwd(h, e, target)
-        ctx.save_for_backward(h, e, target, lse)
+    def forward(ctx, h, e, target, vocab_shard):
+        local = target if vocab_shard is None else shard_targets(target, vocab_shard[1])
+        lse, tgt = fused_ce_fwd(h, e, local)
+        if vocab_shard is not None:
+            tp = vocab_shard[0]
+            both = torch.stack([lse, tgt])
+            parts = [torch.empty_like(both) for _ in range(tp.size)]
+            dist.all_gather(parts, both, group=tp.group)
+            parts = torch.stack(parts)
+            lse, tgt = merge_vocab_shards(parts[:, 0], parts[:, 1])
+        ctx.save_for_backward(h, e, target, local, lse)
+        ctx.vocab_shard = vocab_shard
         return (lse - tgt) * (target >= 0)
 
     @staticmethod
     def backward(ctx, g_nll):
-        h, e, target, lse = ctx.saved_tensors
+        h, e, target, local, lse = ctx.saved_tensors
         coef = torch.where(target >= 0, g_nll.float(), 0.0)
-        dh, de = fused_ce_bwd(h, e, target, lse, coef)
-        return dh, de, None
+        dh, de = fused_ce_bwd(h, e, local, lse, coef)
+        if ctx.vocab_shard is not None:
+            dh = all_reduce_model(dh, ctx.vocab_shard[0])
+        return dh, de, None, None
 
 
 def fused_cross_entropy_from_hidden(
@@ -309,17 +361,20 @@ def fused_cross_entropy_from_hidden(
     targets: torch.Tensor,  # (B, L) int ids with IGNORE_ID masked out
     ignore_id: int = IGNORE_ID,
     denominator: Optional[torch.Tensor] = None,
+    vocab_shard=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused tied-head CE. Returns ``(loss, num_valid)`` like
     :func:`cross_entropy_loss`; on a CUDA device the logits never reach
     device memory. The loss is the nll sum over ``denominator`` when one is
     given (a rank's share of a mean over the ranks' tokens), else over the
-    valid count."""
+    valid count. ``vocab_shard``: ``(TPGroup, offset)`` when ``embedding``
+    is this rank's rows of a table split over the ``model`` axis (every
+    rank of the group then gets the same loss)."""
     D = hidden.shape[-1]
     t = targets.reshape(-1)
     valid = t != ignore_id
     safe = torch.where(valid, t, -1)  # ignored rows match no vocab column
-    nll = _FusedCETokens.apply(hidden.reshape(-1, D), embedding, safe)
+    nll = _FusedCETokens.apply(hidden.reshape(-1, D), embedding, safe, vocab_shard)
     n_valid = valid.sum()
     if denominator is None:
         denominator = n_valid.clamp_min(1)
@@ -332,8 +387,10 @@ def cross_entropy_from_hidden(
     targets: torch.Tensor,
     ignore_id: int = IGNORE_ID,
     denominator: Optional[torch.Tensor] = None,
+    vocab_shard=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tied-head CE from hidden states, as the train tasks call it: the fused
     kernels on a CUDA tensor (or an error), their plain versions on a CPU
-    tensor."""
-    return fused_cross_entropy_from_hidden(hidden, embedding, targets, ignore_id, denominator)
+    tensor; vocabulary-parallel with a ``vocab_shard``."""
+    return fused_cross_entropy_from_hidden(hidden, embedding, targets, ignore_id, denominator,
+                                           vocab_shard)

@@ -13,8 +13,11 @@
   gradients reduce-scattered over ``fsdp`` and all-reduced over ``data``,
   their mean over the ranks. With ``fsdp = 1`` it is plain data
   parallelism.
-- The ``model`` axis (tensor parallelism) is not ported: ``model > 1``
-  raises.
+- The ``model`` axis is tensor parallelism
+  (:mod:`pixparse_tpu_torch.parallel.tensor_parallel`): :func:`shard_model`
+  first cuts heads, MLP and vocabulary over it by the plan that
+  :data:`DEFAULT_LOGICAL_RULES` gives (the one source of it, as in the JAX
+  package), then applies FSDP2 over ``(data, fsdp)``: PyTorch's 2-D order.
 - Each rank's loader yields its own slice of the global batch
   (:mod:`pixparse_tpu_torch.data`), so :func:`shard_batch` only moves it to
   the rank's device.
@@ -38,9 +41,22 @@ from pixparse_tpu_torch.device import batch_to_device, resolve_device
 _logger = logging.getLogger(__name__)
 
 MESH_AXES = ("data", "fsdp", "model")
-MODEL_AXIS_TODO = (
-    "--task.mesh.model > 1 (tensor parallelism) is not ported: ROADMAP.md Queue 1 "
-    "item 7, the model axis"
+
+# logical axis name -> mesh axis (or tuple of mesh axes), as the JAX
+# package's rules; FSDP2 shards dim 0 of every parameter over fsdp whatever
+# these say, so the port reads only their "model" entries
+DEFAULT_LOGICAL_RULES: Tuple[Tuple[str, Any], ...] = (
+    ("batch", ("data", "fsdp")),  # batch dim of activations
+    ("embed", "fsdp"),            # model width
+    ("mlp", "model"),             # FFN hidden
+    ("heads", "model"),           # attention heads
+    ("kv", None),                 # per-head dim
+    ("vocab", ("model", "fsdp")),  # token table rows
+    ("vocab_embed", None),
+    ("length", None),
+    ("image_length", None),
+    ("patch", None),
+    ("norm", None),
 )
 # how long a collective may wait for the other ranks before it raises
 PROCESS_GROUP_TIMEOUT = datetime.timedelta(minutes=10)
@@ -70,13 +86,43 @@ def mesh_shape(n: int, data: int = 0, fsdp: int = 1, model: int = 1) -> Tuple[in
 
 def create_mesh(data: int = 0, fsdp: int = 1, model: int = 1, device_type: str = "cuda"):
     """The global ``DeviceMesh`` over every rank of the process group (one
-    device each), axes :data:`MESH_AXES`."""
+    device each), axes :data:`MESH_AXES`; ranks are laid out row-major, so
+    a ``model`` group is ``model`` consecutive ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = mesh_shape(dist.get_world_size(), data, fsdp, model)
-    if shape[2] > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
     return init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)
+
+
+def resolve_logical(logical_spec, rules=DEFAULT_LOGICAL_RULES) -> Tuple[Any, ...]:
+    """A spec of logical axis names -> one entry per dim: a mesh axis, a
+    tuple of them, or None."""
+    table = dict(rules)
+    out = []
+    for axis in logical_spec:
+        if axis is None:
+            out.append(None)
+        elif isinstance(axis, (tuple, list)):
+            resolved: List[str] = []
+            for a in axis:
+                r = table.get(a)
+                if r is not None:
+                    resolved.extend(r if isinstance(r, (tuple, list)) else [r])
+            out.append(tuple(resolved) if resolved else None)
+        else:
+            out.append(table.get(axis))
+    return tuple(out)
+
+
+def logical_sharding(logical_spec, mesh=None, rules=DEFAULT_LOGICAL_RULES) -> Tuple[Any, ...]:
+    """The JAX package's ``logical_sharding``: a spec of logical axis names
+    -> the mesh axes of each dim (a ``PartitionSpec``'s entries); rank-1
+    specs are replicated, as there. ``mesh`` is kept for its signature.
+    The tensor-parallel plan reads the ``model`` entries of these
+    (:func:`~pixparse_tpu_torch.parallel.tensor_parallel.param_layout`)."""
+    if len(logical_spec) == 1:
+        return (None,)
+    return resolve_logical(logical_spec, rules)
 
 
 def shard_batch(mesh, batch, stacked: bool = False, device=None):
@@ -93,6 +139,29 @@ def shard_batch(mesh, batch, stacked: bool = False, device=None):
 def data_parallel_size(mesh) -> int:
     """Ranks that share the gradient mean: ``data * fsdp``."""
     return mesh["data"].size() * mesh["fsdp"].size()
+
+
+def data_parallel_rank(mesh) -> int:
+    """This rank's index among the ``(data, fsdp)`` ranks: the ranks of one
+    ``model`` group share it."""
+    return mesh["data"].get_local_rank() * mesh["fsdp"].size() + mesh["fsdp"].get_local_rank()
+
+
+def model_parallel_size(mesh) -> int:
+    """The ``model`` axis' size (1 without a mesh)."""
+    return 1 if mesh is None else mesh["model"].size()
+
+
+def tp_group(mesh):
+    """This rank's :class:`~pixparse_tpu_torch.parallel.tensor_parallel.TPGroup`,
+    or None when the ``model`` axis is 1."""
+    from pixparse_tpu_torch.parallel.tensor_parallel import TPGroup
+
+    if model_parallel_size(mesh) == 1:
+        return None
+    sub = mesh["model"]
+    return TPGroup(group=mesh.get_group("model"), rank=sub.get_local_rank(), size=sub.size(),
+                   mesh=sub)
 
 
 def sum_over_ranks(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -119,15 +188,23 @@ def _block_types():
 
 
 def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
-    """FSDP2 over the ``(data, fsdp)`` sub-mesh: ``fully_shard`` on each
+    """With ``model > 1`` first the tensor-parallel cut
+    (:func:`~pixparse_tpu_torch.parallel.tensor_parallel.parallelize`), then
+    FSDP2 over the ``(data, fsdp)`` sub-mesh: ``fully_shard`` on each
     encoder and decoder block, then on the root, whose parameters (the
     embeddings, the tied head among them) stay whole from its forward to
     its backward, so a loss that reads the tied table after the model's
-    forward reads a whole, plain tensor. The methods named in the model's
+    forward reads a whole, plain tensor (this rank's vocabulary rows under
+    tensor parallelism). The methods named in the model's
     ``fsdp_forward_methods`` run the root's forward hooks as ``forward``
     does. Returns ``model``, its parameters now ``DTensor`` shards."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
+    tp = tp_group(mesh)
+    if tp is not None:
+        from pixparse_tpu_torch.parallel.tensor_parallel import parallelize
+
+        parallelize(model, tp)
     dp = mesh["data", "fsdp"]
     blocks = _block_types()
     for module in list(model.modules()):
@@ -164,30 +241,49 @@ def local_shard(template, whole: torch.Tensor) -> torch.Tensor:
 
 class ShardedParams:
     """What the optimizer needs to compute whole-parameter quantities from
-    the local shards of FSDP2 parameters: ``sum`` adds partial sums over the
-    ``fsdp`` ranks (shards of one replica), ``whole`` gathers a tensor laid
-    out as a parameter, ``shard`` takes this rank's rows back out."""
+    the local shards of FSDP2 (and tensor-parallel) parameters: ``sum``
+    adds per-parameter partial sums over the ``fsdp`` ranks (shards of one
+    replica) and, for the parameters split over ``model``, over the model
+    ranks (a replicated parameter counts once); ``whole`` gathers a tensor
+    laid out as a parameter, ``shard`` takes this rank's part back out."""
 
-    def __init__(self, params: Dict[str, Any], mesh):
+    def __init__(self, params: Dict[str, Any], mesh, tp=None, layouts=None):
         self.params = params
         self.group = mesh.get_group("fsdp") if mesh["fsdp"].size() > 1 else None
+        self.tp, self.layouts = tp, dict(layouts or {})
+        self._split = None
+        if tp is not None:
+            self._split = torch.tensor([n in self.layouts for n in params])
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        if self.group is None:
-            return t
-        t = t.clone()
-        dist.all_reduce(t, group=self.group)
+        """``t``: per-parameter partial sums, in the parameters' order (one
+        or more rounds of them, concatenated)."""
+        if self.group is not None:
+            t = t.clone()
+            dist.all_reduce(t, group=self.group)
+        if self.tp is not None:
+            from pixparse_tpu_torch.parallel.tensor_parallel import all_reduce_model
+
+            split = self._split.to(t.device).repeat(t.numel() // self._split.numel())
+            t = torch.where(split, all_reduce_model(t, self.tp), t)
         return t
 
     def whole(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         from torch.distributed.tensor import DTensor
 
         p = self.params[name]
-        return DTensor.from_local(
+        t = DTensor.from_local(
             shard, p.device_mesh, p.placements, run_check=False, shape=p.shape, stride=p.stride()
         ).full_tensor()
+        if name in self.layouts:
+            from pixparse_tpu_torch.parallel.tensor_parallel import gather_whole
+
+            t = gather_whole(t, self.layouts[name], self.tp)
+        return t
 
     def shard(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        if name in self.layouts:
+            whole = self.layouts[name].take(whole, self.tp.rank, self.tp.size)
         return local_shard(self.params[name], whole)
 
 
@@ -227,8 +323,6 @@ class MeshEnv:
         mesh; elsewhere one process on ``device``. A distributed environment
         whose initialisation fails raises: going on as rank 0 of a world of
         one would train every rank on the same data."""
-        if max(1, model) > 1:
-            raise NotImplementedError(MODEL_AXIS_TODO)
         dev = resolve_device(device)
         if not is_distributed_env():
             mesh_shape(1, data, fsdp, model)  # the mesh of one device must fit
@@ -262,6 +356,17 @@ class MeshEnv:
     @property
     def num_devices(self) -> int:
         return self.mesh.size() if self.mesh is not None else 1
+
+    @property
+    def data_size(self) -> int:
+        """Processes that read different data: the ``(data, fsdp)`` ranks
+        (the ranks of one ``model`` group read the same batches)."""
+        return self.process_count if self.mesh is None else data_parallel_size(self.mesh)
+
+    @property
+    def data_rank(self) -> int:
+        """This process's index among the :attr:`data_size` readers."""
+        return self.process_index if self.mesh is None else data_parallel_rank(self.mesh)
 
     def is_primary(self) -> bool:
         return self.process_index == 0

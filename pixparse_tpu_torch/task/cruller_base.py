@@ -50,6 +50,7 @@ from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pre
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import IGNORE_ID, cross_entropy_from_hidden
 from pixparse_tpu_torch.ops.preprocess import normalize_images
+from pixparse_tpu_torch.parallel.mesh import model_parallel_size
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg, create_tokenizer
 from pixparse_tpu_torch.tokenizers.thread_safe import ThreadLocalTokenizer
@@ -257,18 +258,18 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         def loss_fn(batch):
             # the tied table is read inside the model's call: under FSDP2 it
             # is a whole tensor only there
-            hidden, table = self.model.forward_hidden_head(
+            hidden, table, vocab_shard = self.model.forward_hidden_head(
                 self.device_images(batch["image"]), batch["text"])
             loss, _ = cross_entropy_from_hidden(
                 hidden, table.to(hidden.dtype), batch["target"],
-                denominator=self.ce_denominator(batch["target"]),
+                denominator=self.ce_denominator(batch["target"]), vocab_shard=vocab_shard,
             )
             return loss, {}
 
         self.loss_fn = loss_fn  # (device batch) -> (loss, aux): the step's loss
         self.train_step_fn = make_train_step(
             loss_fn, self.optimizer,
-            reseed=self.model.decoder.dropout_generator.manual_seed,
+            reseed=self.model.decoder.reseed_dropout,
             grad_accum_steps=self.grad_accum_steps,
             mesh=mesh, module=self.model if mesh is not None else None,
         )
@@ -355,7 +356,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                 self.step_idx += 1
                 self.batch_idx += 1
                 self.interval_batch_idx += 1
-                self._samples_since_log += batch_size(batch["image"]) * self.device_env.world_size
+                self._samples_since_log += batch_size(batch["image"]) * self.device_env.data_size
                 return {"loss": self._last_loss_dev}
             stacked = stack_batches(self._accum_buffer)
             self._accum_buffer = []
@@ -371,7 +372,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         if (self.eval_frequency and self.monitor and "text" in batch
                 and self.step_idx % self.eval_frequency == 0):
             self._log_train_reconstruction(batch)
-        self._samples_since_log += batch_size(batch["image"]) * self.device_env.world_size
+        self._samples_since_log += batch_size(batch["image"]) * self.device_env.data_size
 
         if self.monitor and self.interval_batch_idx % self.log_frequency == 0:
             loss = float(metrics["loss"])  # the one host read, at log time
@@ -385,7 +386,8 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                     self._flops_per_sample_step = cruller_train_flops(
                         self.vit_cfg, self.bart_cfg, 1, batch["text"].shape[1]
                     )
-                # rate counts every rank's samples: flops/s across the devices
+                # rate counts every data rank's samples (the ranks of a model
+                # group share theirs): flops/s across all the devices
                 util = mfu(self._flops_per_sample_step * rate, 1.0,
                            n_devices=self.device_env.world_size, device=self.device)
                 if util is not None:
@@ -507,6 +509,12 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
             type(self).max_generation_length, self.max_position_embeddings
         )
         self.device = device_env.device
+        if cfg.kv_cache_dtype == "int8" and model_parallel_size(device_env.mesh) > 1:
+            raise ValueError(  # the JAX package's refusal (ops/decode_attention.py)
+                "kv_cache_dtype='int8' does not support a model-parallel "
+                "mesh axis (the padded per-head scale rows don't shard on "
+                "whole-head boundaries); use bf16 caches"
+            )
         self.compute_dtype = _compute_dtype(cfg.dtype)
         self.num_image_chs = 1 if cfg.model.image_encoder.image_fmt == "L" else 3
         self.vit_cfg, self.bart_cfg, stats = resolve_cruller_cfgs(

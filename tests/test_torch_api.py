@@ -21,12 +21,6 @@ JAX_PKG = ROOT / "pixparse_tpu"
 # place they are listed ("parallel.*": the whole package)
 NOT_PORTED = {
     "framework.jax_key": "a JAX PRNG key; the port seeds torch.Generator objects",
-    "parallel.DEFAULT_LOGICAL_RULES": "XLA layout rules: FSDP2 shards every parameter on dim 0 "
-    "(the numbers do not depend on the dim); the model axis (ROADMAP Queue 1 item 7) owns "
-    "the rules of its tensor-parallel plan",
-    "parallel.logical_sharding": "XLA layout rules: FSDP2 shards every parameter on dim 0 "
-    "(the numbers do not depend on the dim); the model axis (ROADMAP Queue 1 item 7) owns "
-    "the rules of its tensor-parallel plan",
 }
 
 

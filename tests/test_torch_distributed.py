@@ -42,6 +42,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLOO_TIMEOUT_S = 180  # a collective waiting longer than this raises
 WAIT_S = 300  # per launch: every rank must have exited by then
+CHILD_TIMEOUT_S = 120  # chip_smoke's distributed child on the CPU
 SCHED = (10, 1, 10)  # num_intervals, num_warmup_intervals, updates_per_interval
 OPT = dict(learning_rate=1e-3, warmup_learning_rate=1e-4)
 NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
@@ -348,15 +349,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(world, argv, module=False):
-    """``world`` ranks of ``python <this file> argv`` (or ``python -m
-    argv[0] argv[1:]``) as torchrun would start them; returns their outputs
-    after all have exited 0."""
+def launch(world, argv, module=False, script=__file__):
+    """``world`` ranks of ``python <script> argv`` (``script``: this file
+    by default; or ``python -m argv[0] argv[1:]``) as torchrun would start
+    them; returns their outputs after all have exited 0."""
     port = str(_free_port())
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=str(world),
                OMP_NUM_THREADS="2", PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", *argv] if module else [sys.executable, __file__, *argv]
+    cmd = [sys.executable, "-m", *argv] if module else [sys.executable, script, *argv]
     procs = [
         subprocess.Popen(cmd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -806,6 +807,8 @@ def test_chip_smoke_distributed_phase_on_the_cpu(tmp_path, monkeypatch):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     monkeypatch.setattr(cs, "OUT_DIR", str(tmp_path / "out"))
+    # a hang fails within this, not at the suite's limit (the child takes ~15 s)
+    monkeypatch.setattr(cs, "DIST_CHILD_TIMEOUT_S", CHILD_TIMEOUT_S)
     os.makedirs(cs.OUT_DIR)
     counts = cs.phase_distributed(torch, model_name="cruller_test", B=2, steps=3, vocab=300,
                                   eval_run=(2, 1, 16), device="cpu")

@@ -105,19 +105,24 @@ def test_is_distributed_env(environ, want):
 
 
 def test_model_axis_raises_naming_the_roadmap_item(tmp_path):
+    """The model axis is ported (tests/test_torch_tensor_parallel.py): in a
+    process alone a model axis of 2 is a mesh that does not fit its one
+    device, which every entry point refuses as the JAX package's
+    ``create_mesh`` does."""
     from pixparse_tpu_torch.app.eval import main as eval_main
     from pixparse_tpu_torch.app.infer import main as infer_main
     from pixparse_tpu_torch.app.train import main as train_main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    no_fit = "1 devices not divisible by fsdp\\*model=2"
+    with pytest.raises(ValueError, match=no_fit):
         MeshEnv.initialize(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    with pytest.raises(ValueError, match=no_fit):
         train_main(["--task.model_name", "cruller_test", "--task.device", "cpu",
                     "--task.mesh.model", "2", "--train.output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    with pytest.raises(ValueError, match=no_fit):
         eval_main(["--eval.task_name", "cruller_eval_ocr", "--task.model_name", "cruller_test",
                    "--task.device", "cpu", "--task.mesh.model", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    with pytest.raises(ValueError, match=no_fit):
         infer_main(["--task.model_name", "cruller_test", "--task.device", "cpu",
                     "--task.mesh.model", "2", "--infer.images", str(tmp_path)])
 

@@ -77,6 +77,8 @@ def _batch(name, n=2, text_len=12, seed=0):
 
 def _port_loss_and_grads(model, img, txt, tgt, seed=123):
     model.decoder.dropout_generator.manual_seed(seed)
+    if model.decoder.shard_dropout_generator is not None:
+        model.decoder.shard_dropout_generator.manual_seed(seed + 1)
     hidden = model.forward_hidden(torch.from_numpy(img), torch.from_numpy(txt).long())
     loss, _ = cross_entropy_from_hidden(hidden, model.tied_embedding, torch.from_numpy(tgt).long())
     names = [n for n, _ in model.named_parameters()]
@@ -84,12 +86,17 @@ def _port_loss_and_grads(model, img, txt, tgt, seed=123):
     return float(loss.detach()), dict(zip(names, grads))
 
 
+@pytest.mark.parametrize("shard_stream", [False, True])
 @pytest.mark.parametrize("name", ["cruller_test", "cruller_swin_test"])
-def test_every_mode_equals_no_remat_with_dropout_live(name):
+def test_every_mode_equals_no_remat_with_dropout_live(name, shard_stream):
+    """``shard_stream``: the activation dropout draws from its own generator
+    (as a tensor-parallel rank's does): a region replays both streams."""
     v, b, _ = resolve_cruller_cfgs(get_model_config(name), vocab_size=VOCAB)
     assert b.dropout == b.activation_dropout == 0.1
     model = Cruller(v, b).init_weights(torch.Generator().manual_seed(0)).train()
     model.decoder.dropout_generator = torch.Generator()
+    if shard_stream:
+        model.decoder.shard_dropout_generator = torch.Generator()
     batch = _batch(name)
     ref_loss, ref = _port_loss_and_grads(model, *batch)
     _, other_seed = _port_loss_and_grads(model, *batch, seed=7)
