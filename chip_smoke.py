@@ -249,9 +249,9 @@ stderr):
    bytes and time of each host-to-device copy. (b) one ``cruller_pretrain``
    train step at B=8 with the flag on and off from the same weights and
    batch: losses finite and within 1e-3 relative (bit equality recorded).
-   (c) 64 pages with per-page budgets drawn uniformly from 64-256 (numpy,
+   (c) 32 pages with per-page budgets drawn uniformly from 64-256 (numpy,
    seed 17), max_length 257, through ``ops/serving.py::ContinuousBatcher``
-   (16 slots, refill 16, pools of 32) and through ``generate`` in 4 batches
+   (16 slots, refill 16, pools of 32) and through ``generate`` in batches
    of 16 with the same budgets, in the bf16 and the int8 decode mode: for
    each path pages/s, decode steps, ms a step, tokens a step, first-result
    latency, the device idle share (``device_profile``), launches; the
@@ -316,26 +316,40 @@ stderr):
    too).
 20. ``tensor_parallel``: the mesh's ``model`` axis
    (``parallel/tensor_parallel.py``). (a) Every kernel of the
-   model-parallel train step at the shard shapes of model 2 and 4, each
-   rank's call on its part of the same full tensors: flash forward and
-   backward at cruller_base's three sites (B=16, 6 / 3 of 12 heads, q/k/v
-   from the rank's own fused projection), the fused CE forward and
+   model-parallel train step and decode at the shard shapes of model 2 and
+   4, each rank's call on its part of the same full tensors: flash forward
+   and backward at cruller_base's three sites (B=16, 6 / 3 of 12 heads,
+   q/k/v from the rank's own fused projection) and at pix2struct_base's
+   encoder and cross sites with the pix2struct phase's ragged kv_lens
+   (B=8), the decode kernel (#8) at cruller_base's cross (1009 of 1024
+   keys) and self caches (33 of 128) of B=16 on each rank's own contiguous
+   caches, the fused CE forward and
    backward on each vocabulary shard (50265 rows -> 25133 / 12567, the
    last shorter) with targets shifted to it, the window kernels at
    donut_base's four stages (B=2, shifted, 2 / 1 to 16 / 8 heads); each
    rank against its plain version (the usual tolerances; a target outside
    a CE shard must give logit 0), the results merged (heads concatenated,
    lse by max and sum, dh summed, dE concatenated, dbias by heads) against
-   the unsharded kernel's; rank 0's shard timed beside its plain version,
-   the library call and its bound. (b) A child started by
+   the unsharded kernel's (#8's within its plain tolerance: a narrower row
+   takes another tile and key split); rank 0's shard timed beside its plain
+   version, the library call and its bound. (b) A child started by
    ``torch.distributed.run --nproc_per_node 2`` whose two ranks share the
-   card over gloo (NCCL refuses two ranks on one device): rank 0 trains
-   ``cruller_pretrain`` at cruller_base (B=16, bf16, dropout 0: a model
-   rank draws FFN masks at its shard's shape) alone for 3 steps, then both
-   at mesh (1,1,2). Gates: step 1's loss within 1e-3 relative
-   and its gradient norm within 1e-2 of the process alone's, the same
-   losses on both ranks, each rank's flash and CE launches a step equal to
-   the process alone's and non-zero.
+   card over gloo (NCCL refuses two ranks on one device), each run on rank
+   0 alone, then on both at mesh (1,1,2), bf16, dropout 0 (a model rank
+   draws FFN masks at its shard's shape): ``cruller_pretrain`` at
+   cruller_base (B=16, 2 steps) and ``pix2struct_pretrain`` at
+   pix2struct_base (B=8, the pix2struct phase's pages, 2 steps), gated by
+   step 1's loss within 1e-3 relative and its gradient norm within 1e-2 of
+   the process alone's, the same losses on both ranks, each rank's flash
+   and CE launches a step equal to the process alone's and non-zero; then
+   cruller_base decoding through the registered ``cruller_eval_ocr``
+   task's ``setup`` (the model cut over ``model``) and ``generate``: B=16
+   seeded pages, 32 new tokens, EOS off, gated by the two ranks' tokens
+   equal, the prefill's and every step's logits teacher-forced along
+   alone's tokens within 5e-2 of alone's, each rank's #1/#2 launches an
+   encode and #8 launches a run equal to alone's and non-zero; recorded
+   the share of tokens equal to alone's, encode ms, decode ms a step and
+   each rank's peak memory.
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -387,7 +401,7 @@ PIX2STRUCT_PAGES = ((600, 800), (3508, 2480), (4000, 300), (1700, 1300))
 PIX2STRUCT_B = 8  # pix2struct: train and serve batch
 PIX2STRUCT_STEPS = 4  # pix2struct: train steps on the repeated batch (the first one warms up)
 # serve_stream: continuous batching against batched decode at cruller_base
-STREAM_PAGES = 64
+STREAM_PAGES = 32  # the stream's pages (the whole script must stay within its time)
 STREAM_SLOTS = 16
 STREAM_MAX_LENGTH = 257  # prompt 1 + 256
 STREAM_BUDGETS = (64, 256)  # per-page budgets, uniform (inclusive)
@@ -4919,13 +4933,26 @@ def distributed_runs(torch, env, spec):
 
 TP_SIZES = (2, 4)  # the model axis' sizes whose shard shapes (a) checks
 TP_B = 16  # (b): the train batch
-TP_STEPS = 3  # (b): train steps of the model-parallel run
+TP_STEPS = 2  # (b): cruller_base train steps of each run (step 1 is the one gated)
 TP_CHILD_TIMEOUT_S = 600  # (b)'s torchrun child; it takes ~2 min on the card
 TP_FLASH = (  # cruller_base's train step: name, B, Lq, Lk, H, D, causal
     ("encoder_b16_l1009", 16, 1009, 1009, 12, 64, False),
     ("decoder_self_causal_b16_l1023", 16, 1023, 1023, 12, 64, True),
     ("decoder_cross_b16_lq1023_lk1009", 16, 1023, 1009, 12, 64, False),
 )
+# #8 at cruller_base's decode (B=16, prompt 1 + TP_DECODE_NEW_TOKENS): name, B,
+# Lk, valid keys, H, D
+TP_DECODE_CASES = (
+    ("cross_b16_lk1024_valid1009", 16, 1024, 1009, 12, 64),
+    ("self_b16_lk128_valid33", 16, 128, 33, 12, 64),
+)
+TP_DECODE_B = 16  # (b): the model-parallel decode's batch
+TP_DECODE_NEW_TOKENS = 32  # (b): its new tokens, EOS off
+TP_DECODE_GATE = 5e-2  # (b): logits against alone's, the cached-decode gate (abs and rel)
+TP_P2S_B = 8  # (b): pix2struct_base's train batch at (1,1,2)
+TP_P2S_STEPS = 2
+TP_P2S_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
+TP_DECODE_KERNELS = ("flash_attention_fwd", "decode_attention")
 TP_CE = ("train_t16368_v50265_d768", 16 * 1023, BART_VOCAB, 768, 0.3)  # name, T, V, D, ignored
 TP_WINDOW_STAGES = ((128, 4), (256, 8), (512, 16), (1024, 32))  # donut_base: C, H by stage
 # the combined (merged) results against the unsharded kernel's: the shards
@@ -4948,13 +4975,26 @@ def tp_timing(torch, timer, rec, kernel, plain, library, flops, nbytes, peaks):
     return rec
 
 
+def tp_flash_cases():
+    """``TP_FLASH`` (no kv_lens) and pix2struct_base's encoder and cross
+    sites with the pix2struct phase's ragged kv_lens: name, B, Lq, Lk, H,
+    D, causal, kv_lens."""
+    lens = pix2struct_lens()
+    return [case + (None,) for case in TP_FLASH] + [
+        ("p2s_encode_b8_l2048_kv_lens", PIX2STRUCT_B, 2048, 2048, 12, 64, False, lens),
+        ("p2s_cross_b8_lq1023_lk2048_kv_lens", PIX2STRUCT_B, 1023, 2048, 12, 64, False, lens),
+    ]
+
+
 def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
     """Flash forward and backward on each rank's heads of the same full
     q/k/v (each rank's own fused projection: its heads of q, k and v,
     contiguous), against the plain version per rank and, heads
     concatenated, against the unsharded kernel. Returns (forward record,
     backward record); the timings are rank 0's shard."""
-    name, B, Lq, Lk, H, D, causal = case
+    name, B, Lq, Lk, H, D, causal, lens = case
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, kv_lens=kv_lens)
     dt = torch.bfloat16
     Hl = H // size
     if Lq == Lk:
@@ -4965,9 +5005,9 @@ def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
         kv = torch.randn(B, Lk, 2, H, D, generator=gen).to("cuda", dt)
         k, v = kv.unbind(2)
     do = torch.randn(B, Lq, H, D, generator=gen).to("cuda", dt)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
     atol, rtol = TOL["bfloat16"]
     brtol = BWD_ROW_RTOL["bfloat16"]
     fwd_errs, bwd_errs, shards, ok_f, ok_b = [], [], [], True, True
@@ -4979,16 +5019,16 @@ def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
             qr = q[:, :, hs].contiguous()
             kr, vr = kv[:, :, :, hs].contiguous().unbind(2)
         dor = do[:, :, hs].contiguous()
-        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, causal=causal)
-        o_ref, lse_ref = fa.flash_attention_plain(qr, kr, vr, causal=causal)
+        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, **kw)
+        o_ref, lse_ref = fa.flash_attention_plain(qr, kr, vr, **kw)
         e_o, k_o = close(o_r, o_ref, atol, rtol)
         e_l, k_l = close(lse_r, lse_ref, *LSE_TOL)
         fwd_errs.append(max(e_o, e_l))
         ok_f = ok_f and k_o and k_l
         delta_r = (dor.float() * o_r.float()).sum(-1).permute(0, 2, 1).contiguous()
         args = (qr, kr, vr, dor, lse_r, delta_r)
-        g_r = fa.flash_attention_bwd(*args, causal=causal)
-        g_ref = fa.flash_attention_bwd_plain(*args, causal=causal)
+        g_r = fa.flash_attention_bwd(*args, **kw)
+        g_ref = fa.flash_attention_bwd_plain(*args, **kw)
         errs = [rows_close(a, b, brtol, BWD_ROW_FLOOR) for a, b in zip(g_r, g_ref)]
         bwd_errs.append(max(e[0] for e in errs))
         ok_b = ok_b and all(e[2] for e in errs)
@@ -4999,7 +5039,7 @@ def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
     comb_g = [rows_close(torch.cat([s[2][i] for s in shards], 2), grads[i], brtol,
                          BWD_ROW_FLOOR) for i in range(3)]
     common = dict(case=name, model=size, full_shape=[B, Lq, Lk, H, D],
-                  shard_shape=[B, Lq, Lk, Hl, D], causal=causal, dtype=str(dt))
+                  shard_shape=[B, Lq, Lk, Hl, D], causal=causal, kv_lens=lens, dtype=str(dt))
     fwd = dict(common, max_abs_err=max(fwd_errs), rank_max_abs_err=fwd_errs,
                combined_max_abs_err=max(comb_o, comb_l), tol=[atol, rtol, "lse", *LSE_TOL],
                ok=ok_f and ok_co and ok_cl)
@@ -5009,26 +5049,27 @@ def tp_flash(torch, F, fa, timer, peaks, gen, case, size):
                tol=["row L2", brtol, "floor", BWD_ROW_FLOOR],
                ok=ok_b and all(g[2] for g in comb_g))
     qr, kr, vr = shards[0][3][:3]
-    pairs, kl = visible_pairs(B, Lq, Lk, causal, None)
+    pairs, kl = visible_pairs(B, Lq, Lk, causal, lens)
     elt = 2
     qt, kt, vt = qr.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2)
-    if causal and Lq != Lk:
+    am = None
+    if kv_lens is not None:
+        am = (torch.arange(Lk, device="cuda")[None] < kv_lens[:, None])[:, None, None, :]
+    elif causal and Lq != Lk:
         am = torch.arange(Lk, device="cuda")[None, :] <= (
             torch.arange(Lq, device="cuda")[:, None] + (Lk - Lq))
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
-    else:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    tp_timing(torch, timer, fwd, lambda: fa.flash_attention_fwd(qr, kr, vr, causal=causal),
-              lambda: fa.flash_attention_plain(qr, kr, vr, causal=causal), lib,
+    sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am) if am is not None \
+        else F.scaled_dot_product_attention(*t, is_causal=causal)
+    tp_timing(torch, timer, fwd, lambda: fa.flash_attention_fwd(qr, kr, vr, **kw),
+              lambda: fa.flash_attention_plain(qr, kr, vr, **kw), lambda: sdpa(qt, kt, vt),
               4.0 * Hl * D * pairs, elt * Hl * D * (2 * B * Lq + 2 * sum(kl)) + 4 * B * Hl * Lq,
               peaks)
     args = shards[0][3]
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in args[:3]]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal) if not (causal and Lq != Lk) \
-        else F.scaled_dot_product_attention(*leaves, attn_mask=am)
+    out = sdpa(*leaves)
     dot = args[3].transpose(1, 2)
-    tp_timing(torch, timer, bwd, lambda: fa.flash_attention_bwd(*args, causal=causal),
-              lambda: fa.flash_attention_bwd_plain(*args, causal=causal),
+    tp_timing(torch, timer, bwd, lambda: fa.flash_attention_bwd(*args, **kw),
+              lambda: fa.flash_attention_bwd_plain(*args, **kw),
               lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True),
               10.0 * Hl * D * pairs,
               elt * Hl * D * (3 * B * Lq + 2 * sum(kl) + 2 * B * Lk) + 8 * B * Hl * Lq, peaks)
@@ -5188,10 +5229,59 @@ def tp_window(torch, F, wa, timer, peaks, gen, stage, size):
     return fwd, bwd
 
 
+def tp_decode(torch, F, da, timer, peaks, gen, case, size):
+    """The decode kernel (#8) on each rank's heads of the same full caches
+    (each rank's own contiguous ``(B, Lk, H*D / size)`` buffers, as a cut
+    decoder allocates them), against the plain version per rank and, heads
+    concatenated, against the unsharded kernel (within the plain
+    tolerance: ``decode_plan`` picks the tile and key split from the row
+    width, so the merge order differs). Returns the record; the timings
+    are rank 0's shard."""
+    name, B, Lk, n_valid, H, D = case
+    dt = torch.bfloat16
+    Hl, HD = H // size, H * D
+    q = torch.randn(B, 1, HD, generator=gen).to("cuda", dt)
+    k = torch.randn(B, Lk, HD, generator=gen).to("cuda", dt)
+    v = torch.randn(B, Lk, HD, generator=gen).to("cuda", dt)
+    mask = (torch.arange(Lk) < n_valid)[None].expand(B, Lk).contiguous().cuda()
+    o = da.decode_attention(q, k, v, mask, num_heads=H)
+    atol, rtol = TOL["bfloat16"]
+    errs, outs, ok = [], [], True
+    for r in range(size):
+        cols = slice(r * Hl * D, (r + 1) * Hl * D)
+        qr, kr, vr = (t[..., cols].contiguous() for t in (q, k, v))
+        o_r = da.decode_attention(qr, kr, vr, mask, num_heads=Hl)
+        err, good = close(o_r, da.decode_attention_plain(qr, kr, vr, mask, num_heads=Hl),
+                          atol, rtol)
+        errs.append(err)
+        ok = ok and good
+        outs.append((o_r, qr, kr, vr))
+    comb, ok_c = close(torch.cat([x[0] for x in outs], -1), o, atol, rtol)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rec = dict(case=name, model=size, full_shape=[B, Lk, H, D], shard_shape=[B, Lk, Hl, D],
+               dtype=str(dt), valid_keys=int(mask.sum()), max_abs_err=max(errs),
+               rank_max_abs_err=errs, combined_max_abs_err=comb, tol=[atol, rtol],
+               plan_kt_split_keys_n_split=list(da.decode_plan(B, Lk, Hl * D * 2, n_sm)),
+               ok=ok and ok_c)
+    _, qr, kr, vr = outs[0]
+    nvk, elt = int(mask.sum()), 2
+    split = lambda t, n: t.view(B, n, Hl, D).transpose(1, 2)
+    am = mask[:, None, None, :]
+    tp_timing(torch, timer, rec, lambda: da.decode_attention(qr, kr, vr, mask, num_heads=Hl),
+              lambda: da.decode_attention_plain(qr, kr, vr, mask, num_heads=Hl),
+              lambda: F.scaled_dot_product_attention(split(qr, 1), split(kr, Lk), split(vr, Lk),
+                                                     attn_mask=am),
+              4.0 * D * Hl * nvk, elt * (2 * B * Hl * D + 2 * nvk * Hl * D) + B * Lk, peaks)
+    rec["device_ms"] = timer.median_ms(
+        lambda: da.decode_attention(qr, kr, vr, mask, num_heads=Hl), busy=True)
+    return rec
+
+
 def tp_kernel_cases(torch, F, card_name, timer):
-    """(a): every kernel of the model-parallel train step at the shard
-    shapes of model 2 and 4. Returns ``{kernel: [records]}``; a mismatch
-    fails the phase."""
+    """(a): every kernel of the model-parallel train step and decode at the
+    shard shapes of model 2 and 4. Returns ``{kernel: [records]}``; a
+    mismatch fails the phase."""
+    from pixparse_tpu_torch.ops import decode_attention as da
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import loss
     from pixparse_tpu_torch.ops import window_attention as wa
@@ -5199,7 +5289,8 @@ def tp_kernel_cases(torch, F, card_name, timer):
     peaks = peaks_for(card_name)
     gen = torch.Generator().manual_seed(20)
     out = {k: [] for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
-                           "fused_ce_bwd", "window_attention", "window_attention_bwd")}
+                           "fused_ce_bwd", "window_attention", "window_attention_bwd",
+                           "decode_attention")}
 
     def add(fwd_name, bwd_name, pair):
         for kernel, rec in zip((fwd_name, bwd_name), pair):
@@ -5208,9 +5299,13 @@ def tp_kernel_cases(torch, F, card_name, timer):
         torch.cuda.empty_cache()
 
     for size in TP_SIZES:
-        for case in TP_FLASH:
+        for case in tp_flash_cases():
             add("flash_attention_fwd", "flash_attention_bwd",
                 tp_flash(torch, F, fa, timer, peaks, gen, case, size))
+        for case in TP_DECODE_CASES:
+            rec = tp_decode(torch, F, da, timer, peaks, gen, case, size)
+            out["decode_attention"].append(rec)
+            note({"phase": "tensor_parallel", "kernel": "decode_attention", **rec})
         add("fused_ce_fwd", "fused_ce_bwd", tp_ce(torch, F, loss, timer, peaks, gen, size))
         for stage in range(len(TP_WINDOW_STAGES)):
             add("window_attention", "window_attention_bwd",
@@ -5219,13 +5314,17 @@ def tp_kernel_cases(torch, F, card_name, timer):
 
 
 def phase_tensor_parallel(torch, F=None, card_name=None, timer=None, model_name="cruller_base",
-                          B=TP_B, steps=TP_STEPS, vocab=BART_VOCAB, device="cuda"):
+                          B=TP_B, steps=TP_STEPS, vocab=BART_VOCAB, device="cuda",
+                          decode_B=TP_DECODE_B, new_tokens=TP_DECODE_NEW_TOKENS,
+                          p2s_model="pix2struct_base", p2s_B=TP_P2S_B, p2s_steps=TP_P2S_STEPS):
     """(a) on the card: :func:`tp_kernel_cases`. (b) a child started by
     ``torch.distributed.run --nproc_per_node 2`` whose two ranks share the
     one device (gloo carries their collectives, CUDA tensors included;
     NCCL refuses two ranks on one device): :func:`tp_child` trains
-    ``cruller_pretrain`` at mesh (1,1,2) beside the process alone. Returns
-    the model-parallel run's launch counts, summed over its ranks."""
+    ``cruller_pretrain`` at ``model_name`` and ``pix2struct_pretrain`` at
+    ``p2s_model``, then decodes ``model_name`` through the eval task, each
+    at mesh (1,1,2) beside the process alone. Returns the model-parallel
+    runs' launch counts, summed over the runs and the ranks."""
     rec = {"phase": "tensor_parallel", "model_name": model_name, "batch": B, "steps": steps,
            "problems": []}
     if device == "cuda":
@@ -5238,6 +5337,8 @@ def phase_tensor_parallel(torch, F=None, card_name=None, timer=None, model_name=
     if os.path.exists(out):
         os.remove(out)
     spec = {"model_name": model_name, "B": B, "steps": steps, "vocab": vocab, "device": device,
+            "decode_B": decode_B, "new_tokens": new_tokens, "p2s_model": p2s_model,
+            "p2s_B": p2s_B, "p2s_steps": p2s_steps,
             "out": out, "out_dir": os.path.abspath(OUT_DIR)}
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -5272,8 +5373,11 @@ def phase_tensor_parallel(torch, F=None, card_name=None, timer=None, model_name=
     emit(rec)
     if rec["problems"]:
         raise SystemExit("tensor_parallel failed: " + "; ".join(rec["problems"]))
-    by_rank = child["runs"]["model_parallel"]["launches_by_rank"]
-    return {"tensor_parallel": {k: sum(r[k] for r in by_rank) for k in by_rank[0]}}
+    counts = [*child["runs"]["model_parallel"]["launches_by_rank"],
+              *child["pix2struct"]["runs"]["model_parallel"]["launches_by_rank"]]
+    for by_part in child["decode"]["model_parallel"]["launches_by_rank"]:
+        counts += [by_part["encode"], by_part["generate"]]
+    return {"tensor_parallel": {k: sum(c[k] for c in counts) for k in counts[0]}}
 
 
 def tp_child(spec) -> int:
@@ -5310,22 +5414,266 @@ def tp_child(spec) -> int:
     return 0
 
 
-def tp_runs(torch, env, spec):
-    """``cruller_pretrain`` as ``train_task`` builds it, from one seed and
-    batch: on rank 0 alone as a process alone (rank 1 waits), then on both
+def tp_train_runs(torch, env, spec, task_name, cfg, make_sample, steps):
+    """``task_name`` built from ``cfg`` by ``TaskFactory``, dropout 0, from
+    one seed and one sample (``make_sample(task)``, as a loader hands it
+    over): on rank 0 alone as a process alone (rank 1 waits), then on both
     ranks at mesh (1,1,2), ``steps`` steps each through the task's
-    ``train_step``. Rank 0 returns the record (None on rank 1)."""
+    ``train_step``, the counts zeroed before each run and read after it.
+    Returns ``{"alone": run, "model_parallel": run}`` (rank 1: no
+    ``"alone"``)."""
     import gc
-    import shutil
-    import tempfile
 
+    import torch.distributed as dist
+
+    from pixparse_tpu_torch.parallel.mesh import MeshEnv
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+
+    on_card = spec["device"] == "cuda"
+    runs = {}
+    for tag, task_env in (("alone", MeshEnv(device=env.device)), ("model_parallel", env)):
+        if tag == "alone" and env.global_rank != 0:
+            dist.barrier()  # rank 0's run alone
+            continue
+        task, _ = TaskFactory.create_task(task_name, cfg, task_env, monitor=None)
+        # dropout 0: a model rank draws its FFN masks at the shard's shape,
+        # so no mask could equal the process alone's
+        task.bart_cfg = dataclasses.replace(
+            task.bart_cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+        sample = make_sample(task)
+        task.train_setup(num_batches_per_interval=steps, seed=0)
+        step_fn, seen = task.train_step_fn, []
+
+        def recording(state, batch, step_fn=step_fn, seen=seen):
+            state, metrics = step_fn(state, batch)
+            seen.append(metrics)
+            return state, metrics
+
+        task.train_step_fn = recording
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(torch)
+        reset_counts()
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            task.train_step(sample)
+            float(task._last_loss_dev)
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+        run = {"losses": [float(m["loss"]) for m in seen],
+               "grad_norms": [float(m["grad_norm"]) for m in seen],
+               "ms_by_step": ms, "peak_mem_bytes":
+                   torch.cuda.max_memory_allocated() if on_card else None,
+               "split_params": len(task.state.tp_layouts)}
+        if tag == "model_parallel":
+            run["launches_by_rank"] = env.all_gather_object(launches)
+            run["losses_by_rank"] = env.all_gather_object(run["losses"])
+        else:
+            run["launches"] = launches
+        runs[tag] = run
+        del task, recording, step_fn, sample
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        if tag == "alone":
+            dist.barrier()
+    return runs
+
+
+def tp_train_checks(runs, steps, kernels, on_card, tag=""):
+    """``(step-1 record, problems)`` of :func:`tp_train_runs`' runs: finite
+    losses, the same on both ranks, parameters split only at model 2, the
+    step-1 loss (``DIST_LOSS_RTOL``) and gradient norm (``DIST_NORM_RTOL``)
+    against the process alone, ``kernels``' launches a step on each rank
+    equal to the process alone's (and, on the card, launched)."""
+    import numpy as np
+
+    problems = []
+    alone, mp = runs["alone"], runs["model_parallel"]
+    for run_tag, run in runs.items():
+        if not all(np.isfinite(run["losses"])):
+            problems.append(f"{tag}{run_tag}: losses not finite: {run['losses']}")
+    if mp["losses_by_rank"][0] != mp["losses_by_rank"][1]:
+        problems.append(f"{tag}the ranks' losses differ: {mp['losses_by_rank']}")
+    if mp["split_params"] == 0 or alone["split_params"] != 0:
+        problems.append(f"{tag}split parameters: model-parallel {mp['split_params']}, alone "
+                        f"{alone['split_params']}")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    step1 = {"loss_rel": rel(mp["losses"][0], alone["losses"][0]),
+             "grad_norm_rel": rel(mp["grad_norms"][0], alone["grad_norms"][0])}
+    if not step1["loss_rel"] <= DIST_LOSS_RTOL:
+        problems.append(f"{tag}step-1 loss: model-parallel {mp['losses'][0]} vs alone "
+                        f"{alone['losses'][0]}")
+    if not step1["grad_norm_rel"] <= DIST_NORM_RTOL:
+        problems.append(f"{tag}step-1 grad norm: model-parallel {mp['grad_norms'][0]} vs alone "
+                        f"{alone['grad_norms'][0]}")
+    for r, launches in enumerate(mp["launches_by_rank"]):
+        per_step = {k: launches[k] / steps for k in kernels}
+        if per_step != {k: alone["launches"][k] / steps for k in kernels}:
+            problems.append(f"{tag}rank {r}'s launches a step {per_step} differ from the "
+                            f"process alone's")
+        if on_card and not all(n > 0 for n in per_step.values()):
+            problems.append(f"{tag}rank {r} never launched some kernels: {per_step}")
+    return step1, problems
+
+
+def forced_logits(torch, model, enc, tokens, pad):
+    """The logits of ``generate``'s prefill and steps, teacher-forced along
+    ``tokens`` ``(B, L)`` (a one-token prompt, then the tokens as given):
+    ``(B, L - 1, V)`` fp32, on the CPU."""
+    from pixparse_tpu_torch.models.bart import KVCache
+
+    B, L = tokens.shape
+    buffer = torch.full_like(tokens, pad)
+    buffer[:, 0] = tokens[:, 0]
+    cache = KVCache(max_len=L)
+    with torch.inference_mode():
+        out = [model.decode(tokens[:, :1], enc, cache, key_pad_mask=buffer != pad,
+                            mode="prefill")[:, -1].cpu()]
+        for cur in range(1, L - 1):
+            buffer[:, cur] = tokens[:, cur]
+            out.append(model.decode(tokens[:, cur:cur + 1], enc, cache,
+                                    key_pad_mask=buffer != pad, mode="decode",
+                                    positions=torch.full((B, 1), cur, device=tokens.device)
+                                    )[:, -1].cpu())
+    return torch.stack(out, 1)
+
+
+def tp_decode_runs(torch, env, spec, tok_dir):
+    """(b) decoding: the registered ``cruller_eval_ocr`` task at
+    ``spec['model_name']``, bf16, seed-0 weights (its ``setup``: at mesh
+    (1,1,2) the model cut over ``model``), ``decode_B`` seeded pages, the
+    task's one-token prompt, ``new_tokens`` greedy tokens through
+    ``generate`` with EOS off: on rank 0 alone (rank 1 waits), then on both
+    ranks; the counts zeroed before each encode and each ``generate`` and
+    read after it. Then both ranks' logits teacher-forced along alone's
+    tokens. Returns ``(record, problems)`` on rank 0, ``(None, [])`` on
+    rank 1."""
     import numpy as np
     import torch.distributed as dist
 
-    from pixparse_tpu_torch.framework.config import OptimizationCfg
     from pixparse_tpu_torch.parallel.mesh import MeshEnv
-    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCRCfg
     from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.ops.generation import generate
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+
+    device, B, new_tokens = spec["device"], spec["decode_B"], spec["new_tokens"]
+    on_card, rank = device == "cuda", env.global_rank
+    cfg = TaskCrullerEvalOCRCfg(model_name=spec["model_name"], tokenizer=TokenizerCfg(name=tok_dir),
+                                dtype="bfloat16", device=device)
+    runs, alone_tokens = {}, None
+    for tag, task_env in (("alone", MeshEnv(device=env.device)), ("model_parallel", env)):
+        if tag == "alone" and rank != 0:
+            dist.barrier()
+            continue
+        task, _ = TaskFactory.create_task("cruller_eval_ocr", cfg, task_env)
+        task.setup()
+        h, w = task.vit_cfg.img_size
+        images = synthetic_pages(torch, B, h, w, torch.Generator().manual_seed(3)).numpy()
+        prompt = torch.as_tensor(task.prompt_ids(task.task_start_token, B), device=env.device)
+        pad = task.tokenizer.pad_token_id
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(torch)
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = task.encode_images(images)
+        sync(torch)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        encode_launches = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = generate(task.model, enc, prompt, max_length=prompt.shape[1] + new_tokens,
+                          eos_token_id=-1, pad_token_id=pad)
+        sync(torch)
+        generate_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        tokens = result.tokens
+        if tag == "alone":
+            alone_tokens = tokens.cpu()
+        else:  # rank 1 takes alone's tokens from rank 0
+            alone_tokens = env.broadcast_object(alone_tokens)
+        logits = forced_logits(torch, task.model, enc, alone_tokens.to(env.device), pad)
+        run = {"encode_ms": encode_ms, "generate_ms": generate_ms, "steps": result.steps,
+               "decode_ms_per_step": generate_ms / (result.steps + 1),
+               "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+               "split_params": len(getattr(task.model, "tp_layouts", {})),
+               "encode_launches": encode_launches, "generate_launches": launches,
+               "decoder_layers": task.bart_cfg.decoder_layers,
+               "encoder_depth": task.vit_cfg.depth, "vocab": task.vocab_size}
+        if tag == "model_parallel":
+            run["tokens_by_rank"] = env.all_gather_object(tokens.cpu().numpy())
+            run["launches_by_rank"] = env.all_gather_object(
+                {"encode": encode_launches, "generate": launches})
+        runs[tag] = (run, tokens.cpu(), logits)
+        del task, enc, result
+        if on_card:
+            torch.cuda.empty_cache()
+        if tag == "alone":
+            dist.barrier()
+    if rank != 0:
+        return None, []
+    (alone, a_tokens, a_logits), (mp, _, mp_logits) = runs["alone"], runs["model_parallel"]
+    problems = []
+    ranks = mp.pop("tokens_by_rank")
+    ranks_equal = all(np.array_equal(t, ranks[0]) for t in ranks)
+    if not ranks_equal:
+        problems.append("decode: the ranks' tokens differ")
+    gen_cols = slice(1, None)
+    share = float((torch.from_numpy(ranks[0])[:, gen_cols] == a_tokens[:, gen_cols])
+                  .float().mean())
+    prefill_err, prefill_ok = close(mp_logits[:, 0], a_logits[:, 0], TP_DECODE_GATE,
+                                    TP_DECODE_GATE)
+    step_errs = [close(mp_logits[:, i], a_logits[:, i], TP_DECODE_GATE, TP_DECODE_GATE)
+                 for i in range(1, a_logits.shape[1])]
+    if not prefill_ok:
+        problems.append(f"decode: prefill logits {prefill_err} off alone's")
+    if not all(ok for _, ok in step_errs):
+        problems.append(f"decode: teacher-forced logits off alone's at steps "
+                        f"{[i + 1 for i, (_, ok) in enumerate(step_errs) if not ok]}")
+    if mp["split_params"] == 0 or alone["split_params"] != 0:
+        problems.append(f"decode: split parameters: model-parallel {mp['split_params']}, alone "
+                        f"{alone['split_params']}")
+    steps = alone["steps"]
+    for r, counts in enumerate(mp["launches_by_rank"]):
+        for part in ("encode", "generate"):
+            mine = {k: counts[part][k] for k in TP_DECODE_KERNELS}
+            want = {k: alone[f"{part}_launches"][k] for k in TP_DECODE_KERNELS}
+            if mine != want:
+                problems.append(f"decode: rank {r}'s {part} launches {mine} differ from the "
+                                f"process alone's {want}")
+        if on_card and not (counts["encode"]["flash_attention_fwd"] > 0
+                            and counts["generate"]["decode_attention"] > 0):
+            problems.append(f"decode: rank {r} never launched #1/#2 or #8: {counts}")
+    rec = {"batch": B, "new_tokens": new_tokens, "steps": steps, "gate": TP_DECODE_GATE,
+           "tokens_equal_across_ranks": ranks_equal,
+           "share_equal_to_alone": share, "prefill_max_abs_err": prefill_err,
+           "teacher_forced_max_abs_err": max(e for e, _ in step_errs),
+           "decode_launches_a_step_by_rank": [
+               c["generate"]["decode_attention"] / max(steps, 1) for c in mp["launches_by_rank"]],
+           "flash_launches_an_encode_by_rank": [
+               c["encode"]["flash_attention_fwd"] for c in mp["launches_by_rank"]],
+           "alone": alone, "model_parallel": mp}
+    return rec, problems
+
+
+def tp_runs(torch, env, spec):
+    """(b) on both ranks: ``cruller_pretrain`` as ``train_task`` builds it
+    and ``pix2struct_pretrain`` at ``spec['p2s_model']`` (the pix2struct
+    phase's pages), each on rank 0 alone and at mesh (1,1,2)
+    (:func:`tp_train_runs`), then decoding (:func:`tp_decode_runs`). Rank 0
+    returns the record (None on rank 1)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrainCfg
+    from pixparse_tpu_torch.task.task_pix2struct_pretrain import TaskPix2StructPretrainCfg
     from pixparse_tpu_torch.tokenizers import TokenizerCfg
 
     model_name, B, steps, vocab, device = (spec[k] for k in ("model_name", "B", "steps", "vocab",
@@ -5339,88 +5687,44 @@ def tp_runs(torch, env, spec):
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_tp{rank}_")
     try:
         tok_dir = saved_tokenizer(os.path.join(tmp, f"tokenizer{vocab}"), vocab)
+        opt = OptimizationCfg(learning_rate=3e-4)
         cfg = TaskCrullerPretrainCfg(
             model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
-            device=device, num_intervals=2, num_warmup_intervals=0,
-            opt=OptimizationCfg(learning_rate=3e-4),
-        )
-        for tag, task_env in (("alone", MeshEnv(device=env.device)), ("model_parallel", env)):
-            if tag == "alone" and rank != 0:
-                dist.barrier()  # rank 0's run alone
-                continue
-            task, _ = TaskFactory.create_task("cruller_pretrain", cfg, task_env, monitor=None)
-            # dropout 0: a model rank draws its FFN masks at the shard's shape,
-            # so no mask could equal the process alone's
-            task.bart_cfg = dataclasses.replace(
-                task.bart_cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+            device=device, num_intervals=2, num_warmup_intervals=0, opt=opt)
+
+        def cruller_sample(task):
             enc = task.vit_cfg
-            loader = SeededLoader(torch, 1, B, enc.img_size, task.max_position_embeddings,
-                                  seed=0, in_chans=enc.in_chans, vocab=vocab)
-            task.train_setup(num_batches_per_interval=steps, seed=0)
-            step_fn, seen = task.train_step_fn, []
+            return SeededLoader(torch, 1, B, enc.img_size, task.max_position_embeddings, seed=0,
+                                in_chans=enc.in_chans, vocab=vocab).batches[0]
 
-            def recording(state, batch, step_fn=step_fn, seen=seen):
-                state, metrics = step_fn(state, batch)
-                seen.append(metrics)
-                return state, metrics
+        rec["runs"] = tp_train_runs(torch, env, spec, "cruller_pretrain", cfg, cruller_sample,
+                                    steps)
+        p2s_cfg = TaskPix2StructPretrainCfg(
+            model_name=spec["p2s_model"], tokenizer=TokenizerCfg(name=tok_dir), dtype="bfloat16",
+            device=device, num_intervals=2, num_warmup_intervals=0, opt=opt)
 
-            task.train_step_fn = recording
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-            sync(torch)
-            reset_counts()
-            ms = []
-            for _ in range(steps):
-                t0 = time.perf_counter()
-                task.train_step(loader.batches[0])
-                float(task._last_loss_dev)
-                sync(torch)
-                ms.append((time.perf_counter() - t0) * 1e3)
-            launches = read_counts()
-            run = {"losses": [float(m["loss"]) for m in seen],
-                   "grad_norms": [float(m["grad_norm"]) for m in seen],
-                   "ms_by_step": ms, "peak_mem_bytes":
-                       torch.cuda.max_memory_allocated() if on_card else None,
-                   "split_params": len(task.state.tp_layouts)}
-            if tag == "model_parallel":
-                run["launches_by_rank"] = env.all_gather_object(launches)
-                run["losses_by_rank"] = env.all_gather_object(run["losses"])
-            else:
-                run["launches"] = launches
-            rec["runs"][tag] = run
-            del task, recording, step_fn
-            gc.collect()
-            if on_card:
-                torch.cuda.empty_cache()
-            if tag == "alone":
-                dist.barrier()
+        def p2s_sample(task):
+            gen = torch.Generator().manual_seed(0)
+            enc = task.vit_cfg
+            image = pix2struct_batch(torch, spec["p2s_B"], PIX2STRUCT_PAGES, enc.max_patches,
+                                     enc.patch_size, gen, device)
+            text, target = synthetic_tokens(torch, spec["p2s_B"], task.max_position_embeddings,
+                                            vocab, gen)
+            return ({k: v.cpu().numpy() for k, v in image.items()}, text.numpy(), target.numpy())
+
+        p2s_runs = tp_train_runs(torch, env, spec, "pix2struct_pretrain", p2s_cfg, p2s_sample,
+                                 spec["p2s_steps"])
+        decode, decode_problems = tp_decode_runs(torch, env, spec, tok_dir)
         if rank != 0:
             return None
-        alone, mp = rec["runs"]["alone"], rec["runs"]["model_parallel"]
-        for tag, run in rec["runs"].items():
-            if not all(np.isfinite(run["losses"])):
-                problems.append(f"{tag}: losses not finite: {run['losses']}")
-        if mp["losses_by_rank"][0] != mp["losses_by_rank"][1]:
-            problems.append(f"the ranks' losses differ: {mp['losses_by_rank']}")
-        if mp["split_params"] == 0 or alone["split_params"] != 0:
-            problems.append(f"split parameters: model-parallel {mp['split_params']}, alone "
-                            f"{alone['split_params']}")
-        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
-        rec["step1"] = {"loss_rel": rel(mp["losses"][0], alone["losses"][0]),
-                        "grad_norm_rel": rel(mp["grad_norms"][0], alone["grad_norms"][0])}
-        if not rec["step1"]["loss_rel"] <= DIST_LOSS_RTOL:
-            problems.append(f"step-1 loss: model-parallel {mp['losses'][0]} vs alone "
-                            f"{alone['losses'][0]}")
-        if not rec["step1"]["grad_norm_rel"] <= DIST_NORM_RTOL:
-            problems.append(f"step-1 grad norm: model-parallel {mp['grad_norms'][0]} vs alone "
-                            f"{alone['grad_norms'][0]}")
-        for r, launches in enumerate(mp["launches_by_rank"]):
-            per_step = {k: launches[k] / steps for k in DIST_STEP_KERNELS}
-            if per_step != {k: alone["launches"][k] / steps for k in DIST_STEP_KERNELS}:
-                problems.append(f"rank {r}'s launches a step {per_step} differ from the process "
-                                f"alone's")
-            if on_card and not all(n > 0 for n in per_step.values()):
-                problems.append(f"rank {r} never launched some kernels: {per_step}")
+        rec["step1"], found = tp_train_checks(rec["runs"], steps, DIST_STEP_KERNELS, on_card)
+        problems += found
+        p2s_step1, found = tp_train_checks(p2s_runs, spec["p2s_steps"], TP_P2S_KERNELS, on_card,
+                                           "pix2struct: ")
+        problems += found + decode_problems
+        rec["pix2struct"] = {"model_name": spec["p2s_model"], "batch": spec["p2s_B"],
+                             "steps": spec["p2s_steps"], "step1": p2s_step1, "runs": p2s_runs}
+        rec["decode"] = decode
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return rec

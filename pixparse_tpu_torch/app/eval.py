@@ -21,13 +21,20 @@ Tasks: ``cruller_eval_ocr`` and ``cruller_eval_{cord,docvqa,rvlcdip}``
 SinglePageDocVQA`` from ``$PIXPARSE_DOCVQA_DIR`` with ``--data.eval.split
 val``, or a ``datasets.load_dataset`` source). One device per process:
 ``--task.device`` (default ``cuda``; without a card that raises,
-``--task.device cpu`` asks for the CPU). Under ``torchrun`` each rank holds
-the whole model, evaluates its own shards of the data, and rank 0 merges
-the ranks' metric trees (:func:`_merge_metric_trees`) into the one metrics
-file. ``--eval.s3_bucket`` raises (the
-port reads local checkpoints only). ``donut_eval_ocr``, the HF Donut
-baseline, takes ``--task.model_name`` as a local model directory (or a name
-in the HF cache) and needs ``transformers``.
+``--task.device cpu`` asks for the CPU). Under ``torchrun`` each
+``(data, fsdp)`` rank evaluates its own shards of the data; with
+``--task.mesh.model N`` the N ranks of a model group hold the model cut
+over heads, MLP and vocabulary and evaluate the same shards together.
+Rank 0 merges one metric tree per model group (:func:`_merge_metric_trees`)
+into the one metrics file::
+
+    torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.eval \
+        ... --task.mesh.model 2            # add --task.device cpu: gloo
+
+``--eval.s3_bucket`` raises (the port reads local checkpoints only).
+``donut_eval_ocr``, the HF Donut baseline, takes ``--task.model_name`` as a
+local model directory (or a name in the HF cache) and needs
+``transformers``.
 """
 
 from __future__ import annotations
@@ -90,12 +97,14 @@ def _merge_metric_trees(trees, key: str = ""):
 
 
 def eval(cfg: "EvalCfg", task, eval_loaders: dict):
-    """``evaluate`` on this rank's data; with more than one rank the ranks'
-    trees are gathered and merged, and rank 0 writes the one metrics file."""
+    """``evaluate`` on this rank's data; with more than one rank the trees
+    of model rank 0 (one per model group: its ranks saw the same pages)
+    are gathered and merged, and rank 0 writes the one metrics file."""
     metrics = evaluate(task, eval_loaders)
     device_env = task.device_env
     if device_env.process_count > 1:
-        metrics = _merge_metric_trees(device_env.all_gather_object(metrics))
+        trees = device_env.all_gather_object((device_env.model_rank, metrics))
+        metrics = _merge_metric_trees([tree for model_rank, tree in trees if model_rank == 0])
     if device_env.is_primary():
         with open(cfg.metrics_file_path, "w") as fh:
             json.dump(metrics, fh)
@@ -143,7 +152,7 @@ def _main(eval_cfg: EvalCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv) 
     task, task_cfg = TaskFactory.create_task(
         task_name=eval_cfg.task_name, task_args=task_args, device_env=device_env, monitor=None,
     )
-    random_seed(eval_cfg.seed, rank=device_env.global_rank)
+    random_seed(eval_cfg.seed, rank=device_env.data_rank)  # alike in a model group
     _logger.info(f"Device env is {device_env}")
 
     os.makedirs(eval_cfg.output_dir, exist_ok=True)
@@ -181,8 +190,8 @@ def _main(eval_cfg: EvalCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv) 
             anno_preprocess=getattr(task, "anno_preprocess_eval", None),
             image_fmt=task_cfg.model.image_encoder.image_fmt,
             seed=eval_cfg.seed,
-            world_size=device_env.world_size,
-            global_rank=device_env.global_rank,
+            world_size=device_env.data_size,  # a model group reads the same shards
+            global_rank=device_env.data_rank,
             create_decoder_pipe=create_image_text_pipe,
         )
         # one loader per dataset identifier; the task keeps those it evaluates

@@ -24,9 +24,16 @@ page, so no page waits for its batch's slowest one; the JSONL is still in
 input order. With ``--task.device_preprocess true`` the pages go to the card
 as uint8 canvases and are normalized there.
 
-Under ``torchrun`` each rank holds the whole model and decodes every
-``world``-th page (``files[rank::world]``); rank 0 gathers the records and
-writes the one JSONL, in input order, as one process writes it.
+Under ``torchrun`` each ``(data, fsdp)`` rank decodes every ``n``-th page
+(``files[data_rank::data_size]``); with ``--task.mesh.model N`` the N ranks
+of a model group hold the model cut over heads, MLP and vocabulary and
+decode the same pages together. Rank 0 gathers the records and writes the
+one JSONL, in input order, as one process writes it. ``--infer.continuous``
+keeps one whole replica a rank at any mesh (every rank streams its own
+``files[rank::world]``)::
+
+    torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.infer \
+        ... --task.mesh.model 2            # add --task.device cpu: gloo
 """
 
 from __future__ import annotations
@@ -107,7 +114,12 @@ def infer(infer_cfg: InferCfg, task_cfg) -> int:
 def _infer(infer_cfg: InferCfg, task_cfg, env: MeshEnv) -> int:
     import torch
 
-    random_seed(infer_cfg.seed, env.global_rank)
+    # continuous batching: a whole replica a rank; else a model group
+    # decodes the same pages with the model cut over its ranks
+    replicas = infer_cfg.continuous
+    readers, reader = (env.world_size, env.global_rank) if replicas else \
+        (env.data_size, env.data_rank)
+    random_seed(infer_cfg.seed, reader)
     task_cls, _ = TASK_CLASS_REGISTRY[infer_cfg.task_name]
     task = task_cls(task_cfg, env, None)
 
@@ -119,10 +131,10 @@ def _infer(infer_cfg: InferCfg, task_cfg, env: MeshEnv) -> int:
         _logger.info("loaded checkpoint %s", infer_cfg.checkpoint_path)
     else:
         _logger.warning("no --infer.checkpoint_path: running random weights")
-    task.setup()
+    task.setup(model_axis=not replicas)
 
     all_files = _list_images(infer_cfg.images)
-    files = all_files[env.global_rank::env.world_size]  # this rank's pages
+    files = all_files[reader::readers]  # this rank's pages
     _logger.info("%d of %d images on %s", len(files), len(all_files), env)
     bs = max(1, infer_cfg.batch_size)
     prompt = infer_cfg.prompt or task.task_start_token
@@ -149,7 +161,7 @@ def _infer(infer_cfg: InferCfg, task_cfg, env: MeshEnv) -> int:
         records = _infer_continuous(infer_cfg, task, files, prompt, bs, _record)
     else:
         records = _infer_batched(infer_cfg, task, files, prompt, bs, _record)
-    if env.world_size > 1:  # rank r decoded files[r::world]: interleave back
+    if env.world_size > 1:  # reader r decoded files[r::readers]: interleave back
         gathered = env.all_gather_object(records)
         by_file = {rec["file"]: rec for part in gathered for rec in part}
         records = [by_file[f] for f in all_files]
@@ -209,10 +221,9 @@ def _infer_continuous(infer_cfg, task, files, prompt, bs, _record):
     return [by_file[f] for f in files]  # input order in the JSONL
 
 
-def main(argv=None) -> int:
-    import sys
-
-    argv = list(sys.argv[1:] if argv is None else argv)
+def parse_args(argv):
+    """``(InferCfg, the task's cfg)`` from the command line's flags."""
+    argv = list(argv)
     task_name = peek_flag(argv, "infer.task_name") or "cruller_eval_ocr"
     eval_tasks = sorted(
         n for n, (cls, _) in TASK_CLASS_REGISTRY.items() if issubclass(cls, BaseCrullerEvalTask)
@@ -225,10 +236,15 @@ def main(argv=None) -> int:
     parser.add_arguments(InferCfg, dest="infer")
     parser.add_arguments(task_cfg_cls, dest="task")
     args = parser.parse_args(argv)
-    infer_cfg: InferCfg = replace(args.infer, task_name=task_name)
+    return replace(args.infer, task_name=task_name), args.task
 
+
+def main(argv=None) -> int:
+    import sys
+
+    infer_cfg, task_cfg = parse_args(sys.argv[1:] if argv is None else argv)
     setup_logging(None)
-    return infer(infer_cfg, args.task)
+    return infer(infer_cfg, task_cfg)
 
 
 if __name__ == "__main__":

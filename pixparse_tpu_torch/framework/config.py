@@ -32,8 +32,10 @@ class OptimizationCfg:
 @dataclass
 class MeshCfg:
     """Mesh axis sizes, in processes (one device each). ``data = 0`` absorbs
-    the ranks that ``fsdp * model`` leaves; ``model > 1`` raises (not
-    ported)."""
+    the ranks that ``fsdp * model`` leaves; ``model > 1`` is tensor
+    parallelism (:mod:`pixparse_tpu_torch.parallel.tensor_parallel`: heads,
+    MLP and vocabulary split over the ``model`` ranks, in training and in
+    eval and batched infer)."""
 
     data: int = 0
     fsdp: int = 1

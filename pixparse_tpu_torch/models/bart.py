@@ -48,7 +48,9 @@ from pixparse_tpu_torch.ops.decode_attention import (
 from pixparse_tpu_torch.ops.dense import Linear, dropout
 from pixparse_tpu_torch.ops.layer_norm import LayerNorm
 from pixparse_tpu_torch.parallel.tensor_parallel import (
+    TPLayout,
     copy_to_model,
+    gather_whole,
     shard_seed,
     vocab_parallel_embedding,
 )
@@ -173,16 +175,13 @@ class KVCache:
 
 class _Projections(nn.Module):
     """q/k/v/out projections with HF BART names. Under tensor parallelism
-    (``tp``, train mode only) q/k/v are column-parallel (this rank's heads,
-    their count read off the weight) and ``out_proj`` row-parallel."""
+    (``tp``) q/k/v are column-parallel (this rank's heads, their count read
+    off the weight) and ``out_proj`` row-parallel; the caches of prefill and
+    decode hold the rank's heads only, ``(B, len, Hl*Dh)``."""
 
     tp = None  # TPGroup (parallel/tensor_parallel.py)
 
-    def _local_heads(self, D: int, mode: str) -> int:
-        if self.tp is not None and mode != "train":
-            raise NotImplementedError(
-                "tensor-parallel decoding (decode attention's heads over the model axis) is "
-                "not ported: eval and infer keep the whole model on every rank")
+    def _local_heads(self, D: int) -> int:
         return self.q_proj.weight.shape[0] // (D // self.num_heads)
 
     def __init__(self, d_model: int, num_heads: int):
@@ -203,18 +202,17 @@ class CachedSelfAttention(_Projections):
 
     def forward(self, x, mode, attn_impl, bias=None, valid=None, cache=None, layer=0):
         B, L, D = x.shape
-        H = self.num_heads
+        Hl, Dh = self._local_heads(D), D // self.num_heads
+        Dl = Hl * Dh  # this rank's heads, flat
+        x = copy_to_model(x, self.tp)
         if mode == "train":
-            Hl, Dh = self._local_heads(D, mode), D // H
-            x = copy_to_model(x, self.tp)
             q = self.q_proj(x).view(B, L, Hl, Dh)
             k = self.k_proj(x).view(B, L, Hl, Dh)
             v = self.v_proj(x).view(B, L, Hl, Dh)
             out = dot_product_attention(
                 q, k, v, bias=bias, causal=True, dtype=x.dtype, impl=attn_impl
             )
-            return self.out_proj(out.reshape(B, L, Hl * Dh))
-        self._local_heads(D, mode)
+            return self.out_proj(out.reshape(B, L, Dl))
 
         if mode == "prefill":
             cache.qkv.append((
@@ -222,25 +220,25 @@ class CachedSelfAttention(_Projections):
                 torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]),
             ))
             len_pad = _pad128(cache.max_len)
-            cache.self_k.append(x.new_zeros(B, len_pad, D))
-            cache.self_v.append(x.new_zeros(B, len_pad, D))
+            cache.self_k.append(x.new_zeros(B, len_pad, Dl))
+            cache.self_v.append(x.new_zeros(B, len_pad, Dl))
         w, b = cache.qkv[layer]
-        qf, kf, vf = F.linear(x, w, b).split(D, dim=-1)  # (B, L, D) heads flat
+        qf, kf, vf = F.linear(x, w, b).split(Dl, dim=-1)  # (B, L, Dl) heads flat
         k_cache, v_cache = cache.self_k[layer], cache.self_v[layer]
         i = cache.index
         k_cache[:, i:i + L] = kf
         v_cache[:, i:i + L] = vf
         if mode == "decode" and L == 1:
-            out = decode_attention(qf, k_cache, v_cache, valid, num_heads=H)
+            out = decode_attention(qf, k_cache, v_cache, valid, num_heads=Hl)
         else:
             T = cache.max_len
             out = dot_product_attention(
-                qf.reshape(B, L, H, D // H),
-                k_cache[:, :T].view(B, T, H, D // H),
-                v_cache[:, :T].view(B, T, H, D // H),
+                qf.reshape(B, L, Hl, Dh),
+                k_cache[:, :T].view(B, T, Hl, Dh),
+                v_cache[:, :T].view(B, T, Hl, Dh),
                 bias=bias, dtype=x.dtype,
             )
-        return self.out_proj(out.reshape(B, L, D))
+        return self.out_proj(out.reshape(B, L, Dl))
 
 
 class CachedCrossAttention(_Projections):
@@ -271,7 +269,7 @@ class CachedCrossAttention(_Projections):
         B, L, D = x.shape
         Lk = enc.shape[1]
         q8 = self.kv_cache_dtype == "int8"
-        H = self._local_heads(D, mode)
+        H = self._local_heads(D)  # this rank's heads
         if self.tp is not None:
             x, enc = copy_to_model(x, self.tp), copy_to_model(enc, self.tp)
         qf = self.q_proj(x)
@@ -542,10 +540,6 @@ class BartCausalDecoder(nn.Module):
             positions = start + torch.arange(L, device=input_ids.device)[None, :]
 
         dt = self.compute_dtype or dec.embed_tokens.weight.dtype
-        if self.tp is not None and not return_hidden:
-            raise NotImplementedError(
-                "under tensor parallelism the decoder returns hidden states only (the loss "
-                "takes the vocabulary shard)")
         x = vocab_parallel_embedding(input_ids, dec.embed_tokens.weight, self.tp,
                                      self.vocab_offset).to(dt)
         if cfg.scale_embedding:
@@ -571,7 +565,17 @@ class BartCausalDecoder(nn.Module):
         if return_hidden:
             return x
         # tied head in the compute dtype, logits surfaced in fp32
-        return F.linear(x, self.lm_head.weight.to(x.dtype)).float()
+        return self.whole_logits(F.linear(x, self.lm_head.weight.to(x.dtype)).float())
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """``(B, L, V)`` logits from this rank's ``(B, L, Vl)`` vocabulary
+        shard: under tensor parallelism gathered over ``model`` (no
+        gradient; the same bits on every rank of the group, so every rank
+        picks the same tokens), else ``logits`` as they are."""
+        if self.tp is None:
+            return logits
+        layout = TPLayout(logits.dim() - 1, self.cfg.vocab_size)
+        return gather_whole(logits, layout, self.tp)
 
 
 # HF-name -> architecture table (facebook/bart-base & -large layouts), so the

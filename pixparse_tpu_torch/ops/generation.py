@@ -19,6 +19,14 @@ is quantized per vocabulary row once, before the loop; each step quantizes
 the hidden row and takes an exact int32 product (``torch._int_mm``) scaled
 by both scales. The prefill's logits use the table as it is. Beam search
 always uses the exact tied head (the int8 cross caches still apply).
+
+A model cut over the mesh's ``model`` axis
+(:mod:`pixparse_tpu_torch.parallel.tensor_parallel`) runs unchanged: its
+caches hold the rank's heads, and its logits come gathered whole over the
+vocabulary shards (the int8 head quantizes the rank's rows, whose scales
+are per row, and gathers its logits), bitwise equal on every rank of the
+group, so greedy, beam and sampled tokens (the default generator is
+seeded alike) are the same on every rank.
 """
 
 from __future__ import annotations
@@ -150,7 +158,9 @@ def generate(
             positions=(prompt_valid + (cur - Lp))[:, None],
             encoder_pad_mask=encoder_pad_mask, return_hidden=head_i8 is not None,
         )
-        logits = (out if head_i8 is None else q8_logits(out, *head_i8))[:, -1]
+        if head_i8 is not None:  # this rank's vocabulary rows, then the whole row
+            out = model.decoder.whole_logits(q8_logits(out, *head_i8))
+        logits = out[:, -1]
         steps += 1
     lengths = (buffer != pad_token_id).sum(dim=1)
     return GenerateResult(tokens=buffer, lengths=lengths, steps=steps)

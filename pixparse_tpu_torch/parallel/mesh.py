@@ -368,6 +368,13 @@ class MeshEnv:
         """This process's index among the :attr:`data_size` readers."""
         return self.process_index if self.mesh is None else data_parallel_rank(self.mesh)
 
+    @property
+    def model_rank(self) -> int:
+        """This process's index on the ``model`` axis (0 without a mesh):
+        the ranks of one model group share :attr:`data_rank` and differ
+        here."""
+        return 0 if self.mesh is None else self.mesh["model"].get_local_rank()
+
     def is_primary(self) -> bool:
         return self.process_index == 0
 

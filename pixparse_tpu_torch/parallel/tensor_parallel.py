@@ -33,7 +33,11 @@ Megatron-style, with explicit collectives.
 
 :func:`parallelize` cuts a whole model's parameters to this rank's shards
 and marks the modules; the model then holds plain local tensors, which
-FSDP2 shards further over ``(data, fsdp)``. :func:`gather_whole` and
+FSDP2 shards further over ``(data, fsdp)`` in training. Eval cuts the
+same way and decodes with every rank's caches holding its own heads; the
+logits are gathered whole over the vocabulary shards
+(:meth:`~pixparse_tpu_torch.models.bart.BartCausalDecoder.whole_logits`),
+so every rank of a group picks the same tokens. :func:`gather_whole` and
 :meth:`TPLayout.take` move between a shard and the whole tensor.
 """
 
@@ -269,25 +273,42 @@ def _check_divisible(model, tp: TPGroup):
                 f"{name}: {m.num_heads} heads do not split over model={tp.size} ranks")
 
 
+def _decoder_of(model):
+    """The decoder of a model :func:`parallelize` takes (None for the
+    classifier); a ``NotImplementedError`` naming what it takes for any
+    other model."""
+    from pixparse_tpu_torch.models.bart import BartCausalDecoder
+    from pixparse_tpu_torch.models.cruller import Cruller
+    from pixparse_tpu_torch.models.pix2struct import Pix2StructEncoder
+    from pixparse_tpu_torch.models.swin import Swin
+    from pixparse_tpu_torch.models.vit import ViT
+    from pixparse_tpu_torch.task.task_cruller_finetune_xent import CrullerClassifier
+
+    if isinstance(model, Cruller) and isinstance(model.encoder, (ViT, Swin, Pix2StructEncoder)) \
+            and isinstance(model.decoder, BartCausalDecoder):
+        return model.decoder
+    if isinstance(model, CrullerClassifier) and isinstance(model.encoder["trunk"], ViT):
+        return None
+    raise NotImplementedError(
+        "tensor parallelism (--task.mesh.model > 1) takes a Cruller (ViT, Swin or pix2struct "
+        "encoder, BART decoder) or the xent task's CrullerClassifier (ViT encoder), not "
+        f"{type(model).__name__}")
+
+
 def parallelize(model: torch.nn.Module, tp: TPGroup) -> Dict[str, TPLayout]:
-    """Cut ``model`` (a ``Cruller`` with a ViT or Swin encoder, whole and
-    alike on every rank) to this rank's shards in place and mark its
+    """Cut ``model`` (whole and alike on every rank: a ``Cruller`` with a
+    ViT, Swin or pix2struct encoder, or the classifier of
+    ``cruller_finetune_xent``) to this rank's shards in place and mark its
     tensor-parallel modules; returns the plan (also ``model.tp_layouts``).
-    The tied head stays tied to the cut table."""
-    from pixparse_tpu_torch.models.bart import (
-        BartCausalDecoder,
-        BartDecoderLayer,
-        _Projections,
-    )
-    from pixparse_tpu_torch.models.swin import Swin, WindowAttention
-    from pixparse_tpu_torch.models.vit import ViT, Attention, Mlp
+    The tied head stays tied to the cut table. What no logical axis maps
+    to ``model`` stays whole: pix2struct's patch, row and column
+    embeddings, the classifier's ``final_fc``."""
+    from pixparse_tpu_torch.models.bart import BartDecoderLayer, _Projections
+    from pixparse_tpu_torch.models.swin import WindowAttention
+    from pixparse_tpu_torch.models.vit import Attention, Mlp
     from pixparse_tpu_torch.ops.dense import Linear
 
-    encoder = getattr(model, "encoder", None)
-    if not isinstance(encoder, (ViT, Swin)) or not hasattr(model, "decoder"):
-        raise NotImplementedError(
-            "tensor parallelism (--task.mesh.model > 1) takes a Cruller with a ViT or Swin "
-            f"encoder, not {type(encoder).__name__}")
+    decoder = _decoder_of(model)
     _check_divisible(model, tp)
     plan = tp_plan(model)
     done = set()
@@ -298,12 +319,12 @@ def parallelize(model: torch.nn.Module, tp: TPGroup) -> Dict[str, TPLayout]:
         setattr(model.get_submodule(path), attr, torch.nn.Parameter(
             plan[name].take(p.data, tp.rank, tp.size), requires_grad=p.requires_grad))
         done.add(id(p))
-    decoder = model.decoder
-    decoder.lm_head.weight = decoder.decoder.embed_tokens.weight  # re-tie
-    decoder.vocab_offset = TPLayout(0, decoder.cfg.vocab_size).offset(tp.rank, tp.size)
+    if decoder is not None:
+        decoder.lm_head.weight = decoder.decoder.embed_tokens.weight  # re-tie
+        decoder.vocab_offset = TPLayout(0, decoder.cfg.vocab_size).offset(tp.rank, tp.size)
+        decoder.tp = tp
     for m in model.modules():
-        if isinstance(m, (Attention, Mlp, WindowAttention, _Projections, BartDecoderLayer,
-                          BartCausalDecoder)):
+        if isinstance(m, (Attention, Mlp, WindowAttention, _Projections, BartDecoderLayer)):
             m.tp = tp
     row_parallel = {n.rsplit(".", 1)[0] for n, lay in plan.items() if lay.dim == 1}
     for name, m in model.named_modules():

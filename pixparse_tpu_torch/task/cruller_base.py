@@ -27,8 +27,12 @@ Concrete tasks supply tokens, collate and metrics. Each process holds its
 own slice of the global batch (the loaders split by rank) and moves it to
 its device (``device_env.shard_batch``). Under a mesh the train state is
 FSDP2-sharded over ``(data, fsdp)`` and the CE is a mean over the global
-batch's valid tokens; eval keeps whole parameters on every rank, as the
-JAX package replicates them, and each rank decodes its own pages.
+batch's valid tokens. Eval shards nothing over ``(data, fsdp)``: each
+``(data, fsdp)`` rank decodes its own pages; with ``model > 1`` the ranks
+of a model group hold the model cut over ``model`` as training cuts it
+(the JAX package replicates eval parameters and splits only the
+attention kernels' heads: the layouts differ, the numbers do not) and
+decode the same pages together.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pre
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import IGNORE_ID, cross_entropy_from_hidden
 from pixparse_tpu_torch.ops.preprocess import normalize_images
-from pixparse_tpu_torch.parallel.mesh import model_parallel_size
+from pixparse_tpu_torch.parallel.mesh import model_parallel_size, tp_group
 from pixparse_tpu_torch.task.common import add_special_tokens, fold_image_stats
 from pixparse_tpu_torch.tokenizers import ByteLevelTokenizer, TokenizerCfg, create_tokenizer
 from pixparse_tpu_torch.tokenizers.thread_safe import ThreadLocalTokenizer
@@ -539,12 +543,16 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
             img = img.convert("L" if self.num_image_chs == 1 else "RGB")
         return self.image_preprocess_eval(img)
 
-    def setup(self):
+    def setup(self, model_axis: bool = True):
         """Build the model, load ``resume_state_dict`` (or seeded random
         weights) and place it on the task's device in the compute dtype
-        (eval holds no fp32 master weights). Under a mesh every rank holds
-        the whole model, as the JAX package replicates eval parameters, and
-        evaluates its own share of the data."""
+        (eval holds no fp32 master weights). Under a mesh with ``model > 1``
+        (and ``model_axis``) the model is then cut over the ``model`` axis
+        (:func:`~pixparse_tpu_torch.parallel.tensor_parallel.parallelize`,
+        no FSDP): the ranks of a model group decode the same pages, each
+        with its heads, MLP columns and vocabulary rows. With
+        ``model_axis=False`` every rank holds the whole model (continuous
+        batching: one replica a rank)."""
         attn_impl = self.cfg.attn_impl
         if attn_impl == "auto":
             attn_impl = "flash" if self.device.type == "cuda" else "xla"
@@ -558,6 +566,11 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         else:
             model.init_weights(torch.Generator().manual_seed(0))
         self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        tp = tp_group(self.device_env.mesh) if model_axis else None
+        if tp is not None:
+            from pixparse_tpu_torch.parallel.tensor_parallel import parallelize
+
+            parallelize(self.model, tp)
 
     @torch.inference_mode()
     def encode_images(self, images) -> torch.Tensor:

@@ -104,7 +104,7 @@ def test_is_distributed_env(environ, want):
     assert is_distributed_env(environ) is want
 
 
-def test_model_axis_raises_naming_the_roadmap_item(tmp_path):
+def test_a_model_axis_that_does_not_fit_one_device_raises(tmp_path):
     """The model axis is ported (tests/test_torch_tensor_parallel.py): in a
     process alone a model axis of 2 is a mesh that does not fit its one
     device, which every entry point refuses as the JAX package's

@@ -11,6 +11,13 @@ package's mesh step at the same mesh.
   port, the losses within 2e-4 of the JAX step on a mesh of the same
   shape; LAMB and the adaptive clip at (1,1,2); ``cruller_swin_test``
   (Swin encoder, relative-position table split on heads) at (1,1,2);
+- the other train tasks at (1,1,2), 3 steps within 1e-5 of the
+  one-process port: ``pix2struct_pretrain`` at ``pix2struct_test`` (ragged
+  real patches and targets; the patch, row and column embeddings whole)
+  and ``cruller_finetune_xent`` at ``cruller_test`` (the classifier: no
+  decoder, ``final_fc`` whole), both from the JAX task's initial weights
+  at a (1,1,2) mesh and within 2e-4 of its losses; the CORD, DocVQA and
+  RVL-CDIP finetunes;
 - the train log counts each sample of a step once (the ranks of a model
   group read the same batch);
 - checkpoints: saved at (1,1,2), resumed in one process; saved in one
@@ -24,6 +31,7 @@ Each launch is waited for with a timeout; the file takes ~1-2 min on one
 core.
 """
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -48,56 +56,140 @@ from test_torch_distributed import (  # noqa: E402
     task_vocab,
 )
 
-# case: (data, fsdp, model, model name, optimizer overrides, heads: None = the config's)
+PRETRAIN = "cruller_pretrain"
+# case: (data, fsdp, model, model name, optimizer overrides, heads: None = the
+# config's, task)
 CASES = {
-    "adamw_112": (1, 1, 2, "cruller_test", {}, None),
-    "lamb_112": (1, 1, 2, "cruller_test", {"optimizer": "lamb"}, None),
+    "adamw_112": (1, 1, 2, "cruller_test", {}, None, PRETRAIN),
+    "lamb_112": (1, 1, 2, "cruller_test", {"optimizer": "lamb"}, None, PRETRAIN),
     "agc_112": (1, 1, 2, "cruller_test", {"clip_grad_mode": "agc", "clip_grad_value": 0.01},
-                None),
-    "swin_112": (1, 1, 2, "cruller_swin_test", {}, None),
-    "adamw_212": (2, 1, 2, "cruller_test", {}, None),
-    "adamw_122": (1, 2, 2, "cruller_test", {}, None),
-    "adamw_114": (1, 1, 4, "cruller_test", {}, 4),
+                None, PRETRAIN),
+    "swin_112": (1, 1, 2, "cruller_swin_test", {}, None, PRETRAIN),
+    "adamw_212": (2, 1, 2, "cruller_test", {}, None, PRETRAIN),
+    "adamw_122": (1, 2, 2, "cruller_test", {}, None, PRETRAIN),
+    "adamw_114": (1, 1, 4, "cruller_test", {}, 4, PRETRAIN),
+    "p2s_112": (1, 1, 2, "pix2struct_test", {}, None, "pix2struct_pretrain"),
+    "xent_112": (1, 1, 2, "cruller_test", {}, None, "cruller_finetune_xent"),
+    "cord_112": (1, 1, 2, "cruller_test", {}, None, "cruller_finetune_cord"),
+    "docvqa_112": (1, 1, 2, "cruller_test", {}, None, "cruller_finetune_docvqa"),
+    "rvlcdip_112": (1, 1, 2, "cruller_test", {}, None, "cruller_finetune_rvlcdip"),
 }
 JAX_CASES = ("adamw_112", "adamw_212", "adamw_122", "adamw_114")
+# the other tasks whose losses are held against the JAX task's at (1,1,2),
+# from its initial weights
+JAX_TASK_CASES = ("p2s_112", "xent_112")
 
 
-def make_task(env, init, model_name="cruller_test", dropout=None, heads=None, **opt):
-    """``cruller_pretrain`` at a test size, fp32, from the weights ``init``
-    (a reference-layout state dict; None: the seeded init), with ``heads``
-    attention heads in the encoder and the decoder (None: the config's),
-    its train state set up."""
+def new_task(env, task_name=PRETRAIN, model_name="cruller_test", **opt):
+    """The registered task ``task_name`` at a test size, fp32 (its train
+    state not set up)."""
     from pixparse_tpu_torch.framework.config import OptimizationCfg
-    from pixparse_tpu_torch.task.task_cruller_pretrain import (
-        TaskCrullerPretrain,
-        TaskCrullerPretrainCfg,
-    )
+    from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY
     from pixparse_tpu_torch.tokenizers import TokenizerCfg
 
-    cfg = TaskCrullerPretrainCfg(
+    cls, cfg_cls = TASK_CLASS_REGISTRY[task_name]
+    cfg = cfg_cls(
         model_name=model_name, tokenizer=TokenizerCfg(name="pixparse_bytelevel"),
         dtype="float32", device="cpu", num_intervals=SCHED[0], num_warmup_intervals=SCHED[1],
         opt=OptimizationCfg(**{**OPT, **opt}),
     )
-    task = TaskCrullerPretrain(cfg, env)
+    return cls(cfg, env)
+
+
+@contextlib.contextmanager
+def initial_weights(task_name, init):
+    """The model of ``task_name`` starts from ``init`` instead of its seeded
+    init (pix2struct takes no resume checkpoint, the classifier's resume
+    gives the encoder only)."""
+    from pixparse_tpu_torch.models.interop import load_cruller_state_dict
+    from pixparse_tpu_torch.models.pix2struct import Pix2StructCruller
+    from pixparse_tpu_torch.task.task_cruller_finetune_xent import CrullerClassifier
+
+    if task_name == "pix2struct_pretrain":
+        cls, load = Pix2StructCruller, load_cruller_state_dict
+    else:
+        cls, load = CrullerClassifier, lambda m, sd: m.load_state_dict(sd, strict=True)
+    seeded = cls.init_weights
+    cls.init_weights = lambda self, generator: (load(self, init), self)[1]
+    try:
+        yield
+    finally:
+        cls.init_weights = seeded
+
+
+def make_task(env, init, model_name="cruller_test", dropout=None, heads=None,
+              task_name=PRETRAIN, **opt):
+    """``task_name`` (default ``cruller_pretrain``) at a test size, fp32,
+    from the weights ``init`` (a state dict; None: the seeded init), with
+    ``heads`` attention heads in the encoder and the decoder (None: the
+    config's), its train state set up."""
+    task = new_task(env, task_name, model_name, **opt)
     drop = NO_DROPOUT if dropout is None else {k: dropout for k in NO_DROPOUT}
     task.bart_cfg = dataclasses.replace(task.bart_cfg, **drop)
     if heads is not None:
         task.vit_cfg = dataclasses.replace(task.vit_cfg, num_heads=heads)
         task.bart_cfg = dataclasses.replace(task.bart_cfg, decoder_attention_heads=heads)
-    task.resume_state_dict = None if init is None else dict(init)
-    task.train_setup(num_batches_per_interval=SCHED[2], seed=0)
+    if task_name == PRETRAIN or init is None:
+        task.resume_state_dict = None if init is None else dict(init)
+        task.train_setup(num_batches_per_interval=SCHED[2], seed=0)
+    else:
+        with initial_weights(task_name, init):
+            task.train_setup(num_batches_per_interval=SCHED[2], seed=0)
     return task
 
 
-def case_batch(task, seed=0):
-    """``global_batch``'s 8 rows (the JAX step's), the images redrawn at
-    the task's size where it is not cruller_test's."""
+def _page(seed):
+    from PIL import Image
+
+    return Image.fromarray(np.random.RandomState(seed).randint(0, 255, (80, 60), np.uint8), "L")
+
+
+def raw_batch(task_name, task):
+    """8 seeded rows as the task's loader hands them to ``train_step``:
+    RVL-CDIP-like labels (the classifier), pages patchified at their own
+    sizes with ragged targets (pix2struct), or the finetunes' collates."""
+    from pixparse_tpu_torch.data.wds import default_collate
+
+    rng = np.random.RandomState(5)
+    if task_name == "cruller_finetune_xent":
+        return {"image": rng.randn(8, 64, 48, 1).astype(np.float32),
+                "label": rng.randint(0, 16, 8).astype(np.int32)}
+    if task_name == "pix2struct_pretrain":
+        L = task.max_position_embeddings
+        samples = []
+        for i in range(8):
+            page = rng.randint(0, 255, (60 + 40 * i, 240 - 20 * i), np.uint8)
+            txt = rng.randint(4, 200, (L,)).astype(np.int64)
+            tgt = txt.copy()
+            tgt[L - 1 - 2 * i:] = -100
+            samples.append((task.image_preprocess_train(page), txt, tgt))
+        return default_collate(samples)
+    items = {
+        "cruller_finetune_cord": lambda i: {"image": _page(i), "ground_truth": str({"gt_parse": {
+            "menu": [{"nm": f"item {i}", "price": f"{i}.00"}], "total": {"total_price": str(i)}}})},
+        "cruller_finetune_docvqa": lambda i: {"image": _page(i), "labels": [
+            f"<s_question>q{i}?</s_question><s_answer>answer {i}</s_answer>"]},
+        "cruller_finetune_rvlcdip": lambda i: {"image": _page(i), "label": i},
+    }[task_name]
+    np.random.seed(123)  # the DocVQA collate draws its question
+    return task.collate_fn([items(i) for i in range(8)])
+
+
+def case_batch(task, name, out_dir=None, seed=0):
+    """``(batch for train_step, its normalized rows for the step function)``:
+    for the pretrain cases ``global_batch``'s 8 rows (the JAX step's), the
+    images redrawn at the task's size where it is not cruller_test's; for
+    the other tasks ``raw_batch``'s, read from ``out_dir`` where the parent
+    saved them."""
+    task_name = CASES[name][6]
+    if task_name != PRETRAIN:
+        raw = torch.load(os.path.join(out_dir, f"batch_{name}.pt"), weights_only=False)
+        return raw, task.normalize_batch(raw)
     batch = global_batch(task.vocab_size, seed=seed)
     h, w = task.vit_cfg.img_size
     if batch["image"].shape[1:3] != (h, w):
         batch["image"] = np.random.RandomState(seed + 1).randn(8, h, w, 1).astype(np.float32)
-    return batch
+    return batch, batch
 
 
 def whole_dump(state):
@@ -136,12 +228,14 @@ def _case(out_dir, name, init, checkpoint=None):
     from pixparse_tpu_torch.framework.checkpoint import save_checkpoint
     from pixparse_tpu_torch.parallel.mesh import MeshEnv, data_parallel_rank
 
-    data, fsdp, model, model_name, opt, heads = CASES[name]
+    data, fsdp, model, model_name, opt, heads, task_name = CASES[name]
     env = MeshEnv.initialize(data=data, fsdp=fsdp, model=model, device="cpu")
-    task = make_task(env, init if model_name == "cruller_test" else None, model_name,
-                     heads=heads, **opt)
+    task = make_task(env, case_init(name, init, out_dir), model_name, heads=heads,
+                     task_name=task_name, **opt)
     dp = data * fsdp
-    batch = rank_slice(case_batch(task), data_parallel_rank(env.mesh), dp)
+    raw, batch = case_batch(task, name, out_dir)
+    if dp > 1:
+        raw = batch = rank_slice(batch, data_parallel_rank(env.mesh), dp)
     losses, norms = run_steps(task, batch)
     every = env.all_gather_object((losses, norms))
     assert all(e == every[0] for e in every), every  # the same metrics on every rank
@@ -153,11 +247,20 @@ def _case(out_dir, name, init, checkpoint=None):
     # one more step through the task's own train_step: the samples the
     # train log counts for it
     task.train_interval_start()
-    task.train_step(batch)
+    task.train_step(raw)
     _save(out_dir, name, {"losses": losses, "norms": norms, "split": split, "env": str(env),
                           "data_ranks": env.all_gather_object((env.data_rank, env.data_size)),
                           "samples_logged": task._samples_since_log, **dump})
     return env, task
+
+
+def case_init(name, init, out_dir):
+    """A case's initial weights: the JAX init for the pretrain cases at
+    ``cruller_test`` and for ``JAX_TASK_CASES`` (saved by the parent),
+    else None (the seeded init)."""
+    if name in JAX_TASK_CASES:
+        return torch.load(os.path.join(out_dir, f"init_{name}.pt"))
+    return init if CASES[name][6] == PRETRAIN and CASES[name][3] == "cruller_test" else None
 
 
 def _worker(mode, out_dir):
@@ -183,7 +286,8 @@ def _tp2(out_dir, init):
 
     from pixparse_tpu_torch.framework.checkpoint import restore_train_state
 
-    for name in ("lamb_112", "agc_112", "swin_112"):
+    for name in ("lamb_112", "agc_112", "swin_112", "p2s_112", "xent_112", "cord_112",
+                 "docvqa_112", "rvlcdip_112"):
         _case(out_dir, name, init)
     env, task = _case(out_dir, "adamw_112", init, checkpoint="ckpt_112")
 
@@ -204,7 +308,7 @@ def _tp2(out_dir, init):
         return seeds[-1][1]
 
     task = make_task(env, init, dropout=0.5)
-    batch = task._to_device(case_batch(task))
+    batch = task._to_device(case_batch(task, "adamw_112")[1])
     train_state.dropout_seed = recording
     try:
         for _ in range(2):
@@ -290,6 +394,44 @@ def _jax_init(vocab, shape, heads=None):
     return (model, mesh, state, jv, jb), init
 
 
+def _jax_task_steps(name, out_dir):
+    """The JAX task of ``name`` at its (1,1,2) mesh of 2 virtual devices
+    (fp32, dropout 0, seed 0): its initial weights in the port's names and
+    the losses of 3 steps on the batch the parent saved."""
+    import jax
+
+    from pixparse_tpu.framework.config import OptimizationCfg as JaxOptCfg
+    from pixparse_tpu.parallel.mesh import MeshEnv as JaxMeshEnv
+    from pixparse_tpu.task import TASK_CLASS_REGISTRY as JAX_REGISTRY
+    from pixparse_tpu.tokenizers import TokenizerCfg as JaxTokCfg
+    from pixparse_tpu_torch.models.interop import cruller_state_dict_from_jax
+
+    data, fsdp, model, model_name, _, _, task_name = CASES[name]
+    cls, cfg_cls = JAX_REGISTRY[task_name]
+    env = JaxMeshEnv.initialize(data, fsdp, model, devices=jax.devices()[:data * fsdp * model])
+    task = cls(cfg_cls(model_name=model_name, tokenizer=JaxTokCfg(name="pixparse_bytelevel"),
+                       num_intervals=SCHED[0], num_warmup_intervals=SCHED[1],
+                       opt=JaxOptCfg(**OPT)), env, None)
+    task.bart_cfg = dataclasses.replace(task.bart_cfg, **NO_DROPOUT)
+    task.train_setup(num_batches_per_interval=SCHED[2], seed=0)
+    if task_name == "pix2struct_pretrain":
+        from pixparse_tpu_torch.device import DeviceEnv
+
+        # the port's cfgs of the same model
+        port = new_task(DeviceEnv(torch.device("cpu")), task_name, model_name)
+        params = jax.tree_util.tree_map(np.asarray, task.state.params)
+        init = cruller_state_dict_from_jax(params, port.vit_cfg, port.bart_cfg)
+    else:
+        init = {k: torch.from_numpy(np.array(v)) for k, v in task.state_dict().items()}
+    batch = task.normalize_batch(torch.load(os.path.join(out_dir, f"batch_{name}.pt"),
+                                            weights_only=False))
+    losses = []
+    for _ in range(STEPS):
+        task.state, m = task.train_step_fn(task.state, env.shard_batch(batch))
+        losses.append(float(m["loss"]))
+    return losses, init
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX inits and mesh steps, the one-process port runs, the world-2
@@ -299,23 +441,30 @@ def runs(tmp_path_factory):
 
     out = str(tmp_path_factory.mktemp("tp"))
     vocab = task_vocab()
+    alone = DeviceEnv(torch.device("cpu"))
+    for name, (_, _, _, model_name, _, _, task_name) in CASES.items():
+        if task_name != PRETRAIN:
+            torch.save(raw_batch(task_name, new_task(alone, task_name, model_name)),
+                       os.path.join(out, f"batch_{name}.pt"))
     jax_losses, init = {}, None
     for name in JAX_CASES:
         jax_state, mesh_init = _jax_init(vocab, CASES[name][:3], CASES[name][5])
         init = mesh_init if init is None else init
         jax_losses[name] = _jax_mesh_steps(jax_state, vocab)[0]
+    for name in JAX_TASK_CASES:
+        jax_losses[name], task_init = _jax_task_steps(name, out)
+        torch.save(task_init, os.path.join(out, f"init_{name}.pt"))
     torch.save(init, os.path.join(out, "init.pt"))
 
-    alone = DeviceEnv(torch.device("cpu"))
     refs = {}
-    for name, (_, _, _, model_name, opt, heads) in CASES.items():
-        key = (model_name, tuple(sorted(opt.items())), heads)
+    for name, (_, _, _, model_name, opt, heads, task_name) in CASES.items():
+        key = (model_name, tuple(sorted(opt.items())), heads, task_name)
         if key not in refs:
-            task = make_task(alone, init if model_name == "cruller_test" else None, model_name,
-                             heads=heads, **opt)
-            losses, norms = run_steps(task, case_batch(task))
+            task = make_task(alone, case_init(name, init, out), model_name, heads=heads,
+                             task_name=task_name, **opt)
+            losses, norms = run_steps(task, case_batch(task, name, out)[1])
             refs[key] = {"losses": losses, "norms": norms, **whole_dump(task.state)}
-            if key == ("cruller_test", (), None):
+            if key == ("cruller_test", (), None, PRETRAIN):
                 save_checkpoint(os.path.join(out, "ckpt_alone"), task.state,
                                 metadata={"interval": 0, "step": task.state.step})
         refs[name] = refs[key]
@@ -375,7 +524,20 @@ def test_the_plan_splits_heads_mlp_and_vocabulary(runs):
     assert not any(n.endswith("reduction.weight") for n in swin)
 
 
-@pytest.mark.parametrize("name", JAX_CASES)
+def test_the_plan_keeps_pix2struct_embeddings_and_the_classifier_head_whole(runs):
+    p2s = load(runs, "p2s_112")
+    assert {n for n in p2s["split"] if "image_encoder" in n} >= {
+        "image_encoder.trunk.blocks.0.attn.qkv.weight", "image_encoder.trunk.blocks.1.mlp.fc2.weight"}
+    for name in ("patch_embed.weight", "patch_embed.bias", "row_embed.weight", "col_embed.weight"):
+        assert "image_encoder.trunk." + name in p2s["params"]
+        assert not any(n.endswith(name) for n in p2s["split"]), name
+    xent = load(runs, "xent_112")
+    assert set(xent["params"]) >= {"final_fc.weight", "final_fc.bias"}
+    assert "encoder.trunk.blocks.0.attn.qkv.weight" in xent["split"]
+    assert not any(n.startswith("final_fc") or "patch_embed" in n for n in xent["split"])
+
+
+@pytest.mark.parametrize("name", JAX_CASES + JAX_TASK_CASES)
 def test_tensor_parallel_losses_follow_the_jax_mesh_step(runs, name):
     np.testing.assert_allclose(load(runs, name)["losses"], runs["jax"][name], atol=2e-4, rtol=0)
 
@@ -478,9 +640,11 @@ def test_train_app_at_model_two_writes_one_set_of_outputs(tmp_path):
 
 def test_chip_smoke_tensor_parallel_phase_on_the_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's ``tensor_parallel`` phase, its part (b), on the CPU
-    at cruller_test: the torchrun child's two gloo ranks train at (1,1,2)
-    beside rank 0 alone and pass their own checks (step-1 loss, the same
-    losses on both ranks, launches a step equal)."""
+    at cruller_test and pix2struct_test: the torchrun child's two gloo ranks
+    train both at (1,1,2) beside rank 0 alone and decode through the eval
+    task, and pass their own checks (step-1 loss, the same losses on both
+    ranks, launches a step equal; the same tokens on both ranks, logits
+    within the cached-decode gate of alone's)."""
     import importlib.util
     import json
 
@@ -493,7 +657,8 @@ def test_chip_smoke_tensor_parallel_phase_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "TP_CHILD_TIMEOUT_S", 150)  # a hang fails here (it takes ~20 s)
     os.makedirs(cs.OUT_DIR)
     counts = cs.phase_tensor_parallel(torch, model_name="cruller_test", B=2, steps=3, vocab=300,
-                                      device="cpu")
+                                      device="cpu", decode_B=2, p2s_model="pix2struct_test",
+                                      p2s_B=2)
     assert not any(counts["tensor_parallel"].values())  # no kernel on the CPU
     rec = json.loads((tmp_path / "out" / "phases.jsonl").read_text().splitlines()[-1])
     child = rec["two_rank_step"]
@@ -501,6 +666,12 @@ def test_chip_smoke_tensor_parallel_phase_on_the_cpu(tmp_path, monkeypatch):
     assert child["backend"] == "gloo" and child["world_size"] == 2 and "'model': 2" in child["env"]
     assert child["runs"]["model_parallel"]["split_params"] > 0
     assert child["step1"]["loss_rel"] <= 1e-3
+    assert child["pix2struct"]["runs"]["model_parallel"]["split_params"] > 0
+    assert child["pix2struct"]["step1"]["loss_rel"] <= 1e-3
+    decode = child["decode"]
+    assert decode["tokens_equal_across_ranks"] and decode["steps"] == 31
+    assert decode["model_parallel"]["split_params"] > 0
+    assert decode["teacher_forced_max_abs_err"] <= 5e-2
 
 
 if __name__ == "__main__":
