@@ -295,8 +295,56 @@ stderr):
    decoder; the flash and CE launches a step equal the in-memory run's;
    each run's step-1 loss finite and within 1e-3 relative of the loss of
    the same batch fed as arrays to a freshly built model of the same seed.
-
-19. ``distributed``: the device mesh (``parallel/mesh.py``) in a child
+19. ``apps``: the three entry points as users run them, at cruller_base,
+   bf16, the byte-level tokenizer padded to 50265, in one temp dir. (a)
+   One tar of 32 pages with seeded ``cruller_pretrain`` annotations of one
+   short line (at most 54 characters, so the eval decodes at most 64
+   tokens): 16 PNG pages of 2200x1700 drawn from seeds, the 4 JPEG
+   fixtures 4 times each; the same pages also as files of their own. Pages
+   decode by the port's rule: the native library where it builds, PIL
+   otherwise (``data/wds.py::decode_image_bytes``); ``app.infer`` opens
+   them with PIL. Each run's pages are counted by decoder (``native`` /
+   ``other``) and must all come from the one the rule picks; without PIL
+   the phase fails naming what is missing. A seeded init is written as a
+   ``.pt`` with every row of the tied table but the byte tokens' zeroed (as
+   ``eval_task``), so the eval's greedy text reads out bytes. (b)
+   ``app.train.main`` (``cruller_pretrain``, B=16, 8 loader threads, 2
+   intervals of 2 steps, ``--train.resume`` from the init ``.pt``) from the
+   shard: exit 0, ``checkpoint-{0,1}.pt`` and both full-state directories
+   written, losses finite, the flash and CE launches a step equal to those
+   of the in-memory step (non-zero), step 1's loss within 1e-3 relative of
+   the same batch fed as arrays to a freshly built task from the same
+   init; recorded: ms a step and loader wait (exit to exit, entry after
+   exit), each checkpoint save's seconds, peak memory, the in-memory
+   step's ms on that batch (two steps after the gated one) and, with
+   ``--profile``, the idle share of step 2. (c) ``--train.resume true``
+   with no path, a third interval and 2 loader threads (beside (b)'s 8:
+   what the threads cost the thread that launches the step): it restores
+   ``checkpoint-1/`` by
+   itself, starts at interval 2 with the step counter at the saved step
+   (and ends at 6), every parameter and optimizer tensor it restored lies
+   on the card and equals bit for bit the state as it was in memory when
+   (b) saved it, losses finite, launches as (b). (d) ``app.eval.main``
+   (``cruller_eval_ocr``, ``--eval.checkpoint_path`` the last ``.pt``, the
+   shard, B=16): exit 0, the metrics file under ``metrics_file_name``'s
+   name with finite CER and WER, 32 pages evaluated, the model's weights
+   after ``setup`` equal to the ``.pt``'s tensors cast to bf16, flash and
+   decode (#8) launched; recorded: pages/s of ``evaluate``. (e)
+   ``app.infer`` over the 32 files, the same ``.pt``, 64 new tokens:
+   batched at B=16 in a child (``chip_smoke.py --infer-child``, which runs
+   the module's ``__main__`` block as ``python -m`` does, by ``runpy``),
+   then ``--infer.continuous true`` with 16 slots in this process. Gates:
+   exit 0, one JSONL line a page in input order, the batched texts equal
+   page for page to ``generate_text`` run here on the same prepared pages
+   in the same batches, flash and #8 launched. Recorded for each: pages/s
+   over the page loop (from the end of ``setup`` to ``end``: reading,
+   decoding and generating every page), host ms a page of ``Image.open`` +
+   ``prepare_image``, each batch's ``generate_text`` seconds (batched),
+   peak memory and, with ``--profile``, the device's
+   busy ms and idle share over the loop; the share of continuous texts
+   equal to the batched ones (recorded, not gated: another batch make-up
+   can flip a bf16 near-tie). The runs' launches join the kernels line.
+20. ``distributed``: the device mesh (``parallel/mesh.py``) in a child
    started by ``python -m torch.distributed.run --standalone
    --nproc_per_node 1`` (its NCCL group ends with the phase; a child that
    fails fails the phase). There ``MeshEnv.initialize`` makes a world of
@@ -314,7 +362,7 @@ stderr):
    both, and with ``--profile`` each step's device time, idle share and
    the device time of kernels named ``nccl`` (``nccl_ms``; CPU-time tables
    too).
-20. ``tensor_parallel``: the mesh's ``model`` axis
+21. ``tensor_parallel``: the mesh's ``model`` axis
    (``parallel/tensor_parallel.py``). (a) Every kernel of the
    model-parallel train step and decode at the shard shapes of model 2 and
    4, each rank's call on its part of the same full tensors: flash forward
@@ -378,7 +426,7 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
           "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
-          "serve_stream", "loader", "distributed", "tensor_parallel")
+          "serve_stream", "loader", "apps", "distributed", "tensor_parallel")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -4219,20 +4267,24 @@ def png_bytes(page):
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def ocr_annotation(seed, lines=40):
-    """A ``cruller_pretrain`` annotation of seeded words: one page of lines."""
+def ocr_annotation(seed, lines=40, words=(4, 12)):
+    """A ``cruller_pretrain`` annotation of seeded words: one page of lines,
+    each of ``words[0]`` to ``words[1] - 1`` words of 1-10 characters."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"))
     text = [" ".join("".join(rng.choice(letters, rng.randint(1, 11)))
-                     for _ in range(rng.randint(4, 12))) for _ in range(lines)]
+                     for _ in range(rng.randint(*words))) for _ in range(lines)]
     return {"pages": [{"text": text}]}
 
 
-def write_loader_shard(path, page_size, n_png, jpeg_repeats):
+def write_loader_shard(path, page_size, n_png, jpeg_repeats, annotation=ocr_annotation,
+                       pages_dir=None):
     """One tar: ``n_png`` PNG pages of ``page_size`` from seeds, then each JPEG
-    fixture ``jpeg_repeats`` times, each with a seeded OCR annotation.
+    fixture ``jpeg_repeats`` times, each with a seeded OCR annotation
+    (``annotation(i)``). With ``pages_dir`` each page is also written there
+    as a file of its own (``{i:05d}.png`` / ``.jpg``, in shard order).
     Returns (the PNG pages' arrays, the JPEG pages' bytes, bytes by kind)."""
     import io
     import tarfile
@@ -4246,8 +4298,11 @@ def write_loader_shard(path, page_size, n_png, jpeg_repeats):
         samples = [("png", png_bytes(p)) for p in pngs] + [("jpg", b) for b in jpegs]
         for i, (ext, data) in enumerate(samples):
             sizes[ext] += len(data)
+            if pages_dir is not None:
+                with open(os.path.join(pages_dir, f"{i:05d}.{ext}"), "wb") as fh:
+                    fh.write(data)
             for name, blob in ((f"{i:05d}.{ext}", data),
-                               (f"{i:05d}.json", json.dumps(ocr_annotation(i)).encode())):
+                               (f"{i:05d}.json", json.dumps(annotation(i)).encode())):
                 info = tarfile.TarInfo(name)
                 info.size = len(blob)
                 tf.addfile(info, io.BytesIO(blob))
@@ -4264,51 +4319,107 @@ def ms_per_item(fn, items):
 
 
 @contextlib.contextmanager
+def patched(owner, name, make):
+    """``owner.name`` (a class's or a module's attribute, so what an entry
+    point builds or imports inside itself is caught) replaced by
+    ``make(original)`` for the duration."""
+    own = vars(owner).get(name)
+    setattr(owner, name, make(getattr(owner, name)))
+    try:
+        yield
+    finally:
+        if own is None:
+            delattr(owner, name)
+        else:
+            setattr(owner, name, own)
+
+
+@contextlib.contextmanager
+def kept_logging():
+    """The root logger as it was: the entry points call ``setup_logging``,
+    whose handlers are closed and dropped afterwards."""
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        yield
+    finally:
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+
+@contextlib.contextmanager
+def counted_decodes():
+    """Pages ``data/wds.py::decode_image_bytes`` decoded while the block runs,
+    by decoder: ``native`` (an array from the native library) or ``other``
+    (a PIL image: the port's rule where the library does not build)."""
+    import threading
+
+    import numpy as np
+
+    from pixparse_tpu_torch.data import wds
+
+    counts = {"native": 0, "other": 0}
+    lock = threading.Lock()  # loader threads decode
+
+    def make(decode):
+        def counted(*args, **kwargs):
+            out = decode(*args, **kwargs)
+            with lock:
+                counts["native" if isinstance(out, np.ndarray) else "other"] += 1
+            return out
+        return counted
+
+    with patched(wds, "decode_image_bytes", make):
+        yield counts
+
+
+@contextlib.contextmanager
 def recorded_train_steps(torch, task_cls, profile_from=None, profile_to=None):
     """Wraps ``task_cls.train_step`` (the class attribute, so the tasks an
     entry point builds inside itself are caught) for the duration. Each
     step's loss is read (so the step has ended) and its entry and exit times,
     and a copy of the first step's batch, land in the yielded record. With
-    ``profile_from``, ``torch.profiler`` traces the card from the exit of
-    that step to the exit of step ``profile_to`` (1-based)."""
+    ``profile_from``, ``torch.profiler`` traces the card from the entry of
+    step ``profile_from + 1`` to the exit of step ``profile_to`` (1-based);
+    it starts before that step's entry time is read."""
     import copy
 
     from torch.profiler import ProfilerActivity, profile
 
     rec = {"enter": [], "exit": [], "losses": [], "first_batch": None, "prof": None}
-    own = task_cls.__dict__.get("train_step")
-    step = task_cls.train_step
 
-    def recorded(self, sample):
-        rec["enter"].append(time.perf_counter())
-        if rec["first_batch"] is None:
-            rec["first_batch"] = copy.deepcopy(sample)
-        out = step(self, sample)
-        rec["losses"].append(float(out["loss"]))
-        sync(torch)
-        rec["exit"].append(time.perf_counter())
-        n = len(rec["exit"])
-        if n == profile_from:
-            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
-            rec["prof"].start()
-        elif n == profile_to and rec["prof"] is not None:
-            rec["prof"].stop()
-        return out
+    def make(step):
+        def recorded(self, sample):
+            if len(rec["exit"]) == profile_from:
+                rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                rec["prof"].start()
+            rec["enter"].append(time.perf_counter())
+            if rec["first_batch"] is None:
+                rec["first_batch"] = copy.deepcopy(sample)
+            out = step(self, sample)
+            rec["losses"].append(float(out["loss"]))
+            sync(torch)
+            rec["exit"].append(time.perf_counter())
+            if len(rec["exit"]) == profile_to and rec["prof"] is not None:
+                rec["prof"].stop()
+            return out
+        return recorded
 
-    task_cls.train_step = recorded
-    try:
+    with patched(task_cls, "train_step", make):
         yield rec
-    finally:
-        if own is None:
-            del task_cls.train_step
-        else:
-            task_cls.train_step = own
 
 
-def step_summary(torch, rec, steps, tag, on_card):
+def step_summary(torch, rec, steps, tag, on_card, window=None):
     """ms a step (exit to exit) and loader wait (the previous step's exit to
     this step's entry) of steps 2..``steps``, their medians, and, on the
-    card, the device's busy ms and idle share over that window."""
+    card, the device's busy ms and idle share over the profiled window:
+    from the entry of the step after ``window[0]`` to the exit of step
+    ``window[1]`` (0-based; default the first and the last step)."""
     enter, exit_ = rec["enter"], rec["exit"]
     step_ms = [(exit_[i] - exit_[i - 1]) * 1e3 for i in range(1, len(exit_))]
     wait_ms = [(enter[i] - exit_[i - 1]) * 1e3 for i in range(1, len(exit_))]
@@ -4323,7 +4434,8 @@ def step_summary(torch, rec, steps, tag, on_card):
             fh.write(events.table(sort_by="self_device_time_total", row_limit=30))
         busy = sum(e.self_device_time_total for e in events
                    if e.device_type == DeviceType.CUDA) / 1e3
-        wall = (exit_[-1] - exit_[0]) * 1e3
+        lo, hi = window or (0, len(exit_) - 1)
+        wall = (exit_[hi] - enter[lo + 1]) * 1e3
         out.update(device_ms=busy, window_wall_ms=wall, idle_share=1.0 - busy / wall)
     return out
 
@@ -4360,7 +4472,6 @@ def phase_loader(torch, model_name="cruller_base", B=LOADER_B, steps=LOADER_STEP
     of the three train runs."""
     import gc
     import importlib.util
-    import logging
     import shutil
     import tempfile
     import threading
@@ -4498,15 +4609,6 @@ def phase_loader(torch, model_name="cruller_base", B=LOADER_B, steps=LOADER_STEP
         first_batches = {}
         for flag in (False, True):
             tag = f"app_train_dp{int(flag)}"
-            counts = {"native": 0, "other": 0}
-            decode_bytes = wds.decode_image_bytes
-
-            def counted_decode(*args, **kwargs):
-                out = decode_bytes(*args, **kwargs)
-                with count_lock:
-                    counts["native" if isinstance(out, np.ndarray) else "other"] += 1
-                return out
-
             argv = ["--train.task_name", "cruller_pretrain", "--train.experiment", tag,
                     "--train.output_dir", os.path.join(tmp, "out"), "--train.seed", "42",
                     "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
@@ -4516,20 +4618,13 @@ def phase_loader(torch, model_name="cruller_base", B=LOADER_B, steps=LOADER_STEP
                     "--data.train.source", shard, "--data.train.split", "train",
                     "--data.train.num_samples", str(B * steps),
                     "--data.train.batch_size", str(B), "--data.train.num_workers", str(workers)]
-            root = logging.getLogger()
-            handlers, level = root.handlers[:], root.level
-            wds.decode_image_bytes = counted_decode
             reset_counts()
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            try:
-                with recorded_train_steps(torch, TaskCrullerPretrain, *window) as steps_rec:
-                    rc = app_train.main(argv)
-            finally:
-                wds.decode_image_bytes = decode_bytes
-                root.handlers[:] = handlers
-                root.setLevel(level)
+            with kept_logging(), counted_decodes() as counts, \
+                    recorded_train_steps(torch, TaskCrullerPretrain, *window) as steps_rec:
+                rc = app_train.main(argv)
             run = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts(),
                    "pages_decoded": dict(counts),
                    **step_summary(torch, steps_rec, steps, f"loader_{tag}", on_card)}
@@ -4604,6 +4699,611 @@ def phase_loader(torch, model_name="cruller_base", B=LOADER_B, steps=LOADER_STEP
         raise SystemExit("loader failed: " + "; ".join(problems))
     return path_launches
 
+
+
+# --------------------------------------------------------------------------
+# apps: app.train, app.eval and app.infer as users run them
+# --------------------------------------------------------------------------
+
+APPS_B = 16  # the batch of every run
+APPS_STEPS = 2  # app.train steps an interval
+APPS_INTERVALS = 2  # (b); (c) resumes into one more
+APPS_PNG = 16  # PNG pages drawn from seeds
+APPS_JPEG_REPEATS = 4  # each of the 4 JPEG fixtures this many times
+APPS_WORKERS = 8  # the loaders' worker threads
+APPS_RESUME_WORKERS = 2  # (c)'s: beside (b)'s 8, what the threads cost the launching thread
+APPS_NEW_TOKENS = 64  # (e): --infer.max_new_tokens
+# a page's annotation: one line of 2-5 words, at most 54 characters, so the
+# eval decodes at most 64 tokens (max_target_length's bucket)
+APPS_WORDS = (2, 6)
+APPS_STEP1_RTOL = 1e-3  # (b): step 1's loss against the same batch fed as arrays
+APPS_CHILD_TIMEOUT_S = 300  # (e): the batched app.infer child
+APPS_RUN_KERNELS = {  # the kernels each run must launch
+    "train": TRAIN_KERNELS["cruller_base"], "resume": TRAIN_KERNELS["cruller_base"],
+    "eval": SERVE_KERNELS, "infer_batched": SERVE_KERNELS, "infer_continuous": SERVE_KERNELS,
+}
+
+
+@contextlib.contextmanager
+def infer_probes(torch, on_card, profile):
+    """Wraps PIL's ``Image.open`` and the eval task's ``setup``,
+    ``prepare_image``, ``generate_text`` and ``end`` while ``app.infer``
+    runs: the pages opened, the host seconds of their open + prepare (a
+    page decodes in ``prepare_image``'s ``convert``), each batched
+    ``generate_text``'s seconds, the page loop's window from the end of
+    ``setup`` to ``end`` (every page read, decoded and generated and the
+    JSONL written), the peak memory over it and, with ``profile``, a
+    ``torch.profiler`` trace of the card over it."""
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import TaskCrullerEvalOCR
+
+    rec = {"opened": 0, "host_s": 0.0, "generate_s": [], "t_setup": None, "t_end": None,
+           "prof": None}
+
+    def timed(fn, opens):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            rec["host_s"] += time.perf_counter() - t0
+            rec["opened"] += opens
+            return out
+        return call
+
+    def setup(orig):
+        def set_up(self, *args, **kwargs):
+            orig(self, *args, **kwargs)
+            sync(torch)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            if profile:
+                rec["prof"] = trace(activities=[ProfilerActivity.CUDA])
+                rec["prof"].start()
+            rec["t_setup"] = time.perf_counter()
+        return set_up
+
+    def generate(orig):
+        def generated(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(self, *args, **kwargs)
+            rec["generate_s"].append(time.perf_counter() - t0)  # ends in a copy to the host
+            return out
+        return generated
+
+    def end(orig):
+        def ended(self):
+            sync(torch)
+            rec["t_end"] = time.perf_counter()
+            if rec["prof"] is not None:
+                rec["prof"].stop()
+            return orig(self)
+        return ended
+
+    with patched(Image, "open", lambda f: timed(f, 1)), \
+            patched(TaskCrullerEvalOCR, "prepare_image", lambda f: timed(f, 0)), \
+            patched(TaskCrullerEvalOCR, "setup", setup), patched(TaskCrullerEvalOCR, "end", end), \
+            patched(TaskCrullerEvalOCR, "generate_text", generate):
+        yield rec
+
+
+def infer_summary(torch, probe, pages, on_card, tag):
+    """Pages/s over the page loop, host ms a page opened, peak memory, and
+    from a trace the device's busy ms and idle share over the loop."""
+    from torch.autograd import DeviceType
+
+    loop_s = probe["t_end"] - probe["t_setup"]
+    out = {"pages": pages, "opened": probe["opened"], "loop_s": loop_s,
+           "pages_per_s": pages / loop_s,
+           "host_ms_per_page": probe["host_s"] * 1e3 / max(1, probe["opened"]),
+           "generate_s": probe["generate_s"]}
+    if on_card:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if probe["prof"] is not None:
+        events = probe["prof"].key_averages()
+        with open(os.path.join(OUT_DIR, f"profile_apps_{tag}.txt"), "w") as fh:
+            fh.write(events.table(sort_by="self_device_time_total", row_limit=30))
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        out.update(device_ms=busy, idle_share=1.0 - busy / (loop_s * 1e3))
+    return out
+
+
+def infer_child(spec) -> int:
+    """The batched ``app.infer`` in a process of its own: the module's
+    ``__main__`` block, run as ``python -m`` runs it (``runpy``), under
+    :func:`infer_probes`. Writes its exit code, launches and timings to
+    ``spec['out']``; exits 1 unless ``app.infer`` exited 0."""
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    global OUT_DIR
+    OUT_DIR = spec["out_dir"]
+    on_card = spec["device"] == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(CPU_CHILD_THREADS)
+    sys.argv = ["-m", *spec["argv"]]  # run_module puts the module's path in argv[0]
+    reset_counts()
+    rc = 0
+    with nan_default_init(torch), infer_probes(torch, on_card, spec["profile"]) as probe:
+        try:
+            runpy.run_module("pixparse_tpu_torch.app.infer", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            rc = e.code or 0
+    rec = {"rc": rc, "launches": read_counts(),
+           **infer_summary(torch, probe, spec["pages"], on_card, "infer_batched")}
+    with open(spec["out"], "w") as fh:
+        json.dump(rec, fh)
+    return 0 if rc == 0 else 1
+
+
+def tensor_pairs(a, b, where=""):
+    """``(name, a's tensor, b's tensor)`` of two nested dicts of tensors of
+    the same keys (a train state's parameters or optimizer state)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise SystemExit(f"apps: {where or 'state'} keys differ")
+        for k in a:
+            yield from tensor_pairs(a[k], b[k], f"{where}.{k}")
+    else:
+        yield where, a, b
+
+
+def cpu_copy(tree):
+    return ({k: cpu_copy(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.detach().to("cpu", copy=True))
+
+
+def infer_record_text(task, prompt, text):
+    """The text ``app.infer`` writes for a generated string: the leading
+    prompt and a trailing EOS cut, then stripped."""
+    if prompt and text.startswith(prompt):
+        text = text[len(prompt):]
+    eos = task.tokenizer.eos_token or ""
+    if eos and text.endswith(eos):
+        text = text[:-len(eos)]
+    return text.strip()
+
+
+def jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def phase_apps(torch, model_name="cruller_base", B=APPS_B, steps=APPS_STEPS,
+               intervals=APPS_INTERVALS, page_size=None, n_png=APPS_PNG,
+               jpeg_repeats=APPS_JPEG_REPEATS, workers=APPS_WORKERS,
+               resume_workers=APPS_RESUME_WORKERS, infer_B=None,
+               new_tokens=APPS_NEW_TOKENS, vocab=BART_VOCAB, device="cuda", profile=False):
+    """The three entry points as users run them, in one temp dir: (a) a tar
+    shard and the same pages as files, (b) ``app.train`` from the shard,
+    (c) ``--train.resume`` of it, (d) ``app.eval`` and (e) ``app.infer``
+    (batched in a child, continuous in this process) from its last ``.pt``.
+    Returns the launch counts of each run."""
+    import functools
+    import gc
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pixparse_tpu_torch import native
+    from pixparse_tpu_torch.app import eval as app_eval
+    from pixparse_tpu_torch.app import infer as app_infer
+    from pixparse_tpu_torch.app import train as app_train
+    from pixparse_tpu_torch.device import DeviceEnv
+    from pixparse_tpu_torch.framework import checkpoint as ckpt
+    from pixparse_tpu_torch.models.cruller import create_cruller
+    from pixparse_tpu_torch.models.interop import (
+        DEC_PREFIX, LM_HEAD_KEY, cruller_state_dict, load_torch_checkpoint,
+        save_torch_checkpoint)
+    from pixparse_tpu_torch.task.task_cruller_eval_ocr import (
+        TaskCrullerEvalOCR, TaskCrullerEvalOCRCfg)
+    from pixparse_tpu_torch.task.task_cruller_pretrain import TaskCrullerPretrain
+    from pixparse_tpu_torch.task.task_factory import TaskFactory
+    from pixparse_tpu_torch.tokenizers import TokenizerCfg
+    from pixparse_tpu_torch.tools.make_page_fixtures import PAGE_SIZE
+
+    on_card = torch.cuda.is_available() and device != "cpu"
+    infer_B = infer_B or B
+    page_size = tuple(page_size or PAGE_SIZE)
+    # the page decoders: the native library where it builds, else PIL (the
+    # port's rule, data/wds.py::decode_image_bytes); app.infer opens pages
+    # with PIL
+    have_native = native.load_native() is not None
+    have_pil = importlib.util.find_spec("PIL") is not None
+    native_missing = None if have_native else (
+        native_skip_reason(native.build_error() or "") or "the library did not build or load")
+    if not have_pil:
+        raise SystemExit("apps: PIL is missing (app.infer opens pages with it; the native "
+                         f"library {'builds' if have_native else 'does not: ' + native_missing})")
+    decoder = "native" if have_native else "PIL"
+    rec = {"phase": "apps", "nvidia_smi": nvidia_smi() if on_card else None, "model": model_name,
+           "batch": B, "dtype": "bfloat16",
+           "decoders": {"shard": decoder, "native_missing": native_missing, "infer": "PIL"}}
+    seconds = {}
+    t_lap = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        seconds[name] = now - t_lap
+        t_lap = now
+
+    problems, path_launches = [], {}
+
+    def gate(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def decoded_by_rule(counts, what):
+        gate(counts["native" if have_native else "other"] > 0
+             and not counts["other" if have_native else "native"],
+             f"{what}: pages decoded {counts}, all by {decoder} wanted")
+
+    def launched(run, launches):  # the CPU runs the plain versions: no launch
+        missing = [k for k in APPS_RUN_KERNELS[run] if launches[k] <= 0]
+        gate(not on_card or not missing, f"{run}: never launched {missing}")
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    try:
+        # (a) the shard, the pages as files, the tokenizer, a seeded init
+        shard = os.path.join(tmp, "shard-00000.tar")
+        pages_dir = os.path.join(tmp, "pages")
+        os.makedirs(pages_dir)
+        pngs, jpegs, sizes = write_loader_shard(
+            shard, page_size, n_png, jpeg_repeats,
+            annotation=functools.partial(ocr_annotation, lines=1, words=APPS_WORDS),
+            pages_dir=pages_dir)
+        n_pages = len(pngs) + len(jpegs)
+        files = [os.path.join(pages_dir, f) for f in sorted(os.listdir(pages_dir))]
+        rec["shard"] = {"pages": n_pages, "png_pages": len(pngs), "jpeg_pages": len(jpegs),
+                        "page_size": page_size, "bytes": os.path.getsize(shard),
+                        "png_bytes": sizes["png"], "jpeg_bytes": sizes["jpg"]}
+        tok_dir = saved_tokenizer(os.path.join(tmp, f"tokenizer{vocab}"), vocab)
+        env = DeviceEnv.initialize(device)
+        # every row of the tied table but the byte tokens' zeroed, as
+        # eval_task_setup does: after a few steps greedy decoding still reads
+        # out bytes, so the eval has CER/WER
+        ref = TaskFactory.create_task(
+            "cruller_pretrain", loader_task_cfg(model_name, tok_dir, device, False), env)[0]
+        init = create_cruller(ref.vit_cfg, ref.bart_cfg)
+        init.init_weights(torch.Generator().manual_seed(42))
+        sd = cruller_state_dict(init)
+        table = sd[DEC_PREFIX + "embed_tokens.weight"]
+        table[:BYTE_IDS[0]] = 0
+        table[BYTE_IDS[1]:] = 0
+        if LM_HEAD_KEY in sd:
+            sd[LM_HEAD_KEY] = table
+        init_pt = os.path.join(tmp, "init.pt")
+        save_torch_checkpoint(init_pt, sd)
+        del init, sd, table
+        lap("setup")
+
+        # (b) app.train from the shard, 'intervals' intervals from the init
+        out_dir = os.path.join(tmp, "out")
+        ckpt_dir = os.path.join(out_dir, "apps", "checkpoints", "apps")
+        train_argv = [
+            "--train.task_name", "cruller_pretrain", "--train.experiment", "apps",
+            "--train.output_dir", out_dir, "--train.seed", "42", "--train.resume", "true",
+            "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
+            "--task.dtype", "bfloat16", "--task.device", device,
+            "--task.num_warmup_intervals", "0",
+            "--data.train.source", shard, "--data.train.split", "train",
+            "--data.train.num_samples", str(B * steps), "--data.train.batch_size", str(B)]
+        saves, snapshot = [], {}
+
+        def timed_save(orig):
+            def save(cfg, task, interval, completed=True):
+                t0 = time.perf_counter()
+                orig(cfg, task, interval, completed)
+                saves.append(time.perf_counter() - t0)
+                if interval == intervals - 1:  # what (c) must restore, as it was in memory
+                    snapshot.update(cpu_copy({"params": task.state.params,
+                                              "opt_state": task.state.opt_state}))
+            return save
+
+        window = (1, 2) if on_card and profile else ()  # step 2: inside the first interval
+        reset_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with kept_logging(), counted_decodes() as counts, \
+                patched(app_train, "_save_interval_checkpoints", timed_save), \
+                recorded_train_steps(torch, TaskCrullerPretrain, *window) as steps_rec:
+            rc = app_train.main(train_argv + ["--train.checkpoint_path", init_pt,
+                                              "--task.num_intervals", str(intervals),
+                                              "--data.train.num_workers", str(workers)])
+        train = {"rc": rc, "workers": workers, "seconds": time.perf_counter() - t0,
+                 "launches": read_counts(),
+                 "pages_decoded": dict(counts), "save_s": saves,
+                 **step_summary(torch, steps_rec, steps, "apps_train", on_card, (0, 1))}
+        if on_card:
+            train["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        train["written"] = {name: os.path.exists(os.path.join(ckpt_dir, name))
+                            for i in range(intervals)
+                            for name in (f"checkpoint-{i}.pt", f"checkpoint-{i}/{ckpt.STATE_FILE}",
+                                         f"checkpoint-{i}/{ckpt.METADATA_FILE}")}
+        path_launches["apps_train"] = train["launches"]
+        rec["train"] = train
+        first_batch = steps_rec["first_batch"]
+        free()
+        lap("train")
+
+        # the in-memory step on (b)'s first batch, from the same init: its
+        # loss and its launches, then the ms of two more steps on that batch
+        ref.resume_state_dict = load_torch_checkpoint(init_pt)
+        ref.train_setup(num_batches_per_interval=steps, seed=42)
+        reset_counts()
+        loss = float(ref.train_step(first_batch)["loss"])
+        want = {k: float(n) for k, n in read_counts().items()}
+        in_memory_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            float(ref.train_step(first_batch)["loss"])
+            in_memory_ms.append((time.perf_counter() - t0) * 1e3)
+        train["in_memory_step_ms"] = in_memory_ms
+        del ref
+        free()
+        step1 = train["losses"][0] if train["losses"] else math.nan
+        train["step1_vs_arrays"] = {"app": step1, "arrays": loss,
+                                    "rel_diff": abs(step1 - loss) / abs(loss)}
+        train["in_memory_launches_a_step"] = want
+        gate(rc == 0 and train["steps"] == intervals * steps,
+             f"(b) exit {rc}, {train['steps']} steps, want {intervals * steps}")
+        gate(all(train["written"].values()), f"(b) checkpoints written: {train['written']}")
+        gate(math.isfinite(step1) and abs(step1 - loss) <= APPS_STEP1_RTOL * abs(loss),
+             f"(b) step-1 loss {step1} against {loss} from the same batch as arrays")
+        lap("step1_reference")
+
+        # (c) --train.resume with no path: the newest full state, one more interval
+        resumed = {}
+
+        def restore(orig):
+            def restored(path, template):
+                state, meta = orig(path, template)
+                pairs = list(tensor_pairs({"params": state.params, "opt_state": state.opt_state},
+                                          snapshot))
+                resumed.update(
+                    path=os.path.relpath(path, ckpt_dir), metadata=meta, tensors=len(pairs),
+                    bit_equal=sum(bool(torch.equal(a.cpu(), b)) for _, a, b in pairs),
+                    on_device=sum(a.device.type == env.device.type for _, a, _ in pairs))
+                return state, meta
+            return restored
+
+        def train_(orig):
+            def started(cfg, task, loaders):
+                resumed.update(start_interval=task.start_interval, step_idx=task.step_idx,
+                               state_step=int(task.state.step))
+                return orig(cfg, task, loaders)
+            return started
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with kept_logging(), counted_decodes() as counts, \
+                patched(app_train, "restore_train_state", restore), \
+                patched(app_train, "train", train_), \
+                recorded_train_steps(torch, TaskCrullerPretrain) as steps_rec:
+            rc = app_train.main(train_argv + ["--task.num_intervals", str(intervals + 1),
+                                              "--data.train.num_workers", str(resume_workers)])
+        last = os.path.join(ckpt_dir, f"checkpoint-{intervals}")
+        with open(os.path.join(last, ckpt.METADATA_FILE)) as fh:
+            final_meta = json.load(fh)
+        resume = {"rc": rc, "workers": resume_workers, "seconds": time.perf_counter() - t0,
+                  "launches": read_counts(),
+                  "pages_decoded": dict(counts), **resumed, "final_metadata": final_meta,
+                  **step_summary(torch, steps_rec, steps, "apps_resume", on_card)}
+        path_launches["apps_resume"] = resume["launches"]
+        rec["resume"] = resume
+        snapshot.clear()
+        free()
+        gate(rc == 0 and resume["steps"] == steps,
+             f"(c) exit {rc}, {resume['steps']} steps, want {steps}")
+        gate(resumed.get("path") == f"checkpoint-{intervals - 1}",
+             f"(c) restored {resumed.get('path')}, want checkpoint-{intervals - 1}")
+        gate(resumed.get("start_interval") == intervals,
+             f"(c) started at interval {resumed.get('start_interval')}, want {intervals}")
+        gate(resumed.get("state_step") == resumed.get("metadata", {}).get("step")
+             == intervals * steps and final_meta.get("step") == (intervals + 1) * steps,
+             f"(c) step {resumed.get('state_step')} restored, {final_meta.get('step')} at the "
+             f"end, want {intervals * steps} and {(intervals + 1) * steps}")
+        gate(resumed.get("tensors", 0) > 0
+             and resumed["bit_equal"] == resumed["on_device"] == resumed["tensors"],
+             f"(c) restored tensors: {resumed.get('bit_equal')} bit-equal and "
+             f"{resumed.get('on_device')} on {env.device.type} of {resumed.get('tensors')}")
+        for run, r in (("train", train), ("resume", resume)):
+            tag = "(b)" if run == "train" else "(c)"
+            per_step = {k: n / max(1, r["steps"]) for k, n in r["launches"].items()}
+            gate(per_step == want, f"{tag} launches a step {per_step}, the in-memory step's {want}")
+            gate(all(math.isfinite(x) for x in r["losses"]), f"{tag} losses {r['losses']}")
+            decoded_by_rule(r["pages_decoded"], tag)
+            launched(run, r["launches"])
+        lap("resume")
+
+        # (d) app.eval from the last interval's .pt over the shard
+        last_pt = os.path.join(ckpt_dir, f"checkpoint-{intervals}.pt")
+        eval_dir = os.path.join(tmp, "eval")
+        weights, eval_pages, eval_s = {}, [0], []
+
+        def eval_setup(orig):
+            def set_up(self, *args, **kwargs):
+                orig(self, *args, **kwargs)
+                own = self.model.state_dict()
+                saved = load_torch_checkpoint(last_pt)
+                weights.update(tensors=len(saved), dtype=str(self.compute_dtype), bit_equal=sum(
+                    bool(k in own and torch.equal(own[k].cpu(), v.to(self.compute_dtype)))
+                    for k, v in saved.items()))
+            return set_up
+
+        def eval_step(orig):
+            def step(self, sample):
+                eval_pages[0] += len(sample[0] if isinstance(sample, (tuple, list))
+                                     else sample["image"])
+                return orig(self, sample)
+            return step
+
+        def timed_eval(orig):
+            def run(cfg, task, loaders):
+                t0 = time.perf_counter()
+                out = orig(cfg, task, loaders)
+                sync(torch)
+                eval_s.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with kept_logging(), counted_decodes() as counts, \
+                patched(TaskCrullerEvalOCR, "setup", eval_setup), \
+                patched(TaskCrullerEvalOCR, "step", eval_step), \
+                patched(app_eval, "eval", timed_eval):
+            rc = app_eval.main([
+                "--eval.task_name", "cruller_eval_ocr", "--eval.checkpoint_path", last_pt,
+                "--eval.dataset_name", "apps", "--eval.output_dir", eval_dir,
+                "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
+                "--task.dtype", "bfloat16", "--task.device", device,
+                "--data.eval.source", shard, "--data.eval.split", "eval",
+                "--data.eval.num_samples", str(n_pages), "--data.eval.batch_size", str(B),
+                "--data.eval.num_workers", str(workers)])
+        metrics_file = app_eval.metrics_file_name(last_pt, "apps")
+        metrics_path = os.path.join(eval_dir, metrics_file)
+        metrics = None
+        if os.path.exists(metrics_path):
+            with open(metrics_path) as fh:
+                metrics = json.load(fh)
+        avg = (metrics or {}).get("eval", {}).get("average", {})
+        ev = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts(),
+              "pages_decoded": dict(counts), "pages": eval_pages[0], "metrics_file": metrics_file,
+              "metrics": metrics, "weights": weights, "evaluate_s": eval_s[0] if eval_s else None,
+              "pages_per_s": eval_pages[0] / eval_s[0] if eval_s else None}
+        path_launches["apps_eval"] = ev["launches"]
+        rec["eval"] = ev
+        free()
+        gate(rc == 0 and metrics is not None, f"(d) exit {rc}, metrics file {metrics_path} "
+             f"{'written' if metrics is not None else 'missing'}")
+        gate(all(k in avg and math.isfinite(avg[k]) for k in ("cer", "wer")),
+             f"(d) CER/WER missing or not finite: {metrics}")
+        gate(ev["pages"] == n_pages, f"(d) {ev['pages']} pages evaluated, want {n_pages}")
+        gate(weights.get("tensors", 0) > 0 and weights["bit_equal"] == weights["tensors"],
+             f"(d) decode weights equal to the .pt's cast: {weights}")
+        decoded_by_rule(counts, "(d)")
+        launched("eval", ev["launches"])
+        lap("eval")
+
+        # (e) app.infer over the page files: batched in a child, then the
+        # same batches through generate_text here, then continuous here
+        infer_argv = [
+            "--infer.task_name", "cruller_eval_ocr", "--infer.checkpoint_path", last_pt,
+            "--infer.images", pages_dir, "--infer.batch_size", str(infer_B),
+            "--infer.max_new_tokens", str(new_tokens),
+            "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
+            "--task.dtype", "bfloat16", "--task.device", device]
+        batched_out = os.path.join(tmp, "batched.jsonl")
+        child_out = os.path.join(tmp, "infer_child.json")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        log_path = os.path.abspath(os.path.join(OUT_DIR, "apps_infer_child.log"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        child_env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        if not on_card:  # beside other busy processes: no more threads than it needs
+            child_env["OMP_NUM_THREADS"] = str(CPU_CHILD_THREADS)
+        spec = {"argv": infer_argv + ["--infer.output", batched_out], "device": device,
+                "profile": profile, "pages": n_pages, "out": child_out,
+                "out_dir": os.path.abspath(OUT_DIR)}
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            try:
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--infer-child", json.dumps(spec)],
+                    stdout=log, stderr=subprocess.STDOUT, env=child_env, cwd=here,
+                    timeout=APPS_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"apps: the app.infer child ran past {APPS_CHILD_TIMEOUT_S} s "
+                                 f"(its log: {log_path})") from None
+        if proc.returncode != 0 or not os.path.exists(child_out):
+            with open(log_path) as fh:
+                print(fh.read()[-4000:], file=sys.stderr)
+            raise SystemExit(f"apps: the app.infer child exited {proc.returncode} "
+                             f"(its log: {log_path})")
+        with open(child_out) as fh:
+            batched = {**json.load(fh), "child_wall_s": time.perf_counter() - t0,
+                       "decoder": "PIL"}
+        path_launches["apps_infer_batched"] = batched["launches"]
+        lines = jsonl(batched_out)
+        lap("infer_batched")
+
+        cfg = TaskCrullerEvalOCRCfg(model_name=model_name, tokenizer=TokenizerCfg(name=tok_dir),
+                                    dtype="bfloat16", device=device)
+        task = TaskFactory.create_task("cruller_eval_ocr", cfg, env)[0]
+        task.resume_state_dict = load_torch_checkpoint(last_pt)
+        task.setup()
+        from PIL import Image
+
+        prompt = task.task_start_token
+        prompt_ids = task.prompt_ids(prompt, infer_B)
+        reset_counts()
+        texts = []
+        for lo in range(0, n_pages, infer_B):
+            chunk = files[lo:lo + infer_B]
+            padded = chunk + [chunk[-1]] * (infer_B - len(chunk))
+            images = np.stack([task.prepare_image(Image.open(f)) for f in padded])
+            texts += task.generate_text(images, prompt_ids,
+                                        max_length=prompt_ids.shape[1] + new_tokens)[:len(chunk)]
+        reference = [infer_record_text(task, prompt, t) for t in texts]
+        batched["reference_launches"] = read_counts()
+        del task
+        free()
+        batched["lines"] = len(lines)
+        batched["in_input_order"] = [r["file"] for r in lines] == files
+        batched["equal_to_generate_text"] = sum(
+            r["text"] == t for r, t in zip(lines, reference))
+        gate(batched["rc"] == 0 and batched["lines"] == n_pages and batched["in_input_order"],
+             f"(e) batched: exit {batched['rc']}, {batched['lines']} lines, input order "
+             f"{batched['in_input_order']}")
+        gate(batched["equal_to_generate_text"] == n_pages,
+             f"(e) batched: {batched['equal_to_generate_text']} of {n_pages} texts equal to "
+             "generate_text on the same batches")
+        launched("infer_batched", batched["launches"])
+        lap("infer_reference")
+
+        continuous_out = os.path.join(tmp, "continuous.jsonl")
+        reset_counts()
+        with kept_logging(), infer_probes(torch, on_card, profile) as probe:
+            rc = app_infer.main(infer_argv + ["--infer.output", continuous_out,
+                                              "--infer.continuous", "true"])
+        continuous = {"rc": rc, "launches": read_counts(), "decoder": "PIL",
+                      **infer_summary(torch, probe, n_pages, on_card, "infer_continuous")}
+        path_launches["apps_infer_continuous"] = continuous["launches"]
+        c_lines = jsonl(continuous_out)
+        continuous["lines"] = len(c_lines)
+        continuous["in_input_order"] = [r["file"] for r in c_lines] == files
+        # recorded, not gated: another batch make-up can flip a bf16 near-tie
+        continuous["equal_to_batched_share"] = sum(
+            a["text"] == b["text"] for a, b in zip(c_lines, lines)) / max(1, n_pages)
+        gate(rc == 0 and continuous["lines"] == n_pages and continuous["in_input_order"],
+             f"(e) continuous: exit {rc}, {continuous['lines']} lines, input order "
+             f"{continuous['in_input_order']}")
+        launched("infer_continuous", continuous["launches"])
+        rec["infer"] = {"batched": batched, "continuous": continuous}
+        free()
+        lap("infer_continuous")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = seconds
+    emit(rec)
+    if problems:
+        raise SystemExit("apps failed: " + "; ".join(problems))
+    return path_launches
 
 # the wgmma kernels, by (mangled) name fragment; their dynamic shared memory
 # per template argument, as FwdCfg / BwdCfg (flash, by head dim) and GemmCfg
@@ -5736,15 +6436,18 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="serve_model, serve_donut, train_model, train_donut, beam_eval, "
-                         "large, pix2struct, distributed: also trace encode, generate and one train step with "
+                         "large, pix2struct, apps, distributed: also trace encode, generate and one train step with "
                          "torch.profiler (device time by kernel, device idle share)")
     ap.add_argument("--distributed-child", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--infer-child", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.distributed_child:  # one rank of the distributed phase's torchrun
         return distributed_child(json.loads(args.distributed_child))
     if args.tp_child:  # one rank of the tensor_parallel phase's torchrun
         return tp_child(json.loads(args.tp_child))
+    if args.infer_child:  # the apps phase's batched app.infer
+        return infer_child(json.loads(args.infer_child))
     t_main = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -5821,6 +6524,7 @@ def main(argv=None) -> int:
         "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
         "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
         "loader": lambda: path_launches.update(phase_loader(torch)),
+        "apps": lambda: path_launches.update(phase_apps(torch, profile=prof)),
         "distributed": lambda: path_launches.update(phase_distributed(torch, profile=prof)),
         "tensor_parallel": lambda: path_launches.update(
             phase_tensor_parallel(torch, F, smi, timer)),
