@@ -249,13 +249,13 @@ stderr):
    bytes and time of each host-to-device copy. (b) one ``cruller_pretrain``
    train step at B=8 with the flag on and off from the same weights and
    batch: losses finite and within 1e-3 relative (bit equality recorded).
-   (c) 32 pages with per-page budgets drawn uniformly from 64-256 (numpy,
+   (c) 24 pages with per-page budgets drawn uniformly from 64-256 (numpy,
    seed 17), max_length 257, through ``ops/serving.py::ContinuousBatcher``
    (16 slots, refill 16, pools of 32) and through ``generate`` in batches
    of 16 with the same budgets, in the bf16 and the int8 decode mode: for
    each path pages/s, decode steps, ms a step, tokens a step, first-result
-   latency, the device idle share (``device_profile``), launches; the
-   batcher's refills and compactions. Gates: every page once; each page's
+   latency, launches and, with ``--profile``, the device idle share
+   (``device_profile``); the batcher's refills and compactions. Gates: every page once; each page's
    tokens equal the batched path's up to the first disagreement, where the
    batched path's own top-2 logit margin (``generate`` replayed on its
    output) is under 0.0625; exact launches (12 flash per encode; per decode
@@ -267,7 +267,7 @@ stderr):
 18. ``loader``: the tar-shard train path at cruller_base, from encoded
    pages to the optimizer step. The port's native library
    (``pixparse_tpu_torch/native``: libjpeg, libpng, the PIL-exact resize)
-   is built with g++ from ``native/pixparse_native.cpp``; where the
+   is built with g++ from ``pixparse_tpu_torch/csrc/pixparse_native.cpp``; where the
    machine lacks a libjpeg / libpng / zlib header or library, the phase
    prints one line naming it with ``"skipped"`` and nothing else runs (any
    other build, load or decode failure fails the phase; nothing falls back
@@ -329,7 +329,16 @@ stderr):
    shard, B=16): exit 0, the metrics file under ``metrics_file_name``'s
    name with finite CER and WER, 32 pages evaluated, the model's weights
    after ``setup`` equal to the ``.pt``'s tensors cast to bf16, flash and
-   decode (#8) launched; recorded: pages/s of ``evaluate``. (e)
+   decode (#8) launched; recorded: pages/s of ``evaluate``. (f), right
+   after (d): ``app.eval.main`` again with (d)'s flags plus
+   ``--eval.s3_bucket`` and ``--eval.checkpoint_path`` a key, through a
+   stand-in ``boto3`` (:func:`s3_stand_in`, in ``sys.modules`` only while
+   (f) runs) that serves the bytes of (b)'s last ``.pt``. Gates (the
+   ``s3_eval`` record): exit 0, exactly one download, of (f)'s bucket and
+   key; 32 pages evaluated; the weights after ``setup`` equal to the
+   ``.pt``'s cast to bf16; flash and #8 launched; the metrics file, named
+   after the key, equal to (d)'s key for key and value for value; recorded:
+   its pages/s and seconds beside (d)'s. (e)
    ``app.infer`` over the 32 files, the same ``.pt``, 64 new tokens:
    batched at B=16 in a child (``chip_smoke.py --infer-child``, which runs
    the module's ``__main__`` block as ``python -m`` does, by ``runpy``),
@@ -449,7 +458,7 @@ PIX2STRUCT_PAGES = ((600, 800), (3508, 2480), (4000, 300), (1700, 1300))
 PIX2STRUCT_B = 8  # pix2struct: train and serve batch
 PIX2STRUCT_STEPS = 4  # pix2struct: train steps on the repeated batch (the first one warms up)
 # serve_stream: continuous batching against batched decode at cruller_base
-STREAM_PAGES = 32  # the stream's pages (the whole script must stay within its time)
+STREAM_PAGES = 24  # the stream's pages: more than the slots, so slots refill (kept small for the script's time)
 STREAM_SLOTS = 16
 STREAM_MAX_LENGTH = 257  # prompt 1 + 256
 STREAM_BUDGETS = (64, 256)  # per-page budgets, uniform (inclusive)
@@ -4180,9 +4189,10 @@ def stream_run(torch, task, canvases, budgets, slots, max_length, device, profil
 def phase_serve_stream(torch, model_name="cruller_base", pages=STREAM_PAGES, slots=STREAM_SLOTS,
                        max_length=STREAM_MAX_LENGTH, budgets=STREAM_BUDGETS,
                        train_B=STREAM_TRAIN_B, vocab=BART_VOCAB, modes=("bf16", "int8"),
-                       device="cuda"):
+                       device="cuda", profile=False):
     """(a) device preprocessing in the eval encode, (b) in a train step,
-    (c) continuous batching against batched decode in each decode mode."""
+    (c) continuous batching against batched decode in each decode mode
+    (with ``profile``, each path traced on the card)."""
     import shutil
     import tempfile
 
@@ -4218,7 +4228,7 @@ def phase_serve_stream(torch, model_name="cruller_base", pages=STREAM_PAGES, slo
         for mode in modes:
             task = on if mode == "bf16" else stream_task(torch, model_name, tok_dir, device, mode)
             run, bad, launches = stream_run(torch, task, canvases, draws, slots, max_length,
-                                            device, torch.cuda.is_available(), mode)
+                                            device, profile and torch.cuda.is_available(), mode)
             rec["runs"][mode] = run
             problems += [f"(c) {mode}: {b}" for b in bad]
             path_launches[f"serve_stream_{mode}"] = launches
@@ -4720,8 +4730,51 @@ APPS_STEP1_RTOL = 1e-3  # (b): step 1's loss against the same batch fed as array
 APPS_CHILD_TIMEOUT_S = 300  # (e): the batched app.infer child
 APPS_RUN_KERNELS = {  # the kernels each run must launch
     "train": TRAIN_KERNELS["cruller_base"], "resume": TRAIN_KERNELS["cruller_base"],
-    "eval": SERVE_KERNELS, "infer_batched": SERVE_KERNELS, "infer_continuous": SERVE_KERNELS,
+    "eval": SERVE_KERNELS, "s3_eval": SERVE_KERNELS, "infer_batched": SERVE_KERNELS,
+    "infer_continuous": SERVE_KERNELS,
 }
+APPS_S3 = ("chip-smoke", "apps/checkpoints/apps/checkpoint-{}.pt")  # (f): bucket, key
+
+
+def s3_stand_in(objects):
+    """A ``boto3`` module for ``sys.modules`` that stands in for S3: the
+    card's machine has no network and no ``boto3``. ``client("s3")``'s
+    ``download_fileobj(bucket, key, fileobj)`` copies the bytes of the local
+    file ``objects[(bucket, key)]`` and records each call in ``.calls``."""
+    import shutil
+
+    calls = []
+
+    class Client:
+        def download_fileobj(self, bucket, key, fileobj):
+            calls.append({"bucket": bucket, "key": key})
+            with open(objects[(bucket, key)], "rb") as fh:
+                shutil.copyfileobj(fh, fileobj)
+
+    def client(service, *args, **kwargs):
+        if service != "s3":
+            raise ValueError(f"the stand-in serves s3 only, not {service!r}")
+        return Client()
+
+    module = types.ModuleType("boto3")
+    module.client, module.calls = client, calls
+    return module
+
+
+@contextlib.contextmanager
+def module_installed(name, module):
+    """``sys.modules[name]`` is ``module`` for the duration; the old entry
+    (or none) is put back after."""
+    missing = object()
+    old = sys.modules.get(name, missing)
+    sys.modules[name] = module
+    try:
+        yield module
+    finally:
+        if old is missing:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = old
 
 
 @contextlib.contextmanager
@@ -4882,7 +4935,8 @@ def phase_apps(torch, model_name="cruller_base", B=APPS_B, steps=APPS_STEPS,
                new_tokens=APPS_NEW_TOKENS, vocab=BART_VOCAB, device="cuda", profile=False):
     """The three entry points as users run them, in one temp dir: (a) a tar
     shard and the same pages as files, (b) ``app.train`` from the shard,
-    (c) ``--train.resume`` of it, (d) ``app.eval`` and (e) ``app.infer``
+    (c) ``--train.resume`` of it, (d) ``app.eval``, (f) ``app.eval`` with
+    the ``.pt`` fetched by key from a stand-in S3, and (e) ``app.infer``
     (batched in a child, continuous in this process) from its last ``.pt``.
     Returns the launch counts of each run."""
     import functools
@@ -5131,75 +5185,99 @@ def phase_apps(torch, model_name="cruller_base", B=APPS_B, steps=APPS_STEPS,
             launched(run, r["launches"])
         lap("resume")
 
-        # (d) app.eval from the last interval's .pt over the shard
+        # (d) app.eval from the last interval's .pt over the shard; (f) the
+        # same from S3 by key
         last_pt = os.path.join(ckpt_dir, f"checkpoint-{intervals}.pt")
-        eval_dir = os.path.join(tmp, "eval")
-        weights, eval_pages, eval_s = {}, [0], []
+        eval_argv = [
+            "--eval.task_name", "cruller_eval_ocr", "--eval.dataset_name", "apps",
+            "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
+            "--task.dtype", "bfloat16", "--task.device", device,
+            "--data.eval.source", shard, "--data.eval.split", "eval",
+            "--data.eval.num_samples", str(n_pages), "--data.eval.batch_size", str(B),
+            "--data.eval.num_workers", str(workers)]
 
-        def eval_setup(orig):
-            def set_up(self, *args, **kwargs):
-                orig(self, *args, **kwargs)
-                own = self.model.state_dict()
-                saved = load_torch_checkpoint(last_pt)
-                weights.update(tensors=len(saved), dtype=str(self.compute_dtype), bit_equal=sum(
-                    bool(k in own and torch.equal(own[k].cpu(), v.to(self.compute_dtype)))
-                    for k, v in saved.items()))
-            return set_up
+        def run_eval(run, tag, checkpoint_path, eval_dir, extra=()):
+            """One ``app.eval.main``, gated: its record with its metrics."""
+            weights, eval_pages, eval_s = {}, [0], []
 
-        def eval_step(orig):
-            def step(self, sample):
-                eval_pages[0] += len(sample[0] if isinstance(sample, (tuple, list))
-                                     else sample["image"])
-                return orig(self, sample)
-            return step
+            def eval_setup(orig):
+                def set_up(self, *args, **kwargs):
+                    orig(self, *args, **kwargs)
+                    own = self.model.state_dict()
+                    saved = load_torch_checkpoint(last_pt)
+                    weights.update(tensors=len(saved), dtype=str(self.compute_dtype), bit_equal=sum(
+                        bool(k in own and torch.equal(own[k].cpu(), v.to(self.compute_dtype)))
+                        for k, v in saved.items()))
+                return set_up
 
-        def timed_eval(orig):
-            def run(cfg, task, loaders):
-                t0 = time.perf_counter()
-                out = orig(cfg, task, loaders)
-                sync(torch)
-                eval_s.append(time.perf_counter() - t0)
-                return out
-            return run
+            def eval_step(orig):
+                def step(self, sample):
+                    eval_pages[0] += len(sample[0] if isinstance(sample, (tuple, list))
+                                         else sample["image"])
+                    return orig(self, sample)
+                return step
 
-        reset_counts()
-        t0 = time.perf_counter()
-        with kept_logging(), counted_decodes() as counts, \
-                patched(TaskCrullerEvalOCR, "setup", eval_setup), \
-                patched(TaskCrullerEvalOCR, "step", eval_step), \
-                patched(app_eval, "eval", timed_eval):
-            rc = app_eval.main([
-                "--eval.task_name", "cruller_eval_ocr", "--eval.checkpoint_path", last_pt,
-                "--eval.dataset_name", "apps", "--eval.output_dir", eval_dir,
-                "--task.model_name", model_name, "--task.tokenizer.name", tok_dir,
-                "--task.dtype", "bfloat16", "--task.device", device,
-                "--data.eval.source", shard, "--data.eval.split", "eval",
-                "--data.eval.num_samples", str(n_pages), "--data.eval.batch_size", str(B),
-                "--data.eval.num_workers", str(workers)])
-        metrics_file = app_eval.metrics_file_name(last_pt, "apps")
-        metrics_path = os.path.join(eval_dir, metrics_file)
-        metrics = None
-        if os.path.exists(metrics_path):
-            with open(metrics_path) as fh:
-                metrics = json.load(fh)
-        avg = (metrics or {}).get("eval", {}).get("average", {})
-        ev = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts(),
-              "pages_decoded": dict(counts), "pages": eval_pages[0], "metrics_file": metrics_file,
-              "metrics": metrics, "weights": weights, "evaluate_s": eval_s[0] if eval_s else None,
-              "pages_per_s": eval_pages[0] / eval_s[0] if eval_s else None}
+            def timed_eval(orig):
+                def timed(cfg, task, loaders):
+                    t0 = time.perf_counter()
+                    out = orig(cfg, task, loaders)
+                    sync(torch)
+                    eval_s.append(time.perf_counter() - t0)
+                    return out
+                return timed
+
+            reset_counts()
+            t0 = time.perf_counter()
+            with kept_logging(), counted_decodes() as counts, \
+                    patched(TaskCrullerEvalOCR, "setup", eval_setup), \
+                    patched(TaskCrullerEvalOCR, "step", eval_step), \
+                    patched(app_eval, "eval", timed_eval):
+                rc = app_eval.main(eval_argv + ["--eval.checkpoint_path", checkpoint_path,
+                                                "--eval.output_dir", eval_dir, *extra])
+            metrics_file = app_eval.metrics_file_name(checkpoint_path, "apps")
+            metrics_path = os.path.join(eval_dir, metrics_file)
+            metrics = None
+            if os.path.exists(metrics_path):
+                with open(metrics_path) as fh:
+                    metrics = json.load(fh)
+            ev = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts(),
+                  "pages_decoded": dict(counts), "pages": eval_pages[0],
+                  "metrics_file": metrics_file, "metrics": metrics, "weights": weights,
+                  "evaluate_s": eval_s[0] if eval_s else None,
+                  "pages_per_s": eval_pages[0] / eval_s[0] if eval_s else None}
+            free()
+            gate(rc == 0 and metrics is not None, f"{tag} exit {rc}, metrics file {metrics_path} "
+                 f"{'written' if metrics is not None else 'missing'}")
+            gate(ev["pages"] == n_pages, f"{tag} {ev['pages']} pages evaluated, want {n_pages}")
+            gate(weights.get("tensors", 0) > 0 and weights["bit_equal"] == weights["tensors"],
+                 f"{tag} decode weights equal to the .pt's cast: {weights}")
+            decoded_by_rule(counts, tag)
+            launched(run, ev["launches"])
+            return ev
+
+        ev = run_eval("eval", "(d)", last_pt, os.path.join(tmp, "eval"))
         path_launches["apps_eval"] = ev["launches"]
         rec["eval"] = ev
-        free()
-        gate(rc == 0 and metrics is not None, f"(d) exit {rc}, metrics file {metrics_path} "
-             f"{'written' if metrics is not None else 'missing'}")
+        avg = (ev["metrics"] or {}).get("eval", {}).get("average", {})
         gate(all(k in avg and math.isfinite(avg[k]) for k in ("cer", "wer")),
-             f"(d) CER/WER missing or not finite: {metrics}")
-        gate(ev["pages"] == n_pages, f"(d) {ev['pages']} pages evaluated, want {n_pages}")
-        gate(weights.get("tensors", 0) > 0 and weights["bit_equal"] == weights["tensors"],
-             f"(d) decode weights equal to the .pt's cast: {weights}")
-        decoded_by_rule(counts, "(d)")
-        launched("eval", ev["launches"])
+             f"(d) CER/WER missing or not finite: {ev['metrics']}")
         lap("eval")
+
+        # (f) app.eval with --eval.s3_bucket: the stand-in serves the .pt by key
+        bucket, key = APPS_S3[0], APPS_S3[1].format(intervals)
+        with module_installed("boto3", s3_stand_in({(bucket, key): last_pt})) as boto3:
+            s3_ev = run_eval("s3_eval", "(f)", key, os.path.join(tmp, "eval_s3"),
+                             ["--eval.s3_bucket", bucket])
+        s3_ev.update(bucket=bucket, key=key, downloads=boto3.calls,
+                     metrics_equal_to_eval=s3_ev["metrics"] == ev["metrics"],
+                     eval_pages_per_s=ev["pages_per_s"], eval_seconds=ev["seconds"])
+        path_launches["apps_s3_eval"] = s3_ev["launches"]
+        rec["s3_eval"] = s3_ev
+        gate(boto3.calls == [{"bucket": bucket, "key": key}],
+             f"(f) downloads {boto3.calls}, want one of {bucket}/{key}")
+        gate(s3_ev["metrics"] is not None and s3_ev["metrics_equal_to_eval"],
+             f"(f) metrics {s3_ev['metrics']} against (d)'s {ev['metrics']}")
+        lap("s3_eval")
 
         # (e) app.infer over the page files: batched in a child, then the
         # same batches through generate_text here, then continuous here
@@ -6436,7 +6514,7 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES} (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="serve_model, serve_donut, train_model, train_donut, beam_eval, "
-                         "large, pix2struct, apps, distributed: also trace encode, generate and one train step with "
+                         "large, pix2struct, serve_stream, apps, distributed: also trace encode, generate and one train step with "
                          "torch.profiler (device time by kernel, device idle share)")
     ap.add_argument("--distributed-child", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", metavar="SPEC", help=argparse.SUPPRESS)
@@ -6522,7 +6600,7 @@ def main(argv=None) -> int:
         "naive": lambda: path_launches.update(phase_naive(torch)),
         "large": lambda: path_launches.update(phase_large(torch, profile=prof)),
         "pix2struct": lambda: path_launches.update(phase_pix2struct(torch, profile=prof)),
-        "serve_stream": lambda: path_launches.update(phase_serve_stream(torch)),
+        "serve_stream": lambda: path_launches.update(phase_serve_stream(torch, profile=prof)),
         "loader": lambda: path_launches.update(phase_loader(torch)),
         "apps": lambda: path_launches.update(phase_apps(torch, profile=prof)),
         "distributed": lambda: path_launches.update(phase_distributed(torch, profile=prof)),

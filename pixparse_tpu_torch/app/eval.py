@@ -2,9 +2,10 @@
 :mod:`pixparse_tpu.app.eval`).
 
 Flow: device -> TaskFactory -> seeded RNG -> logging and Monitor under
-``--eval.output_dir`` -> the local ``.pt`` checkpoint -> metrics file name
-from the checkpoint path and dataset name (``donut_eval_ocr``: no
-checkpoint, ``{task}-{dataset}-metrics.json``) -> one loader per
+``--eval.output_dir`` -> the ``.pt`` checkpoint (a local file, or a key in
+``--eval.s3_bucket``) -> metrics file name from the checkpoint path and
+dataset name (``donut_eval_ocr``: no checkpoint,
+``{task}-{dataset}-metrics.json``) -> one loader per
 ``--eval.datasets`` entry -> ``task.setup()`` -> ``evaluate`` -> the metrics
 JSON -> ``task.end()``::
 
@@ -31,7 +32,10 @@ into the one metrics file::
     torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.eval \
         ... --task.mesh.model 2            # add --task.device cpu: gloo
 
-``--eval.s3_bucket`` raises (the port reads local checkpoints only).
+``--eval.s3_bucket B`` reads ``--eval.checkpoint_path`` as a key in bucket
+B (each rank downloads it; the metrics file is named after the key); it
+needs ``boto3`` and S3 credentials (``ModuleNotFoundError`` without
+``boto3``).
 ``donut_eval_ocr``, the HF Donut baseline, takes ``--task.model_name`` as a
 local model directory (or a name in the HF cache) and needs
 ``transformers``.
@@ -50,9 +54,10 @@ from pixparse_tpu_torch.data.wds import create_image_text_pipe
 from pixparse_tpu_torch.framework import Monitor, evaluate, random_seed, setup_logging
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
 from pixparse_tpu_torch.framework.task import TaskEval
-from pixparse_tpu_torch.models.interop import load_torch_checkpoint
+from pixparse_tpu_torch.models.interop import load_torch_checkpoint, normalize_state_dict
 from pixparse_tpu_torch.parallel.mesh import MeshEnv
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY, TaskFactory
+from pixparse_tpu_torch.utils.s3_utils import load_checkpoint_from_s3
 
 _logger = logging.getLogger("eval")
 
@@ -166,14 +171,14 @@ def _main(eval_cfg: EvalCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv) 
     if eval_cfg.task_name == "donut_eval_ocr":  # the HF model brings its weights
         file_name = f"{eval_cfg.task_name}-{eval_cfg.dataset_name}-metrics.json"
     else:
-        if eval_cfg.s3_bucket != "":
-            raise NotImplementedError(
-                "--eval.s3_bucket: loading checkpoints from S3 is not ported (it needs "
-                "network access); copy the checkpoint to a local path"
-            )
-        if not os.path.isfile(eval_cfg.checkpoint_path):
-            raise FileNotFoundError(f"Cannot find checkpoint {eval_cfg.checkpoint_path!r}")
-        task.resume_state_dict = load_torch_checkpoint(eval_cfg.checkpoint_path)
+        if eval_cfg.s3_bucket != "":  # every rank downloads
+            _logger.info("s3 bucket specified. Loading checkpoint from s3.")
+            task.resume_state_dict = normalize_state_dict(
+                load_checkpoint_from_s3(eval_cfg.s3_bucket, eval_cfg.checkpoint_path))
+        else:
+            if not os.path.isfile(eval_cfg.checkpoint_path):
+                raise FileNotFoundError(f"Cannot find checkpoint {eval_cfg.checkpoint_path!r}")
+            task.resume_state_dict = load_torch_checkpoint(eval_cfg.checkpoint_path)
         file_name = metrics_file_name(eval_cfg.checkpoint_path, eval_cfg.dataset_name)
     eval_cfg = replace(eval_cfg, metrics_file_path=os.path.join(eval_cfg.output_dir, file_name))
     _logger.info(task_cfg)

@@ -47,7 +47,11 @@ checkpoint save::
     torchrun --standalone --nproc_per_node 2 -m pixparse_tpu_torch.app.train \
         ... --task.device cpu --task.mesh.model 2
 
-The S3 resume branch raises.
+``--train.s3_bucket B`` with ``--train.resume true`` reads
+``--train.checkpoint_path`` as a key in bucket B (tested before any local
+path, as in the JAX package) and loads the downloaded ``.pt`` weights-only;
+it needs ``boto3`` and S3 credentials (``ModuleNotFoundError`` without
+``boto3``).
 """
 
 from __future__ import annotations
@@ -74,10 +78,15 @@ from pixparse_tpu_torch.framework.checkpoint import (
 )
 from pixparse_tpu_torch.framework.cli import ConfigArgumentParser, peek_flag
 from pixparse_tpu_torch.framework.task import StopTraining, TaskTrain
-from pixparse_tpu_torch.models.interop import load_torch_checkpoint, save_torch_checkpoint
+from pixparse_tpu_torch.models.interop import (
+    load_torch_checkpoint,
+    normalize_state_dict,
+    save_torch_checkpoint,
+)
 from pixparse_tpu_torch.parallel.mesh import MeshEnv
 from pixparse_tpu_torch.task.task_factory import TASK_CLASS_REGISTRY, TaskFactory
 from pixparse_tpu_torch.utils.name_utils import clean_name
+from pixparse_tpu_torch.utils.s3_utils import load_checkpoint_from_s3
 
 _logger = logging.getLogger("train")
 
@@ -272,10 +281,10 @@ def _main(train_cfg: TrainCfg, task_args, data_cfg: DataCfg, device_env: MeshEnv
         if not checkpoint_path:
             pass
         elif train_cfg.s3_bucket != "":
-            raise NotImplementedError(
-                "--train.s3_bucket: resuming from S3 is not ported (it needs "
-                "network access); copy the checkpoint to a local path"
-            )
+            # the path is a key in the bucket, tested before any local path
+            _logger.info("s3 bucket specified. Loading checkpoint from s3.")
+            task.resume_state_dict = normalize_state_dict(
+                load_checkpoint_from_s3(train_cfg.s3_bucket, checkpoint_path))
         elif os.path.isdir(checkpoint_path):
             native_resume_dir = checkpoint_path  # restored after train_setup
         else:

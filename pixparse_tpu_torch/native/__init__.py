@@ -1,7 +1,8 @@
 """ctypes binding of the native data-plane library (counterpart of
 :mod:`pixparse_tpu.native`, same names and behaviour).
 
-The library is ``native/pixparse_native.cpp`` at the root of the checkout,
+The library is the port's own copy of the JAX package's native source,
+``pixparse_tpu_torch/csrc/pixparse_native.cpp`` (shipped as package data),
 compiled as it stands (libjpeg decode with DCT scaling, libpng decode, a
 PIL-exact antialiased resize, a bilinear resize and a fused resize + pad +
 normalize; plain C entry points). It runs on the host: the loader's threads
@@ -10,8 +11,8 @@ call it, and ctypes releases the GIL for each call.
 Build rules:
 
 - on first use (:func:`load_native`), never at import: ``g++`` with the
-  flags of ``native/Makefile`` into ``pixparse_tpu_torch/csrc/build/``
-  (listed in ``.gitignore``), never into ``native/``;
+  flags of the JAX package's ``native/Makefile`` into
+  ``pixparse_tpu_torch/csrc/build/`` (listed in ``.gitignore``);
 - the file name carries a hash of the source, the flags and the host CPU
   (``-march=native`` code is built for the machine that runs it);
 - the build holds an ``fcntl.flock`` on a lock file beside the library,
@@ -40,7 +41,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "pixparse_native.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pixparse_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc" / "build"
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 LIBS = ["-ljpeg", "-lpng", "-lz"]

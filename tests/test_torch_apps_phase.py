@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s ``apps`` phase rehearsed on the CPU at cruller_test:
 ``app.train`` from a tar shard for two intervals, its resume-latest into a
-third, ``app.eval`` from the last ``.pt`` over the shard, and ``app.infer``
+third, ``app.eval`` from the last ``.pt`` over the shard, the same from a
+stand-in S3 (the ``.pt`` fetched by key), and ``app.infer``
 over the same pages as files (batched in a child process, continuous in
 this one). Once with the native library hidden, so PIL decodes the shard,
 and once with it where it builds here. The phase holds its own gates and
@@ -9,13 +10,15 @@ raises when one fails; these tests read its record."""
 import importlib.util
 import json
 import math
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-RUNS = ("apps_train", "apps_resume", "apps_eval", "apps_infer_batched", "apps_infer_continuous")
+RUNS = ("apps_train", "apps_resume", "apps_eval", "apps_s3_eval", "apps_infer_batched",
+        "apps_infer_continuous")
 PAGES = 6  # 2 PNG pages and the 4 JPEG fixtures once
 
 
@@ -40,6 +43,7 @@ def apps(request, tmp_path_factory):
         patch.setattr(native, "load_native", lambda: None)
     elif native.load_native() is None:
         pytest.skip(f"the native library does not build here: {native.build_error()}")
+    before = sys.modules.get("boto3", "absent")
     try:
         with cs.nan_default_init(torch):
             counts = cs.phase_apps(torch, model_name="cruller_test", B=2, steps=2, intervals=2,
@@ -48,16 +52,16 @@ def apps(request, tmp_path_factory):
     finally:
         patch.undo()
     rec = json.loads((out / "phases.jsonl").read_text().splitlines()[-1])
-    return request.param, counts, rec
+    return request.param, counts, rec, sys.modules.get("boto3", "absent") is before
 
 
 def test_chip_smoke_apps_phase_on_the_cpu(apps):
-    decoder, counts, rec = apps
+    decoder, counts, rec, boto3_restored = apps
     assert set(counts) == set(RUNS)
     assert rec["phase"] == "apps" and rec["shard"]["pages"] == PAGES
     assert rec["decoders"]["shard"] == decoder and rec["decoders"]["infer"] == "PIL"
     by_rule, other = ("native", "other") if decoder == "native" else ("other", "native")
-    for run in ("train", "resume", "eval"):
+    for run in ("train", "resume", "eval", "s3_eval"):
         decoded = rec[run]["pages_decoded"]
         assert decoded[by_rule] > 0 and decoded[other] == 0, (run, decoded)
 
@@ -83,6 +87,15 @@ def test_chip_smoke_apps_phase_on_the_cpu(apps):
     assert all(math.isfinite(ev["metrics"]["eval"]["average"][k]) for k in ("cer", "wer"))
     assert ev["weights"]["dtype"] == "torch.bfloat16"
     assert ev["weights"]["bit_equal"] == ev["weights"]["tensors"] > 0
+    s3 = rec["s3_eval"]
+    assert s3["rc"] == 0 and s3["pages"] == PAGES and s3["bucket"] == "chip-smoke"
+    assert s3["downloads"] == [{"bucket": "chip-smoke", "key": s3["key"]}]
+    assert s3["key"].endswith("checkpoint-2.pt")
+    assert s3["metrics_file"] == s3["key"].replace("/", "_").replace(".pt", "") + "-apps-metrics.json"
+    assert s3["metrics"] == ev["metrics"] and s3["metrics_equal_to_eval"]
+    assert s3["weights"]["bit_equal"] == s3["weights"]["tensors"] == ev["weights"]["tensors"]
+    assert s3["eval_pages_per_s"] == ev["pages_per_s"] and s3["pages_per_s"] > 0
+    assert boto3_restored  # the stand-in was in sys.modules only while (f) ran
 
     batched, continuous = rec["infer"]["batched"], rec["infer"]["continuous"]
     assert batched["rc"] == 0 and continuous["rc"] == 0

@@ -14,13 +14,21 @@ varied bytes, so CER/WER exist):
   which is the JAX CLI's without it;
 - an RGB shard at ``cruller_swin_test`` runs through the port's
   ``app.eval`` and ``app.infer``;
-- unregistered tasks, S3 and a missing checkpoint are refused.
+- through a stand-in ``boto3`` (:func:`s3_stand_in`: no network, no
+  package), the port's and the JAX package's ``load_checkpoint_from_s3``
+  load the local ``.pt``'s tensors, and ``--eval.s3_bucket`` writes the
+  JAX CLI's metrics file, equal to the port's local-path run's;
+- unregistered tasks, S3 without ``boto3`` and a missing checkpoint are
+  refused.
 """
 
 import io
 import json
 import os
+import shutil
+import sys
 import tarfile
+import types
 
 import numpy as np
 import jax
@@ -35,12 +43,43 @@ from pixparse_tpu.models import Cruller as JaxCruller
 from pixparse_tpu.models import get_model_config as jax_model_config
 from pixparse_tpu.models import resolve_cruller_cfgs as jax_resolve
 from pixparse_tpu.models.torch_interop import cruller_params_to_torch
+from pixparse_tpu.models.torch_interop import normalize_state_dict as jax_normalize_state_dict
+from pixparse_tpu.utils.s3_utils import load_checkpoint_from_s3 as jax_load_checkpoint_from_s3
 from pixparse_tpu_torch.app.eval import main as eval_main
 from pixparse_tpu_torch.app.infer import main as infer_main
+from pixparse_tpu_torch.models.interop import load_torch_checkpoint, normalize_state_dict
+from pixparse_tpu_torch.utils.s3_utils import load_checkpoint_from_s3
 
 VOCAB = 262  # 260 byte-level ids + <sep/> + <s_pretrain>
 SCALES = {"kernel": 0.15, "bias": 0.05, "embedding": 0.5, "pos_embed": 0.1, "cls_token": 0.5,
           "relative_position_bias_table": 0.5}
+
+
+def s3_stand_in(root):
+    """A ``boto3`` module object to put into ``sys.modules``: the client's
+    ``download_fileobj(bucket, key, fileobj)`` writes the bytes of
+    ``root / bucket / key`` and records ``(bucket, key)`` in ``.calls``."""
+    calls = []
+
+    class Client:
+        def download_fileobj(self, bucket, key, fileobj):
+            calls.append((bucket, key))
+            with open(os.path.join(root, bucket, key), "rb") as fh:
+                shutil.copyfileobj(fh, fileobj)
+
+    def client(service):
+        assert service == "s3", service
+        return Client()
+
+    module = types.ModuleType("boto3")
+    module.client, module.calls = client, calls
+    return module
+
+
+def _upload(boto3_root, bucket, key, path):
+    dest = os.path.join(boto3_root, bucket, key)
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    shutil.copy(path, dest)
 
 
 def _make_shard(path, n, mode="L", size=(80, 60)):
@@ -108,18 +147,53 @@ def _metrics(out_dir):
         return name, json.load(fh)
 
 
-@pytest.mark.parametrize("mode", ["bf16", "int8"])
-def test_eval_metrics_equal_to_jax(data, tmp_path, mode):
+@pytest.mark.parametrize("mode", ["bf16", "int8", "s3"])
+def test_eval_metrics_equal_to_jax(data, tmp_path, monkeypatch, mode):
+    """``s3``: both CLIs read ``--eval.checkpoint_path`` as a key in
+    ``--eval.s3_bucket`` through the same stand-in and name the metrics
+    file after the key."""
     shard, ckpt = data
     extra = ["--task.kv-cache-dtype", "int8", "--task.lm-head-dtype", "int8"] if mode == "int8" else []
+    path = ckpt
+    if mode == "s3":
+        path, boto3 = "runs/model.pt", s3_stand_in(str(tmp_path / "s3"))
+        _upload(str(tmp_path / "s3"), "bucket", path, ckpt)
+        monkeypatch.setitem(sys.modules, "boto3", boto3)
+        extra = ["--eval.s3_bucket", "bucket"]
     ref_dir, out_dir = str(tmp_path / "jax"), str(tmp_path / "torch")
-    assert jax_eval_main(_flags(shard, ckpt, ref_dir, extra=extra)) == 0
-    assert eval_main(_flags(shard, ckpt, out_dir, extra=extra + ["--task.device", "cpu"])) == 0
+    assert jax_eval_main(_flags(shard, path, ref_dir, extra=extra)) == 0
+    assert eval_main(_flags(shard, path, out_dir, extra=extra + ["--task.device", "cpu"])) == 0
     ref_name, ref = _metrics(ref_dir)
     name, got = _metrics(out_dir)
-    assert name == ref_name == ckpt.replace("/", "_").replace(".pt", "") + "-FUNSD-metrics.json"
+    assert name == ref_name == path.replace("/", "_").replace(".pt", "") + "-FUNSD-metrics.json"
     assert set(got) == {"eval"} and set(got["eval"]["average"]) == {"cer", "wer"}
     assert got == ref
+    if mode == "s3":
+        assert boto3.calls == [("bucket", path)] * 2
+        local_dir = str(tmp_path / "local")
+        assert eval_main(_flags(shard, ckpt, local_dir, extra=["--task.device", "cpu"])) == 0
+        assert _metrics(local_dir)[1] == got
+
+
+def test_s3_loaders_load_the_tensors_of_the_local_pt(data, tmp_path, monkeypatch):
+    """The port's and the JAX package's ``load_checkpoint_from_s3``, given
+    the same stand-in, load the same tensors; after each package's
+    ``normalize_state_dict`` they equal ``load_torch_checkpoint`` of the
+    local file exactly."""
+    _, ckpt = data
+    boto3 = s3_stand_in(str(tmp_path))
+    _upload(str(tmp_path), "bucket", "ckpt/model.pt", ckpt)
+    monkeypatch.setitem(sys.modules, "boto3", boto3)
+    port = load_checkpoint_from_s3("bucket", "ckpt/model.pt")
+    ref = jax_load_checkpoint_from_s3("bucket", "ckpt/model.pt")
+    assert boto3.calls == [("bucket", "ckpt/model.pt")] * 2
+    assert set(port) == set(ref) and all(torch.equal(port[k], ref[k]) for k in ref)
+    port, ref = normalize_state_dict(port), jax_normalize_state_dict(ref)
+    local = load_torch_checkpoint(ckpt)
+    assert set(port) == set(ref) == set(local) and len(local) > 0
+    for k, v in local.items():
+        assert port[k].dtype == v.dtype and torch.equal(port[k], v), k
+        assert np.array_equal(ref[k], v.numpy()), k
 
 
 def test_eval_device_preprocess_writes_the_same_metrics(data, tmp_path):
@@ -180,15 +254,17 @@ def test_donut_base_resolves_for_the_entry_points():
     assert stats == {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5)}
 
 
-def test_eval_cli_refusals(data, tmp_path):
+def test_eval_cli_refusals(data, tmp_path, monkeypatch):
     shard, ckpt = data
     # a train task: app.eval refuses it and lists its eval tasks
     with pytest.raises(SystemExit, match=r"--eval.task_name must be one of \[.*cruller_eval_ocr") as e:
         eval_main(["--eval.task_name", "pix2struct_pretrain"])
     assert "pix2struct" not in str(e.value)
     flags = _flags(shard, ckpt, str(tmp_path / "o"), extra=["--task.device", "cpu"])
-    with pytest.raises(NotImplementedError, match="s3"):
-        eval_main(flags + ["--eval.s3_bucket", "bucket"])
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "boto3", None)  # not installed
+        with pytest.raises(ModuleNotFoundError, match="boto3"):
+            eval_main(flags + ["--eval.s3_bucket", "bucket"])
     with pytest.raises(FileNotFoundError):
         eval_main(flags + ["--eval.checkpoint_path", str(tmp_path / "missing.pt")])
     if not torch.cuda.is_available():

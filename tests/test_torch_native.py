@@ -3,10 +3,12 @@ against PIL and the JAX package's binding of the same C++ source.
 
 The library is built at first use (the first test that needs it), into
 ``pixparse_tpu_torch/csrc/build/``, under a cross-process lock: the xdist
-workers that reach it together build it once. The JAX binding is pointed at
-the port's build of the same source and flags (its own ``make`` has no lock
-across processes), so both sides run the same decoder and resizers and the
-comparisons hold the Python around them.
+workers that reach it together build it once. The port builds its own copy
+of the JAX package's source (``pixparse_tpu_torch/csrc/pixparse_native.cpp``,
+byte for byte the same). The JAX binding is pointed at the port's build of
+that source and flags (its own ``make`` has no lock across processes), so
+both sides run the same decoder and resizers and the comparisons hold the
+Python around them.
 """
 
 import ctypes
@@ -62,6 +64,11 @@ def _encoded(arr, fmt, **kw):
     buf = io.BytesIO()
     Image.fromarray(arr).save(buf, format=fmt, **kw)
     return buf.getvalue()
+
+
+def test_the_port_builds_its_own_copy_of_the_jax_source():
+    assert native.SOURCE.resolve().is_relative_to((ROOT / "pixparse_tpu_torch").resolve())
+    assert native.SOURCE.read_bytes() == (ROOT / "native" / "pixparse_native.cpp").read_bytes()
 
 
 def test_png_decode_exact(lib):

@@ -3,7 +3,7 @@
 - importing every module of the port (the list below names them, so a module
   that goes missing is noticed) loads no JAX, flax,
   optax, orbax or ``pixparse_tpu``, and no PIL, transformers, tokenizers,
-  wandb, tensorboard, safetensors, timm, datasets or cv2 either (those are
+  wandb, tensorboard, safetensors, timm, datasets, cv2 or boto3 either (those are
   imported inside the functions that need them);
 - no source file of the port, nor ``chip_smoke.py``, imports the former
   anywhere or the latter at module level;
@@ -12,13 +12,19 @@
   kernels themselves are held against those only on the card, by
   chip_smoke.py and the ``cuda``-marked tests);
 - the probe tools' ``main`` runs on the card and raises without it, and
-  importing them runs nothing (the JAX package's mxu probe runs at import).
+  importing them runs nothing (the JAX package's mxu probe runs at import);
+- every source the port's builders compile (``ops/_build.py``'s CUDA
+  sources and the headers they include, ``native``'s C++ source) lies
+  inside the package and is shipped by its package-data globs.
 """
 
 import ast
+import fnmatch
 import os
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -28,7 +34,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pixparse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixparse_tpu")
 LAZY = ("PIL", "transformers", "tokenizers", "wandb", "tensorboard", "safetensors", "timm",
-        "datasets", "cv2")
+        "datasets", "cv2", "boto3")
 MODULES = (
     # serving
     "app.infer", "data.transforms", "device", "framework.cli", "framework.config",
@@ -59,6 +65,8 @@ MODULES = (
     "task.task_donut_eval_ocr",
     # the native decoder and resizer, the re-exported building blocks, the page fixtures
     "native", "layers", "tools.make_page_fixtures",
+    # checkpoints from S3 in app.train and app.eval
+    "utils.s3_utils",
 )
 
 
@@ -121,7 +129,7 @@ def _module_level_imports(path: Path):
 
 def test_optional_packages_are_imported_only_inside_functions():
     """PIL, transformers, tokenizers, wandb, tensorboard, safetensors,
-    timm, datasets and cv2: a module of the port may use them, but only
+    timm, datasets, cv2 and boto3: a module of the port may use them, but only
     inside the function that needs them."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [
@@ -133,7 +141,8 @@ def test_optional_packages_are_imported_only_inside_functions():
     assert bad == []
     # and they are used somewhere, inside functions: the check above is not vacuous
     used = {name.split(".")[0] for f in files for name in _imports(f)} & set(LAZY)
-    assert {"PIL", "wandb", "safetensors", "timm", "datasets", "transformers", "cv2"} <= used
+    assert {"PIL", "wandb", "safetensors", "timm", "datasets", "transformers", "cv2",
+            "boto3"} <= used
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
@@ -285,3 +294,20 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_builders_compile_only_sources_the_package_ships():
+    from pixparse_tpu_torch import native
+    from pixparse_tpu_torch.ops import _build
+
+    sources = [_build.CSRC / f"{stem}.cu" for stem in _build.SIGNATURES] + [native.SOURCE]
+    included = {name for src in sources
+                for name in re.findall(r'#include "([^"]+)"', src.read_text())}
+    sources += [_build.CSRC / name for name in sorted(included)]
+    with open(ROOT / "pyproject.toml", "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["pixparse_tpu_torch"]
+    assert native.SOURCE.name == "pixparse_native.cpp" and len(sources) > len(_build.SIGNATURES)
+    for src in sources:
+        assert src.is_file(), src
+        rel = src.resolve().relative_to(PORT.resolve()).as_posix()  # raises outside the package
+        assert any(fnmatch.fnmatchcase(rel, g) for g in globs), (rel, globs)

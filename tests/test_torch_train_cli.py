@@ -4,12 +4,16 @@ a synthetic webdataset shard (the one ``tests/test_app_e2e.py`` makes) ->
 ``.pt`` and the full-state directory per interval -> refuses to clobber ->
 resumes from a full-state directory -> the ``.pt`` loads into the JAX package
 and gives the port's logits (atol 1e-4, fp32, the model-parity bound of
-``tests/test_torch_models.py``).
+``tests/test_torch_models.py``). A resume from ``--train.s3_bucket``, through
+a stand-in ``boto3`` that serves local files, loads the weights the local
+``.pt`` resume loads, bit for bit; without ``boto3`` it raises.
 """
 
 import io
 import json
 import os
+import shutil
+import sys
 import tarfile
 
 import numpy as np
@@ -23,6 +27,7 @@ from pixparse_tpu.models import get_model_config as jax_model_config
 from pixparse_tpu.models import resolve_cruller_cfgs as jax_resolve
 from pixparse_tpu.models.torch_interop import cruller_params_from_torch
 from pixparse_tpu.models.torch_interop import load_torch_checkpoint as jax_load_torch_checkpoint
+from pixparse_tpu_torch.app import train as app_train
 from pixparse_tpu_torch.app.train import TrainCfg, main as train_main, train
 from pixparse_tpu_torch.data import DatasetCfg, create_loader
 from pixparse_tpu_torch.device import DeviceEnv
@@ -35,6 +40,7 @@ from pixparse_tpu_torch.task.task_cruller_pretrain import (
     TaskCrullerPretrainCfg,
 )
 from pixparse_tpu_torch.tokenizers import TokenizerCfg
+from test_torch_eval_cli import s3_stand_in
 
 
 def _make_shard(path: str, n: int, seed: int = 0):
@@ -148,6 +154,46 @@ def test_resume_from_pt_loads_weights_only(run, shard, tmp_path):
     ))
     assert rc == 0
     assert os.listdir(os.path.join(out, "from_pt", "checkpoints", "from_pt")) != []
+
+
+def test_resume_from_s3_loads_the_weights_of_the_local_pt(run, shard, tmp_path, monkeypatch):
+    """``--train.s3_bucket b --train.checkpoint_path checkpoint-1.pt``: the
+    path is a key in the bucket. The parameters after ``train_setup`` equal
+    the local ``.pt`` resume's bit for bit, and the run trains on."""
+    _, _, _, ckpt_dir = run
+    boto3 = s3_stand_in(tmp_path / "s3")
+    (tmp_path / "s3" / "b").mkdir(parents=True)
+    shutil.copy(os.path.join(ckpt_dir, "checkpoint-1.pt"), tmp_path / "s3" / "b" / "checkpoint-1.pt")
+    monkeypatch.setitem(sys.modules, "boto3", boto3)
+    params = {}
+
+    def recorded(orig):
+        def started(cfg, task, loaders):
+            params[cfg.experiment] = {k: v.detach().clone() for k, v in task.state.params.items()}
+            return orig(cfg, task, loaders)
+        return started
+
+    monkeypatch.setattr(app_train, "train", recorded(app_train.train))
+    for experiment, path, extra in (
+            ("local", os.path.join(ckpt_dir, "checkpoint-1.pt"), []),
+            ("s3", "checkpoint-1.pt", ["--train.s3_bucket", "b"])):
+        assert train_main(_train_args(shard, str(tmp_path / "out"), experiment=experiment, extra=[
+            "--train.resume", "true", "--task.num_intervals", "1",
+            "--train.checkpoint_path", path, *extra])) == 0
+    assert boto3.calls == [("b", "checkpoint-1.pt")]
+    assert os.path.isfile(tmp_path / "out" / "s3" / "checkpoints" / "s3" / "checkpoint-0.pt")
+    local, s3 = params["local"], params["s3"]
+    assert set(s3) == set(local) and len(local) > 0
+    for k, v in local.items():
+        assert torch.equal(s3[k], v), k
+
+
+def test_s3_resume_without_boto3_raises(shard, tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "boto3", None)  # not installed
+    with pytest.raises(ModuleNotFoundError, match="boto3"):
+        train_main(_train_args(shard, str(tmp_path / "o"), extra=[
+            "--train.resume", "true", "--train.s3_bucket", "b",
+            "--train.checkpoint_path", "checkpoint-1.pt"]))
 
 
 def test_port_checkpoint_loads_into_the_jax_package(run):
