@@ -32,11 +32,17 @@ def resolve_device(name: str = "cuda") -> torch.device:
 
 def batch_to_device(batch, device: torch.device):
     """A nested dict of numpy arrays or tensors -> the same dict of tensors
-    on ``device`` (dtypes kept; host copies are asynchronous)."""
+    on ``device`` (dtypes kept; host copies are asynchronous). Host arrays'
+    bytes count as ``h2d_bytes`` (:func:`~pixparse_tpu_torch.framework.profiling.count`)."""
     if isinstance(batch, dict):
         return {k: batch_to_device(v, device) for k, v in batch.items()}
     if not isinstance(batch, torch.Tensor):
         batch = torch.from_numpy(np.ascontiguousarray(batch))
+    if batch.device.type == "cpu":
+        # imported here: the framework package imports this module
+        from pixparse_tpu_torch.framework.profiling import count
+
+        count("h2d_bytes", batch.nbytes)
     return batch.to(device, non_blocking=True)
 
 

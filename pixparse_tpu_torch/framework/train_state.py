@@ -59,6 +59,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from pixparse_tpu_torch.framework.optimization import Optimizer, global_norm
+from pixparse_tpu_torch.framework.profiling import span
 
 
 @dataclasses.dataclass
@@ -165,22 +166,23 @@ def make_train_step(
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         params = state.params
-        if grad_accum_steps > 1:
-            loss, grads, aux = None, None, {}
-            for idx in range(grad_accum_steps):
-                micro = _index_tree(batch, idx)
-                l, aux, g = grads_of(params, micro, dropout_seed(state.seed, state.step, idx))
-                if grads is None:
-                    loss, grads = l, list(g)
-                else:
-                    loss = loss + l
-                    torch._foreach_add_(grads, g)
-            loss = loss / grad_accum_steps
-            torch._foreach_div_(grads, float(grad_accum_steps))
-        else:
-            loss, aux, grads = grads_of(params, batch, dropout_seed(state.seed, state.step))
+        with span("train.forward_backward"):
+            if grad_accum_steps > 1:
+                loss, grads, aux = None, None, {}
+                for idx in range(grad_accum_steps):
+                    micro = _index_tree(batch, idx)
+                    l, aux, g = grads_of(params, micro, dropout_seed(state.seed, state.step, idx))
+                    if grads is None:
+                        loss, grads = l, list(g)
+                    else:
+                        loss = loss + l
+                        torch._foreach_add_(grads, g)
+                loss = loss / grad_accum_steps
+                torch._foreach_div_(grads, float(grad_accum_steps))
+            else:
+                loss, aux, grads = grads_of(params, batch, dropout_seed(state.seed, state.step))
 
-        with torch.no_grad():
+        with torch.no_grad(), span("train.optimizer"):
             new_opt_state, metrics = _apply_update(
                 optimizer, params, grads, state.opt_state, loss, skip_nonfinite)
         metrics.update(aux)

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pixparse_tpu_torch.framework.profiling import count, span
 from pixparse_tpu_torch.models.bart import KVCache
 from pixparse_tpu_torch.ops.decode_attention import quantize_int8_rows
 
@@ -120,28 +121,28 @@ def generate(
     if Lp >= max_length:
         raise ValueError(f"prompt length {Lp} >= max_length {max_length}")
     device = encoder_output.device
-    prompt_ids = prompt_ids.to(device=device, dtype=torch.long)
-    aligned, positions, prompt_valid = _left_align_prompts(prompt_ids, pad_token_id)
-    if max_new_tokens is not None:
-        max_new_tokens = torch.as_tensor(max_new_tokens, device=device)
     if sample and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    head_i8 = None
-    if getattr(model, "lm_head_dtype", "bf16") == "int8":
-        head_i8 = quantize_head(model.tied_embedding)
+    with span("generate.prefill"):
+        prompt_ids = prompt_ids.to(device=device, dtype=torch.long)
+        aligned, positions, prompt_valid = _left_align_prompts(prompt_ids, pad_token_id)
+        if max_new_tokens is not None:
+            max_new_tokens = torch.as_tensor(max_new_tokens, device=device)
+        head_i8 = None
+        if getattr(model, "lm_head_dtype", "bf16") == "int8":
+            head_i8 = quantize_head(model.tied_embedding)
+        buffer = torch.full((B, max_length), pad_token_id, dtype=torch.long, device=device)
+        buffer[:, :Lp] = aligned
+        cache = KVCache(max_len=max_length)
+        logits = model.decode(
+            aligned, encoder_output, cache, key_pad_mask=buffer != pad_token_id,
+            mode="prefill", positions=positions, encoder_pad_mask=encoder_pad_mask,
+        )[:, -1]
 
-    buffer = torch.full((B, max_length), pad_token_id, dtype=torch.long, device=device)
-    buffer[:, :Lp] = aligned
-    cache = KVCache(max_len=max_length)
-    logits = model.decode(
-        aligned, encoder_output, cache, key_pad_mask=buffer != pad_token_id,
-        mode="prefill", positions=positions, encoder_pad_mask=encoder_pad_mask,
-    )[:, -1]
-
-    finished = torch.zeros(B, dtype=torch.bool, device=device)
-    steps = 0
-    for cur in range(Lp, max_length):
+    def emit(cur, logits, finished):
+        """Select column ``cur``'s tokens and write them (pad in finished
+        rows) -> (the written tokens, the rows finished after them)."""
         next_tok = select_next(logits, sample, temperature, generator)
         newly_finished = finished | (next_tok == eos_token_id)
         if max_new_tokens is not None:
@@ -149,19 +150,30 @@ def generate(
             newly_finished |= (cur - Lp + 1) >= max_new_tokens
         write_tok = torch.where(finished, pad_token_id, next_tok)
         buffer[:, cur] = write_tok
-        finished = newly_finished
-        if cur + 1 >= max_length or bool(finished.all()):
-            break
-        out = model.decode(
-            write_tok[:, None], encoder_output, cache,
-            key_pad_mask=buffer != pad_token_id, mode="decode",
-            positions=(prompt_valid + (cur - Lp))[:, None],
-            encoder_pad_mask=encoder_pad_mask, return_hidden=head_i8 is not None,
-        )
-        if head_i8 is not None:  # this rank's vocabulary rows, then the whole row
-            out = model.decoder.whole_logits(q8_logits(out, *head_i8))
-        logits = out[:, -1]
-        steps += 1
+        return write_tok, newly_finished
+
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    steps = 0
+    for cur in range(Lp, max_length - 1):
+        with span("generate.step"):
+            write_tok, finished = emit(cur, logits, finished)
+            with span("generate.sync"):
+                count("host_reads")
+                done = bool(finished.all())
+            if done:
+                break
+            out = model.decode(
+                write_tok[:, None], encoder_output, cache,
+                key_pad_mask=buffer != pad_token_id, mode="decode",
+                positions=(prompt_valid + (cur - Lp))[:, None],
+                encoder_pad_mask=encoder_pad_mask, return_hidden=head_i8 is not None,
+            )
+            if head_i8 is not None:  # this rank's vocabulary rows, then the whole row
+                out = model.decoder.whole_logits(q8_logits(out, *head_i8))
+            logits = out[:, -1]
+            steps += 1
+    else:  # the buffer's last column: its token ends the decode
+        emit(max_length - 1, logits, finished)
     lengths = (buffer != pad_token_id).sum(dim=1)
     return GenerateResult(tokens=buffer, lengths=lengths, steps=steps)
 

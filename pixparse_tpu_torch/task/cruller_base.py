@@ -46,6 +46,7 @@ import torch
 
 from pixparse_tpu_torch.data.transforms import create_transforms
 from pixparse_tpu_torch.framework.optimization import create_optimizer
+from pixparse_tpu_torch.framework.profiling import count, span
 from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, create_cruller, resolve_cruller_cfgs
@@ -220,66 +221,71 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
 
     # ------------------------------------------------------------------
     def train_setup(self, num_batches_per_interval: int, **kwargs):
-        cfg = self.cfg
-        accum = max(1, cfg.opt.grad_accum_steps)
-        self.num_steps_per_interval = num_batches_per_interval // accum
-        # gradient accumulation happens inside the train step (micro-batch
-        # loop, make_train_step): no accumulator in the optimizer state
-        self.grad_accum_steps = accum
-        self._accum_buffer = []
-        self.optimizer, self.scheduler = create_optimizer(
-            cfg.opt,
-            num_intervals=cfg.num_intervals,
-            num_warmup_intervals=cfg.num_warmup_intervals,
-            updates_per_interval=max(1, self.num_steps_per_interval),
-            encoder_depth=self.vit_cfg.depth,
-            decoder_layers=self.bart_cfg.decoder_layers,
-        )
-        remat = resolve_remat(getattr(cfg, "remat", None), self.auto_remat())
-        seed = kwargs.get("seed", 0)
-        model = create_cruller(
-            self.vit_cfg, self.bart_cfg, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype,
-            remat=remat,
-        )
-        if self.resume_state_dict is not None:
-            load_cruller_state_dict(model, self.resume_state_dict)
-            self.resume_state_dict = None
-            _logger.info("imported torch checkpoint into train state")
-        else:
-            model.init_weights(torch.Generator().manual_seed(seed))
-            # the cfg's pretrained flags (the reference defaults to pretrained
-            # backbones); raises where no weights resolve, never a silent no-op
-            pretrained = maybe_load_pretrained(cfg.model, self.vit_cfg, self.bart_cfg)
-            if pretrained:
-                load_pretrained(model, pretrained)
-                _logger.info("initialized from pretrained backbones: %s", ", ".join(pretrained))
-        # fp32 master weights on the device; the forward casts at use
-        self.model = model.to(device=self.device, dtype=torch.float32).train()
-        self.model.decoder.dropout_generator = torch.Generator(device=self.device)
-        mesh = self.device_env.mesh
-        self.state = create_train_state(self.model, self.optimizer, seed=seed, mesh=mesh)
-
-        def loss_fn(batch):
-            # the tied table is read inside the model's call: under FSDP2 it
-            # is a whole tensor only there
-            hidden, table, vocab_shard = self.model.forward_hidden_head(
-                self.device_images(batch["image"]), batch["text"])
-            loss, _ = cross_entropy_from_hidden(
-                hidden, table.to(hidden.dtype), batch["target"],
-                denominator=self.ce_denominator(batch["target"]), vocab_shard=vocab_shard,
+        with span("setup.task"):
+            cfg = self.cfg
+            accum = max(1, cfg.opt.grad_accum_steps)
+            self.num_steps_per_interval = num_batches_per_interval // accum
+            # gradient accumulation happens inside the train step (micro-batch
+            # loop, make_train_step): no accumulator in the optimizer state
+            self.grad_accum_steps = accum
+            self._accum_buffer = []
+            self.optimizer, self.scheduler = create_optimizer(
+                cfg.opt,
+                num_intervals=cfg.num_intervals,
+                num_warmup_intervals=cfg.num_warmup_intervals,
+                updates_per_interval=max(1, self.num_steps_per_interval),
+                encoder_depth=self.vit_cfg.depth,
+                decoder_layers=self.bart_cfg.decoder_layers,
             )
-            return loss, {}
+            remat = resolve_remat(getattr(cfg, "remat", None), self.auto_remat())
+            seed = kwargs.get("seed", 0)
+            with span("setup.model"):
+                model = create_cruller(
+                    self.vit_cfg, self.bart_cfg, attn_impl=self.attn_impl,
+                    compute_dtype=self.compute_dtype, remat=remat,
+                )
+                if self.resume_state_dict is not None:
+                    load_cruller_state_dict(model, self.resume_state_dict)
+                    self.resume_state_dict = None
+                    _logger.info("imported torch checkpoint into train state")
+                else:
+                    model.init_weights(torch.Generator().manual_seed(seed))
+                    # the cfg's pretrained flags (the reference defaults to pretrained
+                    # backbones); raises where no weights resolve, never a silent no-op
+                    pretrained = maybe_load_pretrained(cfg.model, self.vit_cfg, self.bart_cfg)
+                    if pretrained:
+                        load_pretrained(model, pretrained)
+                        _logger.info("initialized from pretrained backbones: %s",
+                                     ", ".join(pretrained))
+            # fp32 master weights on the device; the forward casts at use
+            with span("setup.to_device"):
+                self.model = model.to(device=self.device, dtype=torch.float32).train()
+            self.model.decoder.dropout_generator = torch.Generator(device=self.device)
+            mesh = self.device_env.mesh
+            with span("setup.train_state"):
+                self.state = create_train_state(self.model, self.optimizer, seed=seed, mesh=mesh)
 
-        self.loss_fn = loss_fn  # (device batch) -> (loss, aux): the step's loss
-        self.train_step_fn = make_train_step(
-            loss_fn, self.optimizer,
-            reseed=self.model.decoder.reseed_dropout,
-            grad_accum_steps=self.grad_accum_steps,
-            mesh=mesh, module=self.model if mesh is not None else None,
-        )
-        self.step_idx = 0
-        self.interval_batch_idx = 0
-        self._flops_per_sample_step = None
+            def loss_fn(batch):
+                # the tied table is read inside the model's call: under FSDP2 it
+                # is a whole tensor only there
+                hidden, table, vocab_shard = self.model.forward_hidden_head(
+                    self.device_images(batch["image"]), batch["text"])
+                loss, _ = cross_entropy_from_hidden(
+                    hidden, table.to(hidden.dtype), batch["target"],
+                    denominator=self.ce_denominator(batch["target"]), vocab_shard=vocab_shard,
+                )
+                return loss, {}
+
+            self.loss_fn = loss_fn  # (device batch) -> (loss, aux): the step's loss
+            self.train_step_fn = make_train_step(
+                loss_fn, self.optimizer,
+                reseed=self.model.decoder.reseed_dropout,
+                grad_accum_steps=self.grad_accum_steps,
+                mesh=mesh, module=self.model if mesh is not None else None,
+            )
+            self.step_idx = 0
+            self.interval_batch_idx = 0
+            self._flops_per_sample_step = None
 
     # ------------------------------------------------------------------
     def train_interval_start(self):
@@ -352,7 +358,8 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
     def train_step(self, sample) -> Dict[str, Any]:
         if self._stop_requested:
             raise StopTraining
-        batch = self.normalize_batch(sample)
+        with span("train.prepare"):
+            batch = self.normalize_batch(sample)
         if self.grad_accum_steps > 1:
             # buffer micro-batches; one stacked device step per window
             self._accum_buffer.append(batch)
@@ -362,11 +369,14 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
                 self.interval_batch_idx += 1
                 self._samples_since_log += batch_size(batch["image"]) * self.device_env.data_size
                 return {"loss": self._last_loss_dev}
-            stacked = stack_batches(self._accum_buffer)
+            with span("train.prepare"):
+                stacked = stack_batches(self._accum_buffer)
             self._accum_buffer = []
-            device_batch = self._to_device(stacked)
+            with span("train.to_device"):
+                device_batch = self._to_device(stacked)
         else:
-            device_batch = self._to_device(batch)
+            with span("train.to_device"):
+                device_batch = self._to_device(batch)
         self.state, metrics = self.train_step_fn(self.state, device_batch)
         self._last_loss_dev = metrics["loss"]
         self.step_idx += 1
@@ -553,36 +563,43 @@ class BaseCrullerEvalTask(TaskEval, CrullerVocabMixin):
         with its heads, MLP columns and vocabulary rows. With
         ``model_axis=False`` every rank holds the whole model (continuous
         batching: one replica a rank)."""
-        attn_impl = self.cfg.attn_impl
-        if attn_impl == "auto":
-            attn_impl = "flash" if self.device.type == "cuda" else "xla"
-        model = create_cruller(
-            self.vit_cfg, self.bart_cfg, attn_impl=attn_impl,
-            kv_cache_dtype=self.cfg.kv_cache_dtype, lm_head_dtype=self.cfg.lm_head_dtype,
-        )
-        if self.resume_state_dict is not None:
-            load_cruller_state_dict(model, self.resume_state_dict)
-            self.resume_state_dict = None
-        else:
-            model.init_weights(torch.Generator().manual_seed(0))
-        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
-        tp = tp_group(self.device_env.mesh) if model_axis else None
-        if tp is not None:
-            from pixparse_tpu_torch.parallel.tensor_parallel import parallelize
+        with span("setup.task"):
+            attn_impl = self.cfg.attn_impl
+            if attn_impl == "auto":
+                attn_impl = "flash" if self.device.type == "cuda" else "xla"
+            with span("setup.model"):
+                model = create_cruller(
+                    self.vit_cfg, self.bart_cfg, attn_impl=attn_impl,
+                    kv_cache_dtype=self.cfg.kv_cache_dtype, lm_head_dtype=self.cfg.lm_head_dtype,
+                )
+                if self.resume_state_dict is not None:
+                    load_cruller_state_dict(model, self.resume_state_dict)
+                    self.resume_state_dict = None
+                else:
+                    model.init_weights(torch.Generator().manual_seed(0))
+            with span("setup.to_device"):
+                self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+            tp = tp_group(self.device_env.mesh) if model_axis else None
+            if tp is not None:
+                from pixparse_tpu_torch.parallel.tensor_parallel import parallelize
 
-            parallelize(self.model, tp)
+                parallelize(self.model, tp)
 
     @torch.inference_mode()
     def encode_images(self, images) -> torch.Tensor:
         """(B, H, W, C) images -> encoder output on the device. Under
         ``device_preprocess`` a uint8 batch goes over as uint8 and is
         normalized there in fp32; any other batch goes over as float32."""
-        images = np.asarray(images)
-        if self.device_preprocess and images.dtype == np.uint8:
-            x = normalize_images(
-                torch.from_numpy(images).to(self.device), self.img_mean, self.img_std)
-        else:
-            x = torch.as_tensor(images.astype(np.float32, copy=False), device=self.device)
+        with span("eval.to_device"):
+            images = np.asarray(images)
+            if self.device_preprocess and images.dtype == np.uint8:
+                count("h2d_bytes", images.nbytes)
+                x = normalize_images(
+                    torch.from_numpy(images).to(self.device), self.img_mean, self.img_std)
+            else:
+                images = images.astype(np.float32, copy=False)
+                count("h2d_bytes", images.nbytes)
+                x = torch.as_tensor(images, device=self.device)
         return self.model.encode(x.to(self.compute_dtype))
 
     num_beams: int = 1  # > 1 switches every eval decode to beam search

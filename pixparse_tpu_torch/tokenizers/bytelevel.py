@@ -232,4 +232,8 @@ class ByteLevelTokenizer:
         return out.decode("utf-8", errors="replace")
 
     def batch_decode(self, sequences, skip_special_tokens: bool = False) -> List[str]:
-        return [self.decode(seq, skip_special_tokens=skip_special_tokens) for seq in sequences]
+        # imported here: the tokenizer alone needs no torch
+        from pixparse_tpu_torch.framework.profiling import span
+
+        with span("tokenizer.batch_decode"):
+            return [self.decode(seq, skip_special_tokens=skip_special_tokens) for seq in sequences]
