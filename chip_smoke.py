@@ -91,7 +91,15 @@ stderr):
    yardstick partition + SDPA with ``attn_mask = bias`` + reverse, three
    calls; beside it kernel #14 on the same windows, partitioned beforehand).
    Both carry ``device_ms``, ``bound_share`` and ``ratio_to_library``, in
-   the kernels line too.
+   the kernels line too. The fused AdamW update (#18) joins over every
+   leaf of cruller_base and donut_base at full width (fp32 moments, the
+   pretrain cells' settings): from a state one chain step old, one step
+   (two launches) against one step of the optimizer chain on copies of the
+   same parameters, gradients and state, at the card test's fp32
+   tolerances (``ADAMW_TOL``); then the update as the train step takes it
+   timed (``ms``, ``device_ms``), beside the chain (``plain_ms``),
+   ``torch.optim.AdamW(fused=True)`` over the same leaves (yardstick only)
+   and its bound (32 bytes a parameter), in the kernels line too.
 3. ``probes``: the probe tools' main paths on the card
    (``pixparse_tpu_torch.tools.mxu_probe`` and ``.window_band_probe all``):
    useful TFLOP/s of the three MXU-probe variants and of ``torch.matmul``;
@@ -138,12 +146,12 @@ stderr):
    of 16: the loss must be finite and fall; each step must launch 20 flash
    forwards, 20 flash backwards, 1 fused-CE forward and 1 fused-CE backward
    (counted in wrapper calls: a CE backward call launches three products per
-   vocabulary chunk). Before
+   vocabulary chunk) and 2 of the fused AdamW update. Before
    that, at a batch of 2, the first step of the kernel path is held against
-   the plain path (plain attention, chunked plain CE) from the same weights
-   and dropout masks: loss within 2e-2 relative, gradient norm within 5e-2
-   (a bf16 forward and backward through 16 layers, the two paths rounding at
-   different places).
+   the plain path (plain attention, chunked plain CE, the optimizer chain)
+   from the same weights and dropout masks: loss within 2e-2 relative,
+   gradient norm within 5e-2 (a bf16 forward and backward through 16
+   layers, the two paths rounding at different places).
 9. ``train_task``: the training entry points, ``TaskFactory`` ->
    ``TaskCrullerPretrain`` on the card -> ``train_setup`` ->
    ``train_one_interval`` over an in-memory loader of seeded collated batches
@@ -1399,6 +1407,109 @@ def band_cases():
             for w, (_, B, Hp, Wp, C, H, win, tbw, _) in wb.GEOMETRIES.items()]
 
 
+ADAMW_CASES = (  # name, model, vocabulary: every leaf of the model at full width
+    ("cruller_base_fp32", "cruller_base", BART_VOCAB),
+    ("donut_base_fp32", "donut_base", DONUT_VOCAB),
+)
+# the pretrain cells' optimizer (benchmark/workloads/*.pretrain.json), fp32 moments
+ADAMW_CFG = dict(optimizer="adamw", learning_rate=1e-3, warmup_learning_rate=1e-4,
+                 weight_decay=0.02, eps=1e-6)
+# tests/test_torch_fused_adamw.py's fp32 tolerances: the norm (relative),
+# parameters (relative, absolute), moments (relative, of the leaf's largest)
+ADAMW_TOL = {"grad_norm": 1e-5, "param": (1e-6, 1e-9), "moment": (1e-5, 1e-6)}
+
+
+def check_fused_adamw(torch, timer, peaks, case):
+    """#18 over one model's leaves at full width, from a state one chain
+    step old: one step of the fused update (two launches) against one step
+    of the chain on copies of the same parameters, gradients and state,
+    within ADAMW_TOL. Then the update as the train step takes it, timed:
+    ``ms`` and ``device_ms`` the fused one, ``plain_ms`` the chain (paced
+    by its host launches), ``library_ms`` ``torch.optim.AdamW(fused=True)``
+    over the same leaves (no decay mask, no skip), ``bound_ms`` 32 bytes a
+    parameter (p, g, m, v read and p, m, v written by the update, g read by
+    the norm)."""
+    from pixparse_tpu_torch.framework import train_state as ts
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.optimization import create_optimizer
+    from pixparse_tpu_torch.models import get_model_config, resolve_cruller_cfgs
+    from pixparse_tpu_torch.models.cruller import create_cruller
+    from pixparse_tpu_torch.ops.optimizer import fused_adamw
+
+    name, model_name, vocab = case
+    enc_cfg, bart_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=vocab)
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in create_cruller(enc_cfg, bart_cfg).named_parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {n: torch.randn(s, generator=gen, device="cuda") * 0.5 for n, s in shapes}
+    grads = [[torch.randn(p.shape, generator=gen, device="cuda") * 0.01 for p in params.values()]
+             for _ in range(2)]
+    loss = torch.tensor(2.5, device="cuda")
+    opt, _ = create_optimizer(OptimizationCfg(**ADAMW_CFG), num_intervals=10,
+                              num_warmup_intervals=1, updates_per_interval=2,
+                              encoder_depth=enc_cfg.depth, decoder_layers=bart_cfg.decoder_layers)
+
+    def update(p, state, g, fused):
+        with torch.no_grad(), (contextlib.nullcontext() if fused else chain_update()):
+            return ts._apply_update(opt, p, g, state, loss, True)
+
+    def copy(p, state):
+        return ({n: t.clone() for n, t in p.items()},
+                {"count": state["count"].clone(),
+                 **{k: {n: t.clone() for n, t in state[k].items()} for k in ("mu", "nu")}})
+
+    state, _ = update(params, opt.init(params), grads[0], False)
+    (pa, sa), (pb, sb) = copy(params, state), copy(params, state)
+    del params, state
+    launches = fused_adamw.launches
+    sa, ma = update(pa, sa, grads[1], True)
+    torch.cuda.synchronize()
+    launches = fused_adamw.launches - launches
+    sb, mb = update(pb, sb, grads[1], False)
+    prt, pat = ADAMW_TOL["param"]
+    mrt, mat = ADAMW_TOL["moment"]
+    perr, worst = 0.0, {"param": 0.0, "mu": 0.0, "nu": 0.0}  # largest error over its allowance
+    for n in pa:
+        d = (pa[n] - pb[n]).abs()
+        perr = max(perr, float(d.max()))
+        worst["param"] = max(worst["param"], float((d / (pat + prt * pb[n].abs())).max()))
+        for k in ("mu", "nu"):
+            ref = sb[k][n].abs()
+            allow = (mrt * ref + mat * float(ref.max())).clamp_min(1e-30)
+            worst[k] = max(worst[k], float(((sa[k][n] - sb[k][n]).abs() / allow).max()))
+    gn_rel = abs(float(ma["grad_norm"]) - float(mb["grad_norm"])) / float(mb["grad_norm"])
+    same = (int(ma["nonfinite"]) == int(mb["nonfinite"]) == 0
+            and int(sa["count"]) == int(sb["count"]) == 2)
+    n_params = sum(p.numel() for p in pa.values())
+    rec = dict(case=name, shape=[len(pa), n_params], dtype="torch.float32", max_abs_err=perr,
+               tol=ADAMW_TOL, err_over_allowance=worst, grad_norm_rel_err=gn_rel,
+               launches_per_step=launches,
+               ok=(max(worst.values()) <= 1 and gn_rel <= ADAMW_TOL["grad_norm"] and same
+                   and launches == ADAMW_STEP))
+    rec.update(bound_ms=32 * n_params / peaks[2] * 1e3, bound_by="bytes")
+    held = {"fused": sa, "chain": sb}
+
+    def fused_step():
+        held["fused"], _ = update(pa, held["fused"], grads[1], True)
+
+    def chain_step():
+        held["chain"], _ = update(pb, held["chain"], grads[1], False)
+
+    rec["ms"] = timer.median_ms(fused_step)
+    rec["device_ms"] = timer.median_ms(fused_step, busy=True)
+    rec["plain_ms"] = timer.median_ms(chain_step, n=5, warmup=1)
+    del held, sb, pb
+    leaves = list(pa.values())
+    for p, g in zip(leaves, grads[1]):
+        p.grad = g
+    lib = torch.optim.AdamW(leaves, lr=ADAMW_CFG["learning_rate"], betas=opt.betas,
+                            eps=ADAMW_CFG["eps"], weight_decay=ADAMW_CFG["weight_decay"],
+                            fused=True)
+    rec["library_ms"] = timer.median_ms(lib.step)
+    rec.update(speed_shares(rec))
+    return rec
+
+
 def check_band(torch, F, wb, wa, timer, peaks, gen, case):
     from pixparse_tpu_torch.models.swin import _window_partition
 
@@ -1475,7 +1586,7 @@ def phase_kernels(torch, F, card_name, timer):
     results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
                "fused_ce_fwd": [], "fused_ce_bwd": [], "window_attention": [],
                "decode_attention_q8": [], "window_attention_bwd": [], "layer_norm_fwd": [],
-               "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": []}
+               "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": [], "fused_adamw": []}
     failed = []
     last = [time.perf_counter()]
 
@@ -1666,6 +1777,13 @@ def phase_kernels(torch, F, card_name, timer):
         if not rec["ok"]:
             failed.append(f"banded_attention/{case[0]}")
         torch.cuda.empty_cache()
+    for case in ADAMW_CASES:
+        rec = check_fused_adamw(torch, timer, peaks, case)
+        results["fused_adamw"].append(rec)
+        note_case("fused_adamw", rec)
+        if not rec["ok"]:
+            failed.append(f"fused_adamw/{case[0]}")
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": results})
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
@@ -1705,6 +1823,10 @@ KERNELS = [
      "k64_m512_n256_r64_g256"),
     ("banded_attention", "cuda", "pixparse_tpu_torch/csrc/window_band.cu",
      "tools/window_band_probe.py:39 (band_fwd_kernel)", "stage0_b4_320x240_c128_h4"),
+    # no TPU counterpart: XLA fuses the JAX package's optax chain itself
+    ("fused_adamw", "cuda", "pixparse_tpu_torch/csrc/fused_adamw.cu",
+     "none (optax chain, pixparse_tpu/framework/optimization.py:274 create_optimizer)",
+     "cruller_base_fp32"),
 ]
 # the kernels line's records of the new paths' shapes, beside each main case
 P2S_FLASH_CASES = ("p2s_encode_b8_l2048_kv_lens", "p2s_self_causal_b8_l1023",
@@ -1730,14 +1852,18 @@ EVAL_KERNELS = {  # eval_task's two runs
     "cruller_base_int8": ("flash_attention_fwd", "decode_attention", "decode_attention_q8"),
 }
 PROBE_OWN_KERNELS = ("mxu_dots", "banded_attention")  # #16, #17: only the probes run them
-BUSY_TIMED = ("decode_attention_q8", "layer_norm_fwd", "layer_norm_bwd")  # with device_ms in the line
+BUSY_TIMED = ("decode_attention_q8", "layer_norm_fwd", "layer_norm_bwd",
+              "fused_adamw")  # with device_ms in the line
 PROBE_KERNELS = PROBE_OWN_KERNELS + ("window_attention",)  # probes' run
-PRETRAINED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
+PRETRAINED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
+                      "fused_adamw")
 TRAIN_KERNELS = {  # train_task's runs
-    "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
+    "cruller_base": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
+                     "fused_adamw"),
     "donut_base": ("window_attention", "window_attention_bwd", "flash_attention_fwd",
-                   "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"),
+                   "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd", "fused_adamw"),
 }
+ADAMW_STEP = 2  # fused_adamw launches a one-device train step: the norm, then the update
 
 
 def counters():
@@ -1745,6 +1871,7 @@ def counters():
     from pixparse_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from pixparse_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
+    from pixparse_tpu_torch.ops.optimizer import fused_adamw
     from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
     from pixparse_tpu_torch.tools.mxu_probe import mxu_dots
     from pixparse_tpu_torch.tools.window_band_probe import banded_attention
@@ -1755,7 +1882,7 @@ def counters():
             "decode_attention_q8": decode_attention_q8,
             "window_attention_bwd": window_attention_bwd, "layer_norm_fwd": layer_norm_fwd,
             "layer_norm_bwd": layer_norm_bwd, "mxu_dots": mxu_dots,
-            "banded_attention": banded_attention}
+            "banded_attention": banded_attention, "fused_adamw": fused_adamw}
 
 
 def reset_counts():
@@ -1765,6 +1892,18 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+@contextlib.contextmanager
+def chain_update():
+    """The train step's update through the optimizer chain
+    (``Optimizer.update``, then a ``torch.where`` a leaf for the skip) on
+    the card too, where the step takes the fused update (#18) otherwise:
+    the plain path of a kernel-vs-plain step."""
+    from pixparse_tpu_torch.framework import train_state
+
+    with patched(train_state, "fused_update_applies", lambda _: lambda *args, **kwargs: False):
+        yield
 
 
 # --------------------------------------------------------------------------
@@ -2353,13 +2492,15 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
         _, m = make_step(ce)(state, {k: v[:n] for k, v in batch.items()})
         return float(m["loss"]), float(m["grad_norm"])
 
-    # kernel path against plain path at a batch of 2 (plain attention keeps
-    # (B, 12, L, L) fp32 scores per layer for its backward)
+    # kernel path against plain path (the optimizer chain's update too) at a
+    # batch of 2 (plain attention keeps (B, 12, L, L) fp32 scores per layer
+    # for its backward)
     reset_counts()
     k_loss, k_gn = first_step(loss_ops.cross_entropy_from_hidden, "flash", 2)
     small_launches = read_counts()
     reset_counts()
-    p_loss, p_gn = first_step(loss_ops.chunked_cross_entropy_from_hidden, "xla", 2)
+    with chain_update():
+        p_loss, p_gn = first_step(loss_ops.chunked_cross_entropy_from_hidden, "xla", 2)
     plain_launches = read_counts()
     torch.cuda.empty_cache()
 
@@ -2411,7 +2552,7 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
     problems = []
     layers = vit_cfg.depth + 2 * bart_cfg.decoder_layers
     want = dict({k: 0 for k in counters()}, flash_attention_fwd=layers,
-                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1)
+                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1, fused_adamw=ADAMW_STEP)
     for i, got in enumerate(per_step):
         if got != want:
             problems.append(f"step {i} launched {got}, want {want}")
@@ -2515,10 +2656,12 @@ def phase_train_donut(torch, steps=DONUT_TRAIN_STEPS, B=2, model_name="donut_bas
     finally:
         del os.environ["PIXPARSE_LN_IMPL"]
     torch.cuda.empty_cache()
-    # kernel path against plain path at B=1 (plain window and decoder attention, plain CE)
+    # kernel path against plain path at B=1 (plain window and decoder attention, plain CE,
+    # the optimizer chain)
     one = {k: v[:1] for k, v in batch.items()}
     k1 = run(False, 1, one)
-    p1 = run(False, 1, one, attn_impl="xla", ce=loss_ops.chunked_cross_entropy_from_hidden)
+    with chain_update():
+        p1 = run(False, 1, one, attn_impl="xla", ce=loss_ops.chunked_cross_entropy_from_hidden)
     model.attn_impl = "flash"
     rec = {
         "phase": "train_donut", "model": model_name, "batch": B, "dtype": "bfloat16",
@@ -2541,7 +2684,8 @@ def phase_train_donut(torch, steps=DONUT_TRAIN_STEPS, B=2, model_name="donut_bas
         want = dict({k: 0 for k in counters()},
                     window_attention=blocks * (2 if recompute else 1), window_attention_bwd=blocks,
                     flash_attention_fwd=dec_sites * (2 if recompute else 1),
-                    flash_attention_bwd=dec_sites, fused_ce_fwd=1, fused_ce_bwd=1)
+                    flash_attention_bwd=dec_sites, fused_ce_fwd=1, fused_ce_bwd=1,
+                    fused_adamw=ADAMW_STEP)
         bad = [i for i, got in enumerate(r["launches"]) if got != want]
         if bad:
             problems.append(f"{name}: step {bad[0]} launched {r['launches'][bad[0]]}, want {want}")
@@ -2876,11 +3020,12 @@ XENT_B, XENT_STEPS = 16, 3  # (c)
 FINETUNE_TASK_KERNELS = {
     "finetune_cord": lambda d, l, n, s: dict(
         flash_attention_fwd=n * (d + 2 * l), flash_attention_bwd=n * (d + 2 * l),
-        fused_ce_fwd=n, fused_ce_bwd=n),
+        fused_ce_fwd=n, fused_ce_bwd=n, fused_adamw=ADAMW_STEP * n),
     "eval_cord": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
     "eval_docvqa": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
     "eval_rvlcdip": lambda d, l, n, s: dict(flash_attention_fwd=n * d, decode_attention=2 * l * s),
-    "finetune_xent": lambda d, l, n, s: dict(flash_attention_fwd=n * d, flash_attention_bwd=n * d),
+    "finetune_xent": lambda d, l, n, s: dict(flash_attention_fwd=n * d, flash_attention_bwd=n * d,
+                                             fused_adamw=ADAMW_STEP * n),
 }
 STEP1_LOSS_RTOL = 1e-3  # finetune_tasks (a): task.loss_fn, kernel path vs plain path
 STEP1_GRAD_RTOL = 5e-2  # each parameter's gradient, in L2
@@ -3843,7 +3988,7 @@ def phase_pix2struct(torch, model_name="pix2struct_base", B=PIX2STRUCT_B, steps=
     problems = []
     layers = enc_cfg.depth + 2 * bart_cfg.decoder_layers
     want = dict({k: 0 for k in counters()}, flash_attention_fwd=layers,
-                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1)
+                flash_attention_bwd=layers, fused_ce_fwd=1, fused_ce_bwd=1, fused_adamw=ADAMW_STEP)
     for i, got in enumerate(per_step):
         if on_card and got != want:
             problems.append(f"step {i} launched {got}, want {want}")

@@ -18,6 +18,13 @@ a non-finite step without a host sync. The update count lives on the
 parameters' device for the same reason; the schedule is evaluated on it
 there.
 
+On the card, one process, ``adam`` / ``adamw`` and a clip of ``None`` or
+``norm`` (:func:`fused_update_applies`), the train step takes
+:meth:`Optimizer.fused_update` instead: the same arithmetic in two kernel
+launches over all leaves (:mod:`pixparse_tpu_torch.ops.optimizer`), in
+place, with the non-finite skip inside. The chain stays the reference the
+tests hold it to and the path of every other case.
+
 Under a mesh the chain runs on each rank's local shards of the FSDP2
 parameters and gradients. What must be a quantity of the whole gradient or
 parameter (the global norm, the adaptive clip's unit norms, LAMB's trust
@@ -36,6 +43,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from pixparse_tpu_torch.framework.config import OptimizationCfg
+from pixparse_tpu_torch.ops.optimizer import FusedAdamWPlan, fused_adamw
 
 Schedule = Callable[[object], torch.Tensor]
 Params = Dict[str, torch.Tensor]
@@ -300,7 +308,9 @@ def _resolve_state_dtype(name: str) -> torch.dtype:
 
 class Optimizer:
     """The optax chain of the JAX package's ``create_optimizer`` as one
-    object with ``init`` and a pure ``update``.
+    object with ``init`` and a pure ``update``; and, where
+    :func:`fused_update_applies`, :meth:`fused_update`, which changes the
+    state's tensors in place.
 
     State: ``{"count": 0-dim int32 tensor, "mu": {...}, "nu": {...}}`` for
     Adam-family optimizers (moments in ``optimizer_state_dtype`` for
@@ -308,7 +318,12 @@ class Optimizer:
     ``optax.scale_by_adam`` whatever that option says),
     ``{"count", "trace"}`` for SGD with momentum, ``{"count"}`` for plain
     SGD. ``count`` is the number of updates applied; the learning rate is
-    ``schedule(count)``."""
+    ``schedule(count)``.
+
+    :meth:`fused_update` keeps the plan of its kernels (the leaves'
+    tables, built on its first call) until the leaves move or :meth:`init`
+    builds a new state: the plan holds the state's tensors, so a state
+    given up stays alive no longer than that."""
 
     def __init__(self, cfg: OptimizationCfg, schedule: Schedule,
                  encoder_depth: int = 0, decoder_layers: int = 0):
@@ -329,8 +344,10 @@ class Optimizer:
             self.state_dtype = torch.float32
         momentum = cfg.momentum if cfg.momentum is not None else 0.9
         self.momentum = momentum if self.name in ("sgd", "momentum") else 0.0
+        self._fused_plan = None  # FusedAdamWPlan of fused_update, built on its first call
 
     def init(self, params: Params) -> Dict:
+        self._fused_plan = None  # it holds the tensors of the state this one replaces
         first = next(iter(params.values()))
         state: Dict = {"count": torch.zeros((), dtype=torch.int32, device=first.device)}
         if self.name in ("adamw", "adam", "lamb"):
@@ -415,6 +432,59 @@ class Optimizer:
         lr = self.schedule(state["count"]).to(p[0].device)
         u = torch._foreach_mul(u, -lr)
         return dict(zip(names, u)), new_state
+
+    def fused_tables(self, params: Params) -> Tuple[List[bool], List[float]]:
+        """Per leaf of ``params``, in order: whether the fused update adds
+        ``weight_decay * p`` and its layer-decay scale; the chain's own
+        :func:`default_weight_decay_mask` and :func:`layer_decay_scales`."""
+        names = list(params)
+        mask = default_weight_decay_mask(params)
+        decays = self.name == "adamw" and bool(self.cfg.weight_decay)
+        flags = [decays and mask[n] for n in names]
+        layer_decay = self.cfg.layer_decay
+        if layer_decay is None or layer_decay >= 1.0:
+            return flags, [1.0] * len(names)
+        scales = layer_decay_scales(params, layer_decay, self.encoder_depth, self.decoder_layers)
+        return flags, [scales[n] for n in names]
+
+    @torch.no_grad()
+    def fused_update(self, params: Params, grads: List[torch.Tensor], state: Dict,
+                     loss: torch.Tensor, skip_nonfinite: bool = True) -> Dict[str, torch.Tensor]:
+        """One step of the chain by :func:`~pixparse_tpu_torch.ops.optimizer.fused_adamw`
+        (``adam`` / ``adamw``, clip ``None`` or ``norm``; see
+        :func:`fused_update_applies`): ``params`` and ``state``'s tensors are
+        updated in place, and a non-finite step (``skip_nonfinite``) changes
+        none of them. Returns the metrics: ``loss``, ``grad_norm`` and, with
+        the skip, ``nonfinite``. The per-leaf tables are built on the first
+        call and kept while the leaves stay where they are."""
+        names = list(params)
+        p = list(params.values())
+        mu = [state["mu"][n] for n in names]
+        nu = [state["nu"][n] for n in names]
+        plan = self._fused_plan
+        if plan is None or not plan.serves(names, p, mu, nu):
+            plan = self._fused_plan = FusedAdamWPlan(names, p, mu, nu, *self.fused_tables(params))
+        # optax.scale_by_learning_rate: the schedule reads the count before
+        # this update
+        lr = self.schedule(state["count"])
+        grad_norm, nonfinite = fused_adamw(
+            plan, grads, state["count"], lr, loss, betas=self.betas, eps=self.cfg.eps,
+            weight_decay=self.cfg.weight_decay,
+            max_norm=self.cfg.clip_grad_value if self.clip_mode == "norm" else None,
+            skip_nonfinite=skip_nonfinite)
+        metrics = dict(loss=loss, grad_norm=grad_norm)
+        if skip_nonfinite:
+            metrics["nonfinite"] = nonfinite
+        return metrics
+
+
+def fused_update_applies(optimizer: Optimizer, device: torch.device, shards=None) -> bool:
+    """Whether the train step takes :meth:`Optimizer.fused_update` over
+    tensors on ``device``: CUDA tensors of one process (no ``shards``),
+    optimizer ``adam`` or ``adamw``, clip ``None`` or ``norm``. Every other
+    case takes the chain (:meth:`Optimizer.update`)."""
+    return (device.type == "cuda" and shards is None and optimizer.name in ("adam", "adamw")
+            and optimizer.clip_mode in (None, "norm"))
 
 
 def create_optimizer(

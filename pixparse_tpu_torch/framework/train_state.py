@@ -14,9 +14,10 @@ the optimizer state and the base dropout seed. :func:`make_train_step` builds
 - the non-finite skip: when the loss or the gradient norm is not finite the
   parameters and the optimizer state stay as they were, the step still
   counts, and ``metrics['nonfinite']`` is 1. The decision stays on the
-  device (``torch.where`` on the updates and the state), so the host never
-  waits for it; ``metrics`` holds device tensors that are read only when
-  they are logged;
+  device (``torch.where`` on the updates and the state, or inside the
+  fused update on the card where :func:`fused_update_applies`), so the host
+  never waits for it; ``metrics`` holds device tensors that are read only
+  when they are logged;
 - a dropout stream per ``(seed, step, micro-batch index)``: a restart at the
   same step repeats the masks.
 
@@ -58,8 +59,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from pixparse_tpu_torch.framework.optimization import Optimizer, global_norm
-from pixparse_tpu_torch.framework.profiling import span
+from pixparse_tpu_torch.framework.optimization import (
+    Optimizer,
+    fused_update_applies,
+    global_norm,
+)
+from pixparse_tpu_torch.framework.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -124,7 +129,13 @@ def _where_tree(ok: torch.Tensor, new, old):
 def _apply_update(optimizer, params, grads, opt_state, loss, skip_nonfinite, shards=None):
     """The gradient norm, the optimizer update, the non-finite skip, and the
     parameters moved in place; ``(new_opt_state, metrics)``. ``shards``:
-    the tensors are local shards (:class:`~pixparse_tpu_torch.parallel.mesh.ShardedParams`)."""
+    the tensors are local shards (:class:`~pixparse_tpu_torch.parallel.mesh.ShardedParams`).
+    Where :func:`fused_update_applies`, one fused update does all of it and
+    the state keeps its tensors (``optimizer.fused`` counts those steps);
+    else the chain, then a ``torch.where`` per leaf for the skip."""
+    if fused_update_applies(optimizer, grads[0].device, shards):
+        count("optimizer.fused")
+        return opt_state, optimizer.fused_update(params, grads, opt_state, loss, skip_nonfinite)
     grad_norm = global_norm(grads, shards)
     updates, new_opt_state = optimizer.update(
         dict(zip(params, grads)), opt_state, params, shards=shards)

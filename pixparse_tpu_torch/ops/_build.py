@@ -85,6 +85,11 @@ SIGNATURES = {
         ],
         "pixparse_decode_attn_q8_blocks_per_sm": [I, I],
     },
+    "fused_adamw": {
+        "pixparse_fused_adamw": [
+            I, P, I, P, P, I, P, P, P, P, P, P, P, F, F, F, F, F, F, I, F, I, P,
+        ],
+    },
     # the probe tools' kernels (pixparse_tpu_torch/tools)
     "mxu_probe": {
         "pixparse_mxu_probe": [I, P, P, P, I, I, I, I, I, P],
