@@ -99,7 +99,22 @@ stderr):
    tolerances (``ADAMW_TOL``); then the update as the train step takes it
    timed (``ms``, ``device_ms``), beside the chain (``plain_ms``),
    ``torch.optim.AdamW(fused=True)`` over the same leaves (yardstick only)
-   and its bound (32 bytes a parameter), in the kernels line too.
+   and its bound (32 bytes a parameter), in the kernels line too. The
+   grouped expert kernels (#19, ``moe_expert_mm`` and ``moe_expert_wgrad``)
+   run the six products of each of cruller_moonlight's four expert layers
+   (D 2048, expert width 1408, 64 experts) over the rows its router sends
+   them: the model at full width with the weights of the
+   ``cruller_moonlight.pretrain`` cell's rules routes one forward of its
+   batch (8 seeded pages and 1023-token rows: 97536 rows a layer, a few
+   experts taking most of them, as in the cell), and each layer's offsets
+   drive the products on seeded operands, held to the plain versions (a loop over
+   experts) at 1e-2/1e-2 in bf16, to their own bits on a second launch,
+   and to zero weight gradients for an expert without rows; each timed
+   (``ms``, ``device_ms``) beside its plain version, ``torch._grouped_mm``
+   on the same operands (yardstick only) and its bound (operations ``2 rows
+   K N``; bytes the rows, the weights of experts with rows and the output
+   once each), and summed a layer (``moe_expert_layer``). The fused CE
+   runs the Moonlight head too (D 2048, 163840 rows, T 8184).
 3. ``probes``: the probe tools' main paths on the card
    (``pixparse_tpu_torch.tools.mxu_probe`` and ``.window_band_probe all``):
    useful TFLOP/s of the three MXU-probe variants and of ``torch.matmul``;
@@ -415,6 +430,19 @@ stderr):
    encode and #8 launches a run equal to alone's and non-zero; recorded
    the share of tokens equal to alone's, encode ms, decode ms a step and
    each rank's peak memory.
+22. ``train_moonlight``: cruller_moonlight at full width (3.19B
+   parameters; fp32 master weights, bf16 forward, the cell's weight rules)
+   takes train steps of ``make_train_step`` with the fused CE over its
+   untied head and the fused AdamW on one seeded batch of 8: the loss must
+   be finite and fall; each step, counted from zero, must launch 12 flash
+   forwards and 12 backwards (the ViT), 4 ``moe_expert_mm`` and 2
+   ``moe_expert_wgrad`` an expert layer (16 and 8), 1 fused-CE forward, 1
+   backward and 2 of the fused AdamW update, and nothing else. Before the
+   steps one expert layer's forward and backward run with CUDA's sync
+   debug mode set to raise: the routed path reads nothing back to the
+   host. Recorded:
+   ms a step, samples/s, peak memory, each layer's loads (busiest expert's
+   rows over the mean).
 
 Then the ``kernels`` summary line (launch counts from the main-path runs),
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -443,7 +471,8 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 PHASES = ("device", "kernels", "probes", "serve_model", "serve_task", "serve_donut",
           "eval_task", "train_model", "train_donut", "train_task", "pretrained_train",
           "finetune_tasks", "beam_eval", "sample", "naive", "large", "pix2struct",
-          "serve_stream", "loader", "apps", "distributed", "tensor_parallel")
+          "serve_stream", "loader", "apps", "distributed", "tensor_parallel",
+          "train_moonlight")
 MODEL_NEW_TOKENS = 128  # serve_model: fixed decode budget (EOS disabled)
 TASK_NEW_TOKENS = 64  # serve_task: generation cap after the one-token prompt
 TRAIN_STEPS = 6  # train_model: steps on the repeated batch (the first one warms up)
@@ -474,6 +503,14 @@ STREAM_BUDGETS = (64, 256)  # per-page budgets, uniform (inclusive)
 # max(2 * 257, 257 + 32 * 2) = 514, rounded up to 128
 STREAM_C = 640
 STREAM_TRAIN_B = 8  # serve_stream (b): the train step's batch
+# cruller_moonlight (train_moonlight, #19's cases): cruller_moonlight.pretrain's batch of 8
+# pages and 1024 text positions (1023 after the shift), the published vocabulary
+# (moonshotai/Moonlight-16B-A3B), the routers' frozen correction bias N(0, 0.1)
+MOONLIGHT_B = 8
+MOONLIGHT_TEXT = 1023
+MOONLIGHT_VOCAB = 163840
+MOONLIGHT_BIAS_STD = 0.1
+MOONLIGHT_STEPS = 3  # train_moonlight: steps on the repeated batch (the first one warms up)
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32
 # non-tensor FLOP/s, HBM bytes/s. Matched on the nvidia-smi name.
@@ -898,6 +935,9 @@ def ce_cases(torch):
         ("large_t8184_v50265_d1024", LARGE_B * 1023, BART_VOCAB, 1024, bf, 0.3),
         # the pix2struct phase's: bart-base's width
         ("p2s_t8184_v50265_d768", PIX2STRUCT_B * 1023, BART_VOCAB, 768, bf, 0.3),
+        # train_moonlight's: the untied head of cruller_moonlight
+        ("moonlight_t8184_v163840_d2048", MOONLIGHT_B * MOONLIGHT_TEXT, MOONLIGHT_VOCAB, 2048,
+         bf, 0.3),
     ]
 
 
@@ -1510,6 +1550,153 @@ def check_fused_adamw(torch, timer, peaks, case):
     return rec
 
 
+def moonlight_model(torch, model_name, device, vocab, seed=0):
+    """(model, vit_cfg, dec_cfg): the registered Moonlight Cruller built on
+    ``device`` (flash encoder, bf16 forward, fp32 master weights), every
+    leaf drawn by the rules of the ``cruller_moonlight.pretrain`` cell's
+    weights and rounded to bf16: dense and stacked expert weights N(0,
+    1/fan_in) (an expert's fan-in its last axis), the token table N(0, 1),
+    norm weights 1 + N(0, 0.02^2), biases, the class token and the position
+    table N(0, 0.02^2), the routers' correction biases N(0, 0.1^2). So its
+    routers send the experts the loads the cell sends them."""
+    from pixparse_tpu_torch.models import get_model_config, resolve_cruller_cfgs
+    from pixparse_tpu_torch.models.cruller import create_cruller
+
+    vit_cfg, dec_cfg, _ = resolve_cruller_cfgs(get_model_config(model_name), vocab_size=vocab)
+    with torch.device(device):
+        model = create_cruller(vit_cfg, dec_cfg, attn_impl="flash",
+                               compute_dtype=torch.bfloat16).train()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    leaves = list(model.named_parameters()) + [
+        (n, b) for n, b in model.named_buffers() if n.endswith("e_score_correction_bias")]
+    with torch.no_grad():
+        for name, t in leaves:
+            if name.endswith("e_score_correction_bias"):
+                mean, std = 0.0, MOONLIGHT_BIAS_STD
+            elif name.endswith(("norm.weight", "norm1.weight", "norm2.weight")):
+                mean, std = 1.0, 0.02
+            elif name.endswith("embed_tokens.weight"):
+                mean, std = 0.0, 1.0
+            elif name.endswith((".bias", "pos_embed", "cls_token")):
+                mean, std = 0.0, 0.02
+            else:
+                mean, std = 0.0, math.prod(t.shape[-1:] if t.dim() == 3 else t.shape[1:]) ** -0.5
+            t.normal_(mean, std, generator=gen)
+            t.copy_(t.bfloat16())
+    return model, vit_cfg, dec_cfg
+
+
+def moonlight_batch(torch, vit_cfg, B, text_len, vocab, device, seed=0):
+    """One seeded batch as the pretrain task feeds its model: ``B`` page-like
+    images and token rows of ``text_len`` (shifted: text and target)."""
+    gen = torch.Generator().manual_seed(seed)
+    images = synthetic_pages(torch, B, *vit_cfg.img_size, gen).to(device)
+    text, target = synthetic_tokens(torch, B, text_len + 1, vocab, gen)
+    return {"image": images, "text": text[:, :-1].to(device), "target": target[:, 1:].to(device)}
+
+
+def moonlight_offsets(torch, model, batch):
+    """Each expert layer's offsets ``(E + 1,)`` int32: the rows its router
+    sends each expert in one forward of ``batch``, as the train step sorts
+    them."""
+    from pixparse_tpu_torch.ops import moe
+
+    E = model.dec_cfg.n_routed_experts
+    with torch.no_grad(), moe.record_routes() as routes:
+        model.forward_hidden(batch["image"], batch["text"])
+    return [moe.sort_by_expert(r.experts, E).offsets for r in routes]
+
+
+def load_ratio(offsets):
+    """The busiest expert's rows over the mean rows an expert."""
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    return max(counts) * len(counts) / max(sum(counts), 1)
+
+
+# #19's six products of an expert layer: name, kernel, a, b (operand names), b_kn
+MOE_PRODUCTS = (
+    ("gate_up", "moe_expert_mm", "x", "w1", False),  # forward: x W1_e^T, N = 2 x 1408
+    ("down", "moe_expert_mm", "h", "w2", False),  # forward: h W2_e^T
+    ("dh", "moe_expert_mm", "dy", "w2", True),  # backward: dy W2_e
+    ("dx", "moe_expert_mm", "dy1", "w1", True),  # backward: dy1 W1_e
+    ("dw_down", "moe_expert_wgrad", "dy", "h", None),  # dy_e^T h_e
+    ("dw_gate_up", "moe_expert_wgrad", "dy1", "x", None),  # dy1_e^T x_e
+)
+
+
+def check_moe_layer(torch, moe, timer, peaks, layer, offsets, D, Fe):
+    """#19's six products over one layer's routed ``offsets`` -> one record
+    each (see the module docstring, phase 2)."""
+    peak_bf16, _, bw = peaks
+    E, R = offsets.numel() - 1, int(offsets[-1])
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    active = sum(1 for n in counts if n)
+    gen = torch.Generator(device="cuda").manual_seed(layer)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    ops = {"x": rnd(R, D), "h": rnd(R, Fe), "dy": rnd(R, D), "dy1": rnd(R, 2 * Fe),
+           "w1": rnd(E, 2 * Fe, D) * 0.05, "w2": rnd(E, D, Fe) * 0.05}
+    ends = offsets[1:]
+    atol, rtol = TOL["bfloat16"]
+    recs = []
+    for product, kernel, an, bn, b_kn in MOE_PRODUCTS:
+        a, b = ops[an], ops[bn]
+        if kernel == "moe_expert_wgrad":
+            fn = lambda a=a, b=b: moe.moe_expert_wgrad(a, b, offsets)  # noqa: E731
+            plain = lambda a=a, b=b: moe.moe_expert_wgrad_plain(a, b, offsets)  # noqa: E731
+            lib = lambda a=a, b=b: torch._grouped_mm(a.t(), b, offs=ends)  # noqa: E731
+            M, N = a.shape[1], b.shape[1]
+            flops, nbytes = 2.0 * R * M * N, 2.0 * (R * M + R * N + active * M * N)
+            shape = [R, M, N]
+        else:
+            fn = lambda a=a, b=b, kn=b_kn: moe.moe_expert_mm(a, b, offsets, b_kn=kn)  # noqa: E731
+            plain = lambda a=a, b=b, kn=b_kn: moe.moe_expert_mm_plain(  # noqa: E731
+                a, b, offsets, b_kn=kn)
+            bt = b if b_kn else b.transpose(-2, -1)
+            lib = lambda a=a, bt=bt: torch._grouped_mm(a, bt, offs=ends)  # noqa: E731
+            K, N = a.shape[1], b.shape[2] if b_kn else b.shape[1]
+            flops, nbytes = 2.0 * R * K * N, 2.0 * (R * K + active * K * N + R * N)
+            shape = [R, K, N]
+        out = fn()
+        torch.cuda.synchronize()
+        repeatable = bool(torch.equal(fn(), out))
+        ref = plain()
+        err, ok = close(out, ref, atol, rtol)
+        if kernel == "moe_expert_wgrad":  # an expert without rows: a zero gradient
+            ok = ok and all(bool((out[e] == 0).all()) for e, n in enumerate(counts) if n == 0)
+        rec = dict(case=f"layer{layer}_{product}", shape=shape, experts=E, experts_with_rows=active,
+                   max_over_mean_rows=load_ratio(offsets), dtype="torch.bfloat16",
+                   max_abs_err=err, tol=[atol, rtol], repeatable=repeatable, ok=ok and repeatable,
+                   library_max_abs_err=close(lib(), ref, atol, rtol)[0])  # recorded, not gated
+        del out, ref
+        t_ops, t_mem = flops / peak_bf16, nbytes / bw
+        rec.update(bound_ms=max(t_ops, t_mem) * 1e3,
+                   bound_by="operations" if t_ops >= t_mem else "bytes")
+        rec["ms"] = timer.median_ms(fn)
+        rec["device_ms"] = timer.median_ms(fn, busy=True)
+        rec["plain_ms"] = timer.median_ms(plain, n=5, warmup=1)
+        rec["library_ms"] = timer.median_ms(lib)
+        rec.update(speed_shares(rec))
+        recs.append((kernel, rec))
+    return recs
+
+
+def moe_layer_sums(recs):
+    """Per layer, the six products' times and bounds summed, and the bound's
+    share of the kernel time."""
+    layers = {}
+    for _, rec in recs:
+        key = rec["case"].split("_")[0]
+        acc = layers.setdefault(key, {k: 0.0 for k in (
+            "ms", "device_ms", "bound_ms", "plain_ms", "library_ms")})
+        for k in acc:
+            acc[k] += rec[k]
+        acc["max_over_mean_rows"] = rec["max_over_mean_rows"]
+    for acc in layers.values():
+        acc.update(bound_share=acc["bound_ms"] / acc["device_ms"],
+                   ratio_to_library=acc["device_ms"] / acc["library_ms"])
+    return layers
+
+
 def check_band(torch, F, wb, wa, timer, peaks, gen, case):
     from pixparse_tpu_torch.models.swin import _window_partition
 
@@ -1575,7 +1762,7 @@ def phase_kernels(torch, F, card_name, timer):
     from pixparse_tpu_torch.ops import flash_attention as fa
     from pixparse_tpu_torch.ops import decode_attention as da
     from pixparse_tpu_torch.ops import layer_norm as lnm
-    from pixparse_tpu_torch.ops import loss
+    from pixparse_tpu_torch.ops import loss, moe
     from pixparse_tpu_torch.ops import window_attention as wa
     from pixparse_tpu_torch.tools import mxu_probe as mp
     from pixparse_tpu_torch.tools import window_band_probe as wb
@@ -1586,7 +1773,8 @@ def phase_kernels(torch, F, card_name, timer):
     results = {"flash_attention_fwd": [], "decode_attention": [], "flash_attention_bwd": [],
                "fused_ce_fwd": [], "fused_ce_bwd": [], "window_attention": [],
                "decode_attention_q8": [], "window_attention_bwd": [], "layer_norm_fwd": [],
-               "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": [], "fused_adamw": []}
+               "layer_norm_bwd": [], "mxu_dots": [], "banded_attention": [], "fused_adamw": [],
+               "moe_expert_mm": [], "moe_expert_wgrad": []}
     failed = []
     last = [time.perf_counter()]
 
@@ -1784,6 +1972,25 @@ def phase_kernels(torch, F, card_name, timer):
         if not rec["ok"]:
             failed.append(f"fused_adamw/{case[0]}")
         torch.cuda.empty_cache()
+    model, _, dec_cfg = moonlight_model(torch, "cruller_moonlight", "cuda", MOONLIGHT_VOCAB)
+    layer_offsets = moonlight_offsets(torch, model, moonlight_batch(
+        torch, model.vit_cfg, MOONLIGHT_B, MOONLIGHT_TEXT, MOONLIGHT_VOCAB, "cuda"))
+    del model
+    torch.cuda.empty_cache()
+    moe_recs = []
+    for i, offsets in enumerate(layer_offsets):
+        layer = dec_cfg.first_k_dense_replace + i
+        recs = check_moe_layer(torch, moe, timer, peaks, layer, offsets, dec_cfg.hidden_size,
+                               dec_cfg.moe_intermediate_size)
+        for kname, rec in recs:
+            results[kname].append(rec)
+            note_case(kname, rec)
+            if not rec["ok"]:
+                failed.append(f"{kname}/{rec['case']}")
+        moe_recs += recs
+        torch.cuda.empty_cache()
+    results["moe_expert_layer"] = moe_layer_sums(moe_recs)
+    note({"moe_expert_layer": results["moe_expert_layer"]})
     emit({"phase": "kernels", "cases": results})
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
@@ -1827,6 +2034,11 @@ KERNELS = [
     ("fused_adamw", "cuda", "pixparse_tpu_torch/csrc/fused_adamw.cu",
      "none (optax chain, pixparse_tpu/framework/optimization.py:274 create_optimizer)",
      "cruller_base_fp32"),
+    # no TPU counterpart: the JAX package has no expert layer
+    ("moe_expert_mm", "cuda", "pixparse_tpu_torch/csrc/moe_expert_mm.cu",
+     "none (no expert layer in the JAX package)", "layer1_gate_up"),
+    ("moe_expert_wgrad", "cuda", "pixparse_tpu_torch/csrc/moe_expert_mm.cu",
+     "none (no expert layer in the JAX package)", "layer1_dw_gate_up"),
 ]
 # the kernels line's records of the new paths' shapes, beside each main case
 P2S_FLASH_CASES = ("p2s_encode_b8_l2048_kv_lens", "p2s_self_causal_b8_l1023",
@@ -1836,13 +2048,20 @@ NEW_PATH_CASES = {
                             "large_cross_b8_lq1023_lk2509_h16") + P2S_FLASH_CASES,
     "flash_attention_bwd": ("large_encode_b8_l2509_h16", "large_self_causal_b8_l1023_h16",
                             "large_cross_b8_lq1023_lk2509_h16") + P2S_FLASH_CASES,
-    "fused_ce_fwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
-    "fused_ce_bwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768"),
+    "fused_ce_fwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768",
+                     "moonlight_t8184_v163840_d2048"),
+    "fused_ce_bwd": ("large_t8184_v50265_d1024", "p2s_t8184_v50265_d768",
+                     "moonlight_t8184_v163840_d2048"),
     "decode_attention": ("beam_cross_b64_lk1024_valid1009", "p2s_cross_b8_lk2048_kv_lens",
                          "p2s_self_b8_lk128_valid64", "stream_self_b16_lk640_band_mid_split",
                          "stream_self_b16_lk640_band_two_dead_splits",
                          "stream_self_b16_lk640_band_one_key", "stream_self_b16_lk640_band_dead_row"),
     "decode_attention_q8": ("beam_cross_b64_lk1024_valid1009",),
+    # the other three expert layers, and layer 1's other products
+    "moe_expert_mm": tuple(f"layer{i}_{p}" for i in range(1, 5) for p, k, *_ in MOE_PRODUCTS
+                           if k == "moe_expert_mm" and (i, p) != (1, "gate_up")),
+    "moe_expert_wgrad": tuple(f"layer{i}_{p}" for i in range(1, 5) for p, k, *_ in MOE_PRODUCTS
+                              if k == "moe_expert_wgrad" and (i, p) != (1, "dw_gate_up")),
 }
 LINE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the kernels each main path must launch
@@ -1853,7 +2072,7 @@ EVAL_KERNELS = {  # eval_task's two runs
 }
 PROBE_OWN_KERNELS = ("mxu_dots", "banded_attention")  # #16, #17: only the probes run them
 BUSY_TIMED = ("decode_attention_q8", "layer_norm_fwd", "layer_norm_bwd",
-              "fused_adamw")  # with device_ms in the line
+              "fused_adamw", "moe_expert_mm", "moe_expert_wgrad")  # with device_ms in the line
 PROBE_KERNELS = PROBE_OWN_KERNELS + ("window_attention",)  # probes' run
 PRETRAINED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
                       "fused_adamw")
@@ -1871,6 +2090,7 @@ def counters():
     from pixparse_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from pixparse_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from pixparse_tpu_torch.ops.loss import fused_ce_bwd, fused_ce_fwd
+    from pixparse_tpu_torch.ops.moe import moe_expert_mm, moe_expert_wgrad
     from pixparse_tpu_torch.ops.optimizer import fused_adamw
     from pixparse_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
     from pixparse_tpu_torch.tools.mxu_probe import mxu_dots
@@ -1882,7 +2102,8 @@ def counters():
             "decode_attention_q8": decode_attention_q8,
             "window_attention_bwd": window_attention_bwd, "layer_norm_fwd": layer_norm_fwd,
             "layer_norm_bwd": layer_norm_bwd, "mxu_dots": mxu_dots,
-            "banded_attention": banded_attention, "fused_adamw": fused_adamw}
+            "banded_attention": banded_attention, "fused_adamw": fused_adamw,
+            "moe_expert_mm": moe_expert_mm, "moe_expert_wgrad": moe_expert_wgrad}
 
 
 def reset_counts():
@@ -2571,6 +2792,100 @@ def phase_train_model(torch, steps=TRAIN_STEPS, B=16, model_name="cruller_base",
         raise SystemExit(f"{phase} failed: " + "; ".join(problems))
     rec["launches"] = {k: sum(step[k] for step in per_step) for k in per_step[0]}
     return rec
+
+
+def phase_train_moonlight(torch, steps=MOONLIGHT_STEPS, B=MOONLIGHT_B,
+                          model_name="cruller_moonlight", vocab=MOONLIGHT_VOCAB,
+                          text_len=MOONLIGHT_TEXT, device="cuda"):
+    """Phase 22 (the module docstring); returns the launches of all steps.
+    Off the card (a CPU rehearsal at a test size) every wrapper takes its
+    plain version: no launches are wanted and the sync check is left out."""
+    from pixparse_tpu_torch.framework.config import OptimizationCfg
+    from pixparse_tpu_torch.framework.optimization import create_optimizer
+    from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
+    from pixparse_tpu_torch.ops import loss as loss_ops
+
+    on_card = device != "cpu"
+    model, vit_cfg, dec_cfg = moonlight_model(torch, model_name, device, vocab)
+    batch = moonlight_batch(torch, vit_cfg, B, text_len, vocab, device)
+    loads = [load_ratio(o) for o in moonlight_offsets(torch, model, batch)]
+    moe_layers = dec_cfg.num_hidden_layers - dec_cfg.first_k_dense_replace
+    problems = []
+    # one expert layer's forward and backward, any read back to the host raising
+    synced = None
+    if on_card:
+        mlp = model.decoder.model.layers[dec_cfg.first_k_dense_replace].mlp
+        gen = torch.Generator(device=device).manual_seed(1)
+        x = torch.randn(B, vit_cfg.num_tokens + text_len, dec_cfg.hidden_size, device=device,
+                        generator=gen).bfloat16().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mlp(x).float().sum().backward()
+        except RuntimeError as e:
+            synced = str(e).splitlines()[0]
+            problems.append(f"the expert layer read back to the host: {synced}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        model.zero_grad(set_to_none=True)
+        del x
+    optimizer, _ = create_optimizer(
+        OptimizationCfg(learning_rate=3e-4), num_intervals=1, num_warmup_intervals=0,
+        updates_per_interval=1000, encoder_depth=vit_cfg.depth,
+        decoder_layers=dec_cfg.decoder_layers)
+
+    def loss_fn(b):
+        hidden, table, _ = model.forward_hidden_head(b["image"], b["text"])
+        return loss_ops.cross_entropy_from_hidden(
+            hidden, table.to(hidden.dtype), b["target"])[0], {}
+
+    step = make_train_step(loss_fn, optimizer)
+    state = create_train_state(model, optimizer, seed=0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, grad_norms, times, per_step = [], [], [], []
+    for _ in range(steps):
+        reset_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_counts())
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    ms_per_step = statistics.median(times[1:])
+    want = {k: 0 for k in counters()}
+    if on_card:
+        want.update(flash_attention_fwd=vit_cfg.depth, flash_attention_bwd=vit_cfg.depth,
+                    moe_expert_mm=4 * moe_layers, moe_expert_wgrad=2 * moe_layers,
+                    fused_ce_fwd=1, fused_ce_bwd=1, fused_adamw=ADAMW_STEP)
+    rec = {"phase": "train_moonlight", "model": model_name, "batch": B, "text_len": text_len,
+           "vocab": vocab, "dtype": "bfloat16", "master_dtype": "float32",
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "routed_rows_per_layer": B * (vit_cfg.num_tokens + text_len)
+           * dec_cfg.num_experts_per_tok,
+           "max_over_mean_rows": loads, "steps": steps, "losses": losses,
+           "grad_norms": grad_norms, "step_ms": times, "ms_per_step": ms_per_step,
+           "samples_per_s": B / (ms_per_step / 1e3),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
+           "launches_per_step": per_step[-1], "launch_unit": "wrapper calls",
+           "expert_layer_sync_check": None if not on_card else synced or "no host read"}
+    emit(rec)
+    for i, got in enumerate(per_step):
+        if got != want:
+            problems.append(f"step {i} launched {got}, want {want}")
+            break
+    if not all(math.isfinite(x) for x in losses + grad_norms):
+        problems.append(f"non-finite loss or gradient norm: {losses} {grad_norms}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall on the repeated batch: {losses}")
+    del state, model, optimizer
+    if on_card:
+        torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit("train_moonlight failed: " + "; ".join(problems))
+    return {k: sum(s[k] for s in per_step) for k in per_step[0]}
 
 
 REMAT_MODES = (False, "gelu", "mlp", "dots", True)  # none, gelu, mlp (auto for donut), dots, full
@@ -6751,6 +7066,8 @@ def main(argv=None) -> int:
         "distributed": lambda: path_launches.update(phase_distributed(torch, profile=prof)),
         "tensor_parallel": lambda: path_launches.update(
             phase_tensor_parallel(torch, F, smi, timer)),
+        "train_moonlight": lambda: path_launches.update(
+            train_moonlight=phase_train_moonlight(torch)),
     }
     seconds = {"build": build_s}
     with nan_default_init(torch):
@@ -6771,10 +7088,10 @@ def main(argv=None) -> int:
                 "name": name, "route": route, "source": source, "replaces": replaces,
                 # summed over the main paths that ran, each read on its own;
                 # the probes' run counts only for the probes' own kernels
-                "launches": sum(run[name] for p, run in path_launches.items()
+                "launches": sum(run.get(name, 0) for p, run in path_launches.items()
                                 if p != "probes" or name in PROBE_OWN_KERNELS)
                 if path_launches else None,
-                "launches_by_path": {p: run[name] for p, run in path_launches.items()},
+                "launches_by_path": {p: run.get(name, 0) for p, run in path_launches.items()},
                 **{k: rec[k] for k in LINE_KEYS},
                 # the probe kernels, #9, #12 and #13: busy-timer time and shares
                 **({k: rec[k] for k in ("device_ms", "bound_share", "ratio_to_library")}

@@ -98,7 +98,7 @@ constexpr int kVocabTile = 256;  // N tile of K1 and the forward; chunk starts a
 enum CeProduct { kProductG = 0, kProductDE = 1, kProductDH = 2, kProductLse = 3 };
 
 // Output columns of a K2/K3 block: the whole width at D = 64, a quarter at
-// D = 768 and 1024.
+// D = 768 and 1024, an eighth at D = 2048.
 __host__ __device__ constexpr int ce_bwd_bn(int D) { return D == 64 ? 64 : D == 768 ? 192 : 256; }
 
 template <int kProduct, int BN>
@@ -548,7 +548,7 @@ int launch_bwd_bf16(const void* h, const void* e, const int* target, const float
 // dtype: 0 = float32, 1 = bfloat16 (h and e share it). h is a contiguous
 // (T, D) matrix, e a contiguous (V, D) table, target (T,) int32 with -1 for
 // ignored tokens; lse and tgt are (T,) fp32 outputs. bf16 takes D in
-// {64, 768, 1024}, h and e 16-byte aligned, and the caller's scratch part,
+// {64, 768, 1024, 2048}, h and e 16-byte aligned, and the caller's scratch part,
 // ceil(V / 256) x T float2; fp32 any D <= 1024 that is a multiple of 4 (part
 // unused). Returns the CUDA error code (0 = success).
 extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, const void* target,
@@ -565,6 +565,7 @@ extern "C" int pixparse_fused_ce_fwd(int dtype, const void* h, const void* e, co
       case 64: return launch_fwd_bf16<64>(h, e, tp, lp, gp, part, T, V, s);
       case 768: return launch_fwd_bf16<768>(h, e, tp, lp, gp, part, T, V, s);
       case 1024: return launch_fwd_bf16<1024>(h, e, tp, lp, gp, part, T, V, s);
+      case 2048: return launch_fwd_bf16<2048>(h, e, tp, lp, gp, part, T, V, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -596,6 +597,7 @@ extern "C" int pixparse_fused_ce_bwd(int dtype, const void* h, const void* e, co
       case 64: return launch_bwd_bf16<64>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
       case 768: return launch_bwd_bf16<768>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
       case 1024: return launch_bwd_bf16<1024>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
+      case 2048: return launch_bwd_bf16<2048>(h, e, tp, lp, cp, dh, de, ws, dh_acc, T, V, Vc, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

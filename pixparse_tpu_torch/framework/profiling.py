@@ -7,12 +7,15 @@
   read, detokenization, set-up). Off by default: a span is then one shared
   no-op object and a count does nothing. :func:`collect` turns them on and
   gathers them; under a running profiler each span is also a
-  ``pixparse.<name>`` range on the trace's clock;
+  ``pixparse.<name>`` range on the trace's clock. :func:`tally` is a
+  counter kept on the device (a tensor summed there while collecting, read
+  by the host only after the collected work: :meth:`Collection.read_tallies`);
 - :func:`trace`: a ``torch.profiler`` capture context (CPU and CUDA
   activities) that writes a chrome trace into a directory and logs the
   spans and counters it collected;
 - analytic matmul-FLOP accounting for the Cruller train step
-  (:func:`cruller_train_flops`, ViT or Swin encoder: :func:`swin_encoder_flops`)
+  (:func:`cruller_train_flops`, ViT or Swin encoder: :func:`swin_encoder_flops`;
+  the Moonlight prefix LM: :func:`moonlight_train_flops`)
   and :func:`mfu` against the dense bf16
   tensor-core peak of the card the step runs on.
 """
@@ -50,6 +53,12 @@ class Collection:
     def __init__(self):
         self.spans: List[SpanRecord] = []
         self.counts: Dict[str, int] = {}
+        self.tallies: Dict[str, torch.Tensor] = {}  # device sums of :func:`tally`
+
+    def read_tallies(self) -> Dict[str, List[int]]:
+        """Each tally read to the host (one read each; call after the
+        collected work, never inside a step)."""
+        return {n: [int(x) for x in t.tolist()] for n, t in self.tallies.items()}
 
     def totals(self) -> Dict[str, Dict[str, float]]:
         """For each span name: ``count``, ``total_s`` and ``self_s`` (the
@@ -138,6 +147,17 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while :func:`collect` is on."""
     for c in _active:
         c.counts[name] = c.counts.get(name, 0) + n
+
+
+def tally(name: str, value) -> None:
+    """Add ``value()`` (a device tensor; called only while :func:`collect` is
+    on) to the tally ``name`` on the device, with no host read."""
+    if not _active:
+        return
+    v = value()
+    for c in _active:
+        t = c.tallies.get(name)
+        c.tallies[name] = v.clone() if t is None else t.add_(v)
 
 
 @contextlib.contextmanager
@@ -234,9 +254,45 @@ def swin_encoder_flops(cfg) -> float:
     return float(total)
 
 
+def moonlight_layer_flops(cfg, L: int, moe: bool) -> float:
+    """Forward matmul FLOPs of one Moonlight decoder layer at length L:
+    the MLA projections, its score and value products over the full L x L,
+    and the dense MLP or the expert layer (router, the k routed experts of
+    every token, the shared experts)."""
+    D, H = cfg.hidden_size, cfg.num_attention_heads
+    qk, v, r = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    attn = 2 * L * (D * H * qk + D * (r + cfg.qk_rope_head_dim) + r * H * (cfg.qk_nope_head_dim + v)
+                    + H * v * D)
+    attn += 2 * L * L * H * (qk + v)
+    if not moe:
+        return float(attn + 6 * L * D * cfg.intermediate_size)
+    Fe = cfg.moe_intermediate_size
+    ffn = 6 * L * D * Fe * (cfg.num_experts_per_tok + cfg.n_shared_experts)
+    return float(attn + ffn + 2 * L * D * cfg.n_routed_experts)
+
+
+def moonlight_train_flops(vit_cfg, dec_cfg, batch_size: int, text_len: int) -> float:
+    """Matmul FLOPs for one forward+backward train step of the Moonlight
+    prefix LM (backward = 2x forward): the ViT, the projector, the decoder
+    layers over the page rows and the text, the untied head over the
+    text."""
+    N, De, D = vit_cfg.num_tokens, vit_cfg.embed_dim, dec_cfg.hidden_size
+    enc = 2 * N * (vit_cfg.patch_size ** 2 * vit_cfg.in_chans) * De
+    enc += vit_cfg.depth * transformer_layer_flops(N, De, int(De * vit_cfg.mlp_ratio))
+    proj = 2 * N * (De * D + D * D)
+    L = N + text_len
+    dec = sum(moonlight_layer_flops(dec_cfg, L, i >= dec_cfg.first_k_dense_replace)
+              for i in range(dec_cfg.num_hidden_layers))
+    head = 2 * text_len * D * dec_cfg.vocab_size
+    return 3.0 * batch_size * (enc + proj + dec + head)
+
+
 def cruller_train_flops(vit_cfg, bart_cfg, batch_size: int, text_len: int) -> float:
     """Matmul FLOPs for one forward+backward Cruller train step (backward =
-    2x forward), ViT (full attention) or Swin (windowed) encoder."""
+    2x forward), ViT (full attention) or Swin (windowed) encoder; a
+    Moonlight decoder's cfg goes to :func:`moonlight_train_flops`."""
+    if hasattr(bart_cfg, "n_routed_experts"):
+        return moonlight_train_flops(vit_cfg, bart_cfg, batch_size, text_len)
     N = vit_cfg.num_tokens
     if hasattr(vit_cfg, "depths"):  # SwinCfg
         enc = swin_encoder_flops(vit_cfg)

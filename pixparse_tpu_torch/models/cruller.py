@@ -41,22 +41,41 @@ def resolve_image_encoder_cfg(name: str, image_size, in_chans: int):
 
 
 def create_cruller(vit_cfg, bart_cfg, **kwargs) -> "Cruller":
-    """The model for an encoder cfg: :class:`~pixparse_tpu_torch.models.
-    pix2struct.Pix2StructCruller` for a ``Pix2StructCfg``, else
-    :class:`Cruller`; ``kwargs`` go to the constructor."""
+    """The model for an encoder and a decoder cfg:
+    :class:`~pixparse_tpu_torch.models.moonlight.MoonlightCruller` for a
+    ``MoonlightCfg`` decoder (training only: it has no cached decode yet),
+    :class:`~pixparse_tpu_torch.models.pix2struct.Pix2StructCruller` for a
+    ``Pix2StructCfg`` encoder, else :class:`Cruller`; ``kwargs`` go to the
+    constructor."""
+    from pixparse_tpu_torch.models.moonlight import MoonlightCfg, MoonlightCruller
     from pixparse_tpu_torch.models.pix2struct import Pix2StructCfg, Pix2StructCruller
 
+    if isinstance(bart_cfg, MoonlightCfg):
+        decode_args = {"kv_cache_dtype", "lm_head_dtype"} & set(kwargs)
+        if decode_args:
+            raise NotImplementedError(
+                f"{sorted(decode_args)}: the Moonlight decoder has no cached decode yet "
+                "(its latent cache and decode kernel are not ported); it trains only")
+        return MoonlightCruller(vit_cfg, bart_cfg, **kwargs)
     cls = Pix2StructCruller if isinstance(vit_cfg, Pix2StructCfg) else Cruller
     return cls(vit_cfg, bart_cfg, **kwargs)
 
 
 def resolve_cruller_cfgs(cfg: ModelCfg, vocab_size: Optional[int] = None):
-    """ModelCfg (registry JSON) -> ``(ViTCfg | SwinCfg, BartDecoderCfg, img
-    stats)``."""
+    """ModelCfg (registry JSON) -> ``(ViTCfg | SwinCfg, BartDecoderCfg |
+    MoonlightCfg, img stats)``: a Moonlight decoder name
+    (``models/moonlight.py``) gives a ``MoonlightCfg``."""
+    from pixparse_tpu_torch.models.moonlight import is_moonlight, resolve_moonlight_cfg
+
     in_chans = 1 if cfg.image_encoder.image_fmt == "L" else 3
     vit_cfg, stats = resolve_image_encoder_cfg(
         cfg.image_encoder.name, tuple(cfg.image_encoder.image_size), in_chans
     )
+    if is_moonlight(cfg.text_decoder.name):
+        return vit_cfg, resolve_moonlight_cfg(
+            cfg.text_decoder.name, num_decoder_layers=cfg.text_decoder.num_decoder_layers,
+            max_length=cfg.text_decoder.max_length, vocab_size=vocab_size,
+        ), stats
     bart_cfg = resolve_bart_cfg(
         cfg.text_decoder.name,
         num_decoder_layers=cfg.text_decoder.num_decoder_layers,

@@ -155,8 +155,12 @@ def load_cruller_state_dict(model, state_dict: Mapping[str, Any]) -> None:
     finetune tokens were added) gets its tied table resized first
     (:func:`resize_token_embeddings`, as the JAX package's
     ``import_torch_params`` replays it); a checkpoint without the tied head
-    gets it from ``embed_tokens``."""
+    gets it from ``embed_tokens``. A model with an untied head
+    (``tied_head`` False: the Moonlight decoder) loads the dict as it is."""
     sd = normalize_state_dict(state_dict)
+    if not getattr(model, "tied_head", True):
+        model.load_state_dict(sd, strict=True)
+        return
     ckpt_vocab = checkpoint_vocab(sd)
     if ckpt_vocab is not None:
         sd.pop(LM_HEAD_KEY, None)  # tied: it follows the (resized) table

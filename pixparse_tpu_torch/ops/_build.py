@@ -90,6 +90,10 @@ SIGNATURES = {
             I, P, I, P, P, I, P, P, P, P, P, P, P, F, F, F, F, F, F, I, F, I, P,
         ],
     },
+    "moe_expert_mm": {
+        "pixparse_moe_expert_mm": [P, P, P, P, I, I, I, I, I, P],
+        "pixparse_moe_expert_wgrad": [P, P, P, P, I, I, I, P],
+    },
     # the probe tools' kernels (pixparse_tpu_torch/tools)
     "mxu_probe": {
         "pixparse_mxu_probe": [I, P, P, P, I, I, I, I, I, P],

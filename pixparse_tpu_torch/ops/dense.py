@@ -1,5 +1,5 @@
-"""Dense layer and dropout for a forward pass whose compute dtype differs
-from the parameter dtype.
+"""Dense layer, RMSNorm and dropout for a forward pass whose compute dtype
+differs from the parameter dtype.
 
 Training keeps fp32 master weights and runs the forward in bf16: flax casts
 each parameter to the module's compute dtype where it is used, and so does
@@ -58,3 +58,10 @@ def dropout(
         keep, generator=generator
     )
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm (the Llama / DeepSeek form: no mean subtracted, no bias) with
+    the weight cast at use, as :class:`Linear` casts its own; PyTorch's
+    fused ``rms_norm``, which normalises in fp32 and rounds once."""
+    return F.rms_norm(x, x.shape[-1:], weight.to(x.dtype), eps)

@@ -46,7 +46,7 @@ from pixparse_tpu_torch.parallel.tensor_parallel import all_reduce_model
 
 IGNORE_ID = -100
 DEAD_LSE = -1e30
-CE_BF16_WIDTHS = (64, 768, 1024)  # depths the bf16 kernels are built for
+CE_BF16_WIDTHS = (64, 768, 1024, 2048)  # depths the bf16 kernels are built for
 # The bf16 backward's workspace: g of one vocabulary chunk, (T, chunk) bf16,
 # the chunk a multiple of the kernels' vocabulary tile (also the tile of the
 # forward's partials).

@@ -3,7 +3,9 @@
 
 - :class:`BaseCrullerTrainTask`: tokenizer with the special-token replay
   (an HF tokenizer wrapped per loader thread), model construction (ViT,
-  Swin or pix2struct encoder: ``create_cruller``; fp32 master weights, forward in
+  Swin or pix2struct encoder; a BART decoder, or the Moonlight decoder as
+  a prefix LM, whose cfg also sits in ``bart_cfg``: ``create_cruller``;
+  fp32 master weights, forward in
   the compute dtype, the remat mode: ``resolve_remat``, ``auto_remat``;
   a resume checkpoint, else the pretrained backbones the cfg asks for:
   ``models/pretrained.py``),
@@ -51,6 +53,7 @@ from pixparse_tpu_torch.framework.task import StopTraining, TaskEval, TaskTrain
 from pixparse_tpu_torch.framework.train_state import create_train_state, make_train_step
 from pixparse_tpu_torch.models.cruller import Cruller, create_cruller, resolve_cruller_cfgs
 from pixparse_tpu_torch.models.interop import cruller_state_dict, load_cruller_state_dict
+from pixparse_tpu_torch.models.moonlight import MoonlightCruller
 from pixparse_tpu_torch.models.pretrained import load_pretrained, maybe_load_pretrained
 from pixparse_tpu_torch.ops.generation import generate, generate_beam
 from pixparse_tpu_torch.ops.loss import IGNORE_ID, cross_entropy_from_hidden
@@ -216,7 +219,9 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
     def auto_remat(self):
         """The remat mode ``--task.remat auto`` gives: ``'mlp'`` when encoder
         tokens times encoder depth exceed 20000 (cruller_large, donut_base),
-        else none."""
+        else none. The Moonlight decoder adds no rule of its own: at
+        cruller_moonlight's widths and B = 8 its activations fit one 80 GB
+        card beside the fp32 weights and Adam's state (``PERF.md``)."""
         return "mlp" if self.vit_cfg.num_tokens * self.vit_cfg.depth > 20000 else False
 
     # ------------------------------------------------------------------
@@ -260,8 +265,15 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             # fp32 master weights on the device; the forward casts at use
             with span("setup.to_device"):
                 self.model = model.to(device=self.device, dtype=torch.float32).train()
-            self.model.decoder.dropout_generator = torch.Generator(device=self.device)
+            decoder = self.model.decoder
+            reseed = getattr(decoder, "reseed_dropout", None)  # None: a decoder without dropout
+            if reseed is not None:
+                decoder.dropout_generator = torch.Generator(device=self.device)
             mesh = self.device_env.mesh
+            if mesh is not None and isinstance(self.model, MoonlightCruller):
+                raise NotImplementedError(
+                    "the Moonlight decoder trains in one process: its layers are not cut over "
+                    "a mesh (no FSDP2 units, no expert parallelism)")
             with span("setup.train_state"):
                 self.state = create_train_state(self.model, self.optimizer, seed=seed, mesh=mesh)
 
@@ -279,7 +291,7 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
             self.loss_fn = loss_fn  # (device batch) -> (loss, aux): the step's loss
             self.train_step_fn = make_train_step(
                 loss_fn, self.optimizer,
-                reseed=self.model.decoder.reseed_dropout,
+                reseed=reseed,
                 grad_accum_steps=self.grad_accum_steps,
                 mesh=mesh, module=self.model if mesh is not None else None,
             )
@@ -485,7 +497,10 @@ class BaseCrullerTrainTask(TaskTrain, CrullerVocabMixin):
         one process. Under a mesh every rank gathers the whole weights (a
         collective) and rank 0 alone decodes with a plain copy (None on the
         others): a decode's length depends on its pages, so decoding through
-        the FSDP2 units would leave the ranks' collectives out of step."""
+        the FSDP2 units would leave the ranks' collectives out of step. None
+        for a model without a cached decode (the Moonlight decoder)."""
+        if not hasattr(self.model, "decode"):
+            return None
         if self.device_env.mesh is None:
             return self.model
         weights = cruller_state_dict(self.model)

@@ -76,10 +76,14 @@ def test_layers_are_the_models_blocks():
 
 
 def test_list_models_equals_jax():
+    """The port's registry is the JAX package's, in its order, plus the
+    Moonlight prefix-LM presets, which only the port has."""
     from pixparse_tpu.models import list_models as jax_list
     from pixparse_tpu_torch.models import get_model_config, list_models
 
-    assert list_models() == jax_list()
+    port_only = {"cruller_moonlight", "cruller_moonlight_test"}
+    assert [name for name in list_models() if name not in port_only] == jax_list()
+    assert port_only <= set(list_models())
     assert all(get_model_config(name) is not None for name in list_models())
 
 
